@@ -1,0 +1,283 @@
+"""Checkpoints: the native ``.npz`` format and the reference's ``.pth``.
+
+The counterpart of ``eegnetreplication_tpu/training/checkpoint.py``, on
+files either package can read:
+
+- The native ``.npz`` holds the flax-layout tree (``params/<layer>/...``,
+  ``batch_stats/<layer>/...``, NHWC kernels), a JSON ``__metadata__``
+  record with the model geometry, and the ``__sha256__`` content digest
+  (:mod:`~eegnetreplication_tpu_torch.resil.integrity`), verified on load.
+  A file whose digest does not match is moved aside to ``*.corrupt`` and
+  :class:`~eegnetreplication_tpu_torch.resil.integrity.IntegrityError`
+  raised, as in the JAX package.
+- The ``.pth`` is the reference's bare NCHW ``state_dict``, which is the
+  port's :class:`~eegnetreplication_tpu_torch.models.EEGNet` layout as is.
+
+:func:`from_jax_variables` carries the JAX package's parameter tree (numpy
+arrays in flax names and layouts) into the port's ``state_dict`` — the
+counterpart of ``to_torch_state_dict``, classifier permutation included:
+flax flattens NHWC ``(1, T', F2)``, torch NCHW ``(F2, 1, T')``.
+:func:`to_jax_variables` is its inverse.  Run-snapshot rotation, optimizer
+state and Orbax directories arrive with the training slice.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from eegnetreplication_tpu_torch.resil import integrity
+from eegnetreplication_tpu_torch.utils.logging import logger
+
+SEP = "/"
+
+# Flax module name -> (torch prefix, is_bn): the reference's layer names.
+_LAYER_MAP = [
+    ("temporal_conv", "temporal.0", False),
+    ("temporal_bn", "temporal.1", True),
+    ("spatial_conv", "spatial", False),
+    ("spatial_bn", "aggregation.0", True),
+    ("separable_depthwise", "block_2.0", False),
+    ("separable_pointwise", "block_2.1", False),
+    ("block2_bn", "block_2.2", True),
+]
+
+
+def _classifier_nhwc_to_nchw(kernel: np.ndarray, f2: int,
+                             t_prime: int) -> np.ndarray:
+    """(T'*F2, n_cls) flax kernel -> (n_cls, F2*T') torch weight."""
+    n_cls = kernel.shape[1]
+    k = kernel.reshape(t_prime, f2, n_cls)          # [w, f, cls]
+    return np.transpose(k, (2, 1, 0)).reshape(n_cls, f2 * t_prime)
+
+
+def _classifier_nchw_to_nhwc(weight: np.ndarray, f2: int,
+                             t_prime: int) -> np.ndarray:
+    """(n_cls, F2*T') torch weight -> (T'*F2, n_cls) flax kernel."""
+    n_cls = weight.shape[0]
+    w = weight.reshape(n_cls, f2, t_prime)          # [cls, f, w]
+    return np.transpose(w, (2, 1, 0)).reshape(t_prime * f2, n_cls)
+
+
+def _conv_nhwc_to_nchw(kernel: np.ndarray) -> np.ndarray:
+    """Flax (kh, kw, in/g, out) -> torch (out, in/g, kh, kw)."""
+    return np.transpose(kernel, (3, 2, 0, 1))
+
+
+def _conv_nchw_to_nhwc(weight: np.ndarray) -> np.ndarray:
+    return np.transpose(weight, (2, 3, 1, 0))
+
+
+def _numpy(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    return torch.tensor(np.ascontiguousarray(a))
+
+
+def from_jax_variables(params: Mapping, batch_stats: Mapping
+                       ) -> dict[str, torch.Tensor]:
+    """The JAX package's EEGNet variables as the port's ``state_dict``.
+
+    ``params``/``batch_stats`` are nested dicts of arrays in flax names and
+    layouts (what ``model.init`` or ``load_checkpoint`` give, as numpy).
+    F2 and T' come from the shapes.  Returns CPU tensors, BatchNorm
+    ``num_batches_tracked`` included, ready for ``load_state_dict``.
+    """
+    f2 = int(np.shape(params["spatial_conv"]["kernel"])[-1])
+    t_prime = int(np.shape(params["classifier"]["kernel"])[0]) // f2
+    sd: dict[str, torch.Tensor] = {}
+    for flax_name, prefix, is_bn in _LAYER_MAP:
+        if is_bn:
+            sd[f"{prefix}.weight"] = _tensor(_numpy(params[flax_name]["scale"]))
+            sd[f"{prefix}.bias"] = _tensor(_numpy(params[flax_name]["bias"]))
+            sd[f"{prefix}.running_mean"] = _tensor(
+                _numpy(batch_stats[flax_name]["mean"]))
+            sd[f"{prefix}.running_var"] = _tensor(
+                _numpy(batch_stats[flax_name]["var"]))
+            sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+        else:
+            sd[f"{prefix}.weight"] = _tensor(_conv_nhwc_to_nchw(
+                _numpy(params[flax_name]["kernel"])))
+    sd["classifier.weight"] = _tensor(_classifier_nhwc_to_nchw(
+        _numpy(params["classifier"]["kernel"]), f2, t_prime))
+    sd["classifier.bias"] = _tensor(_numpy(params["classifier"]["bias"]))
+    return sd
+
+
+def to_jax_variables(state_dict: Mapping) -> tuple[dict, dict]:
+    """The port's ``state_dict`` as JAX ``(params, batch_stats)``: nested
+    dicts of contiguous numpy arrays in flax names and layouts."""
+    def arr(key):
+        return _numpy(state_dict[key])
+
+    f2 = arr("spatial.weight").shape[0]
+    t_prime = arr("classifier.weight").shape[1] // f2
+    params: dict = {}
+    batch_stats: dict = {}
+    for flax_name, prefix, is_bn in _LAYER_MAP:
+        if is_bn:
+            params[flax_name] = {"scale": arr(f"{prefix}.weight"),
+                                 "bias": arr(f"{prefix}.bias")}
+            batch_stats[flax_name] = {"mean": arr(f"{prefix}.running_mean"),
+                                      "var": arr(f"{prefix}.running_var")}
+        else:
+            params[flax_name] = {"kernel": np.ascontiguousarray(
+                _conv_nchw_to_nhwc(arr(f"{prefix}.weight")))}
+    params["classifier"] = {
+        "kernel": np.ascontiguousarray(_classifier_nchw_to_nhwc(
+            arr("classifier.weight"), f2, t_prime)),
+        "bias": arr("classifier.bias"),
+    }
+    return params, batch_stats
+
+
+def flatten_variables(params: Mapping, batch_stats: Mapping
+                      ) -> dict[str, np.ndarray]:
+    """``{"params/<layer>/<leaf>": array, "batch_stats/...": array}`` — the
+    JAX package's flat checkpoint keys."""
+    flat: dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        for key in sorted(node):
+            value = node[key]
+            if isinstance(value, Mapping):
+                walk(value, prefix + key + SEP)
+            else:
+                flat[prefix + key] = np.asarray(value)
+
+    walk(params, "params" + SEP)
+    walk(batch_stats, "batch_stats" + SEP)
+    return flat
+
+
+def _unflatten(flat: Mapping[str, np.ndarray], prefix: str) -> dict:
+    tree: dict = {}
+    for key, value in flat.items():
+        if not key.startswith(prefix):
+            continue
+        parts = key[len(prefix):].split(SEP)
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+    return tree
+
+
+def quarantine_artifact(path: Path, error: BaseException | str) -> Path:
+    """Move a corrupt artifact aside as ``<name>[.N].corrupt``.  Best
+    effort: a failed rename must not mask the corruption itself."""
+    target = path.with_name(path.name + ".corrupt")
+    n = 1
+    while target.exists():
+        n += 1
+        target = path.with_name(f"{path.name}.{n}.corrupt")
+    try:
+        path.replace(target)
+    except OSError as exc:
+        logger.warning("Could not quarantine corrupt checkpoint %s: %s",
+                       path, exc)
+        return path
+    logger.warning("Checkpoint %s failed integrity (%s) — quarantined to %s",
+                   path, str(error)[:200], target)
+    return target
+
+
+def _read_verified(path: Path) -> dict[str, np.ndarray]:
+    """Read a checkpoint and check its content digest.
+
+    An unreadable container raises IntegrityError and stays where it is
+    (it may be any user file); a digest mismatch, which proves a damaged
+    framework checkpoint, is quarantined first.
+    """
+    try:
+        with np.load(path, allow_pickle=False) as data:
+            flat = {k: data[k] for k in data.files}
+    except FileNotFoundError:
+        raise
+    except Exception as exc:  # noqa: BLE001 — any unreadable shape
+        raise integrity.IntegrityError(
+            f"{path}: unreadable checkpoint ({exc})") from exc
+    try:
+        integrity.verify(flat, what=str(path))
+    except integrity.IntegrityError:
+        quarantine_artifact(path, "content digest mismatch")
+        raise
+    flat.pop(integrity.DIGEST_KEY, None)
+    return flat
+
+
+def save_checkpoint(path: str | Path, state_dict: Mapping,
+                    metadata: dict | None = None) -> Path:
+    """Save EEGNet weights as a native ``.npz`` the JAX package loads.
+
+    Written atomically (same-directory temp file, then rename), stamped
+    with the sha256 content digest.
+    """
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    flat = flatten_variables(*to_jax_variables(state_dict))
+    flat["__metadata__"] = np.frombuffer(
+        json.dumps(metadata or {}).encode(), dtype=np.uint8)
+    integrity.stamp(flat)
+    tmp = path.with_suffix(path.suffix + ".tmp")
+    with open(tmp, "wb") as fh:
+        np.savez(fh, **flat)
+    tmp.replace(path)
+    return path
+
+
+def load_checkpoint(path: str | Path
+                    ) -> tuple[dict[str, torch.Tensor], dict]:
+    """Load a native ``.npz`` as ``(state_dict, metadata)`` after verifying
+    its content digest."""
+    flat = _read_verified(Path(path))
+    metadata = json.loads(bytes(flat.pop("__metadata__")).decode())
+    params = _unflatten(flat, "params" + SEP)
+    batch_stats = _unflatten(flat, "batch_stats" + SEP)
+    return from_jax_variables(params, batch_stats), metadata
+
+
+def save_pth(path: str | Path, state_dict: Mapping) -> Path:
+    """Save a reference-loadable ``.pth`` (a bare CPU ``state_dict``)."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({k: v.detach().cpu().contiguous()
+                for k, v in state_dict.items()}, path)
+    return path
+
+
+def load_pth_auto(path: str | Path
+                  ) -> tuple[dict[str, torch.Tensor], dict]:
+    """Load a reference ``.pth``, inferring the EEGNet geometry from shapes.
+
+    F1/F2/C come from the conv weights, T' from the classifier fan-in;
+    ``n_times`` is reported as ``T'*32 + 1``, the pipeline's inclusive
+    window (both 256 and 257 give the same T').  Returns
+    ``(state_dict, metadata)``.
+    """
+    # weights_only: an untrusted pickle must not run code.
+    sd = torch.load(Path(path), map_location="cpu", weights_only=True)
+    f1 = int(sd["temporal.0.weight"].shape[0])
+    f2 = int(sd["spatial.weight"].shape[0])
+    n_channels = int(sd["spatial.weight"].shape[2])
+    fan_in = int(sd["classifier.weight"].shape[1])
+    if f2 <= 0 or fan_in % f2:
+        raise ValueError(
+            f"Unrecognized EEGNet .pth geometry: classifier fan-in {fan_in} "
+            f"is not a multiple of F2={f2}")
+    if f1 <= 0 or f2 % f1:
+        raise ValueError(
+            f"Unrecognized EEGNet .pth geometry: F2={f2} is not a multiple "
+            f"of F1={f1} (depth multiplier D must be integral)")
+    t_prime = fan_in // f2
+    meta = {"model": "eegnet", "n_channels": n_channels,
+            "n_times": t_prime * 32 + 1, "F1": f1, "D": f2 // f1}
+    return sd, meta
