@@ -5,8 +5,8 @@
 
 Run from the repository root on a machine with one CUDA card, the CUDA
 toolkit (``nvcc``) and PyTorch built for CUDA.  It drives the port's serving
-path end to end and holds every hand-written kernel against its plain
-PyTorch version:
+path and its dataset preprocessing path end to end and holds every
+hand-written kernel against its plain PyTorch version:
 
 1. device: require CUDA; print ``nvidia-smi``'s name and power limit;
 2. build every kernel from the checkout's sources (``ops/build.py``);
@@ -23,7 +23,22 @@ PyTorch version:
 6. times per bucket (1/8/32/128): K1, the plain version and one library
    composite (cuDNN ``conv1d`` + ELU + ``avg_pool1d``) as the median of
    CUDA-event timings, the engine's end-to-end ``infer`` and ``/predict``
-   latency on the host clock, each beside its bound on the card.
+   latency on the host clock, each beside its bound on the card;
+7. K2 (``ems``) against ``ems_reference`` on the card at a competition
+   session's (22, 345600) and at the edge shapes (ragged, short init block,
+   init block past T, a constant signal, ``factor_new`` 0.1), atol/rtol
+   1e-4; and against the port's ``associative`` and ``scan`` methods;
+8. the dataset path: a synthetic raw tree (2 subjects x Train/Eval,
+   45-minute 25-channel 250 Hz GDF sessions with 288 cues each and
+   ``TrueLabels``) through ``EEGTPU_EMS_METHOD=pallas python -m
+   eegnetreplication_tpu_torch.dataset`` and, in process,
+   ``build_processed_tree`` (one K2 launch per session); trial shapes and
+   labels, one session against the port's CPU run (plain versions) and the
+   card's ``associative`` run to 1e-3, and ``predict --subject 1`` on the
+   result;
+9. times at (22, 345600): K2, ``ems_reference`` and ``associative`` as the
+   median of CUDA-event timings with the L2 cache flushed, beside the
+   bound; and a session's stages on the host clock.
 
 The last lines are the ``{"kernels": [...]}`` record and, last of all,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -57,6 +72,12 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
 K1_ATOL, K1_RTOL = 1e-5, 1e-5
+# The JAX package's own Pallas-vs-scan tolerance (tests/test_ems.py).
+K2_ATOL, K2_RTOL = 1e-4, 1e-4
+DATASET_ATOL, DATASET_RTOL = 1e-3, 1e-3
+SESSION = (22, 345_600)   # a 45-minute session after the 128 Hz resample
+SESSION_S = 45 * 60       # a competition session: 45 minutes at 250 Hz,
+N_TRIALS = 288            # 288 cued trials (6 runs of 48)
 LOGITS_ATOL, LOGITS_RTOL = 1e-5, 1e-4
 BUCKETS = (1, 8, 32, 128)
 N_TIMED = 60             # timed runs per measurement (median)
@@ -110,10 +131,12 @@ def trials(torch, n, c, t, seed):
 # Timing
 # --------------------------------------------------------------------------
 
-def device_ms(torch, fn, n=N_TIMED, warmup=5):
+def device_ms(torch, fn, n=N_TIMED, warmup=5, flush=None):
     """Median device time of one ``fn()`` call from CUDA events.  Each
     timed call is enqueued behind a spin kernel, so the events bracket the
-    call's device work and not the host's launch overhead."""
+    call's device work and not the host's launch overhead.  With ``flush``
+    (a large tensor) it is zeroed before each call, outside the events, so
+    the call finds the L2 cache cold."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -121,6 +144,8 @@ def device_ms(torch, fn, n=N_TIMED, warmup=5):
     for _ in range(n):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if flush is not None:
+            flush.zero_()
         torch.cuda._sleep(10_000_000)  # ~5 ms of spinning: host gets ahead
         start.record()
         fn()
@@ -509,6 +534,380 @@ def phase_times(torch, np, dev):
     return per_bucket
 
 
+def ems_bound(c, t, init_block_size=1000):
+    """(bound_ms, bound_by, bytes, flops) of one EMS call on (C, T) f32:
+    x read once and the output written once; per sample the centring, both
+    recurrences (3 each), the deviation and its square, eps, the square
+    root and the division (12), plus the seed statistics of the first
+    ``init_block_size`` samples (3 per sample)."""
+    nbytes = 4 * 2 * c * t
+    flops = 12 * c * t + 3 * c * min(init_block_size, t)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / F32_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops
+            else "operations", nbytes, flops)
+
+
+def session_signal(np, c, t, seed):
+    """An EEG-like (C, T) float32 session from ``seed``: per-channel
+    offsets, 10 Hz alpha and 20 Hz beta rhythms and broadband noise, in
+    microvolts."""
+    rng = np.random.RandomState(seed)
+    tt = np.arange(t, dtype=np.float32) / np.float32(250.0)
+    sig = rng.standard_normal((c, t)).astype(np.float32)
+    sig *= np.float32(8.0)
+    sig += rng.uniform(-30, 30, (c, 1)).astype(np.float32)
+    sig += (np.float32(12.0) * np.sin(np.float32(2 * np.pi * 10.0) * tt))
+    sig += (np.float32(5.0) * np.sin(np.float32(2 * np.pi * 20.0) * tt
+                                      + np.float32(0.7)))
+    return sig
+
+
+def phase_k2(torch, np, dev):
+    from eegnetreplication_tpu_torch.ops.ems import (
+        exponential_moving_standardize,
+    )
+    from eegnetreplication_tpu_torch.ops.ems_kernel import ems, ems_reference
+
+    rng = np.random.RandomState(40)
+    session = torch.from_numpy(session_signal(np, *SESSION, 41)).to(dev)
+    cases = [
+        ("session (22, 345600)", session, {}),
+        ("(4, 3000)", rng.randn(4, 3000) * 5.0 + 2.0, {}),
+        ("ragged (3, 700)", rng.randn(3, 700), {}),
+        ("(1, 500) init 100", rng.randn(1, 500), {"init_block_size": 100}),
+        ("(2, 50) init 1000 > T", rng.randn(2, 50), {}),
+        ("constant (3, 400)", np.full((3, 400), 5.0), {"init_block_size": 100}),
+        ("(4, 3000) factor_new 0.1", rng.randn(4, 3000) * 5.0 + 2.0,
+         {"factor_new": 0.1}),
+    ]
+    worst = 0.0
+    for name, x, kw in cases:
+        if not torch.is_tensor(x):
+            x = torch.from_numpy(x.astype(np.float32)).to(dev)
+        got = ems(x, **kw)
+        want = ems_reference(x, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        check(got.shape == x.shape, f"K2 shape {tuple(got.shape)} at {name}")
+        check(bool(torch.isfinite(got).all()), f"K2 non-finite at {name}")
+        check(torch.allclose(got, want, atol=K2_ATOL, rtol=K2_RTOL),
+              f"K2 disagrees with ems_reference at {name}: max abs err "
+              f"{err:.3e}")
+        if name.startswith("constant"):
+            check(float(got.abs().max()) < 1e-3,
+                  f"K2 on a constant signal is not ~0: {got.abs().max()}")
+    log(f"K2 vs ems_reference: {len(cases)} cases, max abs err {worst:.3e} "
+        f"(atol {K2_ATOL}, rtol {K2_RTOL})")
+
+    other = {}
+    x4 = session[:4, :3000].contiguous()
+    for method, x in (("associative", session), ("scan", x4)):
+        got = ems(x)
+        want = exponential_moving_standardize(x, method=method)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, atol=K2_ATOL, rtol=K2_RTOL),
+              f"K2 disagrees with method={method!r} at {tuple(x.shape)}: "
+              f"max abs err {err:.3e}")
+        other[method] = err
+        log(f"K2 vs {method} at {tuple(x.shape)}: max abs err {err:.3e}")
+    return worst, other
+
+
+def write_raw_tree(np, raw, subjects=(1, 2), sfreq=250.0):
+    """The competition's raw layout under ``raw``: ``{Train,Eval}/A0sX.gdf``
+    sessions of 25 channels (22 EEG + 3 EOG) and ``TrueLabels/A0sE.mat``.
+    Each session holds ``N_TRIALS`` trials: a trial start (768) 2 s before
+    each cue, cues 8 s apart from the first minute on, codes 769-772 in
+    Train (a quarter each, shuffled) and 783 in Eval, whose classes go to
+    the .mat.  One second of channel 3 of the first Train session is NaN,
+    like the competition's artifact spans.  Returns the expected labels by
+    stem."""
+    from scipy.io import savemat
+
+    from eegnetreplication_tpu_torch.config import (
+        EEG_CHANNEL_NAMES,
+        EOG_CHANNEL_NAMES,
+    )
+    from eegnetreplication_tpu_torch.data.gdf import write_gdf
+
+    n = int(SESSION_S * sfreq)
+    labels = list(EEG_CHANNEL_NAMES + EOG_CHANNEL_NAMES)
+    cue_pos = (int(60 * sfreq) + np.arange(N_TRIALS) * int(8 * sfreq)
+               ).astype(np.int64)
+    expected = {}
+    for s in subjects:
+        for mode in ("Train", "Eval"):
+            seed = 1000 * s + (mode == "Eval")
+            rng = np.random.RandomState(seed)
+            classes = rng.permutation(np.repeat(np.arange(4),
+                                                N_TRIALS // 4))
+            sig = session_signal(np, 25, n, seed)
+            if s == subjects[0] and mode == "Train":
+                sig[3, 5000:5250] = np.nan
+            cue_typ = (769 + classes) if mode == "Train" \
+                else np.full(N_TRIALS, 783)
+            pos = np.stack([cue_pos - int(2 * sfreq), cue_pos], 1).ravel()
+            typ = np.stack([np.full(N_TRIALS, 768), cue_typ], 1).ravel()
+            stem = f"A{s:02d}{mode[0]}"
+            write_gdf(raw / mode / f"{stem}.gdf", sig, sfreq, labels=labels,
+                      event_pos=pos, event_typ=typ)
+            if mode == "Eval":
+                (raw / "TrueLabels").mkdir(parents=True, exist_ok=True)
+                savemat(raw / "TrueLabels" / f"{stem}.mat",
+                        {"classlabel": (classes + 1).astype(np.uint8)})
+            expected[stem] = classes.astype(np.int64)
+    return expected
+
+
+def _session_trials(np, rec_path, mode, paths, device, method):
+    """One session through the port's chain on ``device`` with
+    ``EEGTPU_EMS_METHOD=method``: (X, y)."""
+    from eegnetreplication_tpu_torch.data.epoching import (
+        break_recording_into_epochs,
+    )
+    from eegnetreplication_tpu_torch.data.gdf import read_gdf
+    from eegnetreplication_tpu_torch.data.preprocess import (
+        EMS_METHOD_ENV,
+        preprocess_recording,
+    )
+
+    saved = os.environ.get(EMS_METHOD_ENV)
+    os.environ[EMS_METHOD_ENV] = method
+    try:
+        rec = preprocess_recording(read_gdf(rec_path), device=device)
+    finally:
+        if saved is None:
+            os.environ.pop(EMS_METHOD_ENV, None)
+        else:
+            os.environ[EMS_METHOD_ENV] = saved
+    out = paths.project_root / f"{method}-{device.type}" / (
+        rec_path.stem + "-preprocessed.npz")
+    rec.save(out)
+    return break_recording_into_epochs(out, mode=mode, paths=paths)
+
+
+def phase_dataset(torch, np, dev, work: Path, env: dict):
+    from eegnetreplication_tpu_torch.config import Paths
+    from eegnetreplication_tpu_torch.data.io import (
+        load_subject_dataset,
+        load_trials,
+    )
+    from eegnetreplication_tpu_torch.dataset import build_processed_tree
+    from eegnetreplication_tpu_torch.ops.ems_kernel import ems
+    from eegnetreplication_tpu_torch.ops.fused_eegnet import block1
+    from eegnetreplication_tpu_torch.training import checkpoint as ckpt_lib
+
+    cli_paths = Paths.from_root(work / "cli")
+    t0 = time.perf_counter()
+    expected = write_raw_tree(np, cli_paths.data_raw)
+    log(f"raw tree: {len(expected)} sessions written in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # The CLI a user runs, on the card, EMS in K2.
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "eegnetreplication_tpu_torch.dataset",
+         "--src", "kaggle"], cwd=ROOT,
+        env=dict(env, EEGTPU_EMS_METHOD="pallas",
+                 EEGTPU_DATA_ROOT=str(cli_paths.project_root)),
+        capture_output=True, text=True, timeout=900)
+    cli_s = time.perf_counter() - t0
+    check(cli.returncode == 0, f"dataset CLI exited {cli.returncode}:\n"
+          + cli.stderr[-4000:])
+    log(f"dataset CLI (pallas): {cli_s:.1f}s for {len(expected)} sessions")
+
+    # The same path in process, so K2's launches are counted: the main path.
+    paths = Paths.from_root(work / "inproc")
+    paths.data_processed.parent.mkdir(parents=True)
+    paths.data_raw.symlink_to(cli_paths.data_raw, target_is_directory=True)
+    os.environ["EEGTPU_EMS_METHOD"] = "pallas"
+    try:
+        ems.launches = 0
+        block1.launches = 0
+        t0 = time.perf_counter()
+        build_processed_tree(paths)
+        inproc_s = time.perf_counter() - t0
+        launches = ems.launches
+    finally:
+        os.environ.pop("EEGTPU_EMS_METHOD", None)
+    check(launches == len(expected),
+          f"K2 launched {launches} times for {len(expected)} sessions")
+    log(f"build_processed_tree in process: {inproc_s:.1f}s, K2 launches "
+        f"{launches}")
+
+    worst_repeat = 0.0
+    for stem, classes in expected.items():
+        mode = "Train" if stem.endswith("T") else "Eval"
+        for p in (cli_paths, paths):
+            for suffix in ("-preprocessed.npz", "-trials.npz"):
+                check((p.data_processed / mode / f"{stem}{suffix}").is_file(),
+                      f"{stem}{suffix} missing under {p.data_processed}")
+        ds = load_trials(cli_paths.data_processed / mode
+                         / f"{stem}-trials.npz")
+        again = load_trials(paths.data_processed / mode
+                            / f"{stem}-trials.npz")
+        check(ds.X.shape == (N_TRIALS, 22, 257)
+              and ds.X.dtype == np.float32,
+              f"{stem}: trials {ds.X.shape} {ds.X.dtype}")
+        check(bool(np.isfinite(ds.X).all()), f"{stem}: non-finite trials")
+        check(np.array_equal(ds.y, classes),
+              f"{stem}: labels differ from the cue codes / TrueLabels")
+        check(np.array_equal(again.y, classes), f"{stem}: in-process labels")
+        worst_repeat = max(worst_repeat,
+                           float(np.abs(ds.X - again.X).max()))
+    check(worst_repeat <= 1e-5,
+          f"CLI and in-process runs differ by {worst_repeat:.3e}")
+    log(f"{len(expected)} sessions: ({N_TRIALS}, 22, 257) trials, labels "
+        f"equal to "
+        f"the cues and TrueLabels; CLI vs in-process max diff "
+        f"{worst_repeat:.3e}")
+
+    # One session against the port on the CPU (plain versions) and against
+    # the card's default method.
+    raw = cli_paths.data_raw / "Train" / "A01T.gdf"
+    card = load_trials(cli_paths.data_processed / "Train" / "A01T-trials.npz")
+    cpu_X, cpu_y = _session_trials(np, raw, "Train", paths,
+                                   torch.device("cpu"), "pallas")
+    assoc_X, assoc_y = _session_trials(np, raw, "Train", paths, dev,
+                                       "associative")
+    cmp = {}
+    for name, X, y in (("cpu", cpu_X, cpu_y), ("associative", assoc_X,
+                                               assoc_y)):
+        err = float(np.abs(card.X - X).max())
+        check(np.array_equal(card.y, y), f"A01T labels differ from {name}")
+        check(np.allclose(card.X, X, atol=DATASET_ATOL, rtol=DATASET_RTOL),
+              f"A01T trials on the card (pallas) differ from {name}: max "
+              f"abs err {err:.3e}")
+        cmp[name] = err
+    log(f"A01T card (pallas) vs CPU (plain): {cmp['cpu']:.3e}; vs card "
+        f"associative: {cmp['associative']:.3e} (atol {DATASET_ATOL}, rtol "
+        f"{DATASET_RTOL})")
+
+    # The port's predict CLI reads what the dataset CLI wrote.
+    model = seeded_model(torch, 22, 257, 8, 2, 11, "cpu")
+    ckpt = ckpt_lib.save_checkpoint(
+        work / "smoke_model.npz", model.state_dict(),
+        metadata={"model": "eegnet", "n_channels": 22, "n_times": 257,
+                  "F1": 8, "D": 2})
+    pred = subprocess.run(
+        [sys.executable, "-m", "eegnetreplication_tpu_torch.predict",
+         "--checkpoint", str(ckpt), "--subject", "1", "--mode", "Train"],
+        cwd=ROOT, env=dict(env, EEGTPU_DATA_ROOT=str(cli_paths.project_root)),
+        capture_output=True, text=True, timeout=600)
+    check(pred.returncode == 0, f"predict --subject 1 exited "
+          f"{pred.returncode}:\n" + pred.stderr[-4000:])
+    marker = "block1 kernel launches: "
+    check(marker in pred.stderr, "predict did not report K1 launches")
+    k1 = int(pred.stderr.split(marker, 1)[1].split()[0])
+    check(k1 > 0, "predict --subject 1 launched K1 no time")
+    check(len(load_subject_dataset(1, "Train", cli_paths)) == N_TRIALS,
+          f"load_subject_dataset(1, 'Train') did not give {N_TRIALS} trials")
+    log(f"predict --subject 1 --mode Train: "
+        f"{pred.stdout.strip().splitlines()[-1]!r}, K1 launches {k1}")
+    return {"launches": launches, "sessions": len(expected),
+            "cli_s": cli_s, "inproc_s": inproc_s,
+            "repeat_max_abs_diff": worst_repeat,
+            "cpu_max_abs_err": cmp["cpu"],
+            "associative_max_abs_err": cmp["associative"],
+            "predict_k1_launches": k1, "raw_session": str(raw)}
+
+
+def phase_k2_times(torch, np, dev, raw_session: Path, work: Path):
+    from eegnetreplication_tpu_torch.config import (
+        BANDPASS_HIGH_HZ,
+        BANDPASS_LOW_HZ,
+        N_EEG_CHANNELS,
+        TARGET_SFREQ,
+    )
+    from eegnetreplication_tpu_torch.config import Paths
+    from eegnetreplication_tpu_torch.data.containers import BCICI2ADataset
+    from eegnetreplication_tpu_torch.data.epoching import (
+        break_recording_into_epochs,
+    )
+    from eegnetreplication_tpu_torch.data.gdf import read_gdf
+    from eegnetreplication_tpu_torch.data.io import save_trials
+    from eegnetreplication_tpu_torch.data.preprocess import ProcessedRecording
+    from eegnetreplication_tpu_torch.ops.dsp import (
+        fir_bandpass,
+        mne_style_bandpass_design,
+        resample_fft,
+    )
+    from eegnetreplication_tpu_torch.ops.ems import (
+        exponential_moving_standardize,
+    )
+    from eegnetreplication_tpu_torch.ops.ems_kernel import ems, ems_reference
+
+    x = torch.from_numpy(session_signal(np, *SESSION, 42)).to(dev)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    with torch.inference_mode():
+        row = {
+            "ms": device_ms(torch, lambda: ems(x), flush=flush),
+            "plain_ms": device_ms(torch, lambda: ems_reference(x),
+                                  flush=flush),
+            "associative_ms": device_ms(
+                torch, lambda: exponential_moving_standardize(x),
+                flush=flush),
+            "warm_ms": device_ms(torch, lambda: ems(x)),
+            "call_ms": call_ms(torch, lambda: ems(x)),
+        }
+    del flush
+    bound, by, nbytes, flops = ems_bound(*SESSION)
+    row.update(bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
+               shape=list(SESSION))
+    log(f"K2 at {SESSION}: {row['ms']:.4f} ms cold L2 ({row['warm_ms']:.4f} "
+        f"warm, {row['call_ms']:.4f} from an idle stream), ems_reference "
+        f"{row['plain_ms']:.3f}, associative {row['associative_ms']:.4f}, "
+        f"bound {bound:.5f} ({by})")
+
+    # One session's stages on the host clock, each ended by a synchronize.
+    kernel = mne_style_bandpass_design(TARGET_SFREQ, BANDPASS_LOW_HZ,
+                                       BANDPASS_HIGH_HZ)
+    stages = {k: [] for k in ("read_gdf", "to_device", "resample_fft",
+                              "fir_bandpass", "ems", "to_host",
+                              "save_preprocessed", "epoch_and_save_trials")}
+    paths = Paths.from_root(work / "stages")
+    bundle = paths.data_processed / "Train" / "A01T-preprocessed.npz"
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        stages[name].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for _ in range(6):
+        rec = timed("read_gdf", lambda: read_gdf(raw_session))
+        sig = np.ascontiguousarray(rec.signals[:N_EEG_CHANNELS])
+        sig = np.where(np.isfinite(sig), sig, 0.0).astype(np.float32)
+        num = int(round(sig.shape[1] * TARGET_SFREQ / rec.sfreq))
+        xt = timed("to_device", lambda: torch.from_numpy(sig).to(dev))
+        xt = timed("resample_fft", lambda: resample_fft(xt, num))
+        xt = timed("fir_bandpass", lambda: fir_bandpass(
+            xt, TARGET_SFREQ, BANDPASS_LOW_HZ, BANDPASS_HIGH_HZ,
+            kernel=kernel))
+        xt = timed("ems", lambda: exponential_moving_standardize(
+            xt, method="pallas"))
+        out = timed("to_host", lambda: xt.cpu().numpy())
+        processed = ProcessedRecording(
+            data=out, sfreq=TARGET_SFREQ, labels=[], event_pos=np.round(
+                rec.event_pos * (TARGET_SFREQ / rec.sfreq)).astype(np.int64),
+            event_typ=rec.event_typ)
+        timed("save_preprocessed", lambda: processed.save(bundle))
+        timed("epoch_and_save_trials", lambda: save_trials(
+            BCICI2ADataset(*break_recording_into_epochs(bundle, "Train",
+                                                        paths)),
+            bundle.with_name("A01T-trials.npz")))
+    session = {k: statistics.median(v[1:]) for k, v in stages.items()}
+    log("session stages (host ms, median of 5 after one warmup): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in session.items()))
+    row["session_stage_ms"] = session
+    return row
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None,
@@ -545,6 +944,11 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             serve = phase_serve(torch, np, dev, Path(tmp), env)
         times = phase_times(torch, np, dev)
+        k2_err, k2_vs_methods = phase_k2(torch, np, dev)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+            dataset = phase_dataset(torch, np, dev, Path(tmp), env)
+            k2_times = phase_k2_times(torch, np, dev,
+                                      Path(dataset["raw_session"]), Path(tmp))
     except Exception:  # noqa: BLE001 — every failure ends the run
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -563,11 +967,26 @@ def main(argv=None) -> int:
         "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"],
         "library_ms": top["library_ms"],
+    }, {
+        "name": "ems",
+        "route": "cuda",
+        "source": "eegnetreplication_tpu_torch/ops/csrc/ems.cu",
+        "replaces": "eegnetreplication_tpu/ops/ems_pallas.py:95",
+        "launches": dataset["launches"],
+        "max_abs_err": k2_err,
+        "ms": k2_times["ms"],
+        "plain_ms": k2_times["plain_ms"],
+        "bound_ms": k2_times["bound_ms"],
+        "bound_by": k2_times["bound_by"],
+        "library_ms": None,   # no single PyTorch call computes EMS
+        "associative_ms": k2_times["associative_ms"],
     }]}
     record = {
         "card": card, "build_s": build_s, "k1_max_abs_err": k1_err,
         "forward_max_abs_err": fwd_err, "serve": serve,
-        "times_by_bucket": times,
+        "times_by_bucket": times, "k2_max_abs_err": k2_err,
+        "k2_vs_methods_max_abs_err": k2_vs_methods, "dataset": dataset,
+        "k2_times": k2_times,
         "wall_s": time.perf_counter() - t_start,
     }
     print(json.dumps({"timings": record}), flush=True)

@@ -5,11 +5,16 @@ Hopper card (H100).  It keeps the JAX package's module layout and names so
 each module's counterpart is easy to find, and imports nothing of it: the
 JAX package stays the reference the port is tested against.
 
-The serving path is ported: checkpoint loading (native ``.npz`` and the
-reference's ``.pth``), the bucketed inference engine, the micro-batcher,
-the HTTP service and the ``predict`` CLI.  EEGNet's block 1 runs in a CUDA
-kernel written by hand (``ops/csrc/block1.cu``), the counterpart of the
-JAX package's Pallas kernel.
+Two paths are ported.  Serving: checkpoint loading (native ``.npz`` and
+the reference's ``.pth``), the bucketed inference engine, the
+micro-batcher, the HTTP service and the ``predict`` CLI; EEGNet's block 1
+runs in a CUDA kernel written by hand (``ops/csrc/block1.cu``).
+Preprocessing: the ``dataset`` CLI reads the competition's GDF files,
+resamples, bandpasses and standardizes them on the card and writes the
+JAX package's ``-preprocessed.npz`` and ``-trials.npz`` files; its
+exponential moving standardization runs in a second hand-written kernel
+(``ops/csrc/ems.cu``) when ``EEGTPU_EMS_METHOD=pallas``.  Each kernel is
+the counterpart of one of the JAX package's Pallas kernels.
 
 Like the JAX package init, this re-exports the shared ``logger``.
 """

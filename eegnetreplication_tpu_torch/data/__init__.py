@@ -1,1 +1,2 @@
-"""Processed-trial containers and loaders."""
+"""Data layer: the GDF reader and writer, preprocessing, epoching, label
+verification, and the processed-trial containers and loaders."""

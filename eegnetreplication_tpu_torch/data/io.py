@@ -1,9 +1,11 @@
 """Processed-trial storage and loading.
 
-The serving subset of ``eegnetreplication_tpu/data/io.py``: one ``.npz`` per
+The port's copy of ``eegnetreplication_tpu/data/io.py``: one ``.npz`` per
 subject/session holding already-epoched trials (``X: (n, C, T)``,
-``y: (n,)``), the same files the JAX package writes.  Epoching continuous
-recordings on the fly arrives with the preprocessing slice.
+``y: (n,)``), the same files the JAX package writes.  Where a session has
+only its continuous ``-preprocessed.npz`` bundle, it is epoched on the fly.
+The reference's ``.fif`` files and the retry policy around reads are not
+ported.
 """
 
 from __future__ import annotations
@@ -42,17 +44,28 @@ def load_trials(path: str | Path) -> BCICI2ADataset:
 def load_subject_dataset(subject: int | str = "all", mode: str = "Train",
                          paths: Paths | None = None) -> BCICI2ADataset:
     """Processed trials of one subject (or all) and session, from the
-    native ``*-trials.npz`` files under ``data/processed/{mode}``."""
+    native ``*-trials.npz`` files under ``data/processed/{mode}``, else by
+    epoching its ``*-preprocessed.npz`` bundles."""
     paths = paths or Paths.from_here()
     root = paths.data_processed / mode
     pattern = (trials_filename(int(subject), mode) if subject != "all"
                else "*-trials.npz")
     files = sorted(root.glob(pattern))
-    if not files:
-        raise FileNotFoundError(
-            f"No processed trials found in {root} for subject {subject!r} "
-            f"(expected {pattern}).  The torch port reads native "
-            "*-trials.npz files; make them with "
-            "`python -m eegnetreplication_tpu.dataset`.")
-    logger.info("Loading %d processed trial files from %s", len(files), root)
-    return concat_datasets([load_trials(f) for f in files])
+    if files:
+        logger.info("Loading %d processed trial files from %s", len(files),
+                    root)
+        return concat_datasets([load_trials(f) for f in files])
+
+    # Continuous bundles only: epoch on the fly.
+    if list(root.glob("*-preprocessed.npz")):
+        from eegnetreplication_tpu_torch.data.epoching import (
+            build_dataset_from_preprocessed,
+        )
+
+        return build_dataset_from_preprocessed(subject=subject, mode=mode,
+                                               paths=paths)
+
+    raise FileNotFoundError(
+        f"No processed trials found in {root} for subject {subject!r} "
+        f"(expected {pattern} or *-preprocessed.npz).  Make them with "
+        "`python -m eegnetreplication_tpu_torch.dataset`.")

@@ -1,2 +1,4 @@
-"""Kernels of the torch port: the fused EEGNet block 1 (``fused_eegnet``,
-CUDA source in ``csrc/``) and the builder that compiles it (``build``)."""
+"""Kernels of the torch port: the fused EEGNet block 1 (``fused_eegnet``)
+and the single-pass EMS (``ems_kernel``), CUDA sources in ``csrc/``; the
+builder that compiles them (``build``); and the torch ops around them
+(``dsp``, ``ems``)."""

@@ -20,6 +20,7 @@ import time
 import numpy as np
 import torch
 
+from eegnetreplication_tpu_torch.ops.fused_eegnet import block1
 from eegnetreplication_tpu_torch.serve.engine import (
     CLASS_NAMES,
     InferenceEngine,
@@ -67,8 +68,9 @@ def main(argv=None) -> int:
     pred = predict_trials(model, ds.X.astype(np.float32), args.batchSize,
                           device=device)
     wall = time.perf_counter() - t0
-    logger.info("Inference: %.0f trials/s (%d trials in %.2fs)",
-                len(pred) / max(wall, 1e-9), len(pred), wall)
+    logger.info("Inference: %.0f trials/s (%d trials in %.2fs), block1 "
+                "kernel launches: %d", len(pred) / max(wall, 1e-9),
+                len(pred), wall, block1.launches)
     counts = np.bincount(pred, minlength=len(CLASS_NAMES))
     for k, name in enumerate(CLASS_NAMES):
         logger.info("class %d (%s): %d trials", k, name, counts[k])

@@ -9,14 +9,20 @@ pins JAX to the CPU) must be skipped there:
 K1 (``block1``) is held against its plain version ``block1_reference`` on
 the same card at the serving shapes, atol/rtol 1e-5 (only the order of the
 f32 sums differs); the engine's fused forward on the card against the
-plain forward on the CPU at atol 1e-5 / rtol 1e-4.
+plain forward on the CPU at atol 1e-5 / rtol 1e-4.  K2 (``ems``) is held
+against ``ems_reference`` on the card at a session's (22, 345600) and the
+edge shapes, atol/rtol 1e-4 (the JAX package's Pallas-vs-scan tolerance),
+and the card's preprocessing path with ``EEGTPU_EMS_METHOD=pallas`` must
+launch K2 and never hand a CUDA tensor to ``ems_reference``.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from eegnetreplication_tpu_torch.data import gdf, preprocess
 from eegnetreplication_tpu_torch.models import EEGNet
+from eegnetreplication_tpu_torch.ops import ems_kernel
 from eegnetreplication_tpu_torch.ops import fused_eegnet as fused
 from eegnetreplication_tpu_torch.serve.engine import InferenceEngine
 
@@ -31,6 +37,8 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode (their "
                     "plain versions are tested on the CPU elsewhere)")
+    torch.backends.cuda.matmul.allow_tf32 = False   # ems_reference's matmuls
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
 
 
@@ -113,3 +121,68 @@ def test_engine_on_card_matches_plain_cpu_forward(cuda, geometry,
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
     np.testing.assert_array_equal(engine.infer(x.numpy()),
                                   want.argmax(-1).numpy())
+
+
+EMS_SHAPES = {
+    "session": ((22, 345600), {}),
+    "signal": ((4, 3000), {}),
+    "ragged": ((3, 700), {}),
+    "init_100": ((1, 500), {"init_block_size": 100}),
+    "init_past_T": ((2, 50), {}),
+    "tile_plus_one": ((2, 4097), {}),
+    "factor_0_1": ((4, 3000), {"factor_new": 0.1}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EMS_SHAPES))
+def test_ems_kernel_matches_reference(cuda, case):
+    shape, kw = EMS_SHAPES[case]
+    rng = np.random.RandomState(len(case))
+    x = torch.from_numpy((rng.randn(*shape) * 5.0 + 2.0).astype(np.float32))
+    x = x.to(cuda)
+    before = ems_kernel.ems.launches
+    got = ems_kernel.ems(x, **kw)
+    want = ems_kernel.ems_reference(x, **kw)
+    torch.cuda.synchronize()
+    assert ems_kernel.ems.launches == before + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_ems_kernel_on_a_constant_signal_is_zero(cuda):
+    got = ems_kernel.ems(torch.full((3, 400), 5.0, device=cuda),
+                         init_block_size=100)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert float(got.abs().max()) < 1e-3
+
+
+def test_ems_kernel_refuses_what_it_does_not_take(cuda):
+    with pytest.raises(TypeError, match="float32"):
+        ems_kernel.ems(torch.zeros(2, 10, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match=r"\(C, T\)"):
+        ems_kernel.ems(torch.zeros(2, 3, 10, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        ems_kernel.ems(torch.zeros(10, 2, device=cuda).t())
+
+
+def test_preprocessing_on_card_runs_k2_and_never_the_plain_version(
+        cuda, monkeypatch):
+    rng = np.random.RandomState(5)
+    sig = (rng.randn(25, 5000) * 10.0 + 3.0).astype(np.float32)
+    sig[2, 1000:1200] = np.nan
+    rec = gdf.GDFRecording(signals=sig, sfreq=250.0, labels=[],
+                           event_pos=np.array([300, 1301]),
+                           event_typ=np.array([769, 770]))
+    monkeypatch.setenv("EEGTPU_EMS_METHOD", "associative")
+    want = preprocess.preprocess_recording(rec, device=cuda).data
+
+    def no_plain_on_card(x, *args, **kwargs):
+        raise AssertionError("a CUDA tensor reached ems_reference")
+
+    monkeypatch.setattr(ems_kernel, "ems_reference", no_plain_on_card)
+    monkeypatch.setenv("EEGTPU_EMS_METHOD", "pallas")
+    before = ems_kernel.ems.launches
+    got = preprocess.preprocess_recording(rec, device=cuda).data
+    assert ems_kernel.ems.launches == before + 1
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)

@@ -44,6 +44,9 @@ _CHILD = textwrap.dedent("""
                                                    port.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
+    for name in ("dataset", "data.verify", "data.preprocess", "ops.ems",
+                 "ops.ems_kernel"):
+        assert "eegnetreplication_tpu_torch." + name in names, name
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   {chip_smoke!r})
     spec.loader.exec_module(importlib.util.module_from_spec(spec))

@@ -80,3 +80,83 @@ def port_model(params, batch_stats, c, t, f1, d) -> EEGNet:
 
 def trials(n, c, t, seed=1) -> np.ndarray:
     return np.random.RandomState(seed).randn(n, c, t).astype(np.float32)
+
+
+# --- Preprocessing slice ---------------------------------------------------
+
+# EMS inputs of tests/test_ems.py: name -> (shape, kwargs, seed, constant).
+EMS_CASES = {
+    "signal_4x3000": ((4, 3000), {}, 0, None),
+    "ragged_3x700": ((3, 700), {}, 7, None),
+    "single_1x500_init100": ((1, 500), {"init_block_size": 100}, 2, None),
+    "short_2x50_init_past_T": ((2, 50), {}, 3, None),
+    "constant_3x400": ((3, 400), {"init_block_size": 100}, 0, 5.0),
+}
+
+
+def ems_input(name) -> tuple[np.ndarray, dict]:
+    """``(x, kwargs)`` of one EMS case, drawn with numpy from its seed."""
+    shape, kwargs, seed, constant = EMS_CASES[name]
+    if constant is not None:
+        return np.full(shape, constant, np.float32), dict(kwargs)
+    x = np.random.RandomState(seed).randn(*shape).astype(np.float32)
+    if name == "signal_4x3000":
+        x = x * 5.0 + 2.0
+    return x.astype(np.float32), dict(kwargs)
+
+
+def numpy_ems_reference(x, factor_new=1e-3, init_block_size=1000,
+                        eps=1e-10):
+    """Sequential float64 evaluation of the EMS recurrences (the ground
+    truth of tests/test_ems.py)."""
+    x = np.asarray(x, dtype=np.float64)
+    out = np.zeros_like(x)
+    mean = np.mean(x[..., :init_block_size], axis=-1)
+    var = np.var(x[..., :init_block_size], axis=-1)
+    a = factor_new
+    for t in range(x.shape[-1]):
+        mean = (1 - a) * mean + a * x[..., t]
+        var = (1 - a) * var + a * (x[..., t] - mean) ** 2
+        out[..., t] = (x[..., t] - mean) / np.sqrt(var + eps)
+    return out
+
+
+def write_raw_tree(write_gdf, raw, subjects=(1, 4), seconds=40,
+                   n_trials=8, seed=0):
+    """The small synthetic competition tree of tests/test_data_pipeline.py
+    under ``raw``, written with the given package's ``write_gdf``:
+    25-channel 250 Hz sessions, cues 769-772 in Train and 783 in Eval, and
+    ``TrueLabels/A0sE.mat``."""
+    from scipy.io import savemat
+
+    rng = np.random.RandomState(seed)
+    sfreq = 250.0
+    n = int(sfreq * seconds)
+    for s in subjects:
+        for mode in ("Train", "Eval"):
+            sig = rng.uniform(-0.5, 0.5, (25, n)).astype(np.float32)
+            pos = (np.arange(n_trials) * 1100 + 300).astype(np.int64)
+            if mode == "Train":
+                typ = np.array([769, 770, 771, 772] * (n_trials // 4))
+            else:
+                typ = np.full(n_trials, 783)
+            sess = "T" if mode == "Train" else "E"
+            write_gdf(raw / mode / f"A{s:02d}{sess}.gdf", sig, sfreq,
+                      event_pos=pos, event_typ=typ)
+            if mode == "Eval":
+                tl = raw / "TrueLabels"
+                tl.mkdir(parents=True, exist_ok=True)
+                savemat(tl / f"A{s:02d}E.mat",
+                        {"classlabel": rng.randint(1, 5, n_trials)})
+
+
+def recording_with_nan(c=25, t=5000, seed=5) -> tuple[np.ndarray, np.ndarray,
+                                                       np.ndarray]:
+    """``(signals, event_pos, event_typ)`` of a 250 Hz recording with a NaN
+    span, like the competition's artifact marks."""
+    rng = np.random.RandomState(seed)
+    sig = (rng.randn(c, t) * 10.0 + 3.0).astype(np.float32)
+    sig[2, 1000:1200] = np.nan
+    pos = np.array([300, 1301, 2602, 3903], np.int64)
+    typ = np.array([769, 770, 771, 772], np.int64)
+    return sig, pos, typ
