@@ -11,8 +11,9 @@ hand-written kernel against its plain PyTorch version:
 1. device: require CUDA; print ``nvidia-smi``'s name and power limit;
 2. build every kernel from the checkout's sources (``ops/build.py``);
 3. K1 (``block1``) against ``block1_reference`` on the card at the serving
-   shapes, random and perturbed BatchNorm, atol 1e-5 / rtol 1e-5 (only the
-   order of the f32 sums differs);
+   shapes, random and perturbed BatchNorm, at T=1125, at B=1024 and with T
+   on the edges of K1's time tile, atol 1e-5 / rtol 1e-5 (only the order of
+   the f32 sums differs);
 4. the engine's fused forward on the card against the plain ``EEGNet``
    forward on the CPU: logits to atol 1e-5 / rtol 1e-4, equal argmax;
 5. serve: a seeded checkpoint (perturbed BatchNorm) written by the port's
@@ -20,14 +21,17 @@ hand-written kernel against its plain PyTorch version:
    answering JSON, npz and 8 concurrent requests plus ``/healthz``; its
    predictions must equal the ``predict`` CLI's, every forward must have
    launched K1 exactly once, and SIGTERM must drain and exit 75;
-6. times per bucket (1/8/32/128): K1, the plain version and one library
+6. the timer's floor (an empty event window and one one-element kernel);
+   times per bucket (1/8/32/128): K1, the plain version and one library
    composite (cuDNN ``conv1d`` + ELU + ``avg_pool1d``) as the median of
    CUDA-event timings, the engine's end-to-end ``infer`` and ``/predict``
    latency on the host clock, each beside its bound on the card;
 7. K2 (``ems``) against ``ems_reference`` on the card at a competition
    session's (22, 345600) and at the edge shapes (ragged, short init block,
-   init block past T, a constant signal, ``factor_new`` 0.1), atol/rtol
-   1e-4; and against the port's ``associative`` and ``scan`` methods;
+   init block past T, a constant signal, ``factor_new`` 0.1, K2's tile
+   boundaries with up to 86 tiles a channel, 64 channels), atol/rtol 1e-4;
+   three calls at the session shape bitwise equal; and against the port's
+   ``associative`` and ``scan`` methods;
 8. the dataset path: a synthetic raw tree (2 subjects x Train/Eval,
    45-minute 25-channel 250 Hz GDF sessions with 288 cues each and
    ``TrueLabels``) through ``EEGTPU_EMS_METHOD=pallas python -m
@@ -38,7 +42,8 @@ hand-written kernel against its plain PyTorch version:
    result;
 9. times at (22, 345600): K2, ``ems_reference`` and ``associative`` as the
    median of CUDA-event timings with the L2 cache flushed, beside the
-   bound; and a session's stages on the host clock.
+   bound, and the two things ``ems`` runs besides K2 (the seed statistics,
+   the zeroed status words); and a session's stages on the host clock.
 
 The last lines are the ``{"kernels": [...]}`` record and, last of all,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -249,11 +254,20 @@ def phase_k1(torch, dev):
              for b in BUCKETS
              for p in (False, True)]
     cases += [(8, 64, 8, 2, 8, False), (8, 64, 8, 2, 8, True),
-              # past 48 KB of shared memory: the opt-in attribute path
-              (22, 1125, 8, 2, 8, True)]
+              # a 4.5 s trial at 250 Hz: 36 time tiles a trial
+              (22, 1125, 8, 2, 8, True), (22, 1125, 8, 2, 1, True),
+              # the largest batch a caller may hand the kernel at once
+              (22, 257, 8, 2, 1024, True)]
+    # T on the edges of K1's time tile (32 conv positions) and of a pool
+    # window, one trial each.
+    cases += [(22, t, 8, 2, 1, True)
+              for t in (4, 31, 32, 33, 35, 36, 63, 64, 65)]
     worst = 0.0
     for i, (c, t, f1, d, b, p) in enumerate(cases):
-        model = seeded_model(torch, c, t, f1, d, 100 + i, dev, perturb_bn=p)
+        # Block 1's folded weights do not depend on T; an EEGNet of fewer
+        # than 32 samples has no classifier to build, so take a longer one.
+        model = seeded_model(torch, c, max(t, 64), f1, d, 100 + i, dev,
+                             perturb_bn=p)
         with torch.inference_mode():
             S, W, A, B = fold_block1_params(model.state_dict(),
                                             model.bn_epsilon)
@@ -534,6 +548,17 @@ def phase_times(torch, np, dev):
     return per_bucket
 
 
+def phase_timer_floor(torch, dev):
+    """What ``device_ms`` reads for no work and for one one-element kernel:
+    the floor under every kernel time of phases 6 and 9."""
+    tiny = torch.zeros(1, device=dev)
+    floor = {"empty_window_ms": device_ms(torch, lambda: None),
+             "one_tiny_kernel_ms": device_ms(torch, lambda: tiny.add_(1))}
+    log(f"timer floor: empty window {floor['empty_window_ms']:.4f} ms, one "
+        f"one-element kernel {floor['one_tiny_kernel_ms']:.4f} ms")
+    return floor
+
+
 def ems_bound(c, t, init_block_size=1000):
     """(bound_ms, bound_by, bytes, flops) of one EMS call on (C, T) f32:
     x read once and the output written once; per sample the centring, both
@@ -580,6 +605,14 @@ def phase_k2(torch, np, dev):
         ("constant (3, 400)", np.full((3, 400), 5.0), {"init_block_size": 100}),
         ("(4, 3000) factor_new 0.1", rng.randn(4, 3000) * 5.0 + 2.0,
          {"factor_new": 0.1}),
+        # K2's tile boundaries (4096 samples a block), many tiles a channel
+        ("(1, 4095)", rng.randn(1, 4095), {}),
+        ("(1, 4096)", rng.randn(1, 4096), {}),
+        ("(2, 3 x 4096 - 1)", rng.randn(2, 3 * 4096 - 1), {}),
+        ("(2, 3 x 4096 + 1)", rng.randn(2, 3 * 4096 + 1), {}),
+        ("(1, 85 x 4096 - 1)", rng.randn(1, 85 * 4096 - 1), {}),
+        ("(1, 85 x 4096 + 1)", rng.randn(1, 85 * 4096 + 1), {}),
+        ("(64, 345600)", rng.randn(64, 345_600) * 5.0 + 2.0, {}),
     ]
     worst = 0.0
     for name, x, kw in cases:
@@ -600,6 +633,13 @@ def phase_k2(torch, np, dev):
                   f"K2 on a constant signal is not ~0: {got.abs().max()}")
     log(f"K2 vs ems_reference: {len(cases)} cases, max abs err {worst:.3e} "
         f"(atol {K2_ATOL}, rtol {K2_RTOL})")
+
+    # Deterministic: three calls at the session shape, the same bits.
+    runs = [ems(session) for _ in range(3)]
+    torch.cuda.synchronize()
+    check(torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2]),
+          "K2 gave different bits on three calls at the session shape")
+    log("K2 at the session shape: three calls, bitwise equal")
 
     other = {}
     x4 = session[:4, :3000].contiguous()
@@ -838,7 +878,12 @@ def phase_k2_times(torch, np, dev, raw_session: Path, work: Path):
     from eegnetreplication_tpu_torch.ops.ems import (
         exponential_moving_standardize,
     )
-    from eegnetreplication_tpu_torch.ops.ems_kernel import ems, ems_reference
+    from eegnetreplication_tpu_torch.ops.ems_kernel import (
+        ems,
+        ems_reference,
+        n_tiles,
+        seed_stats,
+    )
 
     x = torch.from_numpy(session_signal(np, *SESSION, 42)).to(dev)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
@@ -852,6 +897,13 @@ def phase_k2_times(torch, np, dev, raw_session: Path, work: Path):
                 flush=flush),
             "warm_ms": device_ms(torch, lambda: ems(x)),
             "call_ms": call_ms(torch, lambda: ems(x)),
+            # What ems(x) runs besides K2: the seed statistics and the
+            # zeroed status words K2 publishes its aggregates in.
+            "seed_stats_ms": device_ms(
+                torch, lambda: seed_stats(x, 1000), flush=flush),
+            "status_zeros_ms": device_ms(torch, lambda: torch.zeros(
+                1 + 2 * SESSION[0] * n_tiles(SESSION[1]), dtype=torch.int64,
+                device=dev)),
         }
     del flush
     bound, by, nbytes, flops = ems_bound(*SESSION)
@@ -860,7 +912,8 @@ def phase_k2_times(torch, np, dev, raw_session: Path, work: Path):
     log(f"K2 at {SESSION}: {row['ms']:.4f} ms cold L2 ({row['warm_ms']:.4f} "
         f"warm, {row['call_ms']:.4f} from an idle stream), ems_reference "
         f"{row['plain_ms']:.3f}, associative {row['associative_ms']:.4f}, "
-        f"bound {bound:.5f} ({by})")
+        f"bound {bound:.5f} ({by}); of ems(x): seed statistics "
+        f"{row['seed_stats_ms']:.4f}, status zeros {row['status_zeros_ms']:.4f}")
 
     # One session's stages on the host clock, each ended by a synchronize.
     kernel = mne_style_bandpass_design(TARGET_SFREQ, BANDPASS_LOW_HZ,
@@ -943,6 +996,7 @@ def main(argv=None) -> int:
         fwd_err = phase_forward(torch, dev)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             serve = phase_serve(torch, np, dev, Path(tmp), env)
+        timer_floor = phase_timer_floor(torch, dev)
         times = phase_times(torch, np, dev)
         k2_err, k2_vs_methods = phase_k2(torch, np, dev)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
@@ -984,6 +1038,7 @@ def main(argv=None) -> int:
     record = {
         "card": card, "build_s": build_s, "k1_max_abs_err": k1_err,
         "forward_max_abs_err": fwd_err, "serve": serve,
+        "timer_floor": timer_floor,
         "times_by_bucket": times, "k2_max_abs_err": k2_err,
         "k2_vs_methods_max_abs_err": k2_vs_methods, "dataset": dataset,
         "k2_times": k2_times,

@@ -33,6 +33,13 @@ from eegnetreplication_tpu_torch.ops import build
 # The Pallas kernel's time block, kept by the plain version.
 REFERENCE_BLOCK_T = 512
 
+# K2's tiling (``csrc/ems.cu``: kThreads, kItems, kTile): one block per tile
+# of EMS_TILE samples of one channel, EMS_ITEMS consecutive samples a
+# thread.  The wrapper checks them against the built library.
+EMS_THREADS = 256
+EMS_ITEMS = 16
+EMS_TILE = EMS_THREADS * EMS_ITEMS
+
 
 def f32_coefficients(factor_new: float) -> tuple[float, float]:
     """``(a, c)`` rounded to f32 the way the JAX package does:
@@ -91,22 +98,36 @@ def ems_reference(x: torch.Tensor, factor_new: float = 1e-3,
 def _k2_library() -> ctypes.CDLL:
     lib = build.load("ems")
     if lib.eeg_ems_launch.argtypes is None:
-        lib.eeg_ems_tile.argtypes = []
-        lib.eeg_ems_tile.restype = ctypes.c_int
+        for fn in (lib.eeg_ems_tile, lib.eeg_ems_items):
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
         lib.eeg_ems_error_string.argtypes = [ctypes.c_int]
         lib.eeg_ems_error_string.restype = ctypes.c_char_p
         lib.eeg_ems_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
             + [ctypes.c_float] * 3 + [ctypes.c_void_p])
         lib.eeg_ems_launch.restype = ctypes.c_int
+    built = (lib.eeg_ems_tile(), lib.eeg_ems_items())
+    if built != (EMS_TILE, EMS_ITEMS):
+        raise RuntimeError(f"ems: the built K2 tiles {built} samples, the "
+                           f"wrapper expects {(EMS_TILE, EMS_ITEMS)}")
     return lib
 
 
+def n_tiles(t_total: int) -> int:
+    """K2's tiles per channel, and so its blocks per channel."""
+    return -(-int(t_total) // EMS_TILE)
+
+
 @functools.lru_cache(maxsize=8)
-def _powers(c: float, n_max: int, device: torch.device) -> torch.Tensor:
-    """``c^n`` for ``n = 0..n_max`` in float64 from the f32 ``c``, cast to
-    f32 once; cached per (c, n_max, device)."""
-    host = (c ** np.arange(n_max + 1, dtype=np.float64)).astype(np.float32)
+def _powers(c: float, tiles: int, device: torch.device) -> torch.Tensor:
+    """K2's coefficients: ``c^n`` in float64 from the f32 ``c``, cast to
+    f32 once, for ``n = EMS_ITEMS * i`` (``i = 0..EMS_THREADS``, the spans
+    inside a tile) and then ``n = EMS_TILE * j`` (``j = 0..tiles-1``, whole
+    tiles); cached per (c, tiles, device)."""
+    n = np.concatenate([EMS_ITEMS * np.arange(EMS_THREADS + 1),
+                        EMS_TILE * np.arange(tiles)]).astype(np.float64)
+    host = (c ** n).astype(np.float32)
     return torch.from_numpy(host).to(device)
 
 
@@ -115,9 +136,10 @@ def ems(x: torch.Tensor, factor_new: float = 1e-3,
     """Single-pass EMS of ``x (C, T)`` f32 along time.
 
     A CPU ``x`` runs :func:`ems_reference`.  A CUDA ``x`` must be float32,
-    2-D and contiguous; the seed statistics are computed on the device and
-    K2 runs on the current stream (one launch per call, counted in
-    ``ems.launches``).  Anything else raises.
+    2-D and contiguous; the seed statistics are computed on the device, a
+    zeroed status buffer is allocated, and K2 runs on the current stream
+    (one launch per call, counted in ``ems.launches``; the same input gives
+    the same bits every time).  Anything else raises.
     """
     if x.device.type == "cpu":
         return ems_reference(x, factor_new, init_block_size, eps)
@@ -130,21 +152,27 @@ def ems(x: torch.Tensor, factor_new: float = 1e-3,
     if not x.is_contiguous():
         raise ValueError("ems: x must be contiguous")
     n_ch, t_total = x.shape
-    if t_total >= 2 ** 31:
-        raise ValueError(f"ems: T={t_total} does not fit the kernel's int")
+    tiles = n_tiles(t_total)
+    if t_total >= 2 ** 31 or n_ch * tiles >= 2 ** 31:
+        raise ValueError(f"ems: (C, T) = {tuple(x.shape)} does not fit the "
+                         "kernel's int")
     out = torch.empty_like(x)
     if n_ch == 0 or t_total == 0:
         return out
     lib = _k2_library()
     a, c = f32_coefficients(factor_new)
     mean0, var0 = seed_stats(x, init_block_size)
-    powers = _powers(c, lib.eeg_ems_tile(), x.device)
+    powers = _powers(c, tiles, x.device)
+    # The ticket counter and every tile's two published aggregates, zeroed
+    # for this launch.
+    status = torch.zeros(1 + 2 * n_ch * tiles, dtype=torch.int64,
+                         device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.eeg_ems_launch(
             x.data_ptr(), mean0.data_ptr(), var0.data_ptr(),
-            powers.data_ptr(), out.data_ptr(), n_ch, t_total, a, c,
-            float(eps), stream)
+            powers.data_ptr(), status.data_ptr(), out.data_ptr(), n_ch,
+            t_total, a, c, float(eps), stream)
     if err != 0:
         raise RuntimeError(
             f"ems: K2 launch failed with CUDA error {err} "

@@ -37,9 +37,6 @@ TEMPORAL_K = 32
 PAD_LEFT = 15   # SAME padding of an even kernel: (15, 16)
 PAD_RIGHT = 16
 
-# What one Hopper block may hold in shared memory (227 KB).
-MAX_SMEM_BYTES = 232_448
-
 
 def fold_block1_params(state_dict: Mapping[str, torch.Tensor],
                        eps: float = 1e-5):
@@ -96,8 +93,6 @@ def block1_reference(x, S, W, A, B):
 def _k1_library() -> ctypes.CDLL:
     lib = build.load("block1")
     if lib.eeg_block1_launch.argtypes is None:
-        lib.eeg_block1_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.eeg_block1_smem_bytes.restype = ctypes.c_size_t
         lib.eeg_cuda_error_string.argtypes = [ctypes.c_int]
         lib.eeg_cuda_error_string.restype = ctypes.c_char_p
         lib.eeg_block1_launch.argtypes = (
@@ -145,12 +140,6 @@ def block1(x, S, W, A, B):
     n, c, t = x.shape
     f2 = S.shape[0]
     lib = _k1_library()
-    smem = lib.eeg_block1_smem_bytes(c, t)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"block1: a (C, T) = ({c}, {t}) trial needs {smem} bytes of "
-            f"shared memory per block, past the {MAX_SMEM_BYTES} a Hopper "
-            "block can use")
     out = torch.empty((n, f2, t // 4), device=x.device, dtype=torch.float32)
     if n == 0:
         return out

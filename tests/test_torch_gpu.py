@@ -8,12 +8,15 @@ pins JAX to the CPU) must be skipped there:
 
 K1 (``block1``) is held against its plain version ``block1_reference`` on
 the same card at the serving shapes, atol/rtol 1e-5 (only the order of the
-f32 sums differs); the engine's fused forward on the card against the
+f32 sums differs), also at T on the edges of its time tile, at T=1125
+and at B=1024; the engine's fused forward on the card against the
 plain forward on the CPU at atol 1e-5 / rtol 1e-4.  K2 (``ems``) is held
 against ``ems_reference`` on the card at a session's (22, 345600) and the
-edge shapes, atol/rtol 1e-4 (the JAX package's Pallas-vs-scan tolerance),
-and the card's preprocessing path with ``EEGTPU_EMS_METHOD=pallas`` must
-launch K2 and never hand a CUDA tensor to ``ems_reference``.
+edge shapes (K2's tile boundaries among them), atol/rtol 1e-4 (the JAX
+package's Pallas-vs-scan tolerance).  Each kernel called three times on one
+input gives the same bits.  The card's preprocessing path with
+``EEGTPU_EMS_METHOD=pallas`` must launch K2 and never hand a CUDA tensor to
+``ems_reference``.
 """
 
 import numpy as np
@@ -79,8 +82,9 @@ def test_block1_kernel_matches_reference(cuda, geometry, batch):
 
 
 def test_block1_kernel_past_48kb_of_shared_memory(cuda):
-    """T=1125 (250 Hz) needs ~139 KB of shared memory per block: the
-    opt-in attribute path."""
+    """T=1125 (250 Hz): a whole staged trial would need ~139 KB of shared
+    memory; K1's blocks stage one time tile each, so it runs in the same
+    ~10 KB as T=257."""
     model = _model(22, 1125, 8, 2).to(cuda)
     x = _trials(4, 22, 1125).to(cuda)
     with torch.no_grad():
@@ -90,6 +94,48 @@ def test_block1_kernel_past_48kb_of_shared_memory(cuda):
         want = fused.block1_reference(x, *folded)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def _block1_case(n, c, t, f1=8, d=2, seed=3):
+    """Trials of any T with block 1's folded weights, which do not depend on
+    T (an EEGNet of fewer than 32 samples has no classifier to build)."""
+    model = _model(c, 257, f1, d, seed=seed)
+    with torch.no_grad():
+        folded = fused.fold_block1_params(model.state_dict(),
+                                          model.bn_epsilon)
+    return _trials(n, c, t, seed=seed), folded
+
+
+# T at the edges of K1's time tile (4 * kPoolTile = 32 conv positions) and of
+# its pool window, a trial longer than a 4.5 s window, and a batch of 1024.
+K1_EDGES = [(1, 4), (1, 31), (1, 32), (1, 33), (1, 35), (1, 36), (1, 63),
+            (1, 64), (1, 65), (1, 257), (1, 1125), (1024, 257)]
+
+
+@pytest.mark.parametrize("batch, t", K1_EDGES,
+                         ids=[f"B{b}-T{t}" for b, t in K1_EDGES])
+def test_block1_kernel_at_time_tile_edges(cuda, batch, t):
+    x, folded = _block1_case(batch, 22, t)
+    x = x.to(cuda)
+    folded = [v.to(cuda) for v in folded]
+    with torch.no_grad():
+        got = fused.block1(x, *folded)
+        want = fused.block1_reference(x, *folded)
+    torch.cuda.synchronize()
+    assert got.shape == (batch, 16, t // 4)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("geometry", ["product", "wide"])
+def test_block1_kernel_is_deterministic(cuda, geometry):
+    c, t, f1, d = GEOMETRIES[geometry]
+    x, folded = _block1_case(128, c, t, f1, d)
+    x = x.to(cuda)
+    folded = [v.to(cuda) for v in folded]
+    with torch.no_grad():
+        runs = [fused.block1(x, *folded) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
 
 
 def test_block1_refuses_cpu_weights_with_cuda_trials(cuda):
@@ -131,6 +177,14 @@ EMS_SHAPES = {
     "init_past_T": ((2, 50), {}),
     "tile_plus_one": ((2, 4097), {}),
     "factor_0_1": ((4, 3000), {"factor_new": 0.1}),
+    # K2's tile boundaries with many tiles a channel, and 64 channels.
+    "tile_minus_one": ((1, 4095), {}),
+    "one_tile": ((1, 4096), {}),
+    "3_tiles_minus_one": ((1, 3 * 4096 - 1), {}),
+    "3_tiles_plus_one": ((1, 3 * 4096 + 1), {}),
+    "85_tiles_minus_one": ((1, 85 * 4096 - 1), {}),
+    "85_tiles_plus_one": ((1, 85 * 4096 + 1), {}),
+    "64_channels": ((64, 345600), {}),
 }
 
 
@@ -147,6 +201,18 @@ def test_ems_kernel_matches_reference(cuda, case):
     assert ems_kernel.ems.launches == before + 1
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(22, 345600), (3, 3 * 4096 + 1)])
+def test_ems_kernel_is_deterministic(cuda, shape):
+    """K2 folds each tile's aggregates in a fixed order, never a prefix
+    whose availability depends on timing: the same input, the same bits."""
+    rng = np.random.RandomState(9)
+    x = torch.from_numpy((rng.randn(*shape) * 5.0 + 2.0).astype(np.float32))
+    x = x.to(cuda)
+    runs = [ems_kernel.ems(x) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
 
 
 def test_ems_kernel_on_a_constant_signal_is_zero(cuda):
