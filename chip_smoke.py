@@ -43,7 +43,26 @@ hand-written kernel against its plain PyTorch version:
 9. times at (22, 345600): K2, ``ems_reference`` and ``associative`` as the
    median of CUDA-event timings with the L2 cache flushed, beside the
    bound, and the two things ``ems`` runs besides K2 (the seed statistics,
-   the zeroed status words); and a session's stages on the host clock.
+   the zeroed status words); and a session's stages on the host clock;
+10. training, in phase 8's tree (2 subjects x 576 trials: 8 folds of 346
+   train, 86 validation and 144 test trials): ``python -m
+   eegnetreplication_tpu_torch.train --trainingType Within-Subject``
+   writes the JAX report's keys and both model files per subject, and
+   ``predict`` serves the trained ``.npz``; in process, the protocol at
+   dropout 0 on the card launches the stacked K1 exactly ``epochs *
+   val_steps + test_steps`` times and its per-epoch losses agree with the
+   CPU run from the same seed to TRAIN_ATOL/TRAIN_RTOL; on a separable
+   pool drawn from a seed it learns well above chance; fold-epochs/s and
+   wall per epoch at 8 and at 36 folds (the two subjects replicated), and
+   the device's idle share over one epoch under ``torch.profiler``.
+
+Phase 3b holds the stacked form of K1 (``block1_stacked``: G weight sets,
+an index per trial, what the training loop's validation and test passes
+launch) against ``block1_stacked_reference`` at G in {1, 8, 36}, B in {1,
+64}, T in {257, 1125} and permuted indices, atol/rtol 1e-5, and checks
+three calls at (512, 22, 257) bitwise equal; the timing phase times it at
+(512, 22, 257) and (2304, 22, 257), the 8- and 36-fold validation batches,
+beside its plain version, a grouped cuDNN composite and its bound.
 
 The last lines are the ``{"kernels": [...]}`` record and, last of all,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -69,6 +88,12 @@ import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# The port is imported from the checkout this script sits in, whatever the
+# working directory and even where Python leaves the script's directory off
+# the path (``-P``, ``-I``, ``PYTHONSAFEPATH``).  Its subprocesses get the
+# same through PYTHONPATH.
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and f32
 # without tensor cores.  The bound of a call is the larger of its bytes over
@@ -88,6 +113,30 @@ BUCKETS = (1, 8, 32, 128)
 N_TIMED = 60             # timed runs per measurement (median)
 N_LATENCY = 30           # /predict requests per size (median)
 SERVE_START_TIMEOUT_S = 300.0
+# Training (phase 10).  Per-epoch losses of the card and the CPU from one
+# seed at dropout 0 agree to the tolerance the CPU tests hold the port to
+# against the JAX package (tests/test_torch_train_step.py): only the order
+# of f32 sums differs (cuDNN's algorithms, grouped convolutions), and Adam
+# carries the differences along.
+TRAIN_ATOL, TRAIN_RTOL = 2e-3, 2e-3
+TRAIN_EPOCHS = 5          # the CLI and the card's in-process run
+CPU_EPOCHS = 2            # the CPU half of the card-vs-CPU check
+LEARN_EPOCHS = 30         # the separable pool
+TIME_EPOCHS = 10          # the throughput runs
+K1_STACKED_SIZES = ((8, 64), (36, 64))   # (folds, batch): 512 and 2304
+WS_REPORT_KEYS = {
+    "": {"training_type", "timestamp", "model_parameters",
+         "overall_results", "per_subject_results", "model_info",
+         "summary_statistics"},
+    "model_parameters": {"batch_size", "epochs", "learning_rate",
+                         "dropout_probability", "cross_validation_folds"},
+    "overall_results": {"average_test_accuracy", "number_of_subjects",
+                        "best_subject_accuracy", "worst_subject_accuracy",
+                        "accuracy_std"},
+    "model_info": {"architecture", "optimizer", "loss_function",
+                   "saved_models_count"},
+    "summary_statistics": {"accuracy_distribution", "accuracy_quartiles"},
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -189,12 +238,15 @@ def host_ms(fn, n=N_TIMED, warmup=3):
     return statistics.median(times)
 
 
-def block1_bound(b, c, t, f2):
+def block1_bound(b, c, t, f2, sets=0):
     """(bound_ms, bound_by, bytes, flops) of one block-1 call: x read once,
     weights read once, the pooled output written once; the mix, the 32
-    taps, the affine, ELU and the pool as this input needs them."""
+    taps, the affine, ELU and the pool as this input needs them.  With
+    ``sets`` (the stacked form) the weights are that many sets and an int32
+    index per trial is read too."""
     t_used = 4 * (t // 4)
-    nbytes = 4 * (b * c * t + f2 * (c + 32 + 2) + b * f2 * (t // 4))
+    nbytes = 4 * (b * c * t + max(sets, 1) * f2 * (c + 32 + 2)
+                  + b * f2 * (t // 4) + (b if sets else 0))
     flops = (2 * b * f2 * c * t           # mix
              + 2 * b * f2 * 32 * t_used   # taps
              + 2 * b * f2 * t_used        # affine
@@ -285,6 +337,64 @@ def phase_k1(torch, dev):
               f"{cases[i]}: max abs err {err:.3e}")
     log(f"K1 vs block1_reference: {len(cases)} cases, max abs err "
         f"{worst:.3e} (atol {K1_ATOL}, rtol {K1_RTOL})")
+    return worst
+
+
+def stacked_weights(torch, g, c, f2, seed):
+    """G folded block-1 weight sets ``(S, W, A, B)`` drawn from ``seed``,
+    at the scales folding a trained EEGNet gives."""
+    gen = torch.Generator().manual_seed(seed)
+    return (0.3 * torch.randn((g, f2, c), generator=gen),
+            0.2 * torch.randn((g, f2, 32), generator=gen),
+            1.0 + 0.2 * torch.randn((g, f2), generator=gen),
+            0.2 * torch.randn((g, f2), generator=gen))
+
+
+def phase_k1_stacked(torch, dev):
+    from eegnetreplication_tpu_torch.ops.fused_eegnet import (
+        block1_stacked,
+        block1_stacked_reference,
+        fold_index,
+    )
+
+    cases = [(g, b, t, False) for g in (1, 8, 36) for b in (1, 64)
+             for t in (257, 1125)]
+    cases += [(8, 64, 257, True), (36, 64, 257, True), (36, 1, 1125, True)]
+    worst = 0.0
+    for i, (g, b, t, permuted) in enumerate(cases):
+        S, W, A, B = (v.to(dev) for v in stacked_weights(torch, g, 22, 16,
+                                                         300 + i))
+        x = trials(torch, g * b, 22, t, 400 + i).to(dev)
+        idx = fold_index(g, b, dev)
+        if permuted:
+            perm = torch.randperm(g * b,
+                                  generator=torch.Generator().manual_seed(i))
+            idx = idx[perm.to(dev)].contiguous()
+        with torch.no_grad():
+            got = block1_stacked(x, S, W, A, B, idx)
+            want = block1_stacked_reference(x, S, W, A, B, idx)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape == (g * b, 16, t // 4),
+              f"K1-stacked shape {tuple(got.shape)} at {cases[i]}")
+        check(bool(torch.isfinite(got).all()),
+              f"K1-stacked non-finite at (G,B,T,permuted)={cases[i]}")
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        check(torch.allclose(got, want, atol=K1_ATOL, rtol=K1_RTOL),
+              f"K1-stacked disagrees with block1_stacked_reference at "
+              f"(G,B,T,permuted)={cases[i]}: max abs err {err:.3e}")
+    log(f"K1-stacked vs block1_stacked_reference: {len(cases)} cases, max "
+        f"abs err {worst:.3e} (atol {K1_ATOL}, rtol {K1_RTOL})")
+
+    S, W, A, B = (v.to(dev) for v in stacked_weights(torch, 8, 22, 16, 9))
+    x = trials(torch, 512, 22, 257, 10).to(dev)
+    idx = fold_index(8, 64, dev)
+    with torch.no_grad():
+        runs = [block1_stacked(x, S, W, A, B, idx) for _ in range(3)]
+    torch.cuda.synchronize()
+    check(torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2]),
+          "K1-stacked gave different bits on three calls at (512, 22, 257)")
+    log("K1-stacked at (512, 22, 257): three calls, bitwise equal")
     return worst
 
 
@@ -557,6 +667,64 @@ def phase_timer_floor(torch, dev):
     log(f"timer floor: empty window {floor['empty_window_ms']:.4f} ms, one "
         f"one-element kernel {floor['one_tiny_kernel_ms']:.4f} ms")
     return floor
+
+
+def phase_k1_stacked_times(torch, dev):
+    """K1-stacked at the validation batches of 8 and 36 folds (CUDA
+    events, median), beside its plain version, one grouped cuDNN composite
+    of the same function and its bound."""
+    import torch.nn.functional as F
+
+    from eegnetreplication_tpu_torch.ops.fused_eegnet import (
+        block1_stacked,
+        block1_stacked_reference,
+        fold_index,
+    )
+
+    rows = {}
+    for g, b in K1_STACKED_SIZES:
+        n = g * b
+        S, W, A, B = (v.to(dev) for v in stacked_weights(torch, g, 22, 16,
+                                                         600 + g))
+        f2 = S.shape[1]
+        x = trials(torch, n, 22, 257, 700 + g).to(dev)
+        idx = fold_index(g, b, dev)
+
+        def library():
+            # Never used by the port: the folds as groups of cuDNN
+            # convolutions (mix, then taps), the affine, ELU and the pool.
+            xs = x.reshape(g, b, 22, 257).transpose(0, 1).reshape(
+                b, g * 22, 257)
+            mixed = F.conv1d(xs, S.reshape(g * f2, 22, 1), groups=g)
+            acc = F.conv1d(F.pad(mixed, (15, 16)),
+                           W.reshape(g * f2, 1, 32), groups=g * f2)
+            out = F.avg_pool1d(F.elu(A.reshape(-1, 1) * acc
+                                     + B.reshape(-1, 1)), 4)
+            return out.reshape(b, g, f2, -1).transpose(0, 1).reshape(
+                n, f2, -1)
+
+        with torch.no_grad():
+            check(torch.allclose(library(), block1_stacked_reference(
+                x, S, W, A, B, idx), atol=1e-5, rtol=1e-5),
+                f"grouped library composite disagrees at {n} trials")
+            block1_stacked(x, S, W, A, B, idx)   # checks idx once
+            row = {
+                "ms": device_ms(torch, lambda: block1_stacked(
+                    x, S, W, A, B, idx)),
+                "plain_ms": device_ms(torch, lambda: block1_stacked_reference(
+                    x, S, W, A, B, idx)),
+                "library_ms": device_ms(torch, library),
+                "call_ms": call_ms(torch, lambda: block1_stacked(
+                    x, S, W, A, B, idx)),
+            }
+        bound, by, nbytes, flops = block1_bound(n, 22, 257, f2, sets=g)
+        row.update(folds=g, batch=b, trials=n, bound_ms=bound, bound_by=by,
+                   bytes=nbytes, flops=flops)
+        rows[n] = row
+        log(f"K1-stacked at ({n}, 22, 257): {row['ms']:.4f} ms (call "
+            f"{row['call_ms']:.4f}), plain {row['plain_ms']:.4f}, grouped "
+            f"library {row['library_ms']:.4f}, bound {bound:.5f} ({by})")
+    return rows
 
 
 def ems_bound(c, t, init_block_size=1000):
@@ -961,6 +1129,178 @@ def phase_k2_times(torch, np, dev, raw_session: Path, work: Path):
     return row
 
 
+def separable_subject(np, subject, mode, n=N_TRIALS, c=22, t=257):
+    """A session of ``n`` trials at the product width in which each class
+    adds its own rhythm (6, 10, 14 or 18 Hz at 128 Hz) through its own
+    spatial pattern to unit noise, drawn from the subject and session."""
+    from eegnetreplication_tpu_torch.data.containers import BCICI2ADataset
+
+    rng = np.random.RandomState(5000 + 10 * subject + (mode == "Eval"))
+    y = rng.randint(0, 4, size=n)
+    x = rng.standard_normal((n, c, t)).astype(np.float32)
+    patterns = np.random.RandomState(77).standard_normal((4, c))
+    tt = np.arange(t) / 128.0
+    for k in range(4):
+        wave = np.sin(2 * np.pi * (6.0 + 4.0 * k) * tt)
+        x[y == k] += (patterns[k][:, None] * wave[None, :]).astype(np.float32)
+    return BCICI2ADataset(X=x, y=y.astype(np.int64))
+
+
+def _epoch_times(torch, np, dev, loader, subjects, config):
+    """Wall per epoch and fold-epochs/s of the protocol's trainer (host
+    clock, TIME_EPOCHS epochs after one warm-up epoch, ended by a
+    synchronize), and one epoch's device busy time and idle share under
+    ``torch.profiler``."""
+    from eegnetreplication_tpu_torch.training.protocols import (
+        build_pool,
+        within_subject_trainer,
+    )
+    from eegnetreplication_tpu_torch.utils.profiling import breakdown
+
+    datasets = [loader(s, "Train").concat(loader(s, "Eval"))
+                for s in subjects]
+    trainer, _, folds = within_subject_trainer(
+        *build_pool(datasets), config=config, seed=3, device=dev)
+    trainer.run_epoch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIME_EPOCHS):
+        trainer.run_epoch()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    profile = breakdown(trainer.run_epoch, n_calls=1, top=10)
+    return {"folds": len(folds), "epochs": TIME_EPOCHS,
+            "wall_s": wall, "wall_per_epoch_ms": wall * 1e3 / TIME_EPOCHS,
+            "fold_epochs_per_s": len(folds) * TIME_EPOCHS / wall,
+            "train_steps": trainer.train_steps,
+            "val_steps": trainer.val_steps, "epoch_profile": profile}
+
+
+def phase_train(torch, np, dev, work: Path, env: dict, data_root: Path):
+    from eegnetreplication_tpu_torch.config import DEFAULT_TRAINING, Paths
+    from eegnetreplication_tpu_torch.data.io import load_subject_dataset
+    from eegnetreplication_tpu_torch.ops.fused_eegnet import block1_stacked
+    from eegnetreplication_tpu_torch.training.loop import n_steps
+    from eegnetreplication_tpu_torch.training.protocols import (
+        within_subject_training,
+    )
+
+    # The CLI a user runs, on the card, over phase 8's processed tree.
+    data_paths = Paths.from_root(data_root)
+    run_env = dict(env, EEGTPU_DATA_ROOT=str(data_root))
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "eegnetreplication_tpu_torch.train",
+         "--trainingType", "Within-Subject", "--epochs", str(TRAIN_EPOCHS),
+         "--subjects", "1,2"],
+        cwd=ROOT, env=run_env, capture_output=True, text=True, timeout=900)
+    cli_s = time.perf_counter() - t0
+    check(cli.returncode == 0, f"train CLI exited {cli.returncode}:\n"
+          + cli.stderr[-4000:])
+    report = json.loads((data_paths.reports
+                         / "latest_within_subject_report.json").read_text())
+    for section, keys in WS_REPORT_KEYS.items():
+        got = set(report[section] if section else report)
+        check(got == keys, f"report {section or 'top level'} keys {got} != "
+              f"the JAX report's {keys}")
+    check([e["subject_id"] for e in report["per_subject_results"]] == [1, 2],
+          f"report subjects {report['per_subject_results']}")
+    for s in (1, 2):
+        for ext in ("pth", "npz"):
+            f = data_paths.models / f"subject_{s:02d}_best_model.{ext}"
+            check(f.is_file(), f"train CLI did not write {f.name}")
+    log(f"train CLI: {TRAIN_EPOCHS} epochs of 8 folds in {cli_s:.1f}s, "
+        f"report keys equal the JAX report's, 4 model files; average test "
+        f"accuracy {report['overall_results']['average_test_accuracy']}%")
+
+    # The trained checkpoint, served by the predict CLI.
+    pred = subprocess.run(
+        [sys.executable, "-m", "eegnetreplication_tpu_torch.predict",
+         "--checkpoint", str(data_paths.models / "subject_01_best_model.npz"),
+         "--subject", "1"],
+        cwd=ROOT, env=run_env, capture_output=True, text=True, timeout=600)
+    check(pred.returncode == 0, f"predict on the trained checkpoint exited "
+          f"{pred.returncode}:\n" + pred.stderr[-4000:])
+    marker = "block1 kernel launches: "
+    check(marker in pred.stderr, "predict did not report K1 launches")
+    predict_k1 = int(pred.stderr.split(marker, 1)[1].split()[0])
+    check(predict_k1 > 0, "predict on the trained checkpoint launched no K1")
+    log(f"predict --checkpoint subject_01_best_model.npz --subject 1: "
+        f"{pred.stdout.strip().splitlines()[-1]!r}, K1 launches {predict_k1}")
+
+    # In process at dropout 0, the card against the CPU from one seed: the
+    # main path whose stacked-K1 launches are counted.
+    def loader(s, mode):
+        return load_subject_dataset(s, mode, data_paths)
+
+    p0 = DEFAULT_TRAINING.replace(dropout_within_subject=0.0)
+    kw = dict(config=p0, loader=loader, subjects=(1, 2), seed=0,
+              save_models=False, paths=Paths.from_root(work / "p0"))
+    block1_stacked.launches = 0
+    card = within_subject_training(TRAIN_EPOCHS, device=dev, **kw)
+    launches = block1_stacked.launches
+    n_sub = N_TRIALS * 2               # Train + Eval sessions of a subject
+    val_steps = n_steps(n_sub * 3 // 4 // 5, p0.batch_size, 1)
+    test_steps = n_steps(n_sub // 4, p0.batch_size, 1)
+    want = TRAIN_EPOCHS * val_steps + test_steps
+    check(launches == want,
+          f"K1-stacked launched {launches} times in {TRAIN_EPOCHS} epochs; "
+          f"want {TRAIN_EPOCHS} x {val_steps} validation + {test_steps} test "
+          f"= {want}")
+    log(f"in process (card, dropout 0): 8 folds x {TRAIN_EPOCHS} epochs, "
+        f"K1-stacked launches {launches} = {TRAIN_EPOCHS} x {val_steps} + "
+        f"{test_steps}")
+    cpu = within_subject_training(CPU_EPOCHS, device=torch.device("cpu"),
+                                  **kw)
+    deltas = {}
+    for name in ("train_losses", "val_losses"):
+        a = getattr(card.folds, name)[:, :CPU_EPOCHS]
+        b = getattr(cpu.folds, name)
+        check(bool(torch.isfinite(a).all()), f"card {name} not finite")
+        deltas[name] = float((a - b).abs().max())
+        check(torch.allclose(a, b, atol=TRAIN_ATOL, rtol=TRAIN_RTOL),
+              f"card vs CPU {name} over {CPU_EPOCHS} epochs differ by "
+              f"{deltas[name]:.3e} (atol {TRAIN_ATOL}, rtol {TRAIN_RTOL})")
+    log(f"card vs CPU, {CPU_EPOCHS} epochs of 8 folds: train losses "
+        f"{deltas['train_losses']:.3e}, validation losses "
+        f"{deltas['val_losses']:.3e} (atol {TRAIN_ATOL}, rtol {TRAIN_RTOL})")
+
+    # The port learns on the card (phase 8's tree carries no class signal).
+    def sep_loader(s, mode):
+        return separable_subject(np, (s - 1) % 2 + 1, mode)
+
+    learn = within_subject_training(
+        LEARN_EPOCHS, loader=sep_loader, subjects=(1, 2), seed=1,
+        save_models=False, paths=Paths.from_root(work / "learn"), device=dev)
+    check(learn.avg_test_acc > 50.0,
+          f"separable pool: test accuracy {learn.avg_test_acc:.2f}% after "
+          f"{LEARN_EPOCHS} epochs (chance 25%)")
+    log(f"separable pool, {LEARN_EPOCHS} epochs at dropout 0.5: test "
+        f"accuracy {learn.avg_test_acc:.2f}% (chance 25%), "
+        f"{learn.epoch_throughput:.1f} fold-epochs/s")
+
+    times = {}
+    for n_folds, subjects in ((8, (1, 2)), (36, tuple(range(1, 10)))):
+        row = _epoch_times(torch, np, dev, sep_loader, subjects,
+                           DEFAULT_TRAINING)
+        check(row["folds"] == n_folds, f"{row['folds']} folds")
+        times[n_folds] = row
+        prof = row["epoch_profile"]
+        log(f"{n_folds} folds: {row['fold_epochs_per_s']:.1f} fold-epochs/s, "
+            f"{row['wall_per_epoch_ms']:.1f} ms per epoch ({row['train_steps']}"
+            f" train steps, {row['val_steps']} validation batches); one epoch "
+            f"under the profiler: wall {prof['wall_ms_per_call']:.1f} ms, "
+            f"device busy {prof['device_busy_ms_per_call']:.1f} ms, idle "
+            f"share {prof['device_idle_share']}")
+    return {"cli_s": cli_s, "predict_k1_launches": predict_k1,
+            "launches": launches, "val_steps": val_steps,
+            "test_steps": test_steps, "card_vs_cpu_max_abs": deltas,
+            "card_p0_fold_epochs_per_s": card.epoch_throughput,
+            "learn_test_acc": learn.avg_test_acc,
+            "learn_fold_epochs_per_s": learn.epoch_throughput,
+            "times_by_folds": times}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None,
@@ -984,7 +1324,8 @@ def main(argv=None) -> int:
               "from the repository root", file=sys.stderr)
         return 1
 
-    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    env = dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     from eegnetreplication_tpu_torch.utils.device import select_device
 
     t_start = time.perf_counter()
@@ -993,16 +1334,20 @@ def main(argv=None) -> int:
         dev = select_device()
         build_s = phase_build()
         k1_err = phase_k1(torch, dev)
+        k1s_err = phase_k1_stacked(torch, dev)
         fwd_err = phase_forward(torch, dev)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             serve = phase_serve(torch, np, dev, Path(tmp), env)
         timer_floor = phase_timer_floor(torch, dev)
         times = phase_times(torch, np, dev)
+        k1s_times = phase_k1_stacked_times(torch, dev)
         k2_err, k2_vs_methods = phase_k2(torch, np, dev)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
             dataset = phase_dataset(torch, np, dev, Path(tmp), env)
             k2_times = phase_k2_times(torch, np, dev,
                                       Path(dataset["raw_session"]), Path(tmp))
+            train = phase_train(torch, np, dev, Path(tmp) / "train", env,
+                                Path(tmp) / "cli")
     except Exception:  # noqa: BLE001 — every failure ends the run
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -1021,6 +1366,18 @@ def main(argv=None) -> int:
         "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"],
         "library_ms": top["library_ms"],
+    }, {
+        "name": "block1_stacked",
+        "route": "cuda",
+        "source": "eegnetreplication_tpu_torch/ops/csrc/block1.cu",
+        "replaces": "eegnetreplication_tpu/ops/fused_eegnet.py:134",
+        "launches": train["launches"],
+        "max_abs_err": k1s_err,
+        "ms": k1s_times[512]["ms"],
+        "plain_ms": k1s_times[512]["plain_ms"],
+        "bound_ms": k1s_times[512]["bound_ms"],
+        "bound_by": k1s_times[512]["bound_by"],
+        "library_ms": k1s_times[512]["library_ms"],
     }, {
         "name": "ems",
         "route": "cuda",
@@ -1041,7 +1398,8 @@ def main(argv=None) -> int:
         "timer_floor": timer_floor,
         "times_by_bucket": times, "k2_max_abs_err": k2_err,
         "k2_vs_methods_max_abs_err": k2_vs_methods, "dataset": dataset,
-        "k2_times": k2_times,
+        "k2_times": k2_times, "k1_stacked_max_abs_err": k1s_err,
+        "k1_stacked_times": k1s_times, "train": train,
         "wall_s": time.perf_counter() - t_start,
     }
     print(json.dumps({"timings": record}), flush=True)

@@ -1,14 +1,16 @@
 """Project configuration: paths and the BCI Competition IV 2a constants.
 
-The subset of ``eegnetreplication_tpu/config.py`` that serving and
-preprocessing read: where raw recordings and processed trials live (under
-the repo root, or under ``EEGTPU_DATA_ROOT``), and the dataset's channel,
-rate, band and window constants.  The other paths and the training
-hyperparameters arrive with the training slice.
+The subset of ``eegnetreplication_tpu/config.py`` that serving,
+preprocessing and training read: where raw recordings, processed trials,
+trained models and reports live (under the repo root, or under
+``EEGTPU_DATA_ROOT``), the dataset's channel, rate, band and window
+constants, and the training hyperparameters (:class:`TrainingConfig`, the
+same fields and defaults as the JAX package's).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
 from pathlib import Path
@@ -22,6 +24,8 @@ class Paths:
     project_root: Path
     data_raw: Path
     data_processed: Path
+    models: Path
+    reports: Path
 
     @staticmethod
     def from_here() -> "Paths":
@@ -37,7 +41,9 @@ class Paths:
         root = Path(root)
         return Paths(project_root=root,
                      data_raw=root / "data" / "raw",
-                     data_processed=root / "data" / "processed")
+                     data_processed=root / "data" / "processed",
+                     models=root / "models",
+                     reports=root / "reports")
 
 
 # BCI Competition IV 2a (the reference's dataset.py:89-96, 114, 223-224).
@@ -55,3 +61,39 @@ EEG_CHANNEL_NAMES = (
     "P2", "POz",
 )
 EOG_CHANNEL_NAMES = ("EOG-left", "EOG-central", "EOG-right")
+
+
+@dataclass(frozen=True)
+class TrainingConfig:
+    """Training hyperparameters (the reference's ``train.py:25-27,92-103``;
+    the JAX package's ``config.py:86-127``)."""
+
+    batch_size: int = 64
+    epochs: int = 500
+    learning_rate: float = 1e-3
+    adam_eps: float = 1e-7
+    dropout_within_subject: float = 0.5
+    dropout_cross_subject: float = 0.25
+    kfold_splits: int = 4
+    kfold_seed: int = 42
+    cs_repeats_per_subject: int = 10
+    cs_train_subjects: int = 5
+    cs_val_subjects: int = 3
+    # Quirk Q1: the reference's "max-norm" hooks clamp the *gradients* of
+    # the spatial filters (+-1.0) and the classifier (+-0.25); "paper"
+    # projects the weights' L2 norms instead (Lawhern et al.).
+    maxnorm_mode: str = "reference"
+    # Full f32 ("highest") is the only numerics mode the port runs:
+    # utils/device.py turns TF32 off.  The JAX package's "high", "default"
+    # and "bf16" are TPU matmul modes, not ported.
+    precision: str = "highest"
+    # BatchNorm training semantics: "flax" (padding slots counted, biased
+    # running variance) or "torch" (padding masked, unbiased running
+    # variance); models/norm.py.
+    bn_mode: str = "flax"
+
+    def replace(self, **kw) -> "TrainingConfig":
+        return dataclasses.replace(self, **kw)
+
+
+DEFAULT_TRAINING = TrainingConfig()

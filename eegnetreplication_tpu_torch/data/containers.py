@@ -34,6 +34,26 @@ class BCICI2ADataset:
     def __getitem__(self, idx: int) -> tuple[np.ndarray, int]:
         return self.X[idx], int(self.y[idx])
 
+    @property
+    def n_channels(self) -> int:
+        return self.X.shape[1]
+
+    @property
+    def n_times(self) -> int:
+        return self.X.shape[2]
+
+    def concat(self, other: "BCICI2ADataset") -> "BCICI2ADataset":
+        """Concatenate two datasets along the trial axis (the protocol's
+        Train + Eval sessions of one subject)."""
+        return BCICI2ADataset(
+            X=np.concatenate([self.X, other.X], axis=0),
+            y=np.concatenate([self.y, other.y], axis=0),
+        )
+
+    def subset(self, indices: np.ndarray) -> "BCICI2ADataset":
+        """Select trials by index."""
+        return BCICI2ADataset(X=self.X[indices], y=self.y[indices])
+
 
 def concat_datasets(datasets: list[BCICI2ADataset]) -> BCICI2ADataset:
     """Concatenate many datasets along the trial axis."""

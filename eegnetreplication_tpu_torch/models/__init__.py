@@ -1,5 +1,10 @@
-"""Model zoo of the torch port: EEGNet (eval mode) and its wide variant."""
+"""Model zoo of the torch port: EEGNet and its wide variant."""
 
-from eegnetreplication_tpu_torch.models.eegnet import EEGNet, eegnet_wide
+from eegnetreplication_tpu_torch.models.eegnet import (
+    MODEL_REGISTRY,
+    EEGNet,
+    eegnet_wide,
+    get_model,
+)
 
-__all__ = ["EEGNet", "eegnet_wide"]
+__all__ = ["EEGNet", "MODEL_REGISTRY", "eegnet_wide", "get_model"]

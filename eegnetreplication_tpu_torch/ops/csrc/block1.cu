@@ -10,6 +10,15 @@
 //
 // x (B, C, T) f32 -> out (B, F2, T/4) f32, row-major and contiguous.
 //
+// The stacked form (eeg_block1_stacked_launch) takes G weight sets, S
+// (G, F2, C), W (G, F2, 32), A and B (G, F2), and an int32 index per trial
+// naming its set: the counterpart of block1_pallas under jax.vmap over the
+// weights, which the JAX protocols use to evaluate every fold of a
+// within-subject run at once.  A block serves one trial, so it reads its
+// trial's index once and offsets the four weight pointers; nothing else of
+// the design changes.  An index outside [0, G) reads no weights and writes
+// NaN rows (the wrapper checks the range before the launch).
+//
 // What bounds it on an H100 SXM (3.35 TB/s HBM, 67 TFLOP/s f32 without
 // tensor cores): at B=128, C=22, T=257, F2=16 the call must move ~3.4 MB (x
 // in, pooled out; the weights are < 4 KB) and do ~60 MFLOP, so the bytes
@@ -97,12 +106,14 @@ __device__ __forceinline__ void stage_wait() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
-// 8 blocks an SM: 64 registers a thread.
+// 8 blocks an SM: 64 registers a thread.  kStacked: the weights are G sets
+// and idx names each trial's set.
+template <bool kStacked>
 __global__ void __launch_bounds__(kThreads, 8) block1_kernel(
     const float* __restrict__ x, const float* __restrict__ S,
     const float* __restrict__ W, const float* __restrict__ A,
-    const float* __restrict__ B, float* __restrict__ out,
-    int C, int T, int F2, int n_tq) {
+    const float* __restrict__ B, const int* __restrict__ idx,
+    float* __restrict__ out, int C, int T, int F2, int G, int n_tq) {
   __shared__ __align__(16) float xs[kRows][kWindow];
   __shared__ __align__(16) float st[kRows][kFTile];    // S tile, transposed
   __shared__ __align__(16) float mixed[kFTile][kWindow];
@@ -116,6 +127,18 @@ __global__ void __launch_bounds__(kThreads, 8) block1_kernel(
   const int f0 = blockIdx.y * kFTile;
   const int t0 = tq * kTimeTile - kPadLeft;   // sample of window column 0
   const float* xb = x + static_cast<size_t>(b) * C * T;
+  // The weight set's index is loaded here and first used after the x
+  // copies are issued, so its latency hides behind them.
+  bool set_ok = true;
+  if constexpr (kStacked) {
+    const int g = idx[b];
+    set_ok = g >= 0 && g < G;
+    const size_t set = set_ok ? static_cast<size_t>(g) : 0;
+    S += set * F2 * C;
+    W += set * F2 * kTaps;
+    A += set * F2;
+    B += set * F2;
+  }
 
   const int col = tid % kWindow;               // the mix's window column
   const int fm = (tid / kWindow) * kMixF;      // and its first filter
@@ -222,8 +245,9 @@ __global__ void __launch_bounds__(kThreads, 8) block1_kernel(
   }
   const int t_pool = T / 4;
   if (f0 + f < F2 && q < t_pool) {
+    const float pooled = ((e[0] + e[1]) + (e[2] + e[3])) * 0.25f;
     out[(static_cast<size_t>(b) * F2 + f0 + f) * t_pool + q] =
-        ((e[0] + e[1]) + (e[2] + e[3])) * 0.25f;
+        set_ok ? pooled : __int_as_float(0x7fc00000);   // NaN
   }
 }
 
@@ -231,13 +255,12 @@ __global__ void __launch_bounds__(kThreads, 8) block1_kernel(
 
 extern "C" {
 
-// Launch K1 on `stream`; returns the launch's cudaError_t (0 = success).
-// Pointers are device pointers to contiguous f32 arrays: x (n_b, C, T),
-// S (F2, C), W (F2, 32), A and B (F2,), out (n_b, F2, T/4).
-int eeg_block1_launch(const float* x, const float* S, const float* W,
-                      const float* A, const float* B, float* out, int n_b,
-                      int C, int T, int F2, void* stream) {
-  if (n_b <= 0 || C <= 0 || T < 4 || F2 <= 0) {
+namespace {
+
+int launch(const float* x, const float* S, const float* W, const float* A,
+           const float* B, const int* idx, float* out, int n_b, int C, int T,
+           int F2, int G, void* stream) {
+  if (n_b <= 0 || C <= 0 || T < 4 || F2 <= 0 || G <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n_tq = (T / 4 + kPoolTile - 1) / kPoolTile;
@@ -246,9 +269,36 @@ int eeg_block1_launch(const float* x, const float* S, const float* W,
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
   const dim3 grid(n_b * n_tq, n_ft);
-  block1_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, S, W, A, B, out, C, T, F2, n_tq);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (idx == nullptr) {
+    block1_kernel<false><<<grid, kThreads, 0, s>>>(
+        x, S, W, A, B, nullptr, out, C, T, F2, 1, n_tq);
+  } else {
+    block1_kernel<true><<<grid, kThreads, 0, s>>>(
+        x, S, W, A, B, idx, out, C, T, F2, G, n_tq);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Launch K1 on `stream`; returns the launch's cudaError_t (0 = success).
+// Pointers are device pointers to contiguous f32 arrays: x (n_b, C, T),
+// S (F2, C), W (F2, 32), A and B (F2,), out (n_b, F2, T/4).
+int eeg_block1_launch(const float* x, const float* S, const float* W,
+                      const float* A, const float* B, float* out, int n_b,
+                      int C, int T, int F2, void* stream) {
+  return launch(x, S, W, A, B, nullptr, out, n_b, C, T, F2, 1, stream);
+}
+
+// The stacked form: S (G, F2, C), W (G, F2, 32), A and B (G, F2), and idx
+// (n_b,) int32 naming each trial's weight set.
+int eeg_block1_stacked_launch(const float* x, const float* S, const float* W,
+                              const float* A, const float* B, const int* idx,
+                              float* out, int n_b, int C, int T, int F2,
+                              int G, void* stream) {
+  if (idx == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(x, S, W, A, B, idx, out, n_b, C, T, F2, G, stream);
 }
 
 const char* eeg_cuda_error_string(int code) {

@@ -17,7 +17,13 @@ mix and a 32-tap filter on F2 mixed rows, then ELU and AvgPool(4).
 - :func:`block1` dispatches: a CPU tensor takes the plain version, a CUDA
   tensor launches K1 (``csrc/block1.cu``) or raises — there is no fallback;
 - :func:`fused_eval_forward` runs the whole network with the fused block 1
-  and block 2 plus the classifier as torch ops, matching ``EEGNet.forward``.
+  and block 2 plus the classifier as torch ops, matching ``EEGNet.forward``;
+- :func:`block1_stacked` (and its plain version
+  :func:`block1_stacked_reference`) takes G weight sets and an index per
+  trial, the form ``block1_pallas`` takes under ``jax.vmap`` over the
+  weights; :func:`fused_eval_forward_stacked` runs every fold of a
+  fold-stacked state through it in one launch (the training loop's
+  validation and test passes).
 
 The JAX package's ``EEGTPU_FUSED_EVAL=0`` escape hatch and its Pallas probe
 have no counterpart: on the card the kernel runs, or the call raises.
@@ -46,11 +52,15 @@ def fold_block1_params(state_dict: Mapping[str, torch.Tensor],
         S: ``(F2, C)`` spatial mixing matrix.
         W: ``(F2, K)`` per-output temporal taps (group kernel replicated).
         A, B: ``(F2,)`` affine folding the temporal and spatial BatchNorms.
+
+    A fold-stacked ``state_dict`` (every tensor with a leading G axis)
+    folds each set on its own and gives ``(G, F2, C)``, ``(G, F2, K)``,
+    ``(G, F2)`` and ``(G, F2)``.
     """
-    w_t = state_dict["temporal.0.weight"]      # (F1, 1, 1, K)
-    w_s = state_dict["spatial.weight"]         # (F2, 1, C, 1)
-    f1 = w_t.shape[0]
-    f2 = w_s.shape[0]
+    w_t = state_dict["temporal.0.weight"]      # ([G,] F1, 1, 1, K)
+    w_s = state_dict["spatial.weight"]         # ([G,] F2, 1, C, 1)
+    f1 = w_t.shape[-4]
+    f2 = w_s.shape[-4]
     d = f2 // f1
 
     def bn_affine(prefix):
@@ -63,12 +73,12 @@ def fold_block1_params(state_dict: Mapping[str, torch.Tensor],
     a1, b1 = bn_affine("temporal.1")      # per F1, between the convs
     a2, b2 = bn_affine("aggregation.0")   # per F2, after the spatial conv
 
-    S = w_s[:, 0, :, 0].contiguous()                        # (F2, C)
+    S = w_s[..., 0, :, 0].contiguous()                      # (F2, C)
     group = torch.arange(f2, device=w_t.device) // d        # f2 -> f1
-    W = w_t[:, 0, 0, :][group].contiguous()                 # (F2, K)
-    col_sum = torch.sum(S, dim=1)                           # sum_c s[f2,c]
-    A = (a2 * a1[group]).contiguous()
-    B = (a2 * (b1[group] * col_sum) + b2).contiguous()
+    W = w_t[..., group, 0, 0, :].contiguous()               # (F2, K)
+    col_sum = torch.sum(S, dim=-1)                          # sum_c s[f2,c]
+    A = (a2 * a1[..., group]).contiguous()
+    B = (a2 * (b1[..., group] * col_sum) + b2).contiguous()
     return S, W, A, B
 
 
@@ -90,6 +100,28 @@ def block1_reference(x, S, W, A, B):
     return torch.mean(pooled, dim=-1)
 
 
+def block1_stacked_reference(x, S, W, A, B, idx):
+    """Plain PyTorch block 1 on stacked weights: trial ``n`` of ``x``
+    ``(N, C, T)`` runs with set ``idx[n]`` of ``S`` ``(G, F2, C)``, ``W``
+    ``(G, F2, K)``, ``A`` and ``B`` ``(G, F2)``; returns ``(N, F2, T//4)``.
+    An index outside ``[0, G)`` raises."""
+    idx = idx.long()
+    g = S.shape[0]
+    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= g):
+        raise ValueError(f"block1_stacked: idx outside [0, {g})")
+    Sn, Wn, An, Bn = S[idx], W[idx], A[idx], B[idx]
+    mixed = torch.einsum("nfc,nct->nft", Sn, x)
+    padded = F.pad(mixed, (PAD_LEFT, PAD_RIGHT))
+    t = x.shape[-1]
+    acc = torch.zeros_like(mixed)
+    for k in range(TEMPORAL_K):
+        acc = acc + Wn[:, :, k:k + 1] * padded[..., k:k + t]
+    act = _elu(An[:, :, None] * acc + Bn[:, :, None])
+    t_pool = t // 4
+    pooled = act[..., : t_pool * 4].reshape(*act.shape[:-1], t_pool, 4)
+    return torch.mean(pooled, dim=-1)
+
+
 def _k1_library() -> ctypes.CDLL:
     lib = build.load("block1")
     if lib.eeg_block1_launch.argtypes is None:
@@ -98,30 +130,73 @@ def _k1_library() -> ctypes.CDLL:
         lib.eeg_block1_launch.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.eeg_block1_launch.restype = ctypes.c_int
+        lib.eeg_block1_stacked_launch.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.eeg_block1_stacked_launch.restype = ctypes.c_int
     return lib
 
 
-def _check_operands(x, S, W, A, B) -> None:
+def _check_operands(x, S, W, A, B, idx=None) -> None:
+    """Raise on anything K1 does not take.  With ``idx`` the weights are
+    stacked ``(G, ...)`` sets and ``idx`` is an ``(N,)`` int32 index."""
+    what = "block1" if idx is None else "block1_stacked"
     named = {"x": x, "S": S, "W": W, "A": A, "B": B}
     for name, t in named.items():
         if t.device != x.device:
-            raise ValueError(f"block1: {name} is on {t.device}, x on "
+            raise ValueError(f"{what}: {name} is on {t.device}, x on "
                              f"{x.device}")
         if t.dtype != torch.float32:
-            raise TypeError(f"block1: {name} must be float32, got {t.dtype}")
+            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"block1: {name} must be contiguous")
+            raise ValueError(f"{what}: {name} must be contiguous")
     if x.dim() != 3:
-        raise ValueError(f"block1: x must be (B, C, T), got {tuple(x.shape)}")
-    _, c, t = x.shape
-    f2 = S.shape[0]
-    expected = {"S": (f2, c), "W": (f2, TEMPORAL_K), "A": (f2,), "B": (f2,)}
+        raise ValueError(f"{what}: x must be (B, C, T), got {tuple(x.shape)}")
+    n, c, t = x.shape
+    lead = () if idx is None else tuple(S.shape[:1])
+    f2 = S.shape[len(lead)] if S.dim() > len(lead) else -1
+    expected = {"S": lead + (f2, c), "W": lead + (f2, TEMPORAL_K),
+                "A": lead + (f2,), "B": lead + (f2,)}
     for name, shape in expected.items():
         if tuple(named[name].shape) != shape:
-            raise ValueError(f"block1: {name} must be {shape}, got "
+            raise ValueError(f"{what}: {name} must be {shape}, got "
                              f"{tuple(named[name].shape)}")
     if t < 4:
-        raise ValueError(f"block1: T={t} leaves no AvgPool(4) output")
+        raise ValueError(f"{what}: T={t} leaves no AvgPool(4) output")
+    if idx is not None:
+        if idx.device != x.device:
+            raise ValueError(f"{what}: idx is on {idx.device}, x on "
+                             f"{x.device}")
+        if idx.dtype != torch.int32:
+            raise TypeError(f"{what}: idx must be int32, got {idx.dtype}")
+        if tuple(idx.shape) != (n,) or not idx.is_contiguous():
+            raise ValueError(f"{what}: idx must be a contiguous ({n},) "
+                             f"vector, got {tuple(idx.shape)}")
+        if lead[0] < 1:
+            raise ValueError(f"{what}: no weight sets")
+
+
+def _check_index_range(idx: torch.Tensor, g: int) -> None:
+    """Raise unless ``0 <= idx < g``.  Reading the range waits for the
+    device, so a checked index remembers the version it was checked at
+    (an in-place write bumps ``_version``): the training loop builds its
+    index once and reuses it, and pays the wait once."""
+    # An inference-mode tensor keeps no version counter: checked each call.
+    stamp = None if idx.is_inference() else (idx._version, g)
+    if stamp is not None and getattr(idx, "_eeg_checked_range", None) == stamp:
+        return
+    lo, hi = torch.aminmax(idx)
+    lo, hi = int(lo), int(hi)
+    if lo < 0 or hi >= g:
+        raise ValueError(f"block1_stacked: idx spans [{lo}, {hi}], outside "
+                         f"[0, {g})")
+    if stamp is not None:
+        idx._eeg_checked_range = stamp
+
+
+def _launch_error(lib, err: int) -> RuntimeError:
+    return RuntimeError(
+        f"block1: K1 launch failed with CUDA error {err} "
+        f"({lib.eeg_cuda_error_string(err).decode()})")
 
 
 def block1(x, S, W, A, B):
@@ -149,14 +224,51 @@ def block1(x, S, W, A, B):
             x.data_ptr(), S.data_ptr(), W.data_ptr(), A.data_ptr(),
             B.data_ptr(), out.data_ptr(), n, c, t, f2, stream)
     if err != 0:
-        raise RuntimeError(
-            f"block1: K1 launch failed with CUDA error {err} "
-            f"({lib.eeg_cuda_error_string(err).decode()})")
+        raise _launch_error(lib, err)
     block1.launches += 1
     return out
 
 
 block1.launches = 0
+
+
+def block1_stacked(x, S, W, A, B, idx):
+    """Fused block 1 on stacked weights: ``(N, C, T) -> (N, F2, T//4)``,
+    trial ``n`` with weight set ``idx[n]``.
+
+    ``S`` ``(G, F2, C)``, ``W`` ``(G, F2, 32)``, ``A`` and ``B`` ``(G, F2)``,
+    ``idx`` ``(N,)`` int32.  A CPU ``x`` runs
+    :func:`block1_stacked_reference`.  A CUDA ``x`` launches K1's stacked
+    entry point on the current stream (one launch per call, counted in
+    ``block1_stacked.launches``, apart from ``block1.launches``) after
+    checking device, dtype, shape, contiguity and ``0 <= idx < G``;
+    anything the kernel does not take raises.
+    """
+    if x.device.type == "cpu":
+        return block1_stacked_reference(x, S, W, A, B, idx)
+    if x.device.type != "cuda":
+        raise ValueError(f"block1_stacked: no kernel for device {x.device}")
+    _check_operands(x, S, W, A, B, idx)
+    n, c, t = x.shape
+    g, f2 = S.shape[0], S.shape[1]
+    out = torch.empty((n, f2, t // 4), device=x.device, dtype=torch.float32)
+    if n == 0:
+        return out
+    _check_index_range(idx, g)
+    lib = _k1_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.eeg_block1_stacked_launch(
+            x.data_ptr(), S.data_ptr(), W.data_ptr(), A.data_ptr(),
+            B.data_ptr(), idx.data_ptr(), out.data_ptr(), n, c, t, f2, g,
+            stream)
+    if err != 0:
+        raise _launch_error(lib, err)
+    block1_stacked.launches += 1
+    return out
+
+
+block1_stacked.launches = 0
 
 
 def fused_eval_forward(model, x: torch.Tensor, block1_params=None
@@ -185,3 +297,33 @@ def fused_eval_forward(model, x: torch.Tensor, block1_params=None
     h = F.avg_pool2d(h, (1, 8))
     return F.linear(h.flatten(1), model.classifier.weight,
                     model.classifier.bias)
+
+
+def fold_index(n_sets: int, per_set: int, device) -> torch.Tensor:
+    """``(n_sets * per_set,)`` int32: set ``g`` for trials ``g * per_set``
+    to ``(g + 1) * per_set - 1``, the index of a fold-stacked batch."""
+    return torch.arange(n_sets, dtype=torch.int32,
+                        device=device).repeat_interleave(per_set)
+
+
+def fused_eval_forward_stacked(params: Mapping[str, torch.Tensor],
+                               stats: Mapping[str, torch.Tensor],
+                               x: torch.Tensor, idx: torch.Tensor,
+                               eps: float = 1e-5) -> torch.Tensor:
+    """Eval-mode logits of G EEGNets at once, block 1 in one launch.
+
+    ``params``/``stats`` hold the ``state_dict`` tensors with a leading G
+    axis; ``x`` is ``(G, B, C, T)``, batch ``g`` for set ``g``, and ``idx``
+    its flattened set index (:func:`fold_index`).  Returns ``(G, B,
+    n_classes)``, equal to each set's :func:`fused_eval_forward` on its
+    batch.
+    """
+    from eegnetreplication_tpu_torch.models.eegnet import (
+        stacked_block2_classifier,
+    )
+
+    g, b, c, t = x.shape
+    S, W, A, B = fold_block1_params({**params, **stats}, eps)
+    h = block1_stacked(x.reshape(g * b, c, t), S, W, A, B, idx)
+    return stacked_block2_classifier(h.reshape(g, b, *h.shape[1:]), params,
+                                     stats, eps=eps)

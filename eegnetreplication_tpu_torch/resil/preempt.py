@@ -1,8 +1,10 @@
 """Graceful stop on SIGTERM/SIGINT.
 
-The serving subset of ``eegnetreplication_tpu/resil/preempt.py``: a signal
-only sets a flag; the entry point polls :func:`requested`, drains, and
-exits :data:`EX_PREEMPTED` so a scheduler or supervisor reads the exit as
+The subset of ``eegnetreplication_tpu/resil/preempt.py`` that serving and
+training use: a signal only sets a flag; the server polls
+:func:`requested` and drains, the training loop calls :func:`check` at
+each epoch boundary (raising :class:`Preempted`), and the entry point exits
+:data:`EX_PREEMPTED` so a scheduler or supervisor reads the exit as
 "relaunch me".
 """
 
@@ -28,6 +30,21 @@ def request() -> None:
 
 def requested() -> bool:
     return _flag.is_set()
+
+
+def clear() -> None:
+    _flag.clear()
+
+
+class Preempted(RuntimeError):
+    """A stop was requested; raised at a safe point."""
+
+
+def check(**ctx) -> None:
+    """Raise :class:`Preempted` if a stop was requested (a flag read)."""
+    if _flag.is_set():
+        where = ", ".join(f"{k}={v}" for k, v in ctx.items())
+        raise Preempted(f"stop requested ({where})")
 
 
 @contextlib.contextmanager

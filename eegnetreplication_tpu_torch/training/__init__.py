@@ -1,3 +1,16 @@
-"""Training-side modules of the torch port.  This slice ports only the
-checkpoint formats (``checkpoint``); the train step, fold loop and
-protocols arrive with the training slice."""
+"""Training subpackage of the torch port: checkpoints, steps, fold loop,
+the within-subject protocol and its report."""
+
+from eegnetreplication_tpu_torch.training.loop import (  # noqa: F401
+    FoldResult,
+    FoldSpec,
+    FoldTrainer,
+    evaluate_pool,
+    init_fold_states,
+    make_fold_spec,
+)
+from eegnetreplication_tpu_torch.training.steps import (  # noqa: F401
+    TrainState,
+    eval_step,
+    train_step,
+)

@@ -17,8 +17,11 @@ files either package can read:
 arrays in flax names and layouts) into the port's ``state_dict`` — the
 counterpart of ``to_torch_state_dict``, classifier permutation included:
 flax flattens NHWC ``(1, T', F2)``, torch NCHW ``(F2, 1, T')``.
-:func:`to_jax_variables` is its inverse.  Run-snapshot rotation, optimizer
-state and Orbax directories arrive with the training slice.
+:func:`to_jax_variables` is its inverse, and
+:func:`from_jax_variables_stacked` carries a fold-stacked tree (every leaf
+with a leading fold axis, what the JAX protocols' ``init_fold_states``
+give) into a stacked ``state_dict``.  Run snapshots with their rotation,
+optimizer state on disk and Orbax directories are not ported.
 """
 
 from __future__ import annotations
@@ -110,6 +113,21 @@ def from_jax_variables(params: Mapping, batch_stats: Mapping
         _numpy(params["classifier"]["kernel"]), f2, t_prime))
     sd["classifier.bias"] = _tensor(_numpy(params["classifier"]["bias"]))
     return sd
+
+
+def from_jax_variables_stacked(params: Mapping, batch_stats: Mapping
+                               ) -> dict[str, torch.Tensor]:
+    """A fold-stacked JAX EEGNet tree as a stacked ``state_dict``: every
+    leaf's leading axis is the fold, and each fold is carried across as
+    :func:`from_jax_variables` does."""
+    def fold(tree, g):
+        return {k: fold(v, g) if isinstance(v, Mapping) else _numpy(v)[g]
+                for k, v in tree.items()}
+
+    n = int(np.shape(params["classifier"]["bias"])[0])
+    per_fold = [from_jax_variables(fold(params, g), fold(batch_stats, g))
+                for g in range(n)]
+    return {k: torch.stack([sd[k] for sd in per_fold]) for k in per_fold[0]}
 
 
 def to_jax_variables(state_dict: Mapping) -> tuple[dict, dict]:

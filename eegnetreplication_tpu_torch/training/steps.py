@@ -1,0 +1,285 @@
+"""Optimizer, loss and the train/eval steps of G folds at once.
+
+The counterpart of ``eegnetreplication_tpu/training/steps.py``.  The JAX
+package writes one fold's step and ``vmap``s it over the folds; here every
+function takes the folds stacked along a leading G axis, so one step of a
+protocol is one forward, one backward and one optimizer update for all of
+its folds.
+
+A fold's state lives in flat ``(G, P)`` and ``(G, Q)`` tensors (parameters;
+BatchNorm running statistics) described by a :class:`StateLayout`, whose
+views under the ``state_dict`` names feed ``models/eegnet.py``'s
+:func:`~eegnetreplication_tpu_torch.models.eegnet.stacked_forward`.  So
+the gradient of the summed loss is each fold's gradient side by side (the
+folds share nothing), and Adam is a handful of operations on one tensor.
+
+- Adam is written out (b1 0.9, b2 0.999, eps 1e-7, ``m_hat / (sqrt(v_hat)
+  + eps)``, optax's ``adam``): ``torch.optim.Adam`` keeps one step count
+  per tensor, and a fold whose batch holds no real sample must keep its own
+  count, moments, parameters and statistics unchanged.
+- "Max-norm" is selectable (quirk Q1): ``"reference"`` clamps the
+  *gradients* of ``spatial.weight`` (+-1.0) and ``classifier.weight``
+  (+-0.25); ``"paper"`` projects the updated weights' L2 norms.
+- :func:`weighted_cross_entropy` is the mean over slots with weight > 0,
+  ``sum(ce * w) / max(sum(w), 1)``.
+- :func:`eval_step` runs block 1 of every fold in one launch of the stacked
+  K1 kernel (``ops/fused_eegnet.py::block1_stacked``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Mapping
+
+import torch
+
+from eegnetreplication_tpu_torch.models.eegnet import (
+    MAXNORM_LIMITS,
+    EEGNet,
+    stacked_forward,
+)
+from eegnetreplication_tpu_torch.ops.fused_eegnet import (
+    fused_eval_forward_stacked,
+)
+
+ADAM_B1 = 0.9
+ADAM_B2 = 0.999
+MAXNORM_MODES = ("reference", "paper")
+
+
+@dataclass(frozen=True)
+class FlatLayout:
+    """Where each named tensor sits in a flat ``(G, N)`` vector."""
+
+    names: tuple[str, ...]
+    shapes: tuple[tuple[int, ...], ...]
+
+    def views(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Name -> ``(G, *shape)`` view of ``flat``."""
+        out, at = {}, 0
+        for name, shape in zip(self.names, self.shapes):
+            n = _numel(shape)
+            out[name] = flat[:, at:at + n].reshape(flat.shape[0], *shape)
+            at += n
+        return out
+
+    def flatten(self, tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """Stacked ``(G, *shape)`` tensors -> one contiguous ``(G, N)``."""
+        parts = [tensors[name].reshape(tensors[name].shape[0], -1)
+                 for name in self.names]
+        return torch.cat(parts, dim=1).contiguous()
+
+
+def _numel(shape) -> int:
+    n = 1
+    for d in shape:
+        n *= d
+    return n
+
+
+@dataclass(frozen=True)
+class StateLayout:
+    """The parameter and running-statistics layouts of one EEGNet
+    geometry, in ``state_dict`` names and order."""
+
+    params: FlatLayout
+    stats: FlatLayout
+
+    @classmethod
+    def of(cls, model: EEGNet) -> "StateLayout":
+        named = list(model.named_parameters())
+        stats = [(k, v) for k, v in model.named_buffers()
+                 if not k.endswith("num_batches_tracked")]
+        return cls(
+            FlatLayout(tuple(k for k, _ in named),
+                       tuple(tuple(v.shape) for _, v in named)),
+            FlatLayout(tuple(k for k, _ in stats),
+                       tuple(tuple(v.shape) for _, v in stats)))
+
+
+@dataclass
+class TrainState:
+    """G folds' training state: parameters, BatchNorm statistics and Adam's
+    moments as flat ``(G, N)`` tensors, and Adam's step count per fold."""
+
+    layout: StateLayout
+    params: torch.Tensor    # (G, P)
+    stats: torch.Tensor     # (G, Q)
+    mu: torch.Tensor        # (G, P) first moment
+    nu: torch.Tensor        # (G, P) second moment
+    count: torch.Tensor     # (G,) int32 Adam steps taken
+
+    @classmethod
+    def create(cls, layout: StateLayout,
+               stacked: Mapping[str, torch.Tensor]) -> "TrainState":
+        """A fresh state (zero moments, count 0) from a stacked
+        ``state_dict`` (every tensor with a leading G axis)."""
+        params = layout.params.flatten(stacked).to(torch.float32)
+        stats = layout.stats.flatten(stacked).to(torch.float32)
+        return cls(layout, params, stats, torch.zeros_like(params),
+                   torch.zeros_like(params),
+                   torch.zeros(params.shape[0], dtype=torch.int32,
+                               device=params.device))
+
+    @property
+    def n_folds(self) -> int:
+        return self.params.shape[0]
+
+    def param_views(self) -> dict[str, torch.Tensor]:
+        return self.layout.params.views(self.params)
+
+    def stat_views(self) -> dict[str, torch.Tensor]:
+        return self.layout.stats.views(self.stats)
+
+    def stacked_state_dict(self) -> dict[str, torch.Tensor]:
+        """The ``state_dict`` with a leading G axis (``num_batches_tracked``
+        0, as the JAX package's weights carry no such counter)."""
+        sd = {**self.param_views(), **self.stat_views()}
+        for name in list(self.layout.stats.names):
+            if name.endswith("running_mean"):
+                prefix = name[: -len("running_mean")]
+                sd[prefix + "num_batches_tracked"] = torch.zeros(
+                    self.n_folds, dtype=torch.int64, device=self.params.device)
+        return sd
+
+    def state_dict(self, fold: int) -> dict[str, torch.Tensor]:
+        """One fold's ``state_dict``, contiguous CPU copies."""
+        return {k: v[fold].detach().cpu().contiguous()
+                for k, v in self.stacked_state_dict().items()}
+
+    def select(self, keep_new: torch.Tensor, old: "TrainState"
+               ) -> "TrainState":
+        """Fold ``g`` from ``self`` where ``keep_new[g]``, else from
+        ``old``."""
+        k = keep_new[:, None]
+        return TrainState(
+            self.layout, torch.where(k, self.params, old.params),
+            torch.where(k, self.stats, old.stats),
+            torch.where(k, self.mu, old.mu), torch.where(k, self.nu, old.nu),
+            torch.where(keep_new, self.count, old.count))
+
+    def to(self, device) -> "TrainState":
+        return TrainState(self.layout, self.params.to(device),
+                          self.stats.to(device), self.mu.to(device),
+                          self.nu.to(device), self.count.to(device))
+
+
+def clamp_reference_maxnorm(grads: Mapping[str, torch.Tensor],
+                            limits: Mapping[str, float] = MAXNORM_LIMITS
+                            ) -> dict[str, torch.Tensor]:
+    """Quirk-Q1 "reference" mode: clamp the named weights' *gradients*
+    elementwise to +-limit (the reference's ``register_hook`` fires on the
+    gradient); biases and BatchNorm are untouched."""
+    return {k: torch.clamp(g, -limits[k], limits[k]) if k in limits else g
+            for k, g in grads.items()}
+
+
+def project_paper_maxnorm(params: Mapping[str, torch.Tensor],
+                          limits: Mapping[str, float] = MAXNORM_LIMITS
+                          ) -> dict[str, torch.Tensor]:
+    """True max-norm (Lawhern et al.): rescale each spatial filter's L2
+    norm, and each classifier unit's incoming weights, to at most its
+    limit.  The JAX package norms a flax HWIO kernel over all axes but the
+    last and a Dense ``(in, out)`` kernel over axis 0; in torch's layouts
+    that is a conv ``(out, in/g, kh, kw)`` over its last three dims and a
+    Linear ``(out, in)`` over its last dim (a leading G axis is kept)."""
+    out = dict(params)
+    for name, limit in limits.items():
+        w = params[name]
+        dims = (-3, -2, -1) if name != "classifier.weight" else (-1,)
+        norms = torch.sqrt(torch.sum(w * w, dim=dims, keepdim=True))
+        scale = torch.clamp(limit / torch.clamp(norms, min=1e-12), max=1.0)
+        out[name] = w * scale
+    return out
+
+
+def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                           weights: torch.Tensor) -> torch.Tensor:
+    """Softmax cross-entropy averaged over the slots with weight > 0:
+    ``(..., B, K)`` logits -> ``(...)``, ``sum(ce * w) / max(sum(w), 1)``
+    (torch's ``CrossEntropyLoss()`` on the real samples of a padded
+    batch)."""
+    ce = torch.logsumexp(logits, dim=-1) - torch.gather(
+        logits, -1, labels.long().unsqueeze(-1)).squeeze(-1)
+    return torch.sum(ce * weights, dim=-1) / torch.clamp(
+        torch.sum(weights, dim=-1), min=1.0)
+
+
+def adam_update(state: TrainState, grads: torch.Tensor, learning_rate: float,
+                eps: float) -> TrainState:
+    """One Adam step of every fold (optax ``adam(lr, b1, b2, eps)``)."""
+    mu = ADAM_B1 * state.mu + (1.0 - ADAM_B1) * grads
+    nu = ADAM_B2 * state.nu + (1.0 - ADAM_B2) * grads * grads
+    count = state.count + 1
+    t = count.to(torch.float32)[:, None]
+    mu_hat = mu / (1.0 - torch.pow(ADAM_B1, t))
+    nu_hat = nu / (1.0 - torch.pow(ADAM_B2, t))
+    params = state.params - learning_rate * (mu_hat / (torch.sqrt(nu_hat)
+                                                       + eps))
+    return TrainState(state.layout, params, state.stats, mu, nu, count)
+
+
+def train_step(model: EEGNet, state: TrainState, x: torch.Tensor,
+               y: torch.Tensor, w: torch.Tensor, *, learning_rate: float,
+               adam_eps: float, maxnorm_mode: str = "reference",
+               generator: torch.Generator | None = None
+               ) -> tuple[TrainState, torch.Tensor, torch.Tensor]:
+    """One optimization step of every fold on its own padded batch.
+
+    ``x`` ``(G, B, C, T)``, ``y`` ``(G, B)``, ``w`` ``(G, B)`` loss weights
+    (0 marks a wrap-around padding slot).  ``model`` gives the geometry and
+    the training hyperparameters (``bn_mode``, ``dropout_rate``, momentum,
+    eps); dropout masks come from ``generator``.  Returns ``(new_state,
+    loss, grad_norm)``, the last two ``(G,)``: each fold's batch loss and
+    the global norm of its raw (pre-clamp) gradient.  A fold whose batch
+    holds no real sample keeps its parameters, statistics, moments and step
+    count, and reports 0 for both.  Nothing here waits for the device.
+    """
+    if maxnorm_mode not in MAXNORM_MODES:
+        raise ValueError(f"maxnorm_mode must be 'reference' or 'paper'; "
+                         f"got {maxnorm_mode!r}")
+    layout = state.layout
+    params = state.params.detach().requires_grad_(True)
+    with torch.enable_grad():
+        logits, new_stats = stacked_forward(
+            layout.params.views(params), state.stat_views(), x, train=True,
+            sample_weights=w, bn_mode=model.bn_mode,
+            dropout_rate=model.dropout_rate, generator=generator,
+            momentum=model.momentum, eps=model.bn_epsilon)
+        loss = weighted_cross_entropy(logits, y, w)
+        (grads,) = torch.autograd.grad(loss.sum(), params)
+    with torch.no_grad():
+        grad_norm = torch.sqrt(torch.sum(grads * grads, dim=1))
+        if maxnorm_mode == "reference":
+            grads = layout.params.flatten(clamp_reference_maxnorm(
+                layout.params.views(grads), model.MAXNORM_LIMITS))
+        new = adam_update(state, grads, learning_rate, adam_eps)
+        if maxnorm_mode == "paper":
+            new.params = layout.params.flatten(project_paper_maxnorm(
+                new.param_views(), model.MAXNORM_LIMITS))
+        new.stats = layout.stats.flatten(new_stats)
+        has_real = torch.sum(w, dim=1) > 0
+        zero = torch.zeros_like(loss)
+        return (new.select(has_real, state),
+                torch.where(has_real, loss.detach(), zero),
+                torch.where(has_real, grad_norm, zero))
+
+
+def eval_forward(model: EEGNet, state: TrainState, x: torch.Tensor,
+                 idx: torch.Tensor) -> torch.Tensor:
+    """Eval-mode logits ``(G, B, n_classes)`` of every fold on its batch of
+    ``x`` ``(G, B, C, T)``, block 1 in one stacked K1 launch (``idx`` is
+    :func:`~eegnetreplication_tpu_torch.ops.fused_eegnet.fold_index`)."""
+    return fused_eval_forward_stacked(state.param_views(), state.stat_views(),
+                                      x, idx, model.bn_epsilon)
+
+
+def eval_step(model: EEGNet, state: TrainState, x: torch.Tensor,
+              y: torch.Tensor, w: torch.Tensor, idx: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eval-mode ``(loss, weighted correct count)`` per fold, ``(G,)``
+    each; the prediction is the first maximum of the logits."""
+    logits = eval_forward(model, state, x, idx)
+    loss = weighted_cross_entropy(logits, y, w)
+    correct = torch.sum((torch.argmax(logits, dim=-1) == y) * w, dim=-1)
+    return loss, correct

@@ -1,10 +1,11 @@
-"""Where the serving engine's time goes on the card.
+"""Where the serving engine's and the training loop's time goes on the card.
 
 The counterpart of ``eegnetreplication_tpu/utils/profiling.py`` for the
 torch port: :func:`trace` wraps a block in ``torch.profiler`` (CPU and
-CUDA activity), and :func:`engine_breakdown` splits ``InferenceEngine.infer``
-at one bucket into host wall time, device busy time by kernel name, and the
-device's idle share.  Run on a card:
+CUDA activity); :func:`engine_breakdown` splits ``InferenceEngine.infer``
+at one bucket, and :func:`breakdown` any callable (``chip_smoke.py`` gives
+it one training epoch), into host wall time, device busy time by kernel
+name, and the device's idle share.  Run on a card:
 
     python -m eegnetreplication_tpu_torch.utils.profiling [--out FILE]
 
@@ -43,34 +44,57 @@ def _device_events(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def _union_us(spans) -> float:
+    """Total length of the union of ``(start, end)`` intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
 def engine_breakdown(engine, trials: np.ndarray, n_calls: int = 50,
                      top: int = 8) -> dict:
-    """Host wall and device time of ``engine.infer(trials)``, per call.
-
-    Device time is the sum of the CUDA activity the profiler records
-    (kernels and copies: one stream, so nothing overlaps); the idle share
-    is the part of the host-clock wall with no device activity.
-    """
+    """Host wall and device time of ``engine.infer(trials)``, per call."""
     for _ in range(5):
         engine.infer(trials)
+    return dict(n_trials=int(len(trials)),
+                **breakdown(lambda: engine.infer(trials), n_calls, top))
+
+
+def breakdown(fn, n_calls: int = 1, top: int = 8) -> dict:
+    """Host wall and device time of ``fn()``, per call, under the profiler
+    (warm ``fn`` up first).
+
+    Device busy time is the union of the intervals of the CUDA activity
+    the profiler records (kernels and copies; cuDNN may run some on streams
+    of its own, so they can overlap), and the idle share is the part of the
+    host-clock wall outside it; the per-kernel times are sums.
+    """
     torch.cuda.synchronize()
     with trace() as prof:
         t0 = time.perf_counter()
         for _ in range(n_calls):
-            engine.infer(trials)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_calls
     by_name: dict[str, float] = defaultdict(float)
     counts: dict[str, int] = defaultdict(int)
+    spans = []
     for e in _device_events(prof):
         by_name[e.name] += e.time_range.elapsed_us() / 1e3 / n_calls
         counts[e.name] += 1
-    busy_ms = sum(by_name.values())
+        spans.append((e.time_range.start, e.time_range.end))
+    busy_ms = _union_us(spans) / 1e3 / n_calls
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {
-        "n_trials": int(len(trials)),
         "wall_ms_per_call": wall_ms,
         "device_busy_ms_per_call": busy_ms,
+        "device_kernel_ms_sum_per_call": sum(by_name.values()),
         "device_idle_share": (max(0.0, 1.0 - busy_ms / wall_ms)
                               if busy_ms else None),
         "device_ops_per_call": sum(counts.values()) / n_calls,

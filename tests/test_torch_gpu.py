@@ -10,8 +10,13 @@ K1 (``block1``) is held against its plain version ``block1_reference`` on
 the same card at the serving shapes, atol/rtol 1e-5 (only the order of the
 f32 sums differs), also at T on the edges of its time tile, at T=1125
 and at B=1024; the engine's fused forward on the card against the
-plain forward on the CPU at atol 1e-5 / rtol 1e-4.  K2 (``ems``) is held
-against ``ems_reference`` on the card at a session's (22, 345600) and the
+plain forward on the CPU at atol 1e-5 / rtol 1e-4.  K1's stacked form
+(``block1_stacked``: G weight sets and an index per trial) is held against
+``block1_stacked_reference`` at the shapes of ``chip_smoke.py`` phase 3b,
+atol/rtol 1e-5; one fold-stacked train step on the card against the CPU at
+dropout 0 (2e-3, the tolerance the CPU tests hold the port to against JAX);
+one training epoch launches the stacked K1 once per validation batch.  K2
+(``ems``) is held against ``ems_reference`` on the card at a session's (22, 345600) and the
 edge shapes (K2's tile boundaries among them), atol/rtol 1e-4 (the JAX
 package's Pallas-vs-scan tolerance).  Each kernel called three times on one
 input gives the same bits.  The card's preprocessing path with
@@ -28,6 +33,7 @@ from eegnetreplication_tpu_torch.models import EEGNet
 from eegnetreplication_tpu_torch.ops import ems_kernel
 from eegnetreplication_tpu_torch.ops import fused_eegnet as fused
 from eegnetreplication_tpu_torch.serve.engine import InferenceEngine
+from eegnetreplication_tpu_torch.training import loop, steps
 
 pytestmark = pytest.mark.gpu
 
@@ -252,3 +258,100 @@ def test_preprocessing_on_card_runs_k2_and_never_the_plain_version(
     got = preprocess.preprocess_recording(rec, device=cuda).data
     assert ems_kernel.ems.launches == before + 1
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+
+
+def _stacked_weights(g, c=22, f2=16, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return (0.3 * torch.randn((g, f2, c), generator=gen),
+            0.2 * torch.randn((g, f2, 32), generator=gen),
+            1.0 + 0.2 * torch.randn((g, f2), generator=gen),
+            0.2 * torch.randn((g, f2), generator=gen))
+
+
+K1_STACKED = [(g, b, t, False) for g in (1, 8, 36) for b in (1, 64)
+              for t in (257, 1125)]
+K1_STACKED += [(8, 64, 257, True), (36, 64, 257, True), (36, 1, 1125, True)]
+
+
+@pytest.mark.parametrize("g, b, t, permuted", K1_STACKED,
+                         ids=[f"G{g}-B{b}-T{t}{'-perm' if p else ''}"
+                              for g, b, t, p in K1_STACKED])
+def test_block1_stacked_kernel_matches_reference(cuda, g, b, t, permuted):
+    S, W, A, B = (v.to(cuda) for v in _stacked_weights(g, seed=g + b + t))
+    x = _trials(g * b, 22, t, seed=g * b).to(cuda)
+    idx = fused.fold_index(g, b, cuda)
+    if permuted:
+        perm = torch.randperm(g * b, generator=torch.Generator().manual_seed(1))
+        idx = idx[perm.to(cuda)].contiguous()
+    before = fused.block1_stacked.launches
+    with torch.no_grad():
+        got = fused.block1_stacked(x, S, W, A, B, idx)
+        want = fused.block1_stacked_reference(x, S, W, A, B, idx)
+    torch.cuda.synchronize()
+    assert fused.block1_stacked.launches == before + 1
+    assert got.shape == (g * b, 16, t // 4)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_block1_stacked_kernel_is_deterministic_and_checks_idx(cuda):
+    S, W, A, B = (v.to(cuda) for v in _stacked_weights(8, seed=5))
+    x = _trials(512, 22, 257).to(cuda)
+    idx = fused.fold_index(8, 64, cuda)
+    with torch.no_grad():
+        runs = [fused.block1_stacked(x, S, W, A, B, idx) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    bad = idx.clone()
+    bad[7] = 8
+    with pytest.raises(ValueError, match="outside"):
+        fused.block1_stacked(x, S, W, A, B, bad)
+    with pytest.raises(TypeError, match="int32"):
+        fused.block1_stacked(x, S, W, A, B, idx.long())
+
+
+def _fold_state(n_folds, c=22, t=257, seed=0):
+    model = EEGNet(c, t, dropout_rate=0.0, device="cpu")
+    return model, loop.init_fold_states(
+        model, n_folds, torch.Generator().manual_seed(seed))
+
+
+def test_one_stacked_train_step_on_card_matches_cpu(cuda):
+    model, state = _fold_state(8)
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(8, 64, 22, 257).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 4, (8, 64)))
+    w = torch.ones(8, 64)
+    w[3, 40:] = 0.0          # wrap-around padding slots
+    w[5] = 0.0               # a fold with no real sample
+    kw = dict(learning_rate=1e-3, adam_eps=1e-7)
+    cpu, cpu_loss, cpu_gn = steps.train_step(model, state, x, y, w, **kw)
+    card, loss, gn = steps.train_step(model, state.to(cuda), x.to(cuda),
+                                      y.to(cuda), w.to(cuda), **kw)
+    torch.testing.assert_close(loss.cpu(), cpu_loss, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(gn.cpu(), cpu_gn, atol=2e-3, rtol=2e-3)
+    for field in ("params", "stats", "mu", "nu"):
+        torch.testing.assert_close(getattr(card, field).cpu(),
+                                   getattr(cpu, field), atol=2e-3, rtol=2e-3)
+    assert card.count.cpu().tolist() == [1] * 5 + [0] + [1] * 2
+    assert torch.equal(card.params[5].cpu(), state.params[5])
+
+
+def test_one_epoch_launches_stacked_k1_once_per_validation_batch(cuda):
+    model, state = _fold_state(4, seed=1)
+    rng = np.random.RandomState(4)
+    pool_x = torch.from_numpy(rng.randn(300, 22, 257).astype(np.float32))
+    pool_y = torch.from_numpy(rng.randint(0, 4, 300))
+    folds = [(np.arange(0, 150), np.arange(150, 230), np.arange(230, 300))
+             for _ in range(4)]
+    spec = loop.make_fold_spec(folds, train_pad=150, val_pad=80,
+                               test_pad=70)
+    trainer = loop.FoldTrainer(model, pool_x.to(cuda), pool_y.to(cuda), spec,
+                               state, batch_size=64, learning_rate=1e-3,
+                               adam_eps=1e-7)
+    assert (trainer.train_steps, trainer.val_steps, trainer.test_steps) \
+        == (3, 2, 2)
+    before = fused.block1_stacked.launches
+    trainer.run_epoch()
+    assert fused.block1_stacked.launches == before + 2
+    trainer.result()
+    assert fused.block1_stacked.launches == before + 4

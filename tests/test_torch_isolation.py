@@ -45,7 +45,9 @@ _CHILD = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     for name in ("dataset", "data.verify", "data.preprocess", "ops.ems",
-                 "ops.ems_kernel"):
+                 "ops.ems_kernel", "train", "data.splits", "models.norm",
+                 "training.steps", "training.loop", "training.protocols",
+                 "training.report"):
         assert "eegnetreplication_tpu_torch." + name in names, name
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   {chip_smoke!r})
@@ -80,7 +82,7 @@ def test_port_imports_without_jax_and_refuses_a_host_without_cuda():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     n_modules = int(out.stdout.split("imported ", 1)[1].split()[0])
-    assert n_modules >= 15
+    assert n_modules >= 22
     assert "engine refused: CUDA is not available" in out.stdout
 
 
@@ -140,3 +142,31 @@ def test_chip_smoke_fails_without_a_card_or_the_port(tmp_path, where):
                          timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+_SAFE_PATH_CHILD = textwrap.dedent("""
+    import importlib.util, sys
+    try:
+        import eegnetreplication_tpu_torch
+    except ImportError:
+        print("not importable before chip_smoke")
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  {chip_smoke!r})
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    import eegnetreplication_tpu_torch
+    print("port at", eegnetreplication_tpu_torch.__file__)
+""")
+
+
+def test_chip_smoke_finds_the_port_under_pythonsafepath(tmp_path):
+    """Run from another directory with PYTHONSAFEPATH=1, Python leaves the
+    script's directory off ``sys.path``; chip_smoke.py's import step puts
+    its checkout there itself."""
+    code = _SAFE_PATH_CHILD.format(chip_smoke=str(REPO / "chip_smoke.py"))
+    env = {k: v for k, v in _env(PYTHONSAFEPATH="1").items()
+           if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "not importable before chip_smoke" in out.stdout
+    assert f"port at {PORT / '__init__.py'}" in out.stdout

@@ -109,10 +109,14 @@ def test_seeded_init_is_reproducible_and_torch_shaped():
 
 
 def test_training_mode_forward_raises():
+    """Training mode is ported (``models/norm.py``'s BatchNorm, checked
+    against the JAX model in ``test_torch_training_units.py``); what it
+    refuses is padding weights that do not match the batch."""
     model = EEGNet(8, 64, device="cpu")
     model.train()
-    with pytest.raises(NotImplementedError, match="training-mode"):
-        model(torch.zeros(1, 8, 64))
+    assert model(torch.zeros(2, 8, 64)).shape == (2, 4)
+    with pytest.raises(ValueError, match="sample_weights"):
+        model(torch.zeros(2, 8, 64), torch.ones(3))
 
 
 def test_wrong_geometry_raises():
