@@ -123,7 +123,24 @@ TRAIN_EPOCHS = 5          # the CLI and the card's in-process run
 CPU_EPOCHS = 2            # the CPU half of the card-vs-CPU check
 LEARN_EPOCHS = 30         # the separable pool
 TIME_EPOCHS = 10          # the throughput runs
-K1_STACKED_SIZES = ((8, 64), (36, 64))   # (folds, batch): 512 and 2304
+# (folds, batch): the 8- and 36-fold within-subject validation batches and
+# the 90-fold cross-subject one (512, 2304 and 5760 trials)
+K1_STACKED_SIZES = ((8, 64), (36, 64), (90, 64))
+# Cross-subject training and resume (phase 11).
+CS_EPOCHS = 2             # the CLI and the counted runs
+CS_GROUP = 15             # the counted run in groups: 6 groups of 15
+CS_SWEEP = (15, 30, 45, 90)
+CS_SWEEP_EPOCHS = 2       # timed, after one warm-up epoch
+CS_LEARN_EPOCHS = 10
+# The resume drill: a resumed card run against an unbroken one.  The same
+# seed and dropout stream on the same card; only the order of sums inside
+# cuDNN's (possibly nondeterministic) algorithms can differ, so the
+# weights are held to TRAIN_ATOL and each subject's mean test accuracy to
+# one percentage point (a few of its 576 test trials flipping on a logit
+# near-tie).
+RESUME_EPOCHS, RESUME_EVERY = 4, 2
+RESUME_ACC_TOL = 1.0
+RESUME_WAIT_S = 600.0
 WS_REPORT_KEYS = {
     "": {"training_type", "timestamp", "model_parameters",
          "overall_results", "per_subject_results", "model_info",
@@ -136,6 +153,19 @@ WS_REPORT_KEYS = {
     "model_info": {"architecture", "optimizer", "loss_function",
                    "saved_models_count"},
     "summary_statistics": {"accuracy_distribution", "accuracy_quartiles"},
+}
+CS_REPORT_KEYS = {
+    "": WS_REPORT_KEYS[""],
+    "model_parameters": {"batch_size", "epochs", "learning_rate",
+                         "dropout_probability", "total_folds",
+                         "repeats_per_subject", "train_subjects_per_fold",
+                         "validation_subjects_per_fold"},
+    "overall_results": {"average_test_accuracy", "standard_error",
+                        "number_of_test_subjects", "best_subject_accuracy",
+                        "worst_subject_accuracy", "accuracy_std"},
+    "model_info": {"architecture", "optimizer", "loss_function",
+                   "saved_model"},
+    "summary_statistics": WS_REPORT_KEYS["summary_statistics"],
 }
 
 
@@ -359,7 +389,9 @@ def phase_k1_stacked(torch, dev):
 
     cases = [(g, b, t, False) for g in (1, 8, 36) for b in (1, 64)
              for t in (257, 1125)]
-    cases += [(8, 64, 257, True), (36, 64, 257, True), (36, 1, 1125, True)]
+    cases += [(8, 64, 257, True), (36, 64, 257, True), (36, 1, 1125, True),
+              # a cross-subject validation batch of 90 folds: 5760 trials
+              (90, 64, 257, False), (90, 64, 257, True)]
     worst = 0.0
     for i, (g, b, t, permuted) in enumerate(cases):
         S, W, A, B = (v.to(dev) for v in stacked_weights(torch, g, 22, 16,
@@ -670,7 +702,7 @@ def phase_timer_floor(torch, dev):
 
 
 def phase_k1_stacked_times(torch, dev):
-    """K1-stacked at the validation batches of 8 and 36 folds (CUDA
+    """K1-stacked at the validation batches of 8, 36 and 90 folds (CUDA
     events, median), beside its plain version, one grouped cuDNN composite
     of the same function and its bound."""
     import torch.nn.functional as F
@@ -1300,6 +1332,335 @@ def phase_train(torch, np, dev, work: Path, env: dict, data_root: Path):
             "learn_fold_epochs_per_s": learn.epoch_throughput,
             "times_by_folds": times}
 
+def _replicated_tree(src: Path, dst: Path, subjects=tuple(range(1, 10))):
+    """A processed tree under ``dst`` whose subject ``s`` is ``src``'s
+    subject ``(s - 1) % 2 + 1`` (symlinks to phase 8's two subjects)."""
+    from eegnetreplication_tpu_torch.config import Paths
+    from eegnetreplication_tpu_torch.data.io import trials_filename
+
+    src_paths, dst_paths = Paths.from_root(src), Paths.from_root(dst)
+    for mode in ("Train", "Eval"):
+        (dst_paths.data_processed / mode).mkdir(parents=True)
+        for s in subjects:
+            (dst_paths.data_processed / mode / trials_filename(s, mode)
+             ).symlink_to(src_paths.data_processed / mode
+                          / trials_filename((s - 1) % 2 + 1, mode))
+    return dst_paths
+
+
+def _check_report(path: Path, keys: dict, what: str) -> dict:
+    report = json.loads(path.read_text())
+    for section, want in keys.items():
+        got = set(report[section] if section else report)
+        check(got == want, f"{what} report {section or 'top level'} keys "
+              f"{got} != the JAX report's {want}")
+    return report
+
+
+def _resume_drill(np, work: Path, env: dict, data_root: Path) -> dict:
+    """Within-subject training at 8 folds through the CLI: SIGTERM once
+    the first run snapshot exists (exit 75, a snapshot left), then
+    ``--resume`` (exit 0, snapshots gone), against an unbroken run from
+    the same seed."""
+    from eegnetreplication_tpu_torch.training import checkpoint as ckpt_lib
+
+    argv = [sys.executable, "-m", "eegnetreplication_tpu_torch.train",
+            "--trainingType", "Within-Subject", "--subjects", "1,2",
+            "--epochs", str(RESUME_EPOCHS),
+            "--checkpointEvery", str(RESUME_EVERY)]
+    roots = {name: _replicated_tree(data_root, work / name, (1, 2))
+             for name in ("unbroken", "stopped")}
+
+    def run(name, extra=()):
+        out = subprocess.run(
+            argv + list(extra), cwd=ROOT, capture_output=True, text=True,
+            env=dict(env, EEGTPU_DATA_ROOT=str(roots[name].project_root)),
+            timeout=RESUME_WAIT_S)
+        return out.returncode, out.stderr
+
+    rc, err = run("unbroken")
+    check(rc == 0, f"unbroken train CLI exited {rc}:\n{err[-4000:]}")
+
+    paths = roots["stopped"]
+    snap = paths.models / "within_subject_eegnet.run.npz"
+    log_path = work / "stopped.stderr.log"
+    with open(log_path, "w") as stderr:
+        proc = subprocess.Popen(
+            argv, cwd=ROOT, stdout=subprocess.DEVNULL, stderr=stderr,
+            env=dict(env, EEGTPU_DATA_ROOT=str(paths.project_root)))
+        try:
+            deadline = time.monotonic() + RESUME_WAIT_S
+            while not snap.exists() and proc.poll() is None \
+                    and time.monotonic() < deadline:
+                time.sleep(0.001)
+            signalled = proc.poll() is None and snap.exists()
+            if signalled:
+                proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=RESUME_WAIT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    check(signalled, f"the drill missed its window: the run exited {rc} "
+          f"before SIGTERM:\n{log_path.read_text()[-4000:]}")
+    check(rc == 75, f"SIGTERM'd train CLI exited {rc}, want 75:\n"
+          + log_path.read_text()[-4000:])
+    stored = ckpt_lib.read_snapshot_signature(snap)
+    check(stored is not None, "no readable run snapshot after exit 75")
+    _, epochs_done = ckpt_lib.load_run_snapshot(snap, stored)
+    log(f"resume drill: SIGTERM once the first snapshot existed -> exit "
+        f"75 with the epoch-{epochs_done} snapshot on disk")
+
+    rc, err = run("stopped", ["--resume"])
+    check(rc == 0, f"--resume train CLI exited {rc}:\n{err[-4000:]}")
+    check(f"Resuming from {snap} at epoch {epochs_done}" in err,
+          "the --resume run did not report resuming from the snapshot")
+    left = sorted(p.name for p in paths.models.glob("*.run.npz*"))
+    check(not left, f"--resume left run snapshots behind: {left}")
+
+    reports = [json.loads((roots[n].reports
+                           / "latest_within_subject_report.json").read_text())
+               for n in ("stopped", "unbroken")]
+    acc = [[e["test_accuracy"] for e in r["per_subject_results"]]
+           for r in reports]
+    acc_delta = float(np.max(np.abs(np.subtract(*acc))))
+    check(acc_delta <= RESUME_ACC_TOL,
+          f"resumed vs unbroken per-subject test accuracies {acc[0]} vs "
+          f"{acc[1]}")
+    weight_delta = 0.0
+    for s in (1, 2):
+        name = f"subject_{s:02d}_best_model.npz"
+        got, _ = ckpt_lib.load_checkpoint(paths.models / name)
+        want, _ = ckpt_lib.load_checkpoint(roots["unbroken"].models / name)
+        for key in want:
+            weight_delta = max(weight_delta,
+                               float((got[key] - want[key]).abs().max()))
+    check(weight_delta <= TRAIN_ATOL,
+          f"resumed vs unbroken model weights differ by {weight_delta:.3e} "
+          f"(atol {TRAIN_ATOL})")
+    log(f"resume drill: --resume completed and cleaned up; vs the unbroken "
+        f"run: per-subject accuracy delta {acc_delta:.3f} points (tol "
+        f"{RESUME_ACC_TOL}), weight delta {weight_delta:.3e} (atol "
+        f"{TRAIN_ATOL})")
+    return {"epochs_done_at_stop": epochs_done, "acc_max_delta": acc_delta,
+            "weight_max_abs_delta": weight_delta}
+
+
+def _group_sweep(torch, dev, setup) -> dict:
+    """Fold-epochs/s of the whole protocol at each group size: every
+    group's trainer takes one warm-up epoch, then CS_SWEEP_EPOCHS timed
+    epochs each, group after group (host clock, ended by a synchronize);
+    the peak device memory of the size."""
+    rows = {}
+    for size in CS_SWEEP:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        trainers = [setup.trainer(lo, min(lo + size, setup.n_folds))
+                    for lo in range(0, setup.n_folds, size)]
+        for trainer in trainers:
+            trainer.run_epoch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for trainer in trainers:
+            for _ in range(CS_SWEEP_EPOCHS):
+                trainer.run_epoch()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows[size] = {
+            "groups": len(trainers), "wall_s": wall,
+            "wall_per_epoch_ms": wall * 1e3 / CS_SWEEP_EPOCHS,
+            "fold_epochs_per_s": setup.n_folds * CS_SWEEP_EPOCHS / wall,
+            "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "train_steps": trainers[0].train_steps,
+            "val_steps": trainers[0].val_steps}
+        log(f"group size {size} ({len(trainers)} groups): "
+            f"{rows[size]['fold_epochs_per_s']:.2f} fold-epochs/s, "
+            f"{rows[size]['wall_per_epoch_ms']:.1f} ms per protocol epoch, "
+            f"peak memory {rows[size]['peak_memory_gb']:.2f} GiB")
+        del trainers
+    return rows
+
+
+def _writer_times(torch, trainer, work: Path) -> dict:
+    """The snapshot writer at a 90-fold carry, both modes: two snapshots
+    each with an epoch between them; what the write takes and what the
+    loop waits (host clock)."""
+    from eegnetreplication_tpu_torch.training.async_ckpt import SnapshotWriter
+
+    carry_mb = sum(v.numel() * v.element_size()
+                   for v in trainer.carry().values()) / 1e6
+    out = {"carry_mb": carry_mb}
+    for mode in ("async", "sync"):
+        writer = SnapshotWriter(work / f"writer_{mode}.run.npz",
+                                {"smoke": mode}, async_=mode == "async")
+        submit_s = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            writer.submit(trainer.carry(), epochs_done=trainer.epoch)
+            submit_s.append(time.perf_counter() - t0)
+            if i == 0:
+                trainer.run_epoch()
+        writer.close()
+        recs = writer.records
+        loop_waits = [r["stage_s"] + r["blocked_s"] for r in recs
+                      if not r["drain"]]
+        out[mode] = {
+            "write_ms": [r["write_s"] * 1e3 for r in recs],
+            "stage_ms": [r["stage_s"] * 1e3 for r in recs],
+            "loop_blocked_ms": [w * 1e3 for w in loop_waits],
+            "submit_call_ms": [t * 1e3 for t in submit_s]}
+        log(f"snapshot writer ({mode}) at 90 folds ({carry_mb:.2f} MB "
+            f"carry): write {', '.join(f'{x:.1f}' for x in out[mode]['write_ms'])}"
+            f" ms; the loop waited "
+            f"{', '.join(f'{x:.2f}' for x in out[mode]['loop_blocked_ms'])} ms")
+    return out
+
+
+def phase_cross_subject(torch, np, dev, work: Path, env: dict,
+                        data_root: Path):
+    """Phase 11: cross-subject training over phase 8's two subjects
+    replicated to nine, group sizes, the snapshot writer, and the resume
+    drill."""
+    from eegnetreplication_tpu_torch.config import DEFAULT_TRAINING, Paths
+    from eegnetreplication_tpu_torch.data.io import load_subject_dataset
+    from eegnetreplication_tpu_torch.ops.fused_eegnet import block1_stacked
+    from eegnetreplication_tpu_torch.training.loop import n_steps
+    from eegnetreplication_tpu_torch.training.protocols import (
+        CS_CARD_FOLD_BATCH,
+        cross_subject_setup,
+        cross_subject_training,
+    )
+    from eegnetreplication_tpu_torch.utils.profiling import breakdown
+
+    cs_paths = _replicated_tree(data_root, work / "tree")
+    run_env = dict(env, EEGTPU_DATA_ROOT=str(cs_paths.project_root))
+
+    # The CLI a user runs, on the card, 9 subjects x 10 repeats = 90 folds.
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "eegnetreplication_tpu_torch.train",
+         "--trainingType", "Cross-Subject", "--epochs", str(CS_EPOCHS)],
+        cwd=ROOT, env=run_env, capture_output=True, text=True, timeout=900)
+    cli_s = time.perf_counter() - t0
+    check(cli.returncode == 0, f"cross-subject train CLI exited "
+          f"{cli.returncode}:\n" + cli.stderr[-4000:])
+    report = _check_report(
+        cs_paths.reports / "latest_cross_subject_report.json",
+        CS_REPORT_KEYS, "cross-subject")
+    check(report["model_parameters"]["total_folds"] == 90,
+          f"report total_folds {report['model_parameters']['total_folds']}")
+    for ext in ("pth", "npz"):
+        f = cs_paths.models / f"cross_subject_best_model.{ext}"
+        check(f.is_file(), f"cross-subject CLI did not write {f.name}")
+    log(f"cross-subject train CLI: {CS_EPOCHS} epochs of 90 folds in "
+        f"{cli_s:.1f}s, report keys equal the JAX report's, average test "
+        f"accuracy {report['overall_results']['average_test_accuracy']}%")
+    pred = subprocess.run(
+        [sys.executable, "-m", "eegnetreplication_tpu_torch.predict",
+         "--checkpoint", str(cs_paths.models / "cross_subject_best_model.npz"),
+         "--subject", "1"],
+        cwd=ROOT, env=run_env, capture_output=True, text=True, timeout=600)
+    check(pred.returncode == 0, f"predict on the cross-subject checkpoint "
+          f"exited {pred.returncode}:\n" + pred.stderr[-4000:])
+    marker = "block1 kernel launches: "
+    check(marker in pred.stderr, "predict did not report K1 launches")
+    predict_k1 = int(pred.stderr.split(marker, 1)[1].split()[0])
+    check(predict_k1 > 0, "predict on the cross-subject model launched no K1")
+    log(f"predict --checkpoint cross_subject_best_model.npz --subject 1: "
+        f"{pred.stdout.strip().splitlines()[-1]!r}, K1 launches {predict_k1}")
+
+    # In process: the main path whose stacked-K1 launches are counted.
+    def loader(s, mode):
+        return load_subject_dataset(s, mode, cs_paths)
+
+    subjects = tuple(range(1, 10))
+    kw = dict(loader=loader, subjects=subjects, save_models=False,
+              paths=Paths.from_root(work / "inproc"), device=dev)
+    val_steps = n_steps(3 * N_TRIALS, DEFAULT_TRAINING.batch_size, 1)
+    test_steps = n_steps(N_TRIALS, DEFAULT_TRAINING.batch_size, 1)
+    per_group = CS_EPOCHS * val_steps + test_steps
+    launches = {}
+    for fold_batch, n_groups in ((0, 1), (CS_GROUP, 90 // CS_GROUP)):
+        block1_stacked.launches = 0
+        run = cross_subject_training(CS_EPOCHS, fold_batch=fold_batch, **kw)
+        launches[fold_batch] = block1_stacked.launches
+        want = n_groups * per_group
+        check(launches[fold_batch] == want,
+              f"K1-stacked launched {launches[fold_batch]} times in "
+              f"{n_groups} group(s) of {CS_EPOCHS} epochs; want {n_groups} x "
+              f"({CS_EPOCHS} x {val_steps} + {test_steps}) = {want}")
+        check(np.isfinite(run.fold_min_val_loss).all()
+              and run.fold_test_acc.shape == (90,),
+              f"cross-subject run at fold_batch={fold_batch}: non-finite "
+              "losses or a wrong fold count")
+        log(f"in process: 90 folds x {CS_EPOCHS} epochs in {n_groups} "
+            f"group(s), K1-stacked launches {launches[fold_batch]} = "
+            f"{n_groups} x ({CS_EPOCHS} x {val_steps} + {test_steps}); "
+            f"{run.epoch_throughput:.2f} fold-epochs/s")
+
+    # Groups against one group at dropout 0, 18 folds.
+    p0 = DEFAULT_TRAINING.replace(dropout_cross_subject=0.0,
+                                  cs_repeats_per_subject=2)
+    runs = {fb: cross_subject_training(CS_EPOCHS, config=p0, fold_batch=fb,
+                                       **kw) for fb in (0, 6)}
+    group_delta = {}
+    for name in ("train_losses", "val_losses", "min_val_loss"):
+        a, b = (getattr(runs[fb].folds, name) for fb in (6, 0))
+        check(bool(torch.isfinite(a).all()), f"grouped {name} not finite")
+        group_delta[name] = float((a - b).abs().max())
+        check(torch.allclose(a, b, atol=TRAIN_ATOL, rtol=TRAIN_RTOL),
+              f"fold_batch=6 vs one group: {name} differ by "
+              f"{group_delta[name]:.3e} (atol {TRAIN_ATOL})")
+    log(f"18 folds at dropout 0, groups of 6 vs one group: train losses "
+        f"{group_delta['train_losses']:.3e}, validation losses "
+        f"{group_delta['val_losses']:.3e} (atol {TRAIN_ATOL})")
+
+    # Learning: the separable pool, class patterns shared across subjects.
+    def sep_loader(s, mode):
+        return separable_subject(np, s, mode)
+
+    learn = cross_subject_training(
+        CS_LEARN_EPOCHS, config=DEFAULT_TRAINING.replace(
+            cs_repeats_per_subject=2), **dict(kw, loader=sep_loader))
+    check(learn.avg_test_acc > 50.0,
+          f"separable pool, cross-subject: test accuracy "
+          f"{learn.avg_test_acc:.2f}% after {CS_LEARN_EPOCHS} epochs")
+    log(f"separable pool, cross-subject, 18 folds x {CS_LEARN_EPOCHS} epochs "
+        f"at dropout 0.25: test accuracy {learn.avg_test_acc:.2f}% (chance "
+        f"25%)")
+
+    drill = _resume_drill(np, work / "drill", env, data_root)
+
+    # Group sizes of the full protocol, then one epoch of the best under
+    # the profiler, and the snapshot writer at 90 folds.
+    setup, _ = cross_subject_setup(loader, subjects, device=dev)
+    sweep = _group_sweep(torch, dev, setup)
+    best = max(sweep, key=lambda size: sweep[size]["fold_epochs_per_s"])
+    trainers = [setup.trainer(lo, min(lo + best, 90))
+                for lo in range(0, 90, best)]
+    for trainer in trainers:
+        trainer.run_epoch()
+    profile = breakdown(lambda: [t.run_epoch() for t in trainers],
+                        n_calls=1, top=10)
+    log(f"fastest group size {best} (CS_CARD_FOLD_BATCH = "
+        f"{CS_CARD_FOLD_BATCH}); one epoch under the profiler: wall "
+        f"{profile['wall_ms_per_call']:.1f} ms, device busy "
+        f"{profile['device_busy_ms_per_call']:.1f} ms, idle share "
+        f"{profile['device_idle_share']}")
+    del trainers
+    writer = _writer_times(torch, setup.trainer(0, 90), work)
+    return {"cli_s": cli_s, "predict_k1_launches": predict_k1,
+            "launches_one_group": launches[0],
+            "launches_groups": launches[CS_GROUP],
+            "val_steps": val_steps, "test_steps": test_steps,
+            "group_vs_one_max_abs": group_delta,
+            "learn_test_acc": learn.avg_test_acc,
+            "learn_fold_epochs_per_s": learn.epoch_throughput,
+            "resume_drill": drill, "group_sweep": sweep, "best_group": best,
+            "card_fold_batch": CS_CARD_FOLD_BATCH, "epoch_profile": profile,
+            "writer": writer}
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1348,6 +1709,8 @@ def main(argv=None) -> int:
                                       Path(dataset["raw_session"]), Path(tmp))
             train = phase_train(torch, np, dev, Path(tmp) / "train", env,
                                 Path(tmp) / "cli")
+            cs = phase_cross_subject(torch, np, dev, Path(tmp) / "cs", env,
+                                     Path(tmp) / "cli")
     except Exception:  # noqa: BLE001 — every failure ends the run
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -1371,13 +1734,16 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "eegnetreplication_tpu_torch/ops/csrc/block1.cu",
         "replaces": "eegnetreplication_tpu/ops/fused_eegnet.py:134",
-        "launches": train["launches"],
+        # the counted runs of the training phases (10 and 11)
+        "launches": (train["launches"] + cs["launches_one_group"]
+                     + cs["launches_groups"]),
         "max_abs_err": k1s_err,
-        "ms": k1s_times[512]["ms"],
-        "plain_ms": k1s_times[512]["plain_ms"],
-        "bound_ms": k1s_times[512]["bound_ms"],
-        "bound_by": k1s_times[512]["bound_by"],
-        "library_ms": k1s_times[512]["library_ms"],
+        # at the 90-fold cross-subject validation batch, (5760, 22, 257)
+        "ms": k1s_times[5760]["ms"],
+        "plain_ms": k1s_times[5760]["plain_ms"],
+        "bound_ms": k1s_times[5760]["bound_ms"],
+        "bound_by": k1s_times[5760]["bound_by"],
+        "library_ms": k1s_times[5760]["library_ms"],
     }, {
         "name": "ems",
         "route": "cuda",
@@ -1399,7 +1765,7 @@ def main(argv=None) -> int:
         "times_by_bucket": times, "k2_max_abs_err": k2_err,
         "k2_vs_methods_max_abs_err": k2_vs_methods, "dataset": dataset,
         "k2_times": k2_times, "k1_stacked_max_abs_err": k1s_err,
-        "k1_stacked_times": k1s_times, "train": train,
+        "k1_stacked_times": k1s_times, "train": train, "cross_subject": cs,
         "wall_s": time.perf_counter() - t_start,
     }
     print(json.dumps({"timings": record}), flush=True)

@@ -5,7 +5,7 @@ Hopper card (H100).  It keeps the JAX package's module layout and names so
 each module's counterpart is easy to find, and imports nothing of it: the
 JAX package stays the reference the port is tested against.
 
-Two paths are ported.  Serving: checkpoint loading (native ``.npz`` and
+Three paths are ported.  Serving: checkpoint loading (native ``.npz`` and
 the reference's ``.pth``), the bucketed inference engine, the
 micro-batcher, the HTTP service and the ``predict`` CLI; EEGNet's block 1
 runs in a CUDA kernel written by hand (``ops/csrc/block1.cu``).
@@ -13,8 +13,12 @@ Preprocessing: the ``dataset`` CLI reads the competition's GDF files,
 resamples, bandpasses and standardizes them on the card and writes the
 JAX package's ``-preprocessed.npz`` and ``-trials.npz`` files; its
 exponential moving standardization runs in a second hand-written kernel
-(``ops/csrc/ems.cu``) when ``EEGTPU_EMS_METHOD=pallas``.  Each kernel is
-the counterpart of one of the JAX package's Pallas kernels.
+(``ops/csrc/ems.cu``) when ``EEGTPU_EMS_METHOD=pallas``.  Training: the
+``train`` CLI runs the within-subject and cross-subject protocols with all
+folds of a group per step, chunked runs with run snapshots and
+``--resume``; every validation and test batch runs block 1 of all folds in
+one launch of K1's stacked form.  Each kernel is the counterpart of one of
+the JAX package's Pallas kernels.
 
 Like the JAX package init, this re-exports the shared ``logger``.
 """

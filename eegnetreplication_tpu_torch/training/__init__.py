@@ -1,5 +1,6 @@
-"""Training subpackage of the torch port: checkpoints, steps, fold loop,
-the within-subject protocol and its report."""
+"""Training subpackage of the torch port: checkpoints and run snapshots,
+the snapshot writer, steps, the fold loop, both protocols and their
+reports (the same exports as the JAX package's ``training``)."""
 
 from eegnetreplication_tpu_torch.training.loop import (  # noqa: F401
     FoldResult,

@@ -20,13 +20,25 @@ flax flattens NHWC ``(1, T', F2)``, torch NCHW ``(F2, 1, T')``.
 :func:`to_jax_variables` is its inverse, and
 :func:`from_jax_variables_stacked` carries a fold-stacked tree (every leaf
 with a leading fold axis, what the JAX protocols' ``init_fold_states``
-give) into a stacked ``state_dict``.  Run snapshots with their rotation,
-optimizer state on disk and Orbax directories are not ported.
+give) into a stacked ``state_dict``.
+
+Run snapshots (:func:`save_run_snapshot`, :func:`load_run_snapshot`) hold a
+chunked run's carry between chunks with the JAX package's durability
+contract: a same-directory temp file renamed into place, the sha256
+digest, and keep-N generations (``snap.npz`` newest, ``snap.npz.gen1`` the
+one before, ...; ``EEGTPU_SNAPSHOT_KEEP``, default 2).  A generation that
+fails integrity is quarantined to ``*.corrupt`` and the next one answers.
+The carry is the port's own (``training/loop.py::FoldTrainer.carry``),
+stored under its names (``carry/<name>``); a stored signature that differs
+from the run's raises, so a snapshot of another run, the JAX package's
+included, is never poured into this one.  Orbax directories are not
+ported.
 """
 
 from __future__ import annotations
 
 import json
+import os
 from pathlib import Path
 from typing import Mapping
 
@@ -37,6 +49,11 @@ from eegnetreplication_tpu_torch.resil import integrity
 from eegnetreplication_tpu_torch.utils.logging import logger
 
 SEP = "/"
+CARRY_PREFIX = "carry" + SEP
+
+# Run-snapshot generations kept by rotation, the newest included: one
+# fallback survives any single corrupt write.
+DEFAULT_SNAPSHOT_KEEP = 2
 
 # Flax module name -> (torch prefix, is_bn): the reference's layer names.
 _LAYER_MAP = [
@@ -270,6 +287,134 @@ def save_pth(path: str | Path, state_dict: Mapping) -> Path:
     torch.save({k: v.detach().cpu().contiguous()
                 for k, v in state_dict.items()}, path)
     return path
+
+
+def snapshot_keep() -> int:
+    """The keep-N rotation depth (``EEGTPU_SNAPSHOT_KEEP``, at least 1)."""
+    try:
+        return max(1, int(os.environ.get("EEGTPU_SNAPSHOT_KEEP",
+                                         DEFAULT_SNAPSHOT_KEEP)))
+    except ValueError:
+        return DEFAULT_SNAPSHOT_KEEP
+
+
+def _generation_path(path: Path, gen: int) -> Path:
+    """``snap.npz`` -> ``snap.npz.gen<gen>`` (gen >= 1)."""
+    return path.with_name(f"{path.name}.gen{gen}")
+
+
+def _generations(path: Path) -> list[Path]:
+    """The ``.genN`` files of ``path``, oldest last (holes allowed: a
+    quarantined generation leaves one)."""
+    gens = []
+    for cand in path.parent.glob(path.name + ".gen*"):
+        suffix = cand.name[len(path.name) + len(".gen"):]
+        if suffix.isdigit():
+            gens.append((int(suffix), cand))
+    return [cand for _, cand in sorted(gens)]
+
+
+def rotate_generations(path: Path, keep: int) -> None:
+    """Shift ``path`` into the ``.gen*`` chain before a new write replaces
+    it: gen(keep-1) dropped, ..., gen1 -> gen2, path -> gen1.  ``keep``
+    counts generations including the one about to land; 1 keeps none."""
+    if keep <= 1 or not path.exists():
+        return
+    _generation_path(path, keep - 1).unlink(missing_ok=True)
+    for gen in range(keep - 2, 0, -1):
+        src = _generation_path(path, gen)
+        if src.exists():
+            src.replace(_generation_path(path, gen + 1))
+    path.replace(_generation_path(path, 1))
+
+
+def any_snapshot_generation(path: str | Path) -> bool:
+    """True when ``path`` or any of its ``.genN`` generations exists (a
+    crash between rotation and rename leaves only ``.gen1``)."""
+    path = Path(path)
+    return path.exists() or bool(_generations(path))
+
+
+def resolve_snapshot(path: str | Path
+                     ) -> tuple[Path, dict[str, np.ndarray]] | None:
+    """The newest generation of ``path`` whose content passes integrity, as
+    ``(file, flat arrays)``, or ``None``.  Every candidate that cannot be
+    read or whose digest mismatches is quarantined on the way."""
+    path = Path(path)
+    for cand in [path] + _generations(path):
+        if not cand.exists():
+            continue
+        try:
+            with np.load(cand, allow_pickle=False) as data:
+                flat = {k: data[k] for k in data.files}
+            integrity.verify(flat, what=str(cand))
+        except Exception as exc:  # noqa: BLE001 — any unreadable shape
+            quarantine_artifact(cand, exc)
+            continue
+        return cand, flat
+    return None
+
+
+def save_run_snapshot(path: str | Path, carry: Mapping[str, np.ndarray],
+                      epochs_done: int, signature: dict, *,
+                      keep: int | None = None) -> Path:
+    """Persist a chunked run's carry (host arrays by name) after
+    ``epochs_done`` epochs, stamped with ``signature`` and the digest;
+    rotation happens just before the atomic rename."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    flat = {CARRY_PREFIX + name: np.asarray(arr)
+            for name, arr in carry.items()}
+    flat["__epochs_done__"] = np.asarray(epochs_done, np.int64)
+    flat["__signature__"] = np.frombuffer(
+        json.dumps(signature, sort_keys=True).encode(), dtype=np.uint8)
+    integrity.stamp(flat)
+    tmp = path.with_suffix(path.suffix + ".tmp")
+    with open(tmp, "wb") as fh:
+        np.savez(fh, **flat)
+    rotate_generations(path, keep if keep is not None else snapshot_keep())
+    tmp.replace(path)
+    return path
+
+
+def read_snapshot_signature(path: str | Path) -> dict | None:
+    """The stored run signature of the newest valid generation, or ``None``
+    when none exists or it carries no signature."""
+    resolved = resolve_snapshot(path)
+    if resolved is None or "__signature__" not in resolved[1]:
+        return None
+    try:
+        return json.loads(bytes(resolved[1]["__signature__"]).decode())
+    except ValueError:
+        return None
+
+
+def load_run_snapshot(path: str | Path, signature: dict
+                      ) -> tuple[dict[str, np.ndarray], int]:
+    """Restore a run snapshot as ``(carry, epochs_done)``.
+
+    Resolves the newest valid generation (see :func:`resolve_snapshot`);
+    raises ``FileNotFoundError`` when none survives and ``ValueError`` when
+    its stored signature is not ``signature``.
+    """
+    resolved = resolve_snapshot(path)
+    if resolved is None:
+        raise FileNotFoundError(
+            f"No valid run snapshot at {path} (all generations corrupt or "
+            "missing)")
+    resolved_path, flat = resolved
+    if resolved_path != Path(path):
+        logger.warning("Resume: snapshot %s was corrupt — falling back to "
+                       "previous generation %s", path, resolved_path)
+    stored = (json.loads(bytes(flat["__signature__"]).decode())
+              if "__signature__" in flat else None)
+    if stored != signature:
+        raise ValueError(
+            f"Snapshot {path} belongs to a different run: {stored} != "
+            f"{signature}. Delete it or rerun without --resume.")
+    carry = {k[len(CARRY_PREFIX):]: v for k, v in flat.items()
+             if k.startswith(CARRY_PREFIX)}
+    return carry, int(flat["__epochs_done__"])
 
 
 def load_pth_auto(path: str | Path

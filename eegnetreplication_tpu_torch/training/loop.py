@@ -9,23 +9,34 @@ validation or test batch, is one pass for all G folds (``training/steps.py``).
 - The data pool lives on the device once, ``(N_pool, C, T)``; a fold is an
   index set into it (:class:`FoldSpec`), and a batch is an index gather.
 - Each epoch's shuffle comes from a *slot source*: by default
-  :func:`shuffled_slot_source`, which draws every fold's permutation on a
-  CPU ``torch.Generator`` (so the card and the CPU see the same batch
-  order); a test can hand in the JAX package's ``_shuffled_slots`` instead.
-  The first ``n`` slots are the real indices in random order, the rest wrap
+  :func:`keyed_slot_source`, which draws fold ``f``'s permutation at epoch
+  ``e`` on a CPU ``torch.Generator`` seeded from ``(seed, f, e)`` alone (so
+  the card and the CPU see the same batch order, and a fold's batches do
+  not depend on which folds train beside it or on where a run resumed); a
+  test can hand in the JAX package's ``_shuffled_slots`` instead.  The
+  first ``n`` slots are the real indices in random order, the rest wrap
   around (``slot % n``) at loss weight 0.
+- Dropout masks come from one generator on the training device for all G
+  folds, so at p > 0 they depend on the grouping; its state travels in the
+  carry, so a resumed run draws the masks the unbroken one would.
 - Nothing waits for the device inside an epoch: losses, accuracies and the
   best-by-validation snapshot stay on the device, and the run syncs once,
   when :meth:`FoldTrainer.result` copies them out.
 - Best-by-validation uses strict ``>`` (ties keep the earlier epoch, like
   the reference's ``model.py:180``); the test pass evaluates the best state.
+- :meth:`FoldTrainer.carry` is everything a run needs to continue (the
+  current and best states, best accuracy, minimum validation loss, the
+  per-epoch history and the dropout generator's state), by name;
+  :meth:`FoldTrainer.restore` takes it back.  Running E epochs as chunks
+  with a carry and restore in between equals E epochs unbroken, bit for
+  bit on the CPU.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Iterable, Mapping
 
 import numpy as np
 import torch
@@ -38,6 +49,9 @@ from eegnetreplication_tpu_torch.training.steps import TrainState
 
 # epoch -> (pool indices, loss weights), each (G, train_steps * batch_size)
 SlotSource = Callable[[int], tuple[torch.Tensor, torch.Tensor]]
+# The per-epoch series of a run, in FoldResult's order.
+HISTORY = ("train_losses", "val_losses", "val_accuracies", "grad_norms")
+STATE_FIELDS = ("params", "stats", "mu", "nu", "count")
 
 
 @dataclass
@@ -57,9 +71,15 @@ class FoldSpec:
         return self.train_idx.shape[0]
 
     def to(self, device) -> "FoldSpec":
-        return FoldSpec(*(getattr(self, f).to(device) for f in
-                          ("train_idx", "train_n", "val_idx", "val_n",
-                           "test_idx", "test_n")))
+        return FoldSpec(*(getattr(self, f).to(device) for f in _SPEC_FIELDS))
+
+    def folds(self, lo: int, hi: int) -> "FoldSpec":
+        """Folds ``lo`` to ``hi - 1``, at the same padded lengths."""
+        return FoldSpec(*(getattr(self, f)[lo:hi] for f in _SPEC_FIELDS))
+
+
+_SPEC_FIELDS = ("train_idx", "train_n", "val_idx", "val_n", "test_idx",
+                "test_n")
 
 
 @dataclass
@@ -118,18 +138,31 @@ def shuffled_slots(generator: torch.Generator, idx: torch.Tensor, n: int,
     return picked, (slots < n).to(torch.float32)
 
 
-def shuffled_slot_source(spec: FoldSpec, n_slots: int,
-                         generator: torch.Generator) -> SlotSource:
-    """The default slot source: each epoch, every fold's
-    :func:`shuffled_slots` from one CPU generator, in fold order."""
+def shuffle_key(seed: int, fold: int, epoch: int) -> int:
+    """The 64-bit seed of fold ``fold``'s shuffle at ``epoch`` (global
+    fold index, 0-based epoch), mixed from the three by numpy's
+    ``SeedSequence``."""
+    words = np.random.SeedSequence([seed & (2 ** 64 - 1), fold, epoch])
+    return int(words.generate_state(1, np.uint64)[0])
+
+
+def keyed_slot_source(spec: FoldSpec, n_slots: int, seed: int,
+                      fold_ids: Iterable[int]) -> SlotSource:
+    """The default slot source: at each epoch, fold ``g``'s
+    :func:`shuffled_slots` from a CPU generator seeded with
+    ``shuffle_key(seed, fold_ids[g], epoch)``."""
     train_idx = spec.train_idx.cpu()
     train_n = [int(n) for n in spec.train_n.cpu()]
+    fold_ids = [int(f) for f in fold_ids]
+    if len(fold_ids) != len(train_n):
+        raise ValueError(f"{len(fold_ids)} fold ids for {len(train_n)} folds")
 
     def source(epoch: int) -> tuple[torch.Tensor, torch.Tensor]:
-        del epoch   # the generator's stream carries the schedule
         picked, weights = zip(*(
-            shuffled_slots(generator, train_idx[g], train_n[g], n_slots)
-            for g in range(len(train_n))))
+            shuffled_slots(torch.Generator().manual_seed(
+                shuffle_key(seed, fold, epoch)), train_idx[g], train_n[g],
+                n_slots)
+            for g, fold in enumerate(fold_ids)))
         return torch.stack(picked), torch.stack(weights)
 
     return source
@@ -160,6 +193,11 @@ class FoldTrainer:
     the stacked K1 kernel for all folds; then the best-by-validation
     update.  :meth:`test` evaluates the best state in ``max(1,
     ceil(test_pad / B))`` batches.
+
+    ``shuffle_seed`` and ``fold_ids`` (the folds' global indices in the
+    protocol, default ``0..G-1``) key the default shuffles
+    (:func:`keyed_slot_source`); ``dropout_generator`` (default: one on the
+    pool's device seeded 0) draws the dropout masks.
     """
 
     def __init__(self, model: EEGNet, pool_x: torch.Tensor,
@@ -168,13 +206,17 @@ class FoldTrainer:
                  learning_rate: float, adam_eps: float,
                  maxnorm_mode: str = "reference",
                  slot_source: SlotSource | None = None,
-                 shuffle_generator: torch.Generator | None = None,
+                 shuffle_seed: int = 0,
+                 fold_ids: Iterable[int] | None = None,
                  dropout_generator: torch.Generator | None = None):
         device = pool_x.device
         self.model = model
         self.pool_x, self.pool_y = pool_x, pool_y.long()
         self.spec = spec.to(device)
         self.batch_size = batch_size
+        if dropout_generator is None:
+            dropout_generator = torch.Generator(device=device).manual_seed(0)
+        self.dropout_generator = dropout_generator
         self.step_kw = dict(learning_rate=learning_rate, adam_eps=adam_eps,
                             maxnorm_mode=maxnorm_mode,
                             generator=dropout_generator)
@@ -183,9 +225,9 @@ class FoldTrainer:
         self.val_steps = n_steps(spec.val_idx.shape[1], batch_size, 1)
         self.test_steps = n_steps(spec.test_idx.shape[1], batch_size, 1)
         if slot_source is None:
-            slot_source = shuffled_slot_source(
-                spec, self.train_steps * batch_size,
-                shuffle_generator or torch.Generator().manual_seed(0))
+            slot_source = keyed_slot_source(
+                spec, self.train_steps * batch_size, shuffle_seed,
+                range(g) if fold_ids is None else fold_ids)
         self.slot_source = slot_source
         self.fold_idx = fold_index(g, batch_size, device)
 
@@ -255,12 +297,26 @@ class FoldTrainer:
                              self.spec.test_idx, self.spec.test_n,
                              self.batch_size, self.fold_idx)
 
+    @property
+    def epoch(self) -> int:
+        """Epochs trained so far."""
+        return len(self.history)
+
+    def history_tensors(self, lo: int = 0) -> tuple[torch.Tensor, ...]:
+        """``(train_losses, val_losses, val_accuracies, grad_norms)`` of
+        epochs ``lo`` on, each ``(G, epochs)`` on the device."""
+        if len(self.history) <= lo:
+            empty = torch.zeros((self.spec.n_folds, 0),
+                                device=self.pool_x.device)
+            return (empty,) * len(HISTORY)
+        return tuple(torch.stack(series, dim=1)
+                     for series in zip(*self.history[lo:]))
+
     def result(self) -> FoldResult:
         """Run the test pass and copy everything to the CPU (the run's one
         wait for the device)."""
         test_acc = self.test()
-        per_epoch = [torch.stack(series, dim=1).cpu()
-                     for series in zip(*self.history)]
+        per_epoch = [series.cpu() for series in self.history_tensors()]
         return FoldResult(
             best_state=self.best.to("cpu"),
             best_val_acc=self.best_acc.cpu(),
@@ -268,6 +324,61 @@ class FoldTrainer:
             train_losses=per_epoch[0], val_losses=per_epoch[1],
             val_accuracies=per_epoch[2], grad_norms=per_epoch[3],
             test_accuracy=test_acc.cpu())
+
+    def carry(self) -> dict[str, torch.Tensor]:
+        """Everything the run needs to continue, by name, on the device
+        (the generator state on the CPU): ``{state,best}/<field>``,
+        ``best_acc``, ``min_val_loss``, ``history/<series>`` and
+        ``rng/dropout``.  Nothing here waits for the device."""
+        out: dict[str, torch.Tensor] = {}
+        for prefix, state in (("state", self.state), ("best", self.best)):
+            for field in STATE_FIELDS:
+                out[f"{prefix}/{field}"] = getattr(state, field)
+        out["best_acc"] = self.best_acc
+        out["min_val_loss"] = self.min_val_loss
+        for name, series in zip(HISTORY, self.history_tensors()):
+            out[f"history/{name}"] = series
+        out["rng/dropout"] = self.dropout_generator.get_state()
+        return out
+
+    def restore(self, carry: Mapping[str, np.ndarray | torch.Tensor]
+                ) -> None:
+        """Continue from a :meth:`carry` (host arrays or tensors): every
+        entry must be there with the shape and type this trainer's own
+        carry has, else ``ValueError``."""
+        device = self.pool_x.device
+        own = self.carry()
+        missing = sorted(set(own) - set(carry))
+        if missing:
+            raise ValueError(f"carry lacks {missing}")
+        got = {}
+        for name, like in own.items():
+            value = carry[name]
+            if isinstance(value, np.ndarray):
+                value = torch.from_numpy(np.ascontiguousarray(value))
+            shape_ok = (value.shape == like.shape if not name.startswith(
+                "history/") else value.shape[:1] == like.shape[:1]
+                and value.ndim == 2)
+            if value.dtype != like.dtype or not shape_ok:
+                raise ValueError(
+                    f"carry entry {name!r} is {value.dtype} "
+                    f"{tuple(value.shape)}; this trainer's is {like.dtype} "
+                    f"{tuple(like.shape)}")
+            got[name] = value
+        epochs = {got[f"history/{n}"].shape[1] for n in HISTORY}
+        if len(epochs) != 1:
+            raise ValueError(f"carry history lengths differ: {epochs}")
+        layout = self.state.layout
+        self.state, self.best = (
+            TrainState(layout, *(got[f"{prefix}/{f}"].to(device)
+                                 for f in STATE_FIELDS))
+            for prefix in ("state", "best"))
+        self.best_acc = got["best_acc"].to(device)
+        self.min_val_loss = got["min_val_loss"].to(device)
+        series = [got[f"history/{n}"].to(device) for n in HISTORY]
+        self.history = [tuple(s[:, e] for s in series)
+                        for e in range(epochs.pop())]
+        self.dropout_generator.set_state(got["rng/dropout"].cpu())
 
 
 def evaluate_pool(model: EEGNet, state: TrainState, pool_x: torch.Tensor,

@@ -1,30 +1,63 @@
-"""The within-subject protocol on the card.
+"""The within-subject and cross-subject protocols on the card.
 
-The counterpart of ``within_subject_training`` in
-``eegnetreplication_tpu/training/protocols.py`` (the reference's
-``train.py:30-168``).  Every fold is an index set over one pool that lives
-on the device, and all folds train together (``training/loop.py``):
+The counterpart of ``eegnetreplication_tpu/training/protocols.py`` (the
+reference's ``train.py:30-291``).  Every fold is an index set over one pool
+that lives on the device, and the folds of a group train together
+(``training/loop.py``):
 
-- per subject, the Train and Eval sessions concatenated (``train.py:58-59``);
-- ``KFold(4, shuffle=True, random_state=42)`` over them and the inner 80/20
-  split of the train-val ids (``data/splits.py``), in the reference's fold
-  order; every fold padded to the largest fold's counts;
-- dropout 0.5; per subject, the mean test accuracy of its folds and the
-  best fold by ``argmax`` of the best validation accuracy (the first
-  maximum, i.e. strict ``>`` in fold order, ``train.py:126-128``), saved as
-  ``subject_XX_best_model.pth`` (the reference's ``state_dict``) and
-  ``.npz`` (the native format, read by both packages).
+- Within-subject: per subject, the Train and Eval sessions concatenated
+  (``train.py:58-59``); ``KFold(4, shuffle=True, random_state=42)`` over
+  them and the inner 80/20 split of the train-val ids (``data/splits.py``),
+  in the reference's fold order; dropout 0.5; per subject, the mean test
+  accuracy of its folds and the best fold by ``argmax`` of the best
+  validation accuracy (the first maximum, ``train.py:126-128``), saved as
+  ``subject_XX_best_model.pth`` and ``.npz``.
+- Cross-subject: per fold, ``RandomState(42 + fold_count)`` permutes the
+  non-test subjects into 5 train and the rest validation
+  (``train.py:199-202``); training and validation read the *Train session*
+  of those subjects, the test the held-out subject's *Eval session*
+  (``train.py:188, 258``); dropout 0.25; the global best fold by ``argmin``
+  of the minimum validation loss (the first minimum, ``train.py:269-271``),
+  saved as ``cross_subject_best_model.pth`` and ``.npz``.
 
-Seeds: ``seed`` draws the folds' initial weights, ``seed + 1`` the epoch
-shuffles (both on CPU generators, so the card and the CPU train on the same
-weights and batches), ``seed + 2`` the dropout masks on the training
-device.  The cross-subject protocol, fold batching, chunked runs with
-snapshots and ``--resume``, and the device mesh are not ported
-(ROADMAP.md queue A).
+:func:`run_folds` is the machinery both share, with the JAX package's
+semantics (``_run_folds``):
+
+- *Groups.* ``fold_batch=N`` trains at most N folds at once, group after
+  group, and concatenates the results; 0 or ``None`` is one group.  A
+  fold's initial weights and batch order depend only on ``(seed, global
+  fold index, epoch)``: the protocol draws every fold's initial state and
+  slices it, and the shuffles are keyed.  Dropout masks are drawn per group
+  on the device's generator, so at p > 0 another grouping draws other
+  masks; at p = 0 a grouped run equals one group per fold, to f32 rounding.
+  An out-of-memory error in a group halves the group size and retrains
+  that group; the size that then completes is recorded for this card.
+- *Chunks.* ``checkpoint_every=N`` trains N epochs at a time and hands the
+  trainer's carry to the snapshot writer (``training/async_ckpt.py``) at
+  each chunk boundary; ``None`` chunks runs of more than
+  :data:`AUTO_CHUNK_THRESHOLD` epochs at :func:`_auto_chunk_size`.  The
+  reference-cadence epoch lines are logged at each chunk boundary.
+- *Resume.* ``resume=True`` continues from the run snapshot whose
+  signature matches this run's (protocol, model, subjects, epochs, folds,
+  seed, update rules, pool geometry and content, and the port's carry
+  layout); a snapshot of the same geometry over other data starts fresh
+  with a warning, any other mismatch raises.  A completed run deletes its
+  snapshots.
+
+Seeds: ``seed`` draws the folds' initial weights, ``seed + 1`` keys the
+epoch shuffles (on CPU generators, so the card and the CPU train on the
+same weights and batches), ``seed + 2 + first fold`` the dropout masks of
+a group on the training device.  Wall times are training only, on the host
+clock, each chunk ended by a synchronize; the test pass is logged apart.
+The device mesh is not ported (ROADMAP.md queue A).
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
+import os
+import tempfile
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -40,22 +73,54 @@ from eegnetreplication_tpu_torch.config import (
 )
 from eegnetreplication_tpu_torch.data.containers import BCICI2ADataset
 from eegnetreplication_tpu_torch.data.splits import (
+    cross_subject_fold_subjects,
     inner_train_val_split,
     kfold_indices,
 )
 from eegnetreplication_tpu_torch.models import EEGNet, get_model
+from eegnetreplication_tpu_torch.resil import preempt
 from eegnetreplication_tpu_torch.training import checkpoint as ckpt_lib
+from eegnetreplication_tpu_torch.training.async_ckpt import SnapshotWriter
 from eegnetreplication_tpu_torch.training.loop import (
     FoldResult,
+    FoldSpec,
     FoldTrainer,
-    SlotSource,
     init_fold_states,
     make_fold_spec,
 )
+from eegnetreplication_tpu_torch.training.steps import TrainState
 from eegnetreplication_tpu_torch.utils.device import resolve_device
 from eegnetreplication_tpu_torch.utils.logging import logger
 
 LoadFn = Callable[[int, str], BCICI2ADataset]
+
+# Auto-chunking (checkpoint_every=None).  The JAX package chunks long runs
+# to dodge XLA's compile time on long scans; PyTorch compiles nothing, so
+# on the card chunks serve resumability only.  The rule is kept as it is so
+# the CLI's flags mean what they mean in the JAX package.
+AUTO_CHUNK_THRESHOLD = 100
+AUTO_CHUNK_EPOCHS = 50
+
+# Cross-subject fold-group size on a CUDA card when the caller gives none:
+# the fastest size of chip_smoke.py's group-size sweep (PERF.md §5).  The
+# JAX package's 15 was measured on a TPU v5e and does not carry over.
+CS_CARD_FOLD_BATCH = 90
+
+# Names the layout of the carry a run snapshot holds
+# (``FoldTrainer.carry``): a snapshot with another layout, the JAX
+# package's included, is never resumed into this one.
+CARRY_LAYOUT = "torch-fold-trainer/1"
+
+
+def _auto_chunk_size(epochs: int) -> int:
+    """Chunk length of auto-chunked runs: a divisor of ``epochs`` near
+    :data:`AUTO_CHUNK_EPOCHS` where one exists (in 25..100), else
+    :data:`AUTO_CHUNK_EPOCHS` with a shorter last chunk."""
+    for size in sorted(range(25, 101),
+                       key=lambda s: abs(s - AUTO_CHUNK_EPOCHS)):
+        if epochs % size == 0:
+            return size
+    return AUTO_CHUNK_EPOCHS
 
 
 def _default_loader(subject: int, mode: str) -> BCICI2ADataset:
@@ -68,23 +133,31 @@ def _default_loader(subject: int, mode: str) -> BCICI2ADataset:
 class ProtocolResult:
     per_subject_test_acc: list[float]
     avg_test_acc: float
-    best_states: list[dict]         # per subject: the best fold's state_dict
+    best_states: list[dict]         # per subject (within) or one (cross)
     fold_test_acc: np.ndarray       # every fold's test accuracy
-    # Training wall on the host clock, from the first epoch (the pool
-    # already on the device) to the test pass's results on the host (the
-    # test pass included, as in the JAX package's single-program runs).
-    # Basis of epoch_throughput.
+    # Training wall on the host clock: the epochs this process trained,
+    # each chunk ended by a synchronize, the test pass excluded, and the
+    # wall of group attempts that ran out of memory included (broken out
+    # in fault_retry_wall_s).  Basis of epoch_throughput.
     wall_seconds: float
     epochs: int
     subjects: tuple[int, ...] = tuple(range(1, 10))
+    # Fold-epochs this process trained (a resumed run trains fewer);
+    # None means every fold's every epoch.
+    fold_epochs_trained: float | None = None
+    # The group size the run started with (None: one group).
+    fold_batch: int | None = None
     fold_min_val_loss: np.ndarray | None = None
+    fault_retry_wall_s: float = 0.0
     folds: FoldResult | None = None  # every fold's per-epoch record
 
     @property
     def epoch_throughput(self) -> float:
         """Fold-epochs trained per second."""
-        return len(self.fold_test_acc) * self.epochs / max(
-            self.wall_seconds, 1e-9)
+        trained = (self.fold_epochs_trained
+                   if self.fold_epochs_trained is not None
+                   else len(self.fold_test_acc) * self.epochs)
+        return trained / max(self.wall_seconds, 1e-9)
 
 
 def build_pool(datasets: list[BCICI2ADataset]
@@ -114,6 +187,45 @@ def within_subject_folds(offsets: list[np.ndarray],
     return folds
 
 
+def cross_subject_folds(train_off: list[np.ndarray],
+                        eval_off: list[np.ndarray],
+                        subjects: tuple[int, ...],
+                        config: TrainingConfig = DEFAULT_TRAINING
+                        ) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """The ``(train, val, test)`` pool indices of every cross-subject fold:
+    per test subject in order, ``config.cs_repeats_per_subject`` folds, the
+    k-th of all drawing its train and validation subjects from
+    ``RandomState(42 + k)``; ``train_off[i]``/``eval_off[i]`` are subject
+    ``subjects[i]``'s Train and Eval session indices in the pool."""
+    index = {s: i for i, s in enumerate(subjects)}
+    folds, fold_count = [], 0
+    for s in subjects:
+        for _ in range(config.cs_repeats_per_subject):
+            fold_count += 1
+            tr_subj, va_subj = cross_subject_fold_subjects(
+                s, fold_count, subjects=tuple(subjects),
+                n_train=config.cs_train_subjects)
+            folds.append((
+                np.concatenate([train_off[index[t]] for t in tr_subj]),
+                np.concatenate([train_off[index[v]] for v in va_subj]),
+                eval_off[index[s]]))
+    return folds
+
+
+def cross_subject_summary(fold_test: np.ndarray, min_val_loss: np.ndarray,
+                          n_subjects: int, repeats: int
+                          ) -> tuple[list[float], float, float, int]:
+    """``(per-subject mean test accuracy, mean over folds, standard error
+    over folds, best fold)``: the best fold is the first minimum of the
+    minimum validation loss (``train.py:263-271``)."""
+    fold_test = np.asarray(fold_test)
+    per_subject = [float(np.mean(fold_test[i * repeats:(i + 1) * repeats]))
+                   for i in range(n_subjects)]
+    avg_all = float(np.mean(fold_test))
+    std_err = float(np.std(fold_test) / np.sqrt(len(fold_test)))
+    return per_subject, avg_all, std_err, int(np.argmin(min_val_loss))
+
+
 def save_model(state_dict: dict, model: EEGNet, model_name: str,
                path: Path) -> None:
     """The reference's ``.pth`` at ``path`` and the native ``.npz`` beside
@@ -125,39 +237,493 @@ def save_model(state_dict: dict, model: EEGNet, model_name: str,
                   "n_times": model.n_times, "F1": model.F1, "D": model.D})
 
 
+# --------------------------------------------------------------------------
+# The shared machinery: groups, chunks, resume
+# --------------------------------------------------------------------------
+
+@dataclass
+class FoldSetup:
+    """What every group of one protocol run shares: the model template, the
+    pool on the device, every fold's spec (padded to the protocol's largest
+    fold) and initial state on the CPU, and the pool's content digest."""
+
+    model: EEGNet
+    pool_x: torch.Tensor
+    pool_y: torch.Tensor
+    spec: FoldSpec
+    init: TrainState
+    config: TrainingConfig
+    seed: int
+    pool_sha1: str
+
+    @classmethod
+    def build(cls, model: EEGNet, folds, pool_x: np.ndarray,
+              pool_y: np.ndarray, *, config: TrainingConfig, seed: int,
+              device: torch.device) -> "FoldSetup":
+        spec = make_fold_spec(
+            folds, train_pad=max(len(f[0]) for f in folds),
+            val_pad=max(len(f[1]) for f in folds),
+            test_pad=max(len(f[2]) for f in folds))
+        init = init_fold_states(model, len(folds),
+                                torch.Generator().manual_seed(seed))
+        return cls(model, torch.from_numpy(pool_x).to(device),
+                   torch.from_numpy(pool_y).to(device), spec, init, config,
+                   seed, _pool_digest(pool_x, pool_y))
+
+    @property
+    def n_folds(self) -> int:
+        return self.spec.n_folds
+
+    @property
+    def device(self) -> torch.device:
+        return self.pool_x.device
+
+    def trainer(self, lo: int, hi: int) -> FoldTrainer:
+        """The :class:`FoldTrainer` of folds ``lo`` to ``hi - 1``."""
+        cfg = self.config
+        return FoldTrainer(
+            self.model, self.pool_x, self.pool_y, self.spec.folds(lo, hi),
+            self.init.folds(lo, hi), batch_size=cfg.batch_size,
+            learning_rate=cfg.learning_rate, adam_eps=cfg.adam_eps,
+            maxnorm_mode=cfg.maxnorm_mode, shuffle_seed=self.seed + 1, fold_ids=range(lo, hi),
+            dropout_generator=torch.Generator(
+                device=self.device).manual_seed(self.seed + 2 + lo))
+
+
+def _pool_digest(pool_x: np.ndarray, pool_y: np.ndarray) -> str:
+    """Short sha1 of the pool's bytes: a resumed carry continues over the
+    same data, not merely same-shaped data."""
+    h = hashlib.sha1()
+    h.update(np.ascontiguousarray(pool_x).tobytes())
+    h.update(np.ascontiguousarray(pool_y).tobytes())
+    return h.hexdigest()[:12]
+
+
+def _clear_run_snapshots(checkpoint_path) -> None:
+    """Delete a completed run's snapshot and every file beside it that
+    shares its name: ``.g*`` group snapshots (from any grouping),
+    ``.gen*`` generations and ``*.corrupt`` quarantined ones."""
+    if checkpoint_path is None:
+        return
+    cp = Path(checkpoint_path)
+    cp.unlink(missing_ok=True)
+    for pattern in (".g*", "*.corrupt"):
+        for stale in cp.parent.glob(cp.name + pattern):
+            stale.unlink(missing_ok=True)
+
+
+def _log_epoch_cadence(per_epoch, lo: int, hi: int, total_epochs: int,
+                       n_folds: int) -> None:
+    """The reference's epoch lines (epoch 1, every 50th, the last;
+    ``model.py:185-187``) for epochs ``lo+1..hi``, as the mean over the
+    folds with the span of their validation accuracies.  ``per_epoch``
+    holds ``(train_losses, val_losses, val_accuracies, ...)`` as ``(G,
+    hi - lo)`` host arrays."""
+    tl, vl, va = (np.asarray(a) for a in per_epoch[:3])
+    for e in range(lo + 1, hi + 1):
+        if not (e == 1 or e % 50 == 0 or e == total_epochs):
+            continue
+        i = e - lo - 1
+        logger.info(
+            "Epoch: %d/%d.. Train Loss: %.3f.. Val Loss: %.3f.. "
+            "Val Acc: %.2f%%.. (mean of %d folds; val-acc span "
+            "%.2f-%.2f%%)",
+            e, total_epochs, float(np.mean(tl[:, i])),
+            float(np.mean(vl[:, i])), float(np.mean(va[:, i])), n_folds,
+            float(np.min(va[:, i])), float(np.max(va[:, i])))
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _device_kind(device: torch.device) -> str:
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else device.type)
+
+
+def _fold_batch_limit_path() -> Path:
+    """Per-user record of the fold-group size that completed after a
+    halving, per card name (in the temporary directory)."""
+    uid = os.getuid() if hasattr(os, "getuid") else "u"
+    return Path(tempfile.gettempdir()) / f"eegtpu_torch_fold_batch.{uid}.json"
+
+
+# A recorded limit older than this is ignored: one transient fault must not
+# shrink every later run on this card for good.
+_FOLD_BATCH_LIMIT_TTL_S = 30 * 24 * 3600.0
+
+
+def _record_fold_batch_limit(limit: int, device: torch.device) -> None:
+    """Remember a group size that completed a group after halving, keyed by
+    the card's name (the latest proven value wins).  Best effort."""
+    try:
+        path = _fold_batch_limit_path()
+        data = json.loads(path.read_text()) if path.exists() else {}
+        data[_device_kind(device)] = {"limit": int(limit), "t": time.time()}
+        path.write_text(json.dumps(data))
+    except (OSError, ValueError) as exc:
+        logger.warning("Could not record the fold-group limit: %s", exc)
+
+
+def _known_fold_batch_limit(device: torch.device) -> int | None:
+    """The recorded group size for this card, or None."""
+    try:
+        rec = json.loads(_fold_batch_limit_path().read_text()).get(
+            _device_kind(device))
+    except (OSError, ValueError, AttributeError):
+        return None
+    if (isinstance(rec, dict) and isinstance(rec.get("limit"), int)
+            and rec["limit"] > 0
+            and time.time() - rec.get("t", 0) < _FOLD_BATCH_LIMIT_TTL_S):
+        return rec["limit"]
+    return None
+
+
+def _effective_fold_batch(fold_batch: int | None, n_folds: int
+                          ) -> int | None:
+    """The grouping :func:`run_folds` uses: None (one group) for 0, None,
+    or a size that holds every fold."""
+    if not fold_batch or n_folds <= fold_batch:
+        return None
+    return fold_batch
+
+
+def _cs_auto_fold_batch(n_folds: int, fold_batch: int | None,
+                        device: torch.device) -> int | None:
+    """The cross-subject group size: 0 means one group, an explicit value
+    passes, and ``None`` on a CUDA card takes :data:`CS_CARD_FOLD_BATCH`
+    (or the smaller size recorded after a halving on this card) when the
+    protocol has more folds."""
+    if fold_batch == 0:
+        return None
+    if fold_batch is not None:
+        return fold_batch
+    if device.type == "cuda":
+        batch = min(CS_CARD_FOLD_BATCH,
+                    _known_fold_batch_limit(device) or CS_CARD_FOLD_BATCH)
+        if n_folds > batch:
+            logger.info("Auto fold batching: %d folds per group on %s "
+                        "(--maxFoldsPerProgram overrides, 0 forces one "
+                        "group)", batch, _device_kind(device))
+            return batch
+    return None
+
+
+class _ChunkCrash:
+    """Test hook: a plain RuntimeError after the n-th completed chunk of
+    the run (counted across groups; 0 and 1 both mean the first)."""
+
+    def __init__(self, after: int | None):
+        self.after = None if after is None else max(1, after)
+        self.chunks = 0
+
+    def tick(self) -> None:
+        self.chunks += 1
+        if self.after is not None and self.chunks == self.after:
+            raise RuntimeError(f"injected crash after chunk {self.chunks}")
+
+
+def _log_throughput(fold_epochs: float, wall: float, detail: str) -> None:
+    logger.info("Throughput: %.2f fold-epochs/s (%s in %.1fs)",
+                fold_epochs / max(wall, 1e-9), detail, wall)
+
+
+def _resume_carry(path: Path, signature: dict
+                  ) -> tuple[dict[str, np.ndarray], int] | None:
+    """The carry to continue from, or None to train from scratch (the
+    decisions of the JAX package's ``_run_folds``)."""
+    stored = ckpt_lib.read_snapshot_signature(path)
+    if stored is None:
+        if ckpt_lib.any_snapshot_generation(path):
+            logger.warning("Resume: snapshot %s is unreadable — training "
+                           "from scratch", path)
+        else:
+            logger.warning(
+                "--resume requested but no snapshot at %s; training from "
+                "scratch (check the model/protocol names match the "
+                "stopped run)", path)
+        return None
+
+    def geometry(sig):
+        return {k: v for k, v in sig.items() if k != "pool_sha1"}
+
+    if (geometry(stored) == geometry(signature)
+            and stored.get("pool_sha1") != signature["pool_sha1"]):
+        logger.warning(
+            "Resume: snapshot %s matches this run's geometry but not its "
+            "data content (pool digest %s vs %s) — training from scratch",
+            path, stored.get("pool_sha1"), signature["pool_sha1"])
+        return None
+    return ckpt_lib.load_run_snapshot(path, signature)
+
+
+def _train_group(setup: FoldSetup, lo: int, hi: int, *, epochs: int,
+                 every: int, path: Path | None, resume: bool,
+                 signature: dict, crash: _ChunkCrash,
+                 fault_if_folds_over: int | None
+                 ) -> tuple[FoldResult, float, float]:
+    """Folds ``lo..hi-1`` through every epoch in chunks of ``every`` (0:
+    one pass); returns ``(result, training wall, fold-epochs trained)``."""
+    n = hi - lo
+    trainer = setup.trainer(lo, hi)
+    if fault_if_folds_over is not None and n > fault_if_folds_over:
+        raise torch.cuda.OutOfMemoryError(
+            f"injected out-of-memory error: a group of {n} folds > "
+            f"{fault_if_folds_over}")
+    cfg = setup.config
+    signature = dict(signature, epochs=epochs, n_folds=n, padded_folds=n,
+                     seed=setup.seed, maxnorm_mode=cfg.maxnorm_mode,
+                     precision=cfg.precision, bn_mode=cfg.bn_mode,
+                     n_pool=int(setup.pool_x.shape[0]),
+                     train_pad=int(setup.spec.train_idx.shape[1]),
+                     val_pad=int(setup.spec.val_idx.shape[1]),
+                     pool_sha1=setup.pool_sha1, carry_layout=CARRY_LAYOUT)
+    start = 0
+    if resume and path is not None:
+        resumed = _resume_carry(path, signature)
+        if resumed is not None:
+            trainer.restore(resumed[0])
+            start = resumed[1]
+            logger.info("Resuming from %s at epoch %d", path, start)
+    if every and epochs % every:
+        logger.info("epochs (%d) is not a multiple of the %d-epoch chunk: "
+                    "the last chunk is %d epochs", epochs, every,
+                    epochs % every)
+    writer = (SnapshotWriter(path, signature)
+              if every and path is not None else None)
+    step = every or epochs
+    wall = 0.0
+    try:
+        for e0 in range(start, epochs, step):
+            e1 = min(e0 + step, epochs)
+            t0 = time.perf_counter()
+            for _ in range(e0, e1):
+                trainer.run_epoch()
+            _sync(setup.device)
+            wall += time.perf_counter() - t0
+            _log_epoch_cadence([s.cpu().numpy() for s in
+                                trainer.history_tensors(e0)],
+                               e0, e1, epochs, n)
+            if writer is not None:
+                writer.submit(trainer.carry(), epochs_done=e1)
+                logger.info("Checkpoint %d/%d epochs -> %s (async)", e1,
+                            epochs, path)
+            if every:
+                # The chunk boundary is the safe point: the snapshot is
+                # submitted, and the writer commits it before a Preempted
+                # leaves this function.
+                preempt.check(epochs_done=e1, n_folds=n)
+                crash.tick()
+    except BaseException:
+        if writer is not None:
+            writer.close(raise_errors=False)
+        raise
+    if writer is not None:
+        writer.close()
+    t0 = time.perf_counter()
+    result = trainer.result()
+    logger.info("Test-set evaluation: %.2fs (excluded from training "
+                "throughput)", time.perf_counter() - t0)
+    trained = float(n * (epochs - start))
+    _log_throughput(trained, wall, f"{n} folds x {epochs - start} epochs")
+    return result, wall, trained
+
+
+def _concat(results: list[FoldResult]) -> FoldResult:
+    def cat(tensors):
+        return torch.cat(list(tensors), dim=0)
+
+    best = [r.best_state for r in results]
+    return FoldResult(
+        best_state=TrainState(best[0].layout,
+                              *(cat(getattr(b, f) for b in best)
+                                for f in ("params", "stats", "mu", "nu",
+                                          "count"))),
+        **{f: cat(getattr(r, f) for r in results)
+           for f in ("best_val_acc", "min_val_loss", "train_losses",
+                     "val_losses", "val_accuracies", "grad_norms",
+                     "test_accuracy")})
+
+
+def run_folds(setup: FoldSetup, *, epochs: int,
+              fold_batch: int | None = None,
+              checkpoint_every: int | None = None,
+              checkpoint_path: Path | None = None, resume: bool = False,
+              signature: dict | None = None,
+              _crash_after_chunk: int | None = None,
+              _fault_if_folds_over: int | None = None
+              ) -> tuple[FoldResult, float, float, float]:
+    """Train every fold of ``setup``; returns ``(results, wall,
+    fold-epochs trained, wall of halved-away attempts)``.
+
+    See the module docstring for groups, chunks and resume.
+    ``_crash_after_chunk`` and
+    ``_fault_if_folds_over`` are test hooks: a plain ``RuntimeError``
+    after the n-th chunk, and an out-of-memory error for every group of
+    more folds.
+    """
+    if fold_batch is not None and fold_batch < 0:
+        raise ValueError(f"fold_batch must be >= 0, got {fold_batch}")
+    if checkpoint_every is not None and checkpoint_every < 0:
+        raise ValueError(
+            f"checkpoint_every must be >= 0, got {checkpoint_every}")
+    n_folds = setup.n_folds
+    every = checkpoint_every
+    if every is None:
+        every = (_auto_chunk_size(epochs) if epochs > AUTO_CHUNK_THRESHOLD
+                 else 0)
+        if every:
+            logger.info("Auto-chunking %d epochs into %d-epoch chunks "
+                        "(resumable with --resume); pass "
+                        "checkpoint_every=0 for one pass", epochs, every)
+    if resume and not every:
+        raise ValueError(
+            "resume requires a chunked run (checkpoint_every > 0, or the "
+            f"auto default with epochs > {AUTO_CHUNK_THRESHOLD}); this run "
+            "is one pass")
+    fold_batch = _effective_fold_batch(fold_batch, n_folds)
+    signature = dict(signature or {})
+    crash = _ChunkCrash(_crash_after_chunk)
+    kw = dict(epochs=epochs, every=every, crash=crash,
+              fault_if_folds_over=_fault_if_folds_over)
+    logger.info("Training %d folds for %d epochs on %s, %s", n_folds, epochs,
+                setup.device, f"{fold_batch} folds a group" if fold_batch
+                else "all folds per step")
+
+    if not fold_batch:
+        result, wall, trained = _train_group(
+            setup, 0, n_folds, path=checkpoint_path, resume=resume,
+            signature=signature, **kw)
+        _clear_run_snapshots(checkpoint_path)
+        return result, wall, trained, 0.0
+
+    n_groups = -(-n_folds // fold_batch)
+    if (resume and checkpoint_path is not None
+            and ckpt_lib.any_snapshot_generation(checkpoint_path)
+            and not any(ckpt_lib.any_snapshot_generation(
+                f"{checkpoint_path}.g{g}") for g in range(n_groups))):
+        logger.warning(
+            "Resume: found an ungrouped run snapshot at %s but this run "
+            "trains in %d-fold groups and no group snapshots exist — "
+            "training restarts from epoch 0 (fold_batch=0 would resume it "
+            "as one group)", checkpoint_path, fold_batch)
+    results, wall, trained, fault_wall = [], 0.0, 0.0, 0.0
+    gi, lo, cur, halved = 0, 0, fold_batch, False
+    while lo < n_folds:
+        hi = min(lo + cur, n_folds)
+        logger.info("Training fold group %d: folds %d-%d of %d", gi, lo,
+                    hi - 1, n_folds)
+        gpath = (None if checkpoint_path is None
+                 else Path(f"{checkpoint_path}.g{gi}"))
+        gsig = dict(signature, fold_group=gi, fold_range=[lo, hi])
+        gresume = bool(resume and gpath is not None
+                       and ckpt_lib.any_snapshot_generation(gpath))
+        if gresume:
+            stored = ckpt_lib.read_snapshot_signature(gpath)
+            if stored is None:
+                logger.warning("Resume: snapshot %s is unreadable — "
+                               "training group %d fresh", gpath, gi)
+                gresume = False
+            elif (stored.get("fold_range") != [lo, hi]
+                  or stored.get("fold_group") != gi):
+                logger.warning(
+                    "Resume: snapshot %s is from a different fold grouping "
+                    "(folds %s, this group trains %s) — training group %d "
+                    "fresh", gpath, stored.get("fold_range"), [lo, hi], gi)
+                gresume = False
+        t_attempt = time.perf_counter()
+        try:
+            r, w, fe = _train_group(setup, lo, hi, path=gpath,
+                                    resume=gresume, signature=gsig, **kw)
+        except torch.cuda.OutOfMemoryError as exc:
+            if cur <= 1:
+                raise
+            elapsed = time.perf_counter() - t_attempt
+            wall += elapsed
+            fault_wall += elapsed
+            cur = max(1, cur // 2)
+            halved = True
+            logger.warning(
+                "Out of memory training folds %d-%d (%.160s) — halving the "
+                "fold group to %d and retrying from fold %d", lo, hi - 1,
+                exc, cur, lo)
+            del exc
+            if setup.device.type == "cuda":
+                torch.cuda.empty_cache()
+            continue
+        results.append(r)
+        wall += w
+        trained += fe
+        lo, gi = hi, gi + 1
+        if halved:
+            _record_fold_batch_limit(cur, setup.device)
+            halved = False
+    _clear_run_snapshots(checkpoint_path)
+    _log_throughput(trained, wall, f"{n_folds} folds x {epochs} epochs in "
+                    f"{len(results)} groups")
+    return _concat(results), wall, trained, fault_wall
+
+
+# --------------------------------------------------------------------------
+# The protocols
+# --------------------------------------------------------------------------
+
+def _protocol_model(model_name: str, pool_x: np.ndarray, dropout: float,
+                    config: TrainingConfig) -> EEGNet:
+    if config.precision != "highest":
+        raise ValueError(
+            f"precision={config.precision!r}: the torch port computes in "
+            "full f32 only ('highest'); the TPU matmul modes are not ported")
+    return get_model(model_name, n_channels=pool_x.shape[1],
+                     n_times=pool_x.shape[2], dropout_rate=dropout,
+                     bn_mode=config.bn_mode, device="cpu")
+
+
 def within_subject_trainer(pool_x: np.ndarray, pool_y: np.ndarray,
                            offsets: list[np.ndarray], *,
                            config: TrainingConfig = DEFAULT_TRAINING,
                            seed: int = 0,
                            device: torch.device | str | None = None,
-                           model_name: str = "eegnet",
-                           slot_source: SlotSource | None = None
+                           model_name: str = "eegnet"
                            ) -> tuple[FoldTrainer, EEGNet, list]:
-    """The protocol's :class:`FoldTrainer` over a pool (:func:`build_pool`)
-    with the pool copied to ``device``; returns ``(trainer, model template,
-    folds)``.  :func:`within_subject_training` runs its epochs."""
-    device = resolve_device(device)
-    model = get_model(model_name, n_channels=pool_x.shape[1],
-                      n_times=pool_x.shape[2],
-                      dropout_rate=config.dropout_within_subject,
-                      bn_mode=config.bn_mode, device="cpu")
+    """One :class:`FoldTrainer` of every within-subject fold over a pool
+    (:func:`build_pool`) on ``device``; returns ``(trainer, model
+    template, folds)``."""
+    model = _protocol_model(model_name, pool_x,
+                            config.dropout_within_subject, config)
     folds = within_subject_folds(offsets, config)
-    spec = make_fold_spec(
-        folds, train_pad=max(len(f[0]) for f in folds),
-        val_pad=max(len(f[1]) for f in folds),
-        test_pad=max(len(f[2]) for f in folds), device=device)
-    init = init_fold_states(model, len(folds),
-                            torch.Generator().manual_seed(seed))
-    trainer = FoldTrainer(
-        model, torch.from_numpy(pool_x).to(device),
-        torch.from_numpy(pool_y).to(device), spec, init,
-        batch_size=config.batch_size, learning_rate=config.learning_rate,
-        adam_eps=config.adam_eps, maxnorm_mode=config.maxnorm_mode,
-        slot_source=slot_source,
-        shuffle_generator=torch.Generator().manual_seed(seed + 1),
-        dropout_generator=torch.Generator(device=device).manual_seed(
-            seed + 2))
-    return trainer, model, folds
+    setup = FoldSetup.build(model, folds, pool_x, pool_y, config=config,
+                            seed=seed, device=resolve_device(device))
+    return setup.trainer(0, len(folds)), model, folds
+
+
+def cross_subject_setup(loader: LoadFn, subjects: tuple[int, ...], *,
+                        config: TrainingConfig = DEFAULT_TRAINING,
+                        seed: int = 0,
+                        device: torch.device | str | None = None,
+                        model_name: str = "eegnet"
+                        ) -> tuple[FoldSetup, list]:
+    """The cross-subject pool (every subject's Train session, then every
+    subject's Eval session), its folds and their :class:`FoldSetup`."""
+    n_subjects = len(subjects)
+    if n_subjects < config.cs_train_subjects + 2:
+        raise ValueError(
+            f"Cross-subject training needs at least "
+            f"{config.cs_train_subjects + 2} subjects "
+            f"({config.cs_train_subjects} train + 1 val + 1 test); "
+            f"got {n_subjects}.")
+    logger.info("Loading data for all subjects...")
+    train_sets = [loader(s, "Train") for s in subjects]
+    eval_sets = [loader(s, "Eval") for s in subjects]
+    pool_x, pool_y, offsets = build_pool(train_sets + eval_sets)
+    model = _protocol_model(model_name, pool_x,
+                            config.dropout_cross_subject, config)
+    folds = cross_subject_folds(offsets[:n_subjects], offsets[n_subjects:],
+                                tuple(subjects), config)
+    return FoldSetup.build(model, folds, pool_x, pool_y, config=config,
+                           seed=seed, device=resolve_device(device)), folds
 
 
 def within_subject_training(epochs: int | None = None, *,
@@ -168,44 +734,46 @@ def within_subject_training(epochs: int | None = None, *,
                             model_name: str = "eegnet",
                             save_models: bool = True,
                             device: torch.device | str | None = None,
-                            slot_source: SlotSource | None = None
+                            fold_batch: int | None = None,
+                            checkpoint_every: int | None = None,
+                            resume: bool = False,
+                            _crash_after_chunk: int | None = None,
+                            _fault_if_folds_over: int | None = None
                             ) -> ProtocolResult:
     """Within-subject protocol: per subject, 4-fold CV over both sessions,
-    every fold of every subject trained together on ``device`` (the card
-    unless ``EEGTPU_PLATFORM=cpu``).  ``slot_source`` replaces the epoch
-    shuffles (tests feed the JAX package's)."""
+    on ``device`` (the card unless ``EEGTPU_PLATFORM=cpu``), through
+    :func:`run_folds`."""
     epochs = epochs if epochs is not None else config.epochs
     paths = paths or Paths.from_here()
     device = resolve_device(device)
-    if config.precision != "highest":
-        raise ValueError(
-            f"precision={config.precision!r}: the torch port computes in "
-            "full f32 only ('highest'); the TPU matmul modes are not ported")
-
     datasets = []
     for s in subjects:
         logger.info("Loading Subject %d", s)
         datasets.append(loader(s, "Train").concat(loader(s, "Eval")))
-    trainer, model, folds = within_subject_trainer(
-        *build_pool(datasets), config=config, seed=seed, device=device,
-        model_name=model_name, slot_source=slot_source)
-    logger.info("Training %d folds (%d subjects x %d) for %d epochs on %s, "
-                "all folds per step", len(folds), len(subjects),
-                config.kfold_splits, epochs, device)
-    t0 = time.perf_counter()
-    for _ in range(epochs):
-        trainer.run_epoch()
-    result = trainer.result()
-    wall = time.perf_counter() - t0
+    pool_x, pool_y, offsets = build_pool(datasets)
+    model = _protocol_model(model_name, pool_x,
+                            config.dropout_within_subject, config)
+    folds = within_subject_folds(offsets, config)
+    setup = FoldSetup.build(model, folds, pool_x, pool_y, config=config,
+                            seed=seed, device=device)
+    results, wall, trained, fault_wall = run_folds(
+        setup, epochs=epochs, fold_batch=fold_batch,
+        checkpoint_every=checkpoint_every,
+        checkpoint_path=paths.models / f"within_subject_{model_name}.run.npz",
+        resume=resume,
+        signature={"protocol": "within_subject", "model": model_name,
+                   "subjects": list(subjects)},
+        _crash_after_chunk=_crash_after_chunk,
+        _fault_if_folds_over=_fault_if_folds_over)
 
-    fold_test = result.test_accuracy.numpy()
-    fold_best_val = result.best_val_acc.numpy()
+    fold_test = results.test_accuracy.numpy()
+    fold_best_val = results.best_val_acc.numpy()
     k = config.kfold_splits
     per_subject_test_acc, best_states = [], []
     for i, s in enumerate(subjects):
         per_subject_test_acc.append(float(np.mean(fold_test[i * k:(i + 1) * k])))
         best_fold = i * k + int(np.argmax(fold_best_val[i * k:(i + 1) * k]))
-        best_states.append(result.best_state.state_dict(best_fold))
+        best_states.append(results.best_state.state_dict(best_fold))
         logger.info("Subject %d - Average Test Accuracy: %.2f%%", s,
                     per_subject_test_acc[-1])
         if save_models:
@@ -216,10 +784,66 @@ def within_subject_training(epochs: int | None = None, *,
     avg = float(np.mean(per_subject_test_acc))
     logger.info("Overall Average Test Accuracy across all subjects: %.2f%%",
                 avg)
-    out = ProtocolResult(per_subject_test_acc, avg, best_states, fold_test,
-                         wall, epochs, tuple(subjects),
-                         fold_min_val_loss=result.min_val_loss.numpy(),
-                         folds=result)
-    logger.info("Throughput: %.2f fold-epochs/s (%d folds x %d epochs in "
-                "%.1fs)", out.epoch_throughput, len(folds), epochs, wall)
-    return out
+    return ProtocolResult(
+        per_subject_test_acc, avg, best_states, fold_test, wall, epochs,
+        tuple(subjects), fold_epochs_trained=trained,
+        fold_batch=_effective_fold_batch(fold_batch, len(folds)),
+        fold_min_val_loss=results.min_val_loss.numpy(),
+        fault_retry_wall_s=fault_wall, folds=results)
+
+
+def cross_subject_training(epochs: int | None = None, *,
+                           config: TrainingConfig = DEFAULT_TRAINING,
+                           loader: LoadFn = _default_loader,
+                           subjects: tuple[int, ...] = tuple(range(1, 10)),
+                           seed: int = 0, paths: Paths | None = None,
+                           model_name: str = "eegnet",
+                           save_models: bool = True,
+                           device: torch.device | str | None = None,
+                           fold_batch: int | None = None,
+                           checkpoint_every: int | None = None,
+                           resume: bool = False,
+                           _crash_after_chunk: int | None = None,
+                           _fault_if_folds_over: int | None = None
+                           ) -> ProtocolResult:
+    """Cross-subject protocol: per held-out subject,
+    ``config.cs_repeats_per_subject`` folds of 5 train and the rest
+    validation subjects, on ``device``, through :func:`run_folds` in groups
+    of ``fold_batch`` folds (default: :func:`_cs_auto_fold_batch`)."""
+    epochs = epochs if epochs is not None else config.epochs
+    paths = paths or Paths.from_here()
+    device = resolve_device(device)
+    setup, folds = cross_subject_setup(loader, tuple(subjects), config=config,
+                                       seed=seed, device=device,
+                                       model_name=model_name)
+    fold_batch = _cs_auto_fold_batch(len(folds), fold_batch, device)
+    results, wall, trained, fault_wall = run_folds(
+        setup, epochs=epochs, fold_batch=fold_batch,
+        checkpoint_every=checkpoint_every,
+        checkpoint_path=paths.models / f"cross_subject_{model_name}.run.npz",
+        resume=resume,
+        signature={"protocol": "cross_subject", "model": model_name,
+                   "subjects": list(subjects)},
+        _crash_after_chunk=_crash_after_chunk,
+        _fault_if_folds_over=_fault_if_folds_over)
+
+    fold_test = results.test_accuracy.numpy()
+    min_val_loss = results.min_val_loss.numpy()
+    per_subject, avg_all, std_err, best_fold = cross_subject_summary(
+        fold_test, min_val_loss, len(subjects),
+        config.cs_repeats_per_subject)
+    for s, acc in zip(subjects, per_subject):
+        logger.info("Subject %d - Average Test Accuracy: %.2f%%", s, acc)
+    logger.info("Overall Average Test Accuracy: %.2f%% +- %.2f%%", avg_all,
+                std_err)
+    best_state = results.best_state.state_dict(best_fold)
+    if save_models:
+        paths.models.mkdir(parents=True, exist_ok=True)
+        save_model(best_state, setup.model, model_name,
+                   paths.models / "cross_subject_best_model.pth")
+    return ProtocolResult(
+        per_subject, avg_all, [best_state], fold_test, wall, epochs,
+        tuple(subjects), fold_epochs_trained=trained,
+        fold_batch=_effective_fold_batch(fold_batch, len(folds)),
+        fold_min_val_loss=min_val_loss, fault_retry_wall_s=fault_wall,
+        folds=results)

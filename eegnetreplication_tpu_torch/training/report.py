@@ -1,10 +1,10 @@
 """JSON training reports, schema-identical to the reference.
 
-The within-subject half of ``eegnetreplication_tpu/training/report.py``:
-the reference's ``generate_ws_report`` (``train.py:294-368``) key for key,
-with the same rounding, rank assignment and timestamped plus
-``latest_within_subject_report.json`` dual write, so the reference's GUI
-report viewer renders it unmodified.  As in the JAX package,
+The port of ``eegnetreplication_tpu/training/report.py``: the reference's
+``generate_ws_report`` (``train.py:294-368``) and ``generate_cs_report``
+(``train.py:371-468``) key for key, with the same rounding, rank
+assignment and timestamped plus ``latest_{within,cross}_subject_report.json``
+dual write, so the reference's GUI report viewer renders them unmodified.  As in the JAX package,
 ``model_parameters.epochs`` records the epochs actually trained (the
 reference writes its constant 500).
 """
@@ -111,3 +111,49 @@ def generate_ws_report(per_subject_test_acc, avg_test_acc_all_subjects,
     }
     report_data["summary_statistics"] = _summary_statistics(accs, avg)
     return _write_report(report_data, "within_subject", paths)
+
+
+def generate_cs_report(best_model_state, per_subject_test_acc,
+                       avg_test_acc_all, *, epochs: int | None = None,
+                       subjects: tuple[int, ...] | None = None,
+                       config: TrainingConfig = DEFAULT_TRAINING,
+                       paths: Paths | None = None) -> Path:
+    """Cross-subject report (schema: the reference's ``train.py:406-468``);
+    the standard error is over the per-subject accuracies."""
+    del best_model_state   # the reference's signature; saved by the protocol
+    paths = paths or Paths.from_here()
+    accs = [float(a) for a in per_subject_test_acc]
+    avg = float(avg_test_acc_all)
+    report_data = {
+        "training_type": "Cross-Subject",
+        "timestamp": datetime.now().isoformat(),
+        "model_parameters": {
+            "batch_size": config.batch_size,
+            "epochs": epochs if epochs is not None else config.epochs,
+            "learning_rate": config.learning_rate,
+            "dropout_probability": config.dropout_cross_subject,
+            "total_folds": len(accs) * config.cs_repeats_per_subject,
+            "repeats_per_subject": config.cs_repeats_per_subject,
+            "train_subjects_per_fold": config.cs_train_subjects,
+            "validation_subjects_per_fold": config.cs_val_subjects,
+        },
+        "overall_results": {
+            "average_test_accuracy": round(avg, 2),
+            "standard_error": round(
+                float(np.std(accs) / np.sqrt(len(accs))), 2),
+            "number_of_test_subjects": len(accs),
+            "best_subject_accuracy": round(max(accs), 2),
+            "worst_subject_accuracy": round(min(accs), 2),
+            "accuracy_std": round(float(np.std(accs)), 2),
+        },
+        "per_subject_results": _ranked_subject_results(accs, "test_subject_id",
+                                                       subjects),
+        "model_info": {
+            "architecture": "EEGNet",
+            "optimizer": "Adam",
+            "loss_function": "CrossEntropyLoss",
+            "saved_model": "cross_subject_best_model.pth",
+        },
+    }
+    report_data["summary_statistics"] = _summary_statistics(accs, avg)
+    return _write_report(report_data, "cross_subject", paths)

@@ -158,6 +158,12 @@ class TrainState:
             torch.where(k, self.mu, old.mu), torch.where(k, self.nu, old.nu),
             torch.where(keep_new, self.count, old.count))
 
+    def folds(self, lo: int, hi: int) -> "TrainState":
+        """Folds ``lo`` to ``hi - 1`` (views)."""
+        return TrainState(self.layout, self.params[lo:hi],
+                          self.stats[lo:hi], self.mu[lo:hi], self.nu[lo:hi],
+                          self.count[lo:hi])
+
     def to(self, device) -> "TrainState":
         return TrainState(self.layout, self.params.to(device),
                           self.stats.to(device), self.mu.to(device),

@@ -15,7 +15,11 @@ plain forward on the CPU at atol 1e-5 / rtol 1e-4.  K1's stacked form
 ``block1_stacked_reference`` at the shapes of ``chip_smoke.py`` phase 3b,
 atol/rtol 1e-5; one fold-stacked train step on the card against the CPU at
 dropout 0 (2e-3, the tolerance the CPU tests hold the port to against JAX);
-one training epoch launches the stacked K1 once per validation batch.  K2
+one training epoch launches the stacked K1 once per validation batch; a
+grouped cross-subject run on the card equals one group per fold at dropout
+0 (2e-3); a carry snapshotted on the card through the asynchronous writer
+and restored continues the unbroken run (2e-3) with the CUDA generator's
+state restored.  K2
 (``ems``) is held against ``ems_reference`` on the card at a session's (22, 345600) and the
 edge shapes (K2's tile boundaries among them), atol/rtol 1e-4 (the JAX
 package's Pallas-vs-scan tolerance).  Each kernel called three times on one
@@ -33,7 +37,15 @@ from eegnetreplication_tpu_torch.models import EEGNet
 from eegnetreplication_tpu_torch.ops import ems_kernel
 from eegnetreplication_tpu_torch.ops import fused_eegnet as fused
 from eegnetreplication_tpu_torch.serve.engine import InferenceEngine
-from eegnetreplication_tpu_torch.training import loop, steps
+from eegnetreplication_tpu_torch.config import DEFAULT_TRAINING, Paths
+from eegnetreplication_tpu_torch.data.containers import BCICI2ADataset
+from eegnetreplication_tpu_torch.training import (
+    async_ckpt,
+    checkpoint,
+    loop,
+    protocols,
+    steps,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -270,7 +282,9 @@ def _stacked_weights(g, c=22, f2=16, seed=0):
 
 K1_STACKED = [(g, b, t, False) for g in (1, 8, 36) for b in (1, 64)
               for t in (257, 1125)]
-K1_STACKED += [(8, 64, 257, True), (36, 64, 257, True), (36, 1, 1125, True)]
+K1_STACKED += [(8, 64, 257, True), (36, 64, 257, True), (36, 1, 1125, True),
+               # a cross-subject validation batch of 90 folds
+               (90, 64, 257, False)]
 
 
 @pytest.mark.parametrize("g, b, t, permuted", K1_STACKED,
@@ -355,3 +369,74 @@ def test_one_epoch_launches_stacked_k1_once_per_validation_batch(cuda):
     assert fused.block1_stacked.launches == before + 2
     trainer.result()
     assert fused.block1_stacked.launches == before + 4
+
+
+def _separable(subject, mode, n=48, c=22, t=257):
+    rng = np.random.RandomState(10 * subject + (mode == "Eval"))
+    y = rng.randint(0, 4, size=n)
+    x = rng.standard_normal((n, c, t)).astype(np.float32)
+    tt = np.arange(t) / 128.0
+    for k in range(4):
+        x[y == k] += np.sin(2 * np.pi * (6.0 + 4.0 * k) * tt).astype(
+            np.float32)
+    return BCICI2ADataset(X=x, y=y.astype(np.int64))
+
+
+def test_grouped_cross_subject_run_on_card_matches_one_group(cuda, tmp_path):
+    cfg = DEFAULT_TRAINING.replace(dropout_cross_subject=0.0,
+                                   cs_repeats_per_subject=2)
+    runs = {fb: protocols.cross_subject_training(
+        epochs=2, config=cfg, loader=_separable, subjects=tuple(range(1, 8)),
+        paths=Paths.from_root(tmp_path), save_models=False, device=cuda,
+        fold_batch=fb) for fb in (0, 4)}
+    assert runs[4].fold_batch == 4
+    for field in ("train_losses", "val_losses", "min_val_loss"):
+        torch.testing.assert_close(getattr(runs[4].folds, field),
+                                   getattr(runs[0].folds, field),
+                                   atol=2e-3, rtol=2e-3)
+
+
+def test_card_snapshot_restores_and_continues_the_run(cuda, tmp_path):
+    def trainer():
+        rng = np.random.RandomState(6)
+        x = torch.from_numpy(rng.randn(300, 22, 257).astype(np.float32))
+        y = torch.from_numpy(rng.randint(0, 4, 300))
+        folds = [(np.arange(0, 150), np.arange(150, 230),
+                  np.arange(230, 300))] * 3
+        spec = loop.make_fold_spec(folds, train_pad=150, val_pad=80,
+                                   test_pad=70)
+        model = EEGNet(22, 257, dropout_rate=0.5, device="cpu")
+        init = loop.init_fold_states(model, 3,
+                                     torch.Generator().manual_seed(2))
+        return loop.FoldTrainer(
+            model, x.to(cuda), y.to(cuda), spec, init, batch_size=64,
+            learning_rate=1e-3, adam_eps=1e-7,
+            dropout_generator=torch.Generator(device=cuda).manual_seed(5))
+
+    unbroken = trainer()
+    for _ in range(4):
+        unbroken.run_epoch()
+    first = trainer()
+    for _ in range(2):
+        first.run_epoch()
+    path = tmp_path / "run.npz"
+    writer = async_ckpt.SnapshotWriter(path, {"run": "card"})
+    writer.submit(first.carry(), epochs_done=2)
+    saved_rng = first.dropout_generator.get_state()
+    del first                      # its device memory may be reused now
+    torch.cuda.synchronize()
+    writer.close()
+    carry, done = checkpoint.load_run_snapshot(path, {"run": "card"})
+    assert done == 2
+    resumed = trainer()
+    resumed.restore(carry)
+    assert torch.equal(resumed.dropout_generator.get_state(), saved_rng)
+    for _ in range(2):
+        resumed.run_epoch()
+    assert torch.equal(resumed.dropout_generator.get_state(),
+                       unbroken.dropout_generator.get_state())
+    want, got = unbroken.carry(), resumed.carry()
+    for name in ("state/params", "history/train_losses",
+                 "history/val_losses", "min_val_loss"):
+        torch.testing.assert_close(got[name], want[name], atol=2e-3,
+                                   rtol=2e-3)

@@ -47,7 +47,8 @@ _CHILD = textwrap.dedent("""
     for name in ("dataset", "data.verify", "data.preprocess", "ops.ems",
                  "ops.ems_kernel", "train", "data.splits", "models.norm",
                  "training.steps", "training.loop", "training.protocols",
-                 "training.report"):
+                 "training.report", "training.checkpoint",
+                 "training.async_ckpt", "resil.preempt"):
         assert "eegnetreplication_tpu_torch." + name in names, name
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   {chip_smoke!r})

@@ -175,14 +175,10 @@ def test_report_equals_the_jax_report(tmp_path):
 
 
 UNPORTED = {
-    "cross_subject": ["--trainingType", "Cross-Subject"],
     "mesh_fold": ["--meshFold", "1"],
     "mesh_data": ["--meshData", "2"],
     "precision": ["--precision", "bf16"],
     "orbax": ["--ckptFormat", "orbax"],
-    "fold_batch": ["--maxFoldsPerProgram", "4"],
-    "checkpoint_every": ["--checkpointEvery", "50"],
-    "resume": ["--resume"],
     "chaos": ["--chaos", "train.step:times=1"],
     "metrics_dir": ["--metricsDir", "m"],
     "profile_dir": ["--profileDir", "p"],
