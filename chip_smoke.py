@@ -54,7 +54,25 @@ hand-written kernel against its plain PyTorch version:
    CPU run from the same seed to TRAIN_ATOL/TRAIN_RTOL; on a separable
    pool drawn from a seed it learns well above chance; fold-epochs/s and
    wall per epoch at 8 and at 36 folds (the two subjects replicated), and
-   the device's idle share over one epoch under ``torch.profiler``.
+   the device's idle share over one epoch under ``torch.profiler``; the
+   CLI's run journal holds one ``epoch`` event per epoch; ``--profileDir``
+   over one epoch writes a Chrome trace naming K1-stacked's kernel; and,
+   each in turns on, off, off, on in this process, fold-epochs/s with the
+   card's deterministic mode and without it (8 and 36 folds) and with
+   ``--debugNans``'s checks and without them (8 folds);
+11. cross-subject training over the two subjects replicated to nine (90
+   folds): the CLI (report keys, journal, ``predict`` on its model), the
+   counted in-process runs (one group, groups of 15), groups against one
+   group at dropout 0, the separable pool, the group-size sweep with one
+   epoch under the profiler, the determinism cost at 90 folds, the size of
+   one epoch's ``--profileDir`` trace and the journal's host time per
+   epoch, the snapshot writer; the resume drill through the CLI (two
+   unbroken runs, SIGTERM -> 75 -> ``--resume``, ``--chaos
+   train.chunk:after=1`` -> ``--resume``: all bitwise equal, each journal
+   read back with its ``run_end`` status and an ``epoch`` event per epoch
+   trained); and the chaos leg (``--chaos train.step:if_folds_over=4`` in
+   groups of 8 halves them to 4, journals ``device_fault`` and ``retry``,
+   and equals a run in groups of 4 bit for bit).
 
 Phase 3b holds the stacked form of K1 (``block1_stacked``: G weight sets,
 an index per trial, what the training loop's validation and test passes
@@ -72,6 +90,7 @@ result line.  Nothing here imports JAX or the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import os
@@ -132,15 +151,17 @@ CS_GROUP = 15             # the counted run in groups: 6 groups of 15
 CS_SWEEP = (15, 30, 45, 90)
 CS_SWEEP_EPOCHS = 2       # timed, after one warm-up epoch
 CS_LEARN_EPOCHS = 10
-# The resume drill: a resumed card run against an unbroken one.  The same
-# seed and dropout stream on the same card; only the order of sums inside
-# cuDNN's (possibly nondeterministic) algorithms can differ, so the
-# weights are held to TRAIN_ATOL and each subject's mean test accuracy to
-# one percentage point (a few of its 576 test trials flipping on a logit
-# near-tie).
+# The resume drill: a resumed card run against an unbroken one, and two
+# unbroken ones.  The card's runs are deterministic (utils/device.py), so
+# every leg must give the same weights bit for bit.
 RESUME_EPOCHS, RESUME_EVERY = 4, 2
-RESUME_ACC_TOL = 1.0
 RESUME_WAIT_S = 600.0
+# The chaos leg: an out-of-memory error injected into every group of more
+# than 4 folds halves the cross-subject CLI's groups of 8 to 4.
+CHAOS_GROUP, CHAOS_OVER = 8, 4
+# The cost legs: epochs timed per measurement, in turns on, off, off, on.
+DET_EPOCHS = {8: 5, 36: 5, 90: 2}
+NAN_EPOCHS = 2
 WS_REPORT_KEYS = {
     "": {"training_type", "timestamp", "model_parameters",
          "overall_results", "per_subject_results", "model_info",
@@ -1178,6 +1199,50 @@ def separable_subject(np, subject, mode, n=N_TRIALS, c=22, t=257):
     return BCICI2ADataset(X=x, y=y.astype(np.int64))
 
 
+@contextlib.contextmanager
+def _deterministic(torch, on: bool):
+    """The card's deterministic mode (``utils/device.py``) for the block,
+    or the settings before it (cuDNN's autotuner off either way); on again
+    after."""
+    torch.use_deterministic_algorithms(on)
+    torch.backends.cudnn.deterministic = on
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(True)
+        torch.backends.cudnn.deterministic = True
+
+
+def _rates_in_turns(torch, run_epoch, n_folds, epochs, mode) -> dict:
+    """fold-epochs/s of ``run_epoch`` under ``mode(True)`` and
+    ``mode(False)`` in turns True, False, False, True: one warm-up epoch in
+    each, then ``epochs`` timed (host clock ended by a synchronize)."""
+    rates = {True: [], False: []}
+    for on in (True, False, False, True):
+        with mode(on):
+            run_epoch()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(epochs):
+                run_epoch()
+            torch.cuda.synchronize()
+            rates[on].append(n_folds * epochs / (time.perf_counter() - t0))
+    return {"on": rates[True], "off": rates[False],
+            "on_over_off": statistics.mean(rates[True])
+            / statistics.mean(rates[False])}
+
+
+def _determinism_cost(torch, run_epoch, n_folds) -> dict:
+    """fold-epochs/s with the card's deterministic mode and without it."""
+    row = _rates_in_turns(torch, run_epoch, n_folds, DET_EPOCHS[n_folds],
+                          lambda on: _deterministic(torch, on))
+    log(f"determinism at {n_folds} folds: {statistics.mean(row['on']):.2f} "
+        f"fold-epochs/s on, {statistics.mean(row['off']):.2f} off "
+        f"(on/off {row['on_over_off']:.3f}; turns on, off, off, on: "
+        f"{', '.join(f'{r:.2f}' for r in row['on'][:1] + row['off'] + row['on'][1:])})")
+    return row
+
+
 def _epoch_times(torch, np, dev, loader, subjects, config):
     """Wall per epoch and fold-epochs/s of the protocol's trainer (host
     clock, TIME_EPOCHS epochs after one warm-up epoch, ended by a
@@ -1201,11 +1266,23 @@ def _epoch_times(torch, np, dev, loader, subjects, config):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     profile = breakdown(trainer.run_epoch, n_calls=1, top=10)
-    return {"folds": len(folds), "epochs": TIME_EPOCHS,
-            "wall_s": wall, "wall_per_epoch_ms": wall * 1e3 / TIME_EPOCHS,
-            "fold_epochs_per_s": len(folds) * TIME_EPOCHS / wall,
-            "train_steps": trainer.train_steps,
-            "val_steps": trainer.val_steps, "epoch_profile": profile}
+    row = {"folds": len(folds), "epochs": TIME_EPOCHS,
+           "wall_s": wall, "wall_per_epoch_ms": wall * 1e3 / TIME_EPOCHS,
+           "fold_epochs_per_s": len(folds) * TIME_EPOCHS / wall,
+           "train_steps": trainer.train_steps,
+           "val_steps": trainer.val_steps, "epoch_profile": profile,
+           "determinism": _determinism_cost(torch, trainer.run_epoch,
+                                            len(folds))}
+    if len(folds) == 8:
+        from eegnetreplication_tpu_torch.training.loop import debug_nans
+
+        row["debug_nans"] = _rates_in_turns(torch, trainer.run_epoch, 8,
+                                            NAN_EPOCHS, debug_nans)
+        log(f"--debugNans at 8 folds: "
+            f"{statistics.mean(row['debug_nans']['on']):.2f} fold-epochs/s "
+            f"checked, {statistics.mean(row['debug_nans']['off']):.2f} "
+            f"unchecked")
+    return row
 
 
 def phase_train(torch, np, dev, work: Path, env: dict, data_root: Path):
@@ -1220,6 +1297,7 @@ def phase_train(torch, np, dev, work: Path, env: dict, data_root: Path):
     # The CLI a user runs, on the card, over phase 8's processed tree.
     data_paths = Paths.from_root(data_root)
     run_env = dict(env, EEGTPU_DATA_ROOT=str(data_root))
+    profiled = _start_profile_leg(work, env, data_root)
     t0 = time.perf_counter()
     cli = subprocess.run(
         [sys.executable, "-m", "eegnetreplication_tpu_torch.train",
@@ -1259,6 +1337,10 @@ def phase_train(torch, np, dev, work: Path, env: dict, data_root: Path):
     check(predict_k1 > 0, "predict on the trained checkpoint launched no K1")
     log(f"predict --checkpoint subject_01_best_model.npz --subject 1: "
         f"{pred.stdout.strip().splitlines()[-1]!r}, K1 launches {predict_k1}")
+    cli_events = _journal(np, data_paths.reports / "obs", "ok")
+    check(_epochs_journaled(cli_events) == list(range(1, TRAIN_EPOCHS + 1)),
+          "the train CLI's journal lacks an epoch event per epoch")
+    profile_leg = _finish_profile_leg(*profiled)
 
     # In process at dropout 0, the card against the CPU from one seed: the
     # main path whose stacked-K1 launches are counted.
@@ -1325,12 +1407,47 @@ def phase_train(torch, np, dev, work: Path, env: dict, data_root: Path):
             f"device busy {prof['device_busy_ms_per_call']:.1f} ms, idle "
             f"share {prof['device_idle_share']}")
     return {"cli_s": cli_s, "predict_k1_launches": predict_k1,
+            "profile_leg": profile_leg,
             "launches": launches, "val_steps": val_steps,
             "test_steps": test_steps, "card_vs_cpu_max_abs": deltas,
             "card_p0_fold_epochs_per_s": card.epoch_throughput,
             "learn_test_acc": learn.avg_test_acc,
             "learn_fold_epochs_per_s": learn.epoch_throughput,
             "times_by_folds": times}
+
+def _start_profile_leg(work: Path, env: dict, data_root: Path):
+    """Start ``train --profileDir`` over one epoch of 8 folds (it runs
+    beside the phase's CLI run); :func:`_finish_profile_leg` checks it."""
+    paths = _replicated_tree(data_root, work / "profiled", (1, 2))
+    trace_dir = work / "profiled" / "trace"
+    log_path = work / "profiled.log"
+    proc = _spawn(
+        [sys.executable, "-m", "eegnetreplication_tpu_torch.train",
+         "--subjects", "1,2", "--epochs", "1", "--profileDir",
+         str(trace_dir)], dict(env, EEGTPU_DATA_ROOT=str(paths.project_root)),
+        log_path)
+    return proc, log_path, trace_dir, time.perf_counter()
+
+
+def _finish_profile_leg(proc, log_path: Path, trace_dir: Path,
+                        t0: float) -> dict:
+    """The ``torch.profiler`` trace of the ``--profileDir`` run landed in
+    its directory and names K1-stacked's kernel (the ``kStacked`` instance
+    of ``block1_kernel``)."""
+    ((rc, err),) = _wait_all({"p": proc}, {"p": log_path}, 900).values()
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"train --profileDir exited {rc}:\n" + err[-4000:])
+    traces = sorted(trace_dir.glob("trace-*.json"))
+    check(len(traces) == 1, f"--profileDir wrote {traces}")
+    text = traces[0].read_text()
+    stacked = ("block1_kernel<true>" in text or "block1_kernelILb1E" in text)
+    check(stacked, "the --profileDir trace does not name K1-stacked's "
+          "kernel block1_kernel<true>")
+    mb = traces[0].stat().st_size / 1e6
+    log(f"train --profileDir, 8 folds x 1 epoch: {mb:.1f} MB Chrome trace "
+        f"naming block1_kernel<true> ({wall:.1f}s)")
+    return {"trace_mb": mb, "wall_s": wall}
+
 
 def _replicated_tree(src: Path, dst: Path, subjects=tuple(range(1, 10))):
     """A processed tree under ``dst`` whose subject ``s`` is ``src``'s
@@ -1357,93 +1474,225 @@ def _check_report(path: Path, keys: dict, what: str) -> dict:
     return report
 
 
+def _journal(np, metrics_dir: Path, status: str) -> list:
+    """The one run journal under ``metrics_dir``, read with the port's
+    ``read_events``: no event flagged ``_schema_error``, ``run_end`` with
+    ``status``; returns its events."""
+    from eegnetreplication_tpu_torch.obs import read_events
+
+    runs = sorted(metrics_dir.iterdir())
+    check(len(runs) == 1, f"{metrics_dir}: {len(runs)} run journals")
+    events = read_events(runs[0] / "events.jsonl")
+    bad = [e for e in events if "_schema_error" in e]
+    check(not bad, f"{runs[0]}: events flagged by the schema: {bad[:2]}")
+    end = events[-1]
+    check(end["status"] == status, f"{runs[0]}: run_end status "
+          f"{end['status']!r}, want {status!r} ({end.get('error')})")
+    return events
+
+
+def _epochs_journaled(events) -> list:
+    return [e["epoch"] for e in events if e["event"] == "epoch"]
+
+
+def _same_weights(got_dir: Path, want_dir: Path, names, what: str) -> None:
+    """Every tensor of each named ``.npz`` model equal bit for bit."""
+    from eegnetreplication_tpu_torch.training import checkpoint as ckpt_lib
+
+    for name in names:
+        got, _ = ckpt_lib.load_checkpoint(got_dir / name)
+        want, _ = ckpt_lib.load_checkpoint(want_dir / name)
+        check(got.keys() == want.keys(), f"{what}: {name} has other keys")
+        for key in want:
+            diff = float((got[key] - want[key]).abs().max())
+            check(bool((got[key] == want[key]).all()),
+                  f"{what}: {name} {key} differs by {diff:.3e}; the card's "
+                  "runs must repeat bit for bit")
+
+
+def _spawn(argv, env: dict, log_path: Path):
+    """Start a CLI from the checkout with its stderr in ``log_path``."""
+    with open(log_path, "w") as stderr:
+        return subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.DEVNULL,
+                                stderr=stderr, env=env)
+
+
+def _wait_all(procs: dict, logs: dict, timeout: float) -> dict:
+    """Wait for every process, killing what is left at the deadline or on
+    an error; ``{name: (exit code, stderr)}``."""
+    deadline = time.monotonic() + timeout
+    out = {}
+    try:
+        for name, proc in procs.items():
+            rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            out[name] = (rc, logs[name].read_text())
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
 def _resume_drill(np, work: Path, env: dict, data_root: Path) -> dict:
-    """Within-subject training at 8 folds through the CLI: SIGTERM once
-    the first run snapshot exists (exit 75, a snapshot left), then
-    ``--resume`` (exit 0, snapshots gone), against an unbroken run from
-    the same seed."""
+    """Within-subject training at 8 folds through the CLI, each leg with
+    its own ``--metricsDir``: two unbroken runs; SIGTERM once the first
+    run snapshot exists (exit 75, a snapshot left, ``run_end`` preempted),
+    then ``--resume``; ``train.chunk:after=1`` in 1-epoch chunks (a crash
+    after the second chunk), then ``--resume``.  Every leg's weights equal
+    the unbroken run's bit for bit, and each journal holds one ``epoch``
+    event per epoch it trained.  The legs that do not wait for one another
+    run at once (deterministic kernels give the same bits under any load);
+    that halves the drill's wall."""
     from eegnetreplication_tpu_torch.training import checkpoint as ckpt_lib
 
     argv = [sys.executable, "-m", "eegnetreplication_tpu_torch.train",
             "--trainingType", "Within-Subject", "--subjects", "1,2",
-            "--epochs", str(RESUME_EPOCHS),
-            "--checkpointEvery", str(RESUME_EVERY)]
+            "--epochs", str(RESUME_EPOCHS)]
+    every = {"unbroken": RESUME_EVERY, "unbroken2": RESUME_EVERY,
+             "stopped": RESUME_EVERY, "crashed": 1}
     roots = {name: _replicated_tree(data_root, work / name, (1, 2))
-             for name in ("unbroken", "stopped")}
+             for name in every}
+    models = [f"subject_{s:02d}_best_model.npz" for s in (1, 2)]
 
-    def run(name, extra=()):
-        out = subprocess.run(
-            argv + list(extra), cwd=ROOT, capture_output=True, text=True,
-            env=dict(env, EEGTPU_DATA_ROOT=str(roots[name].project_root)),
-            timeout=RESUME_WAIT_S)
-        return out.returncode, out.stderr
+    def start(name, leg, extra=()):
+        obs_dir = work / "obs" / name / leg
+        cmd = argv + ["--checkpointEvery", str(every[name]), "--metricsDir",
+                      str(obs_dir), *extra]
+        env_leg = dict(env, EEGTPU_DATA_ROOT=str(roots[name].project_root))
+        return _spawn(cmd, env_leg, work / f"{name}-{leg}.log")
 
-    rc, err = run("unbroken")
-    check(rc == 0, f"unbroken train CLI exited {rc}:\n{err[-4000:]}")
+    def journal(name, leg, status):
+        return _journal(np, work / "obs" / name / leg, status)
 
-    paths = roots["stopped"]
-    snap = paths.models / "within_subject_eegnet.run.npz"
-    log_path = work / "stopped.stderr.log"
-    with open(log_path, "w") as stderr:
-        proc = subprocess.Popen(
-            argv, cwd=ROOT, stdout=subprocess.DEVNULL, stderr=stderr,
-            env=dict(env, EEGTPU_DATA_ROOT=str(paths.project_root)))
-        try:
-            deadline = time.monotonic() + RESUME_WAIT_S
-            while not snap.exists() and proc.poll() is None \
-                    and time.monotonic() < deadline:
-                time.sleep(0.001)
-            signalled = proc.poll() is None and snap.exists()
-            if signalled:
-                proc.send_signal(signal.SIGTERM)
-            rc = proc.wait(timeout=RESUME_WAIT_S)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    # Round 1: the unbroken runs, the SIGTERM'd run, the crashed run.
+    snap = roots["stopped"].models / "within_subject_eegnet.run.npz"
+    legs = {"unbroken": (), "unbroken2": (), "stopped": (),
+            "crashed": ("--chaos", "train.chunk:after=1")}
+    procs = {name: start(name, "first", extra) for name, extra in legs.items()}
+    logs = {name: work / f"{name}-first.log" for name in legs}
+    try:
+        deadline = time.monotonic() + RESUME_WAIT_S
+        stopped = procs["stopped"]
+        while not snap.exists() and stopped.poll() is None \
+                and time.monotonic() < deadline:
+            time.sleep(0.001)
+        signalled = stopped.poll() is None and snap.exists()
+        if signalled:
+            stopped.send_signal(signal.SIGTERM)
+    finally:
+        done = _wait_all(procs, logs, RESUME_WAIT_S)
+    for name in ("unbroken", "unbroken2"):
+        rc, err = done[name]
+        check(rc == 0, f"{name} train CLI exited {rc}:\n{err[-4000:]}")
+        check(_epochs_journaled(journal(name, "first", "ok"))
+              == list(range(1, RESUME_EPOCHS + 1)),
+              f"{name}: not one epoch event per epoch")
+    _same_weights(roots["unbroken2"].models, roots["unbroken"].models,
+                  models, "two unbroken card runs")
+    log("resume drill: two unbroken card runs give the same weights bit "
+        "for bit")
+
+    rc, err = done["stopped"]
     check(signalled, f"the drill missed its window: the run exited {rc} "
-          f"before SIGTERM:\n{log_path.read_text()[-4000:]}")
+          f"before SIGTERM:\n{err[-4000:]}")
     check(rc == 75, f"SIGTERM'd train CLI exited {rc}, want 75:\n"
-          + log_path.read_text()[-4000:])
+          + err[-4000:])
     stored = ckpt_lib.read_snapshot_signature(snap)
     check(stored is not None, "no readable run snapshot after exit 75")
     _, epochs_done = ckpt_lib.load_run_snapshot(snap, stored)
+    events = journal("stopped", "first", "preempted")
+    check(_epochs_journaled(events) == list(range(1, epochs_done + 1)),
+          f"the SIGTERM'd leg journaled epochs {_epochs_journaled(events)} "
+          f"with the epoch-{epochs_done} snapshot on disk")
     log(f"resume drill: SIGTERM once the first snapshot existed -> exit "
-        f"75 with the epoch-{epochs_done} snapshot on disk")
+        f"75 with the epoch-{epochs_done} snapshot on disk, run_end "
+        f"preempted")
 
-    rc, err = run("stopped", ["--resume"])
-    check(rc == 0, f"--resume train CLI exited {rc}:\n{err[-4000:]}")
-    check(f"Resuming from {snap} at epoch {epochs_done}" in err,
-          "the --resume run did not report resuming from the snapshot")
-    left = sorted(p.name for p in paths.models.glob("*.run.npz*"))
-    check(not left, f"--resume left run snapshots behind: {left}")
+    rc, err = done["crashed"]
+    check(rc != 0 and "injected crash after chunk 2" in err,
+          f"train.chunk:after=1 exited {rc}:\n{err[-4000:]}")
+    events = journal("crashed", "first", "error")
+    check([e["site"] for e in events if e["event"] == "fault_injected"]
+          == ["train.chunk"] and _epochs_journaled(events) == [1, 2],
+          "the crashed leg's journal lacks its firing or its epochs")
 
-    reports = [json.loads((roots[n].reports
-                           / "latest_within_subject_report.json").read_text())
-               for n in ("stopped", "unbroken")]
-    acc = [[e["test_accuracy"] for e in r["per_subject_results"]]
-           for r in reports]
-    acc_delta = float(np.max(np.abs(np.subtract(*acc))))
-    check(acc_delta <= RESUME_ACC_TOL,
-          f"resumed vs unbroken per-subject test accuracies {acc[0]} vs "
-          f"{acc[1]}")
-    weight_delta = 0.0
-    for s in (1, 2):
-        name = f"subject_{s:02d}_best_model.npz"
-        got, _ = ckpt_lib.load_checkpoint(paths.models / name)
-        want, _ = ckpt_lib.load_checkpoint(roots["unbroken"].models / name)
-        for key in want:
-            weight_delta = max(weight_delta,
-                               float((got[key] - want[key]).abs().max()))
-    check(weight_delta <= TRAIN_ATOL,
-          f"resumed vs unbroken model weights differ by {weight_delta:.3e} "
-          f"(atol {TRAIN_ATOL})")
-    log(f"resume drill: --resume completed and cleaned up; vs the unbroken "
-        f"run: per-subject accuracy delta {acc_delta:.3f} points (tol "
-        f"{RESUME_ACC_TOL}), weight delta {weight_delta:.3e} (atol "
-        f"{TRAIN_ATOL})")
-    return {"epochs_done_at_stop": epochs_done, "acc_max_delta": acc_delta,
-            "weight_max_abs_delta": weight_delta}
+    # Round 2: both resumes.
+    procs = {name: start(name, "resumed", ("--resume",))
+             for name in ("stopped", "crashed")}
+    done = _wait_all(procs, {name: work / f"{name}-resumed.log"
+                             for name in procs}, RESUME_WAIT_S)
+    for name, first_epoch in (("stopped", epochs_done + 1), ("crashed", 3)):
+        rc, err = done[name]
+        check(rc == 0, f"--resume of the {name} run exited {rc}:\n"
+              f"{err[-4000:]}")
+        check(f"at epoch {first_epoch - 1}" in err,
+              f"the {name} run's --resume did not report resuming at epoch "
+              f"{first_epoch - 1}")
+        check(_epochs_journaled(journal(name, "resumed", "ok"))
+              == list(range(first_epoch, RESUME_EPOCHS + 1)),
+              f"the resumed {name} leg did not journal the epochs it trained")
+        left = sorted(p.name for p in roots[name].models.glob("*.run.npz*"))
+        check(not left, f"--resume left run snapshots behind: {left}")
+        _same_weights(roots[name].models, roots["unbroken"].models, models,
+                      f"{name}, resumed, vs unbroken")
+    log("resume drill: --resume after the SIGTERM and after "
+        "train.chunk:after=1 (a crash after chunk 2) completed, cleaned up, "
+        "and gave the unbroken run's weights bit for bit")
+    return {"epochs_done_at_stop": epochs_done, "bitwise": True}
+
+
+def _chaos_leg(np, work: Path, env: dict, cs_paths) -> dict:
+    """``--chaos train.step:if_folds_over=4`` on the cross-subject CLI in
+    groups of 8 (the CLI trains every subject's 10 repeats, so 90 folds):
+    the first group's out-of-memory error halves the groups to 4
+    (``device_fault`` and ``retry`` journaled), the report is written, and
+    the weights equal a run started in groups of 4, bit for bit (a halved
+    group has the folds, shapes and dropout generator of a group of 4).
+    The two runs go at once; each keeps the halving's record of the card's
+    group size in a temporary directory of its own."""
+    base = [sys.executable, "-m", "eegnetreplication_tpu_torch.train",
+            "--trainingType", "Cross-Subject", "--epochs", "1"]
+    legs = {"chaos": ["--maxFoldsPerProgram", str(CHAOS_GROUP), "--chaos",
+                      f"train.step:if_folds_over={CHAOS_OVER}"],
+            "fours": ["--maxFoldsPerProgram", str(CHAOS_OVER)]}
+    paths, procs = {}, {}
+    t0 = time.perf_counter()
+    for name, extra in legs.items():
+        paths[name] = _replicated_tree(cs_paths.project_root, work / name)
+        (work / name / "tmp").mkdir()
+        procs[name] = _spawn(
+            base + extra + ["--metricsDir", str(work / name / "obs")],
+            dict(env, EEGTPU_DATA_ROOT=str(paths[name].project_root),
+                 TMPDIR=str(work / name / "tmp")), work / f"{name}.log")
+    done = _wait_all(procs, {n: work / f"{n}.log" for n in legs}, 900)
+    wall = time.perf_counter() - t0
+    for name, (rc, err) in done.items():
+        check(rc == 0, f"chaos leg {name} exited {rc}:\n" + err[-4000:])
+    events = _journal(np, work / "chaos" / "obs", "ok")
+    faults = [e for e in events if e["event"] == "device_fault"]
+    check(len(faults) == 1 and (faults[0]["fold_lo"], faults[0]["fold_hi"],
+                                faults[0]["retry_fold_batch"])
+          == (0, CHAOS_GROUP, CHAOS_OVER), f"device_fault events {faults}")
+    retries = [e for e in events if e["event"] == "retry"]
+    check(len(retries) == 1 and retries[0]["classification"]
+          == "device_fault", f"retry events {retries}")
+    groups = [e["fold_hi"] - e["fold_lo"] for e in events
+              if e["event"] == "fold_group"]
+    check(groups[0] == CHAOS_GROUP and set(groups[1:]) <= {CHAOS_OVER, 2},
+          f"fold groups {groups}")
+    _journal(np, work / "fours" / "obs", "ok")
+    _check_report(paths["chaos"].reports / "latest_cross_subject_report.json",
+                  CS_REPORT_KEYS, "chaos leg")
+    _same_weights(paths["chaos"].models, paths["fours"].models,
+                  ["cross_subject_best_model.npz"],
+                  "halved groups vs groups of 4")
+    log(f"chaos leg: train.step:if_folds_over={CHAOS_OVER} halved the 90-fold"
+        f" CLI's groups of {CHAOS_GROUP} to {CHAOS_OVER} ({len(groups)} "
+        f"fold_group events, one device_fault and one retry), wrote the "
+        f"report, and its weights equal a run in groups of {CHAOS_OVER} bit "
+        f"for bit ({wall:.1f}s for both runs at once)")
+    return {"fold_groups": groups, "wall_s": wall}
 
 
 def _group_sweep(torch, dev, setup) -> dict:
@@ -1479,6 +1728,45 @@ def _group_sweep(torch, dev, setup) -> dict:
             f"peak memory {rows[size]['peak_memory_gb']:.2f} GiB")
         del trainers
     return rows
+
+
+def _trace_size(torch, run_epoch, log_dir: Path) -> float:
+    """The Chrome trace of one protocol epoch under ``utils/profiling.py::
+    trace`` (what ``--profileDir`` writes), in MB on disk."""
+    from eegnetreplication_tpu_torch.utils.profiling import trace
+
+    with trace(log_dir) as path:
+        run_epoch()
+        torch.cuda.synchronize()
+    mb = path.stat().st_size / 1e6
+    path.unlink()
+    log(f"one 90-fold epoch under --profileDir's trace: {mb:.1f} MB")
+    return mb
+
+
+def _journal_cost(np, work: Path, epoch_ms: float) -> dict:
+    """Host time the journal adds to a 90-fold epoch: one chunk's
+    ``epoch`` events (fold means of a (90, 100) history already on the
+    host, written and flushed) and the chunk's metrics, against the
+    epoch's wall from the sweep."""
+    from eegnetreplication_tpu_torch import obs
+    from eegnetreplication_tpu_torch.training.protocols import (
+        _journal_epochs,
+    )
+
+    epochs = 100
+    history = [np.random.RandomState(i).rand(90, epochs).astype(np.float32)
+               for i in range(4)]
+    with obs.run(work) as jr:
+        t0 = time.perf_counter()
+        _journal_epochs(jr, history, 0, epochs, epochs, 90)
+        jr.metrics.observe("chunk_wall_s", 1.0)
+        jr.metrics.inc("fold_epochs_total", 90.0 * epochs)
+        per_epoch_ms = (time.perf_counter() - t0) * 1e3 / epochs
+    share = per_epoch_ms / epoch_ms
+    log(f"journal at 90 folds: {per_epoch_ms:.4f} ms of host time an epoch, "
+        f"{100 * share:.4f}% of a {epoch_ms:.1f} ms epoch")
+    return {"ms_per_epoch": per_epoch_ms, "share_of_epoch": share}
 
 
 def _writer_times(torch, trainer, work: Path) -> dict:
@@ -1556,6 +1844,9 @@ def phase_cross_subject(torch, np, dev, work: Path, env: dict,
     log(f"cross-subject train CLI: {CS_EPOCHS} epochs of 90 folds in "
         f"{cli_s:.1f}s, report keys equal the JAX report's, average test "
         f"accuracy {report['overall_results']['average_test_accuracy']}%")
+    check(_epochs_journaled(_journal(np, cs_paths.reports / "obs", "ok"))
+          == list(range(1, CS_EPOCHS + 1)),
+          "the cross-subject CLI's journal lacks an epoch event per epoch")
     pred = subprocess.run(
         [sys.executable, "-m", "eegnetreplication_tpu_torch.predict",
          "--checkpoint", str(cs_paths.models / "cross_subject_best_model.npz"),
@@ -1631,6 +1922,7 @@ def phase_cross_subject(torch, np, dev, work: Path, env: dict,
         f"25%)")
 
     drill = _resume_drill(np, work / "drill", env, data_root)
+    chaos = _chaos_leg(np, work / "chaos", env, cs_paths)
 
     # Group sizes of the full protocol, then one epoch of the best under
     # the profiler, and the snapshot writer at 90 folds.
@@ -1648,7 +1940,27 @@ def phase_cross_subject(torch, np, dev, work: Path, env: dict,
         f"{profile['wall_ms_per_call']:.1f} ms, device busy "
         f"{profile['device_busy_ms_per_call']:.1f} ms, idle share "
         f"{profile['device_idle_share']}")
+
+    def protocol_epoch():
+        for t in trainers:
+            t.run_epoch()
+
+    determinism = _determinism_cost(torch, protocol_epoch, 90)
+    with _deterministic(torch, False):
+        protocol_epoch()
+        determinism["profile_off"] = breakdown(protocol_epoch, n_calls=1,
+                                               top=10)
+    log("90 folds, one epoch under the profiler without the deterministic "
+        "mode, top kernels: " + "; ".join(
+            f"{k['name'][:48]} {k['ms']:.1f} ms"
+            for k in determinism["profile_off"]["top_device_ms_per_call"]))
+    log("... and with it: " + "; ".join(
+        f"{k['name'][:48]} {k['ms']:.1f} ms"
+        for k in profile["top_device_ms_per_call"]))
+    trace_mb = _trace_size(torch, protocol_epoch, work / "trace90")
     del trainers
+    journal_cost = _journal_cost(np, work / "journal_cost",
+                                 sweep[best]["wall_per_epoch_ms"])
     writer = _writer_times(torch, setup.trainer(0, 90), work)
     return {"cli_s": cli_s, "predict_k1_launches": predict_k1,
             "launches_one_group": launches[0],
@@ -1659,7 +1971,8 @@ def phase_cross_subject(torch, np, dev, work: Path, env: dict,
             "learn_fold_epochs_per_s": learn.epoch_throughput,
             "resume_drill": drill, "group_sweep": sweep, "best_group": best,
             "card_fold_batch": CS_CARD_FOLD_BATCH, "epoch_profile": profile,
-            "writer": writer}
+            "writer": writer, "chaos": chaos, "determinism": determinism,
+            "trace_mb_per_epoch": trace_mb, "journal_cost": journal_cost}
 
 
 def main(argv=None) -> int:

@@ -17,8 +17,9 @@ exponential moving standardization runs in a second hand-written kernel
 ``train`` CLI runs the within-subject and cross-subject protocols with all
 folds of a group per step, chunked runs with run snapshots and
 ``--resume``; every validation and test batch runs block 1 of all folds in
-one launch of K1's stacked form.  Each kernel is the counterpart of one of
-the JAX package's Pallas kernels.
+one launch of K1's stacked form.  A training run writes the JAX package's
+run journal (``obs/``) and takes its chaos plans (``resil/inject.py``).
+Each kernel is the counterpart of one of the JAX package's Pallas kernels.
 
 Like the JAX package init, this re-exports the shared ``logger``.
 """

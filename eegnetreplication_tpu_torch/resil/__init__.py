@@ -1,8 +1,18 @@
-"""Resilience primitives of the port: checkpoint integrity and graceful
-stop on SIGTERM with drain hooks (the ported part of the JAX package's
-``resil`` exports)."""
+"""Resilience primitives of the port: checkpoint integrity, graceful stop
+on SIGTERM with drain hooks, fault injection at the training path's named
+sites, and the device-fault classifier (the ported part of the JAX
+package's ``resil`` exports)."""
 
-from eegnetreplication_tpu_torch.resil import integrity, preempt  # noqa: F401
+from eegnetreplication_tpu_torch.resil import (  # noqa: F401
+    inject,
+    integrity,
+    preempt,
+    retry,
+)
+from eegnetreplication_tpu_torch.resil.inject import (  # noqa: F401
+    FaultSpec,
+    parse_plan,
+)
 from eegnetreplication_tpu_torch.resil.integrity import (  # noqa: F401
     IntegrityError,
 )
@@ -11,5 +21,5 @@ from eegnetreplication_tpu_torch.resil.preempt import (  # noqa: F401
     Preempted,
 )
 
-__all__ = ["integrity", "preempt", "IntegrityError", "EX_PREEMPTED",
-           "Preempted"]
+__all__ = ["inject", "integrity", "preempt", "retry", "FaultSpec",
+           "parse_plan", "IntegrityError", "EX_PREEMPTED", "Preempted"]

@@ -59,8 +59,14 @@ def run_drain_hooks() -> None:
             logger.warning("Preemption drain hook %r failed: %s", fn, exc)
 
 
-def request() -> None:
-    """Flag a stop request (signal handlers call this)."""
+_reason: str | None = None
+
+
+def request(reason: str | None = None) -> None:
+    """Flag a stop request (signal handlers and the ``host.preempt`` chaos
+    site call this)."""
+    global _reason
+    _reason = reason or _reason
     _flag.set()
 
 
@@ -70,6 +76,8 @@ def requested() -> bool:
 
 def clear() -> None:
     """Reset the stop flag and the registered drain hooks."""
+    global _reason
+    _reason = None
     _flag.clear()
     with _drain_lock:
         _drain_hooks.clear()
@@ -80,11 +88,23 @@ class Preempted(RuntimeError):
 
 
 def check(**ctx) -> None:
+    """Raise :class:`Preempted` if a stop was requested, after probing the
+    ``host.preempt`` chaos site (so an armed plan stops the run exactly
+    here).  Call only at the safe points the JAX package probes: before a
+    one-pass run and at each chunk boundary."""
+    from eegnetreplication_tpu_torch.resil import inject
+
+    inject.fire("host.preempt", **ctx)
+    raise_if_requested(**ctx)
+
+
+def raise_if_requested(**ctx) -> None:
     """Raise :class:`Preempted` if a stop was requested (a flag read)."""
     if _flag.is_set():
         where = ", ".join(f"{k}={v}" for k, v in ctx.items())
-        raise Preempted(f"stop requested ({where}); rerun with --resume to "
-                        "continue from the last run snapshot")
+        why = f"{_reason}; " if _reason else ""
+        raise Preempted(f"stop requested ({why}{where}); rerun with --resume "
+                        "to continue from the last run snapshot")
 
 
 @contextlib.contextmanager
@@ -108,7 +128,7 @@ def guard(signals: tuple[int, ...] = (signal.SIGTERM, signal.SIGINT)
             signal.raise_signal(signum)
             return
         logger.warning("%s received — draining and stopping", name)
-        request()
+        request(name)
 
     for sig in signals:
         previous[sig] = signal.signal(sig, handler)

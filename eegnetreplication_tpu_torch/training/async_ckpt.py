@@ -31,7 +31,13 @@ Each write leaves a record in :attr:`SnapshotWriter.records`:
 thread's wait for the copy, serialisation and rename), ``blocked_s`` (the
 time the loop then waited for the write: at the next ``submit``, or the
 whole write when synchronous) and ``drain`` (waited for at ``close``, the
-run's end, not a stall of the loop).
+run's end, not a stall of the loop).  Once the loop has waited for it, the
+write is journaled as a ``checkpoint_write`` event (``dur_ms`` the write,
+``blocked_ms`` the wait, ``overlapped_ms`` their difference, ``generation``
+its sequence number) and observed in ``ckpt_write_s`` and, outside the
+drain, ``ckpt_block_s``.  The thread runs under the journal that was
+active when the writer was made, so the ``checkpoint.write_async`` chaos
+site journals there too.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from typing import Mapping
 
 import torch
 
+from eegnetreplication_tpu_torch.obs import journal as obs_journal
 from eegnetreplication_tpu_torch.resil import preempt
 from eegnetreplication_tpu_torch.training import checkpoint as ckpt_lib
 from eegnetreplication_tpu_torch.utils.logging import logger
@@ -81,6 +88,7 @@ class SnapshotWriter:
         self.signature = signature
         self.async_ = async_
         self.keep = keep
+        self._jr = obs_journal.current()
         self.records: list[dict] = []
         self._thread: threading.Thread | None = None
         self._pending: dict | None = None
@@ -92,16 +100,35 @@ class SnapshotWriter:
     def _write(self, host: dict, event, epochs_done: int, rec: dict) -> None:
         t0 = time.perf_counter()
         try:
-            if event is not None:
-                event.synchronize()
-            ckpt_lib.save_run_snapshot(
-                self.path, {k: v.numpy() for k, v in host.items()},
-                epochs_done, self.signature, keep=self.keep)
+            with obs_journal.bound(self._jr):
+                if event is not None:
+                    event.synchronize()
+                ckpt_lib.save_run_snapshot(
+                    self.path, {k: v.numpy() for k, v in host.items()},
+                    epochs_done, self.signature, keep=self.keep,
+                    _async_site=self.async_)
         except BaseException as exc:  # noqa: BLE001 — surfaced on submit/close
             self._error = exc
-            rec["ok"] = False
+            rec.update(ok=False, error=f"{type(exc).__name__}: {exc}"[:300])
         finally:
             rec["write_s"] = time.perf_counter() - t0
+
+    def _journal(self, rec: dict) -> None:
+        dur_ms = rec["write_s"] * 1e3
+        blocked_ms = rec["blocked_s"] * 1e3
+        extra = {"async": self.async_}
+        if not rec["ok"]:
+            extra["error"] = rec["error"]
+        self._jr.event("checkpoint_write", dur_ms=round(dur_ms, 3),
+                       overlapped_ms=round(max(0.0, dur_ms - blocked_ms), 3),
+                       blocked_ms=round(blocked_ms, 3),
+                       generation=rec["generation"],
+                       epochs_done=rec["epochs_done"], path=str(self.path),
+                       drain=rec["drain"], ok=rec["ok"], **extra)
+        if rec["ok"]:
+            self._jr.metrics.observe("ckpt_write_s", rec["write_s"])
+            if not rec["drain"]:
+                self._jr.metrics.observe("ckpt_block_s", rec["blocked_s"])
 
     def _join(self, *, drain: bool) -> None:
         """Wait for the write in flight and close its record."""
@@ -112,6 +139,7 @@ class SnapshotWriter:
         self._thread = None
         rec, self._pending = self._pending, None
         rec.update(blocked_s=time.perf_counter() - t0, drain=drain)
+        self._journal(rec)
 
     def _raise_error(self) -> None:
         if self._error is not None:
@@ -131,12 +159,14 @@ class SnapshotWriter:
         t0 = time.perf_counter()
         host, event = _stage(carry)
         rec = {"epochs_done": epochs_done, "ok": True,
+               "generation": len(self.records) + 1,
                "stage_s": time.perf_counter() - t0, "write_s": 0.0,
                "blocked_s": 0.0, "drain": False}
         self.records.append(rec)
         if not self.async_:
             self._write(host, event, epochs_done, rec)
             rec["blocked_s"] = rec["write_s"]
+            self._journal(rec)
             self._raise_error()
             return
         self._pending = rec

@@ -33,6 +33,11 @@ stored under its names (``carry/<name>``); a stored signature that differs
 from the run's raises, so a snapshot of another run, the JAX package's
 included, is never poured into this one.  Orbax directories are not
 ported.
+
+Every staged write probes the ``checkpoint.write`` chaos site (and the
+snapshot writer's thread ``checkpoint.write_async``) between the temp file
+and the rename, where the JAX package probes them; a quarantine journals
+``checkpoint_quarantine`` and counts ``checkpoints_quarantined``.
 """
 
 from __future__ import annotations
@@ -45,7 +50,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from eegnetreplication_tpu_torch.resil import integrity
+from eegnetreplication_tpu_torch.obs import journal as obs_journal
+from eegnetreplication_tpu_torch.resil import inject, integrity
 from eegnetreplication_tpu_torch.utils.logging import logger
 
 SEP = "/"
@@ -222,6 +228,10 @@ def quarantine_artifact(path: Path, error: BaseException | str) -> Path:
         return path
     logger.warning("Checkpoint %s failed integrity (%s) — quarantined to %s",
                    path, str(error)[:200], target)
+    jr = obs_journal.current()
+    jr.event("checkpoint_quarantine", path=str(path),
+             quarantined_to=str(target), error=str(error)[:300])
+    jr.metrics.inc("checkpoints_quarantined")
     return target
 
 
@@ -265,6 +275,7 @@ def save_checkpoint(path: str | Path, state_dict: Mapping,
     tmp = path.with_suffix(path.suffix + ".tmp")
     with open(tmp, "wb") as fh:
         np.savez(fh, **flat)
+    inject.fire("checkpoint.write", path=tmp, what="checkpoint")
     tmp.replace(path)
     return path
 
@@ -357,10 +368,12 @@ def resolve_snapshot(path: str | Path
 
 def save_run_snapshot(path: str | Path, carry: Mapping[str, np.ndarray],
                       epochs_done: int, signature: dict, *,
-                      keep: int | None = None) -> Path:
+                      keep: int | None = None,
+                      _async_site: bool = False) -> Path:
     """Persist a chunked run's carry (host arrays by name) after
     ``epochs_done`` epochs, stamped with ``signature`` and the digest;
-    rotation happens just before the atomic rename."""
+    rotation happens just before the atomic rename.  ``_async_site`` (the
+    snapshot writer's thread) also probes ``checkpoint.write_async``."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     flat = {CARRY_PREFIX + name: np.asarray(arr)
@@ -372,6 +385,11 @@ def save_run_snapshot(path: str | Path, carry: Mapping[str, np.ndarray],
     tmp = path.with_suffix(path.suffix + ".tmp")
     with open(tmp, "wb") as fh:
         np.savez(fh, **flat)
+    inject.fire("checkpoint.write", path=tmp, what="run_snapshot",
+                epochs_done=epochs_done)
+    if _async_site:
+        inject.fire("checkpoint.write_async", path=tmp, what="run_snapshot",
+                    epochs_done=epochs_done)
     rotate_generations(path, keep if keep is not None else snapshot_keep())
     tmp.replace(path)
     return path

@@ -24,6 +24,12 @@ validation or test batch, is one pass for all G folds (``training/steps.py``).
   when :meth:`FoldTrainer.result` copies them out.
 - Best-by-validation uses strict ``>`` (ties keep the earlier epoch, like
   the reference's ``model.py:180``); the test pass evaluates the best state.
+- Under :func:`debug_nans` (the ``--debugNans`` flag) each train step's
+  backward runs in autograd's anomaly mode with NaN checks, and after each
+  step every fold's loss, parameters and BatchNorm statistics must be
+  finite, or the step raises ``FloatingPointError`` naming the epoch, the
+  step, the fold and the tensor.  It waits for the device once per step
+  (and anomaly mode once per backward node), so it is a debugging mode.
 - :meth:`FoldTrainer.carry` is everything a run needs to continue (the
   current and best states, best accuracy, minimum validation loss, the
   per-epoch history and the dropout generator's state), by name;
@@ -34,6 +40,8 @@ validation or test batch, is one pass for all G folds (``training/steps.py``).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from dataclasses import dataclass
 from typing import Callable, Iterable, Mapping
@@ -52,6 +60,19 @@ SlotSource = Callable[[int], tuple[torch.Tensor, torch.Tensor]]
 # The per-epoch series of a run, in FoldResult's order.
 HISTORY = ("train_losses", "val_losses", "val_accuracies", "grad_norms")
 STATE_FIELDS = ("params", "stats", "mu", "nu", "count")
+
+_DEBUG_NANS = contextvars.ContextVar("eegtpu_torch_debug_nans", default=False)
+
+
+@contextlib.contextmanager
+def debug_nans(enabled: bool = True):
+    """Check every train step for non-finite values inside the block (the
+    port's counterpart of ``jax_debug_nans``; see the module docstring)."""
+    token = _DEBUG_NANS.set(enabled)
+    try:
+        yield
+    finally:
+        _DEBUG_NANS.reset(token)
 
 
 @dataclass
@@ -224,10 +245,11 @@ class FoldTrainer:
         self.train_steps = n_steps(spec.train_idx.shape[1], batch_size)
         self.val_steps = n_steps(spec.val_idx.shape[1], batch_size, 1)
         self.test_steps = n_steps(spec.test_idx.shape[1], batch_size, 1)
+        self.fold_ids = list(range(g) if fold_ids is None else fold_ids)
         if slot_source is None:
             slot_source = keyed_slot_source(
                 spec, self.train_steps * batch_size, shuffle_seed,
-                range(g) if fold_ids is None else fold_ids)
+                self.fold_ids)
         self.slot_source = slot_source
         self.fold_idx = fold_index(g, batch_size, device)
 
@@ -255,17 +277,21 @@ class FoldTrainer:
 
     def run_epoch(self) -> None:
         """Train every fold one epoch, validate, keep the best state."""
-        preempt.check(what="epoch", epoch=len(self.history))
+        preempt.raise_if_requested(what="epoch", epoch=len(self.history))
         gather, weights = self.slot_source(len(self.history))
         device = self.pool_x.device
         gather = gather.to(device, torch.int64)
         weights = weights.to(device, torch.float32)
         loss_sum = torch.zeros(self.spec.n_folds, device=device)
         gnorm_sum = torch.zeros_like(loss_sum)
+        checked = _DEBUG_NANS.get()
         for step in range(self.train_steps):
             x, y, w = self._batch(gather, weights, step)
-            self.state, loss, gnorm = steps_lib.train_step(
-                self.model, self.state, x, y, w, **self.step_kw)
+            if checked:
+                self.state, loss, gnorm = self._checked_step(step, x, y, w)
+            else:
+                self.state, loss, gnorm = steps_lib.train_step(
+                    self.model, self.state, x, y, w, **self.step_kw)
             loss_sum = loss_sum + loss
             gnorm_sum = gnorm_sum + gnorm
         # epoch_train_loss = running_loss / len(train_loader) (model.py:171)
@@ -290,6 +316,35 @@ class FoldTrainer:
         self.best_acc = torch.maximum(self.best_acc, val_acc)
         self.min_val_loss = torch.minimum(self.min_val_loss, val_loss)
         self.history.append((train_loss, val_loss, val_acc, grad_norm))
+
+    def _checked_step(self, step: int, x, y, w):
+        """One train step under :func:`debug_nans`."""
+        where = f"epoch {self.epoch + 1}, step {step + 1}"
+        try:
+            with torch.autograd.set_detect_anomaly(True, check_nan=True):
+                state, loss, gnorm = steps_lib.train_step(
+                    self.model, self.state, x, y, w, **self.step_kw)
+        except RuntimeError as exc:
+            if "nan values" not in str(exc):
+                raise
+            raise FloatingPointError(
+                f"--debugNans: {where}: the backward pass produced a NaN "
+                f"({exc})") from exc
+        finite = (torch.isfinite(loss) & torch.isfinite(state.params).all(1)
+                  & torch.isfinite(state.stats).all(1))
+        if not bool(finite.all()):                 # the step's one sync
+            g = int(torch.nonzero(~finite)[0, 0])
+            named = [("loss", loss[g:g + 1])]
+            named += [(f"params[{k}]", v[g])
+                      for k, v in state.param_views().items()]
+            named += [(f"stats[{k}]", v[g])
+                      for k, v in state.stat_views().items()]
+            tensor = next(n for n, v in named
+                          if not bool(torch.isfinite(v).all()))
+            raise FloatingPointError(
+                f"--debugNans: {where}: fold {self.fold_ids[g]} has a "
+                f"non-finite {tensor} after the step")
+        return state, loss, gnorm
 
     def test(self) -> torch.Tensor:
         """Test accuracy (percentage, ``(G,)``) of the best states."""

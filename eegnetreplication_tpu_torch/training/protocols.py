@@ -30,8 +30,9 @@ semantics (``_run_folds``):
   slices it, and the shuffles are keyed.  Dropout masks are drawn per group
   on the device's generator, so at p > 0 another grouping draws other
   masks; at p = 0 a grouped run equals one group per fold, to f32 rounding.
-  An out-of-memory error in a group halves the group size and retrains
-  that group; the size that then completes is recorded for this card.
+  A device fault in a group (``resil/retry.py::is_device_fault``: out of
+  memory or a CUDA runtime error) halves the group size and retrains that
+  group; the size that then completes is recorded for this card.
 - *Chunks.* ``checkpoint_every=N`` trains N epochs at a time and hands the
   trainer's carry to the snapshot writer (``training/async_ckpt.py``) at
   each chunk boundary; ``None`` chunks runs of more than
@@ -49,13 +50,23 @@ epoch shuffles (on CPU generators, so the card and the CPU train on the
 same weights and batches), ``seed + 2 + first fold`` the dropout masks of
 a group on the training device.  Wall times are training only, on the host
 clock, each chunk ended by a synchronize; the test pass is logged apart.
-The device mesh is not ported (ROADMAP.md queue A).
+
+Inside a run journal (``obs/journal.py``) the machinery emits the JAX
+package's events: ``train_setup``, ``fold_group``, ``device_fault`` and
+``retry``, one ``epoch`` per trained epoch (fold means read from the
+history each chunk already copies to the host), and the metrics
+``fold_epochs_total``, ``chunk_wall_s``, ``device_fault_retries`` and
+``fault_retry_wall_s``.  It probes the chaos sites ``train.step``,
+``train.chunk``, ``train.hang`` and ``host.preempt``
+(``resil/inject.py``).  The device mesh is not ported (ROADMAP.md queue
+A).
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import tempfile
 import time
@@ -78,7 +89,9 @@ from eegnetreplication_tpu_torch.data.splits import (
     kfold_indices,
 )
 from eegnetreplication_tpu_torch.models import EEGNet, get_model
-from eegnetreplication_tpu_torch.resil import preempt
+from eegnetreplication_tpu_torch.obs import journal as obs_journal
+from eegnetreplication_tpu_torch.resil import inject, preempt
+from eegnetreplication_tpu_torch.resil import retry as resil_retry
 from eegnetreplication_tpu_torch.training import checkpoint as ckpt_lib
 from eegnetreplication_tpu_torch.training.async_ckpt import SnapshotWriter
 from eegnetreplication_tpu_torch.training.loop import (
@@ -411,20 +424,6 @@ def _cs_auto_fold_batch(n_folds: int, fold_batch: int | None,
     return None
 
 
-class _ChunkCrash:
-    """Test hook: a plain RuntimeError after the n-th completed chunk of
-    the run (counted across groups; 0 and 1 both mean the first)."""
-
-    def __init__(self, after: int | None):
-        self.after = None if after is None else max(1, after)
-        self.chunks = 0
-
-    def tick(self) -> None:
-        self.chunks += 1
-        if self.after is not None and self.chunks == self.after:
-            raise RuntimeError(f"injected crash after chunk {self.chunks}")
-
-
 def _log_throughput(fold_epochs: float, wall: float, detail: str) -> None:
     logger.info("Throughput: %.2f fold-epochs/s (%s in %.1fs)",
                 fold_epochs / max(wall, 1e-9), detail, wall)
@@ -459,19 +458,43 @@ def _resume_carry(path: Path, signature: dict
     return ckpt_lib.load_run_snapshot(path, signature)
 
 
+def _journal_epochs(jr, per_epoch, lo: int, hi: int, total_epochs: int,
+                    n_folds: int) -> None:
+    """One ``epoch`` event per epoch ``lo+1..hi``: the fold means of the
+    training loss, validation loss and accuracy and gradient norm, from the
+    host copy of the chunk's history (no further wait for the device)."""
+    if not jr.active:
+        return
+    tl, vl, va, gn = (np.asarray(a) for a in per_epoch)
+    for e in range(lo + 1, hi + 1):
+        i = e - lo - 1
+        train_loss = float(np.mean(tl[:, i]))
+        val_loss = float(np.mean(vl[:, i]))
+        val_acc = float(np.mean(va[:, i]))
+        grad_norm = float(np.mean(gn[:, i]))
+        jr.event("epoch", epoch=e, total_epochs=total_epochs,
+                 train_loss=round(train_loss, 6),
+                 val_loss=round(val_loss, 6), val_acc=round(val_acc, 4),
+                 grad_norm=round(grad_norm, 6), n_folds=n_folds)
+        jr.scalar("train/loss", train_loss, e)
+        jr.scalar("val/loss", val_loss, e)
+        jr.scalar("val/accuracy", val_acc, e)
+        jr.scalar("train/grad_norm", grad_norm, e)
+
+
 def _train_group(setup: FoldSetup, lo: int, hi: int, *, epochs: int,
                  every: int, path: Path | None, resume: bool,
-                 signature: dict, crash: _ChunkCrash,
-                 fault_if_folds_over: int | None
-                 ) -> tuple[FoldResult, float, float]:
+                 signature: dict) -> tuple[FoldResult, float, float]:
     """Folds ``lo..hi-1`` through every epoch in chunks of ``every`` (0:
-    one pass); returns ``(result, training wall, fold-epochs trained)``."""
+    one pass); returns ``(result, training wall, fold-epochs trained)``.
+
+    Each chunk probes the ``train.step`` chaos site before its first epoch
+    (once per dispatch of the group, as the JAX package probes each
+    compiled program's dispatch); a chunked run probes ``train.chunk`` and
+    ``train.hang`` after each chunk."""
     n = hi - lo
+    jr = obs_journal.current()
     trainer = setup.trainer(lo, hi)
-    if fault_if_folds_over is not None and n > fault_if_folds_over:
-        raise torch.cuda.OutOfMemoryError(
-            f"injected out-of-memory error: a group of {n} folds > "
-            f"{fault_if_folds_over}")
     cfg = setup.config
     signature = dict(signature, epochs=epochs, n_folds=n, padded_folds=n,
                      seed=setup.seed, maxnorm_mode=cfg.maxnorm_mode,
@@ -491,21 +514,28 @@ def _train_group(setup: FoldSetup, lo: int, hi: int, *, epochs: int,
         logger.info("epochs (%d) is not a multiple of the %d-epoch chunk: "
                     "the last chunk is %d epochs", epochs, every,
                     epochs % every)
+    if not every:
+        preempt.check(n_folds=n, what="fused_dispatch")
     writer = (SnapshotWriter(path, signature)
               if every and path is not None else None)
     step = every or epochs
     wall = 0.0
     try:
-        for e0 in range(start, epochs, step):
+        for chunk_no, e0 in enumerate(range(start, epochs, step), 1):
             e1 = min(e0 + step, epochs)
             t0 = time.perf_counter()
+            inject.fire("train.step", n_folds=n, epoch=e0)
             for _ in range(e0, e1):
                 trainer.run_epoch()
             _sync(setup.device)
-            wall += time.perf_counter() - t0
-            _log_epoch_cadence([s.cpu().numpy() for s in
-                                trainer.history_tensors(e0)],
-                               e0, e1, epochs, n)
+            chunk_s = time.perf_counter() - t0
+            wall += chunk_s
+            jr.metrics.observe("chunk_wall_s", chunk_s)
+            if chunk_no == 1:
+                jr.sample_device_memory()
+            per_epoch = [t.cpu().numpy() for t in trainer.history_tensors(e0)]
+            _log_epoch_cadence(per_epoch, e0, e1, epochs, n)
+            _journal_epochs(jr, per_epoch, e0, e1, epochs, n)
             if writer is not None:
                 writer.submit(trainer.carry(), epochs_done=e1)
                 logger.info("Checkpoint %d/%d epochs -> %s (async)", e1,
@@ -514,8 +544,9 @@ def _train_group(setup: FoldSetup, lo: int, hi: int, *, epochs: int,
                 # The chunk boundary is the safe point: the snapshot is
                 # submitted, and the writer commits it before a Preempted
                 # leaves this function.
-                preempt.check(epochs_done=e1, n_folds=n)
-                crash.tick()
+                preempt.check(chunk=chunk_no, epochs_done=e1, n_folds=n)
+                inject.fire("train.chunk", chunk=chunk_no, n_folds=n)
+                inject.fire("train.hang", chunk=chunk_no, n_folds=n)
     except BaseException:
         if writer is not None:
             writer.close(raise_errors=False)
@@ -527,6 +558,7 @@ def _train_group(setup: FoldSetup, lo: int, hi: int, *, epochs: int,
     logger.info("Test-set evaluation: %.2fs (excluded from training "
                 "throughput)", time.perf_counter() - t0)
     trained = float(n * (epochs - start))
+    jr.metrics.inc("fold_epochs_total", trained)
     _log_throughput(trained, wall, f"{n} folds x {epochs - start} epochs")
     return result, wall, trained
 
@@ -551,18 +583,14 @@ def run_folds(setup: FoldSetup, *, epochs: int,
               fold_batch: int | None = None,
               checkpoint_every: int | None = None,
               checkpoint_path: Path | None = None, resume: bool = False,
-              signature: dict | None = None,
-              _crash_after_chunk: int | None = None,
-              _fault_if_folds_over: int | None = None
+              signature: dict | None = None
               ) -> tuple[FoldResult, float, float, float]:
     """Train every fold of ``setup``; returns ``(results, wall,
     fold-epochs trained, wall of halved-away attempts)``.
 
-    See the module docstring for groups, chunks and resume.
-    ``_crash_after_chunk`` and
-    ``_fault_if_folds_over`` are test hooks: a plain ``RuntimeError``
-    after the n-th chunk, and an out-of-memory error for every group of
-    more folds.
+    See the module docstring for groups, chunks and resume.  Journals
+    ``train_setup`` once, ``fold_group`` per group, and ``device_fault``
+    with a ``retry`` per halving.
     """
     if fold_batch is not None and fold_batch < 0:
         raise ValueError(f"fold_batch must be >= 0, got {fold_batch}")
@@ -585,12 +613,23 @@ def run_folds(setup: FoldSetup, *, epochs: int,
             "is one pass")
     fold_batch = _effective_fold_batch(fold_batch, n_folds)
     signature = dict(signature or {})
-    crash = _ChunkCrash(_crash_after_chunk)
-    kw = dict(epochs=epochs, every=every, crash=crash,
-              fault_if_folds_over=_fault_if_folds_over)
+    kw = dict(epochs=epochs, every=every)
     logger.info("Training %d folds for %d epochs on %s, %s", n_folds, epochs,
                 setup.device, f"{fold_batch} folds a group" if fold_batch
                 else "all folds per step")
+    jr = obs_journal.current()
+    # An epoch's real and padded training slots, from host values.
+    spec, batch = setup.spec, setup.config.batch_size
+    train_pad = int(spec.train_idx.shape[1])
+    real_train = int(spec.train_n.sum())
+    jr.event("train_setup", protocol=signature.get("protocol", "adhoc"),
+             n_folds=n_folds, epochs=epochs, train_pad=train_pad,
+             val_pad=int(spec.val_idx.shape[1]),
+             test_pad=int(spec.test_idx.shape[1]),
+             real_train_samples=real_train,
+             padded_train_slots=(n_folds * math.ceil(train_pad / batch)
+                                 * batch - real_train),
+             fold_batch=fold_batch)
 
     if not fold_batch:
         result, wall, trained = _train_group(
@@ -610,11 +649,13 @@ def run_folds(setup: FoldSetup, *, epochs: int,
             "training restarts from epoch 0 (fold_batch=0 would resume it "
             "as one group)", checkpoint_path, fold_batch)
     results, wall, trained, fault_wall = [], 0.0, 0.0, 0.0
-    gi, lo, cur, halved = 0, 0, fold_batch, False
+    gi, lo, cur, halved, attempt = 0, 0, fold_batch, False, 1
     while lo < n_folds:
         hi = min(lo + cur, n_folds)
         logger.info("Training fold group %d: folds %d-%d of %d", gi, lo,
                     hi - 1, n_folds)
+        jr.event("fold_group", group=gi, fold_lo=lo, fold_hi=hi,
+                 n_folds=n_folds, fold_batch=cur)
         gpath = (None if checkpoint_path is None
                  else Path(f"{checkpoint_path}.g{gi}"))
         gsig = dict(signature, fold_group=gi, fold_range=[lo, hi])
@@ -637,18 +678,30 @@ def run_folds(setup: FoldSetup, *, epochs: int,
         try:
             r, w, fe = _train_group(setup, lo, hi, path=gpath,
                                     resume=gresume, signature=gsig, **kw)
-        except torch.cuda.OutOfMemoryError as exc:
-            if cur <= 1:
+        except Exception as exc:  # noqa: BLE001 — classified below
+            # Only a device fault is worth a smaller group; anything else
+            # (an injected train.chunk crash, a stop request) propagates.
+            if cur <= 1 or not resil_retry.is_device_fault(exc):
                 raise
             elapsed = time.perf_counter() - t_attempt
             wall += elapsed
             fault_wall += elapsed
             cur = max(1, cur // 2)
             halved = True
+            jr.event("device_fault",
+                     error=f"{type(exc).__name__}: {exc}"[:300],
+                     fold_lo=lo, fold_hi=hi, retry_fold_batch=cur,
+                     elapsed_s=round(elapsed, 3))
+            resil_retry.journal_retry(
+                site="train.step", attempt=attempt, max_attempts=0, exc=exc,
+                fold_lo=lo, fold_hi=hi, retry_fold_batch=cur)
+            attempt += 1
+            jr.metrics.inc("device_fault_retries")
+            jr.metrics.inc("fault_retry_wall_s", elapsed)
             logger.warning(
-                "Out of memory training folds %d-%d (%.160s) — halving the "
-                "fold group to %d and retrying from fold %d", lo, hi - 1,
-                exc, cur, lo)
+                "Device fault training folds %d-%d (%s: %.160s) — halving "
+                "the fold group to %d and retrying from fold %d", lo, hi - 1,
+                type(exc).__name__, exc, cur, lo)
             del exc
             if setup.device.type == "cuda":
                 torch.cuda.empty_cache()
@@ -656,7 +709,7 @@ def run_folds(setup: FoldSetup, *, epochs: int,
         results.append(r)
         wall += w
         trained += fe
-        lo, gi = hi, gi + 1
+        lo, gi, attempt = hi, gi + 1, 1
         if halved:
             _record_fold_batch_limit(cur, setup.device)
             halved = False
@@ -736,10 +789,7 @@ def within_subject_training(epochs: int | None = None, *,
                             device: torch.device | str | None = None,
                             fold_batch: int | None = None,
                             checkpoint_every: int | None = None,
-                            resume: bool = False,
-                            _crash_after_chunk: int | None = None,
-                            _fault_if_folds_over: int | None = None
-                            ) -> ProtocolResult:
+                            resume: bool = False) -> ProtocolResult:
     """Within-subject protocol: per subject, 4-fold CV over both sessions,
     on ``device`` (the card unless ``EEGTPU_PLATFORM=cpu``), through
     :func:`run_folds`."""
@@ -762,9 +812,7 @@ def within_subject_training(epochs: int | None = None, *,
         checkpoint_path=paths.models / f"within_subject_{model_name}.run.npz",
         resume=resume,
         signature={"protocol": "within_subject", "model": model_name,
-                   "subjects": list(subjects)},
-        _crash_after_chunk=_crash_after_chunk,
-        _fault_if_folds_over=_fault_if_folds_over)
+                   "subjects": list(subjects)})
 
     fold_test = results.test_accuracy.numpy()
     fold_best_val = results.best_val_acc.numpy()
@@ -802,10 +850,7 @@ def cross_subject_training(epochs: int | None = None, *,
                            device: torch.device | str | None = None,
                            fold_batch: int | None = None,
                            checkpoint_every: int | None = None,
-                           resume: bool = False,
-                           _crash_after_chunk: int | None = None,
-                           _fault_if_folds_over: int | None = None
-                           ) -> ProtocolResult:
+                           resume: bool = False) -> ProtocolResult:
     """Cross-subject protocol: per held-out subject,
     ``config.cs_repeats_per_subject`` folds of 5 train and the rest
     validation subjects, on ``device``, through :func:`run_folds` in groups
@@ -823,9 +868,7 @@ def cross_subject_training(epochs: int | None = None, *,
         checkpoint_path=paths.models / f"cross_subject_{model_name}.run.npz",
         resume=resume,
         signature={"protocol": "cross_subject", "model": model_name,
-                   "subjects": list(subjects)},
-        _crash_after_chunk=_crash_after_chunk,
-        _fault_if_folds_over=_fault_if_folds_over)
+                   "subjects": list(subjects)})
 
     fold_test = results.test_accuracy.numpy()
     min_val_loss = results.min_val_loss.numpy()

@@ -13,6 +13,16 @@ Selecting a device also pins float32 numerics once per process: cuDNN
 convolutions default to TF32 (about 1e-3 relative error), while the JAX
 model computes at ``precision="highest"`` (full f32), so TF32 is switched
 off for both cuDNN and cuBLAS.
+
+Selecting the card also makes its runs repeat bit for bit, which the JAX
+package promises of a resumed run ("resume WITHIN a fixed grouping
+remains bit-identical"): ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` before the
+first cuBLAS call, ``torch.use_deterministic_algorithms(True)``, and cuDNN
+deterministic with its autotuner off.  Deterministic mode's fill of fresh
+allocations with NaN is turned off: the port's kernels write every output
+element, so the fill would only cost a pass over each new tensor.  The
+CPU path is left as it is: it already repeats, and the global flag would
+change the other torch code of a process that runs on the CPU.
 """
 
 from __future__ import annotations
@@ -31,6 +41,15 @@ def _pin_f32_numerics() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def _pin_determinism() -> None:
+    """Bitwise-repeatable runs on the card (see the module docstring)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
 def select_device() -> torch.device:
     """The device ``EEGTPU_PLATFORM`` names; raises instead of falling back."""
     _pin_f32_numerics()
@@ -45,6 +64,7 @@ def select_device() -> torch.device:
         raise RuntimeError(
             "CUDA is not available on this host; the torch port does not "
             f"fall back to the CPU (set {PLATFORM_ENV}=cpu to run there)")
+    _pin_determinism()
     return torch.device("cuda", 0)
 
 
@@ -54,4 +74,7 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
     if device is None:
         return select_device()
     _pin_f32_numerics()
-    return torch.device(device)
+    device = torch.device(device)
+    if device.type == "cuda":
+        _pin_determinism()
+    return device

@@ -1,8 +1,11 @@
 """Where the serving engine's and the training loop's time goes on the card.
 
 The counterpart of ``eegnetreplication_tpu/utils/profiling.py`` for the
-torch port: :func:`trace` wraps a block in ``torch.profiler`` (CPU and
-CUDA activity); :func:`engine_breakdown` splits ``InferenceEngine.infer``
+torch port: :func:`trace` profiles a block with ``torch.profiler`` (CPU and
+CUDA activity) and writes a Chrome trace (``chrome://tracing`` or
+Perfetto open it) under its log directory, what ``train --profileDir``
+wraps the whole training call in; :func:`engine_breakdown` splits
+``InferenceEngine.infer``
 at one bucket, and :func:`breakdown` any callable (``chip_smoke.py`` gives
 it one training epoch), into host wall time, device busy time by kernel
 name, and the device's idle share.  Run on a card:
@@ -18,6 +21,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -27,7 +31,7 @@ import torch
 
 
 @contextlib.contextmanager
-def trace():
+def _profile():
     """Profile the enclosed block with ``torch.profiler`` (CPU + CUDA);
     yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -37,6 +41,32 @@ def trace():
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
         yield prof
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | Path | None):
+    """Profile the enclosed block and write its Chrome trace to
+    ``<log_dir>/trace-<pid>.json`` (a no-op when ``log_dir`` is None).
+    Yields the path the trace is written to, or None."""
+    if not log_dir:
+        yield None
+        return
+    from eegnetreplication_tpu_torch.utils.logging import logger
+
+    path = Path(log_dir) / f"trace-{os.getpid()}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    logger.info("torch.profiler trace -> %s", path)
+    prof = None
+    try:
+        with _profile() as prof:
+            yield path
+    finally:
+        # Also when the block raised (a stop request, a fault): the trace
+        # of what ran is what a debugging run is for.
+        if prof is not None:
+            prof.export_chrome_trace(str(path))
+            logger.info("torch.profiler trace written to %s (%.1f MB)",
+                        path, path.stat().st_size / 1e6)
 
 
 def _device_events(prof):
@@ -76,7 +106,7 @@ def breakdown(fn, n_calls: int = 1, top: int = 8) -> dict:
     host-clock wall outside it; the per-kernel times are sums.
     """
     torch.cuda.synchronize()
-    with trace() as prof:
+    with _profile() as prof:
         t0 = time.perf_counter()
         for _ in range(n_calls):
             fn()

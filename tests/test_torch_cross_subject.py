@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 from synthetic import make_loader
+from torch_port_cases import child_env, write_processed_tree
 
 from eegnetreplication_tpu.config import DEFAULT_TRAINING as JAX_DEFAULT
 from eegnetreplication_tpu.config import Paths as JaxPaths
@@ -40,7 +41,6 @@ from eegnetreplication_tpu.training import report as jax_report
 from eegnetreplication_tpu_torch import train as train_cli
 from eegnetreplication_tpu_torch.config import DEFAULT_TRAINING, Paths
 from eegnetreplication_tpu_torch.data.containers import BCICI2ADataset
-from eegnetreplication_tpu_torch.data.io import save_trials, trials_filename
 from eegnetreplication_tpu_torch.resil import preempt
 from eegnetreplication_tpu_torch.serve.engine import InferenceEngine
 from eegnetreplication_tpu_torch.training import checkpoint as ckpt
@@ -196,17 +196,6 @@ def test_learns_above_chance_and_models_load_in_both(tmp_path):
 
 # --- the CLI ---------------------------------------------------------------
 
-def _write_processed_tree(root: Path, subjects):
-    loader = make_loader(n_trials=16, n_channels=4, n_times=64,
-                         class_sep=1.5)
-    for s in subjects:
-        for mode in ("Train", "Eval"):
-            ds = loader(s, mode)
-            save_trials(BCICI2ADataset(X=ds.X, y=ds.y),
-                        root / "data" / "processed" / mode
-                        / trials_filename(s, mode))
-
-
 def _keys(tree):
     if isinstance(tree, dict):
         return {(k,) + rest for k, v in tree.items() for rest in
@@ -217,8 +206,9 @@ def _keys(tree):
 
 
 def test_cli_cross_subject_writes_the_jax_report(tmp_path):
-    _write_processed_tree(tmp_path, range(1, 8))
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    write_processed_tree(tmp_path, range(1, 8), n_trials=16)
+    env = child_env({k: v for k, v in os.environ.items()
+                     if k != "PYTHONPATH"})
     env.update(EEGTPU_PLATFORM="cpu", EEGTPU_DATA_ROOT=str(tmp_path),
                EEGTPU_NO_LOG_FILE="1")
     out = subprocess.run(
@@ -281,7 +271,7 @@ def test_cli_stop_and_resume_match_the_unbroken_run(monkeypatch, tmp_path):
     exits 75 with the epoch-2 snapshot on disk; ``--resume`` finishes with
     the models the unbroken run writes."""
     for root in ("stopped", "unbroken"):
-        _write_processed_tree(tmp_path / root, (1, 2))
+        write_processed_tree(tmp_path / root, (1, 2), n_trials=16)
     monkeypatch.setenv("EEGTPU_PLATFORM", "cpu")
     argv = ["--epochs", "4", "--checkpointEvery", "2", "--subjects", "1,2"]
     monkeypatch.setenv("EEGTPU_DATA_ROOT", str(tmp_path / "unbroken"))

@@ -9,6 +9,7 @@ held to atol 1e-5 on unit-variance inputs.
 import numpy as np
 import pytest
 import torch
+import torch_port_cases  # noqa: F401 (caps torch's threads)
 
 from eegnetreplication_tpu.ops import dsp as jax_dsp
 from eegnetreplication_tpu_torch.ops import dsp

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_port_cases  # noqa: F401 (caps torch's threads)
 
 from eegnetreplication_tpu.models import EEGNet as JaxEEGNet
 from eegnetreplication_tpu.training import loop as jax_loop

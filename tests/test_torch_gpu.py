@@ -19,7 +19,9 @@ one training epoch launches the stacked K1 once per validation batch; a
 grouped cross-subject run on the card equals one group per fold at dropout
 0 (2e-3); a carry snapshotted on the card through the asynchronous writer
 and restored continues the unbroken run (2e-3) with the CUDA generator's
-state restored.  K2
+state restored.  Two 8-fold card runs are bitwise equal, and the
+deterministic mode the card's runs select raises on none of the serving,
+dataset and training paths.  K2
 (``ems``) is held against ``ems_reference`` on the card at a session's (22, 345600) and the
 edge shapes (K2's tile boundaries among them), atol/rtol 1e-4 (the JAX
 package's Pallas-vs-scan tolerance).  Each kernel called three times on one
@@ -31,6 +33,7 @@ input gives the same bits.  The card's preprocessing path with
 import numpy as np
 import pytest
 import torch
+import torch_port_cases  # noqa: F401 (caps torch's threads)
 
 from eegnetreplication_tpu_torch.data import gdf, preprocess
 from eegnetreplication_tpu_torch.models import EEGNet
@@ -440,3 +443,56 @@ def test_card_snapshot_restores_and_continues_the_run(cuda, tmp_path):
                  "history/val_losses", "min_val_loss"):
         torch.testing.assert_close(got[name], want[name], atol=2e-3,
                                    rtol=2e-3)
+
+
+def _ws_on_card(cuda, tmp_path, name, epochs=2, **kw):
+    """Within-subject training at 8 folds (2 separable subjects) on the
+    card through the protocol, which selects the card's deterministic
+    numerics (``utils/device.py``)."""
+    return protocols.within_subject_training(
+        epochs=epochs, loader=_separable, subjects=(1, 2),
+        paths=Paths.from_root(tmp_path / name), save_models=False,
+        device=cuda, **kw)
+
+
+def test_two_card_runs_are_bitwise_equal(cuda, tmp_path):
+    a, b = (_ws_on_card(cuda, tmp_path, n) for n in ("a", "b"))
+    assert torch.are_deterministic_algorithms_enabled()
+    assert torch.backends.cudnn.deterministic
+    assert not torch.backends.cudnn.benchmark
+    for field in ("train_losses", "val_losses", "val_accuracies",
+                  "grad_norms", "min_val_loss", "test_accuracy"):
+        assert torch.equal(getattr(a.folds, field), getattr(b.folds, field)), \
+            field
+    for field in ("params", "stats", "mu", "nu", "count"):
+        assert torch.equal(getattr(a.folds.best_state, field),
+                           getattr(b.folds.best_state, field)), field
+
+
+def test_determinism_raises_on_no_path(cuda, tmp_path, monkeypatch):
+    """Deterministic mode refuses ops it has no deterministic kernel for;
+    none sits on the serving, dataset or training paths."""
+    from eegnetreplication_tpu_torch.utils.device import resolve_device
+
+    resolve_device(cuda)
+    assert torch.are_deterministic_algorithms_enabled()
+    engine = InferenceEngine(_model(22, 257, 8, 2), device=cuda)
+    engine.warmup()
+    assert engine.infer(_trials(8, 22, 257).numpy()).shape[0] == 8
+    rng = np.random.RandomState(5)
+    rec = gdf.GDFRecording(
+        signals=(rng.randn(25, 5000) * 10.0).astype(np.float32),
+        sfreq=250.0, labels=[], event_pos=np.array([300, 1301]),
+        event_typ=np.array([769, 770]))
+    for method in ("associative", "pallas"):
+        monkeypatch.setenv("EEGTPU_EMS_METHOD", method)
+        assert np.isfinite(preprocess.preprocess_recording(
+            rec, device=cuda).data).all()
+    chunked = _ws_on_card(cuda, tmp_path, "ws", epochs=2, checkpoint_every=1)
+    assert np.isfinite(chunked.fold_min_val_loss).all()
+    cfg = DEFAULT_TRAINING.replace(cs_repeats_per_subject=1)
+    cs = protocols.cross_subject_training(
+        epochs=1, config=cfg, loader=_separable, subjects=tuple(range(1, 8)),
+        paths=Paths.from_root(tmp_path / "cs"), save_models=False,
+        device=cuda, fold_batch=4)
+    assert np.isfinite(cs.fold_min_val_loss).all()

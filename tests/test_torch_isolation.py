@@ -17,6 +17,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_port_cases import child_env
 
 from eegnetreplication_tpu_torch.utils import device as device_lib
 
@@ -48,7 +49,9 @@ _CHILD = textwrap.dedent("""
                  "ops.ems_kernel", "train", "data.splits", "models.norm",
                  "training.steps", "training.loop", "training.protocols",
                  "training.report", "training.checkpoint",
-                 "training.async_ckpt", "resil.preempt"):
+                 "training.async_ckpt", "resil.preempt", "obs",
+                 "obs.schema", "obs.metrics", "obs.journal", "resil.inject",
+                 "resil.retry"):
         assert "eegnetreplication_tpu_torch." + name in names, name
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   {chip_smoke!r})
@@ -71,7 +74,8 @@ _CHILD = textwrap.dedent("""
 
 
 def _env(**extra):
-    env = {k: v for k, v in os.environ.items() if k != "EEGTPU_PLATFORM"}
+    env = child_env({k: v for k, v in os.environ.items()
+                     if k != "EEGTPU_PLATFORM"})
     env.update(EEGTPU_NO_LOG_FILE="1", CUDA_VISIBLE_DEVICES="", **extra)
     return env
 

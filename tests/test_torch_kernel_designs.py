@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_port_cases  # noqa: F401 (caps torch's threads)
 
 from eegnetreplication_tpu.ops import fused_eegnet as jax_fused
 from eegnetreplication_tpu.ops.ems import (

@@ -22,6 +22,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 from synthetic import make_loader
+from torch_port_cases import child_env, write_processed_tree
 
 from eegnetreplication_tpu.config import DEFAULT_TRAINING as JAX_DEFAULT
 from eegnetreplication_tpu.config import Paths as JaxPaths
@@ -32,7 +33,6 @@ from eegnetreplication_tpu.training import report as jax_report
 from eegnetreplication_tpu_torch import train as train_cli
 from eegnetreplication_tpu_torch.config import DEFAULT_TRAINING, Paths
 from eegnetreplication_tpu_torch.data.containers import BCICI2ADataset
-from eegnetreplication_tpu_torch.data.io import save_trials, trials_filename
 from eegnetreplication_tpu_torch.resil import preempt
 from eegnetreplication_tpu_torch.serve.engine import InferenceEngine
 from eegnetreplication_tpu_torch.training import protocols, report
@@ -105,17 +105,6 @@ def test_learns_above_chance_and_saves_both_models(monkeypatch, tmp_path):
                     ).is_file()
 
 
-def _write_processed_tree(root: Path, subjects=(1, 2)):
-    loader = make_loader(n_trials=24, n_channels=4, n_times=64,
-                         class_sep=1.5)
-    for s in subjects:
-        for mode in ("Train", "Eval"):
-            ds = loader(s, mode)
-            save_trials(BCICI2ADataset(X=ds.X, y=ds.y),
-                        root / "data" / "processed" / mode
-                        / trials_filename(s, mode))
-
-
 def _keys(tree):
     """Every key path of a JSON tree (list entries by their first item)."""
     if isinstance(tree, dict):
@@ -127,8 +116,9 @@ def _keys(tree):
 
 
 def test_cli_report_has_the_jax_keys_and_checkpoints_load_in_both(tmp_path):
-    _write_processed_tree(tmp_path)
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    write_processed_tree(tmp_path)
+    env = child_env({k: v for k, v in os.environ.items()
+                     if k != "PYTHONPATH"})
     env.update(EEGTPU_PLATFORM="cpu", EEGTPU_DATA_ROOT=str(tmp_path),
                EEGTPU_NO_LOG_FILE="1")
     out = subprocess.run(
@@ -179,10 +169,8 @@ UNPORTED = {
     "mesh_data": ["--meshData", "2"],
     "precision": ["--precision", "bf16"],
     "orbax": ["--ckptFormat", "orbax"],
-    "chaos": ["--chaos", "train.step:times=1"],
-    "metrics_dir": ["--metricsDir", "m"],
-    "profile_dir": ["--profileDir", "p"],
-    "debug_nans": ["--debugNans"],
+    # a plan naming a JAX site whose module the port lacks
+    "chaos": ["--chaos", "serve.hang:times=1"],
 }
 
 
@@ -197,6 +185,34 @@ def test_unported_flags_stop_the_cli(name, capsys):
         assert "ROADMAP" in err
 
 
+OBS_FLAGS = {
+    "metrics_dir": ["--metricsDir", "m"],
+    "profile_dir": ["--profileDir", "p"],
+    "debug_nans": ["--debugNans"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(OBS_FLAGS))
+def test_obs_flags_run_and_exit_0(name, monkeypatch, tmp_path):
+    write_processed_tree(tmp_path, subjects=(1,))
+    monkeypatch.setenv("EEGTPU_PLATFORM", "cpu")
+    monkeypatch.setenv("EEGTPU_DATA_ROOT", str(tmp_path))
+    monkeypatch.chdir(tmp_path)
+    # As on the card's machine: no TensorBoard writer (importing it here
+    # drags in TensorFlow), so the scalar mirror stays inert.
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    assert train_cli.main(OBS_FLAGS[name] + ["--epochs", "1", "--subjects",
+                                             "1"]) == 0
+    root = tmp_path / "m" if name == "metrics_dir" \
+        else tmp_path / "reports" / "obs"
+    (run,) = root.iterdir()
+    assert (run / "events.jsonl").is_file() and (run / "metrics.json"
+                                                 ).is_file()
+    if name == "profile_dir":
+        (trace,) = (tmp_path / "p").glob("trace-*.json")
+        assert json.loads(trace.read_text())["traceEvents"]
+
+
 def test_cli_refuses_a_host_without_cuda(monkeypatch, tmp_path):
     monkeypatch.delenv("EEGTPU_PLATFORM", raising=False)
     monkeypatch.setenv("EEGTPU_DATA_ROOT", str(tmp_path))
@@ -206,18 +222,18 @@ def test_cli_refuses_a_host_without_cuda(monkeypatch, tmp_path):
 
 
 def test_generate_report_false_writes_no_report(monkeypatch, tmp_path):
-    _write_processed_tree(tmp_path, subjects=(1,))
+    write_processed_tree(tmp_path, subjects=(1,))
     monkeypatch.setenv("EEGTPU_PLATFORM", "cpu")
     monkeypatch.setenv("EEGTPU_DATA_ROOT", str(tmp_path))
     assert train_cli.main(["--epochs", "1", "--subjects", "1",
                            "--generateReport", "False"]) == 0
-    assert not (tmp_path / "reports").exists()
+    assert not list((tmp_path / "reports").glob("*.json"))
     assert (tmp_path / "models" / "subject_01_best_model.npz").is_file()
 
 
 def test_a_stop_request_exits_75_at_an_epoch_boundary(monkeypatch,
                                                       tmp_path):
-    _write_processed_tree(tmp_path, subjects=(1,))
+    write_processed_tree(tmp_path, subjects=(1,))
     monkeypatch.setenv("EEGTPU_PLATFORM", "cpu")
     monkeypatch.setenv("EEGTPU_DATA_ROOT", str(tmp_path))
     preempt.request()

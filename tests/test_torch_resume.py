@@ -18,6 +18,8 @@ has its counterpart here, on the port's ``within_subject_training`` /
 - at dropout 0 a grouped run equals one group per fold (training losses
   within 1e-6, equal test accuracies; see ``_assert_close_per_fold``); an
   out-of-memory error halves the group and the run completes;
+- crashes and out-of-memory errors are injected through the port's chaos
+  sites (``train.chunk``, ``train.step``; ``resil/inject.py``);
 - the writer lands snapshots in order in both modes, surfaces a failed
   write at the next ``submit``, and a stop at a chunk boundary leaves the
   submitted snapshot on disk.
@@ -28,13 +30,14 @@ import logging
 import numpy as np
 import pytest
 import torch
+import torch_port_cases  # noqa: F401 (caps torch's threads)
 from synthetic import make_loader
 
 from eegnetreplication_tpu.training import checkpoint as jax_ckpt
 from eegnetreplication_tpu.training import protocols as jax_protocols
 from eegnetreplication_tpu_torch.config import DEFAULT_TRAINING, Paths
 from eegnetreplication_tpu_torch.data.containers import BCICI2ADataset
-from eegnetreplication_tpu_torch.resil import preempt
+from eegnetreplication_tpu_torch.resil import inject, preempt
 from eegnetreplication_tpu_torch.training import async_ckpt, loop, protocols
 from eegnetreplication_tpu_torch.training import checkpoint as ckpt
 
@@ -65,6 +68,20 @@ def _no_stop_request():
     preempt.clear()
     yield
     preempt.clear()
+    inject.disarm_all()
+
+
+def _crash_after(n):
+    """The ``train.chunk`` chaos site armed to crash the run after its
+    n-th chunk (counted across groups)."""
+    return inject.scoped(inject.FaultSpec("train.chunk", after=n - 1))
+
+
+def _oom_over(n):
+    """The ``train.step`` chaos site armed to raise an out-of-memory error
+    in every group of more than n folds."""
+    return inject.scoped(inject.FaultSpec("train.step", times=0,
+                                          if_folds_over=n))
 
 
 def _ws(paths, epochs=6, subjects=(1,), config=CFG, loader_kw=None, **kw):
@@ -113,8 +130,8 @@ def test_epoch_cadence_lines_logged(paths, caplog, every):
 def test_crash_and_resume_bitwise_with_dropout(paths):
     assert CFG.dropout_within_subject > 0
     unbroken = _ws(paths, checkpoint_every=2)
-    with pytest.raises(RuntimeError, match="injected crash"):
-        _ws(paths, checkpoint_every=2, _crash_after_chunk=1)
+    with pytest.raises(RuntimeError, match="injected crash"), _crash_after(1):
+        _ws(paths, checkpoint_every=2)
     snap = paths.models / SNAP
     assert snap.exists()
     resumed = _ws(paths, checkpoint_every=2, resume=True)
@@ -124,8 +141,8 @@ def test_crash_and_resume_bitwise_with_dropout(paths):
 
 
 def test_stale_snapshot_rejected(paths):
-    with pytest.raises(RuntimeError, match="injected crash"):
-        _ws(paths, checkpoint_every=2, _crash_after_chunk=1)
+    with pytest.raises(RuntimeError, match="injected crash"), _crash_after(1):
+        _ws(paths, checkpoint_every=2)
     with pytest.raises(ValueError, match="different run"):
         _ws(paths, epochs=4, checkpoint_every=2, resume=True)
 
@@ -133,16 +150,16 @@ def test_stale_snapshot_rejected(paths):
 @pytest.mark.parametrize("change", [{"maxnorm_mode": "paper"},
                                     {"bn_mode": "torch"}])
 def test_update_rule_change_rejected_on_resume(paths, change):
-    with pytest.raises(RuntimeError, match="injected crash"):
-        _ws(paths, checkpoint_every=2, _crash_after_chunk=1)
+    with pytest.raises(RuntimeError, match="injected crash"), _crash_after(1):
+        _ws(paths, checkpoint_every=2)
     with pytest.raises(ValueError, match="different run"):
         _ws(paths, config=CFG.replace(**change), checkpoint_every=2,
             resume=True)
 
 
 def test_content_mismatch_resumes_fresh(paths, caplog):
-    with pytest.raises(RuntimeError, match="injected crash"):
-        _ws(paths, checkpoint_every=2, _crash_after_chunk=1)
+    with pytest.raises(RuntimeError, match="injected crash"), _crash_after(1):
+        _ws(paths, checkpoint_every=2)
     assert (paths.models / SNAP).exists()
     other = dict(n_trials=24, n_channels=4, n_times=64, class_sep=1.7)
     with caplog.at_level(logging.WARNING):
@@ -163,8 +180,8 @@ def test_missing_snapshot_warns_and_trains(paths, caplog):
 
 def test_corrupt_newest_generation_falls_back(paths, caplog):
     unbroken = _ws(paths, checkpoint_every=2)
-    with pytest.raises(RuntimeError, match="injected crash"):
-        _ws(paths, checkpoint_every=2, _crash_after_chunk=2)
+    with pytest.raises(RuntimeError, match="injected crash"), _crash_after(2):
+        _ws(paths, checkpoint_every=2)
     snap = paths.models / SNAP
     gen1 = snap.with_name(snap.name + ".gen1")
     assert snap.exists() and gen1.exists()
@@ -183,8 +200,8 @@ def test_corrupt_newest_generation_falls_back(paths, caplog):
 @pytest.mark.parametrize("keep, want", [("1", []), ("3", [".gen1", ".gen2"])])
 def test_snapshot_keep_env_is_honoured(paths, monkeypatch, keep, want):
     monkeypatch.setenv("EEGTPU_SNAPSHOT_KEEP", keep)
-    with pytest.raises(RuntimeError, match="injected crash"):
-        _ws(paths, checkpoint_every=2, _crash_after_chunk=3)
+    with pytest.raises(RuntimeError, match="injected crash"), _crash_after(3):
+        _ws(paths, checkpoint_every=2)
     got = sorted(p.name[len(SNAP):] for p in paths.models.glob(SNAP + "*"))
     assert got == [""] + want
 
@@ -250,16 +267,16 @@ def test_auto_chunk_size_values():
 
 
 def test_long_run_auto_chunks(paths):
-    with pytest.raises(RuntimeError, match="injected crash"):
-        _ws(paths, epochs=120, _crash_after_chunk=1)
+    with pytest.raises(RuntimeError, match="injected crash"), _crash_after(1):
+        _ws(paths, epochs=120)
     stored = ckpt.read_snapshot_signature(paths.models / SNAP)
     assert stored["epochs"] == 120
 
 
 @pytest.mark.parametrize("epochs, every", [(4, None), (120, 0)])
 def test_unchunked_runs_are_one_pass(paths, epochs, every):
-    result = _ws(paths, epochs=epochs, checkpoint_every=every,
-                 _crash_after_chunk=1)
+    with _crash_after(1):
+        result = _ws(paths, epochs=epochs, checkpoint_every=every)
     assert np.isfinite(result.avg_test_acc)   # the hook never fired
     assert not (paths.models / SNAP).exists()
 
@@ -286,8 +303,8 @@ def _ws2(paths, **kw):
 def test_grouped_crash_and_resume_bitwise(paths):
     unbroken = _ws2(paths, fold_batch=3, checkpoint_every=2)
     assert unbroken.fold_batch == 3
-    with pytest.raises(RuntimeError, match="injected crash"):
-        _ws2(paths, fold_batch=3, checkpoint_every=2, _crash_after_chunk=1)
+    with pytest.raises(RuntimeError, match="injected crash"), _crash_after(1):
+        _ws2(paths, fold_batch=3, checkpoint_every=2)
     assert (paths.models / (SNAP + ".g0")).exists()
     resumed = _ws2(paths, fold_batch=3, checkpoint_every=2, resume=True)
     _assert_bitwise(resumed, unbroken)
@@ -296,8 +313,8 @@ def test_grouped_crash_and_resume_bitwise(paths):
 
 def test_resume_across_a_group_size_change_warns_and_retrains(paths,
                                                               caplog):
-    with pytest.raises(RuntimeError, match="injected crash"):
-        _ws2(paths, fold_batch=4, checkpoint_every=2, _crash_after_chunk=1)
+    with pytest.raises(RuntimeError, match="injected crash"), _crash_after(1):
+        _ws2(paths, fold_batch=4, checkpoint_every=2)
     with caplog.at_level(logging.WARNING):
         resumed = _ws2(paths, fold_batch=3, checkpoint_every=2, resume=True)
     assert any("different fold grouping" in m for m in _messages(caplog))
@@ -306,8 +323,8 @@ def test_resume_across_a_group_size_change_warns_and_retrains(paths,
 
 
 def test_resume_across_batching_warns_and_cleans(paths, caplog):
-    with pytest.raises(RuntimeError, match="injected crash"):
-        _ws2(paths, checkpoint_every=2, _crash_after_chunk=1)
+    with pytest.raises(RuntimeError, match="injected crash"), _crash_after(1):
+        _ws2(paths, checkpoint_every=2)
     assert (paths.models / SNAP).exists()
     with caplog.at_level(logging.WARNING):
         resumed = _ws2(paths, fold_batch=3, checkpoint_every=2, resume=True)
@@ -317,8 +334,8 @@ def test_resume_across_batching_warns_and_cleans(paths, caplog):
 
 
 def test_resume_with_a_corrupt_group_snapshot(paths, caplog):
-    with pytest.raises(RuntimeError, match="injected crash"):
-        _ws2(paths, fold_batch=3, checkpoint_every=2, _crash_after_chunk=1)
+    with pytest.raises(RuntimeError, match="injected crash"), _crash_after(1):
+        _ws2(paths, fold_batch=3, checkpoint_every=2)
     g0 = paths.models / (SNAP + ".g0")
     g0.write_bytes(b"not a zip archive")
     with caplog.at_level(logging.WARNING):
@@ -328,8 +345,8 @@ def test_resume_with_a_corrupt_group_snapshot(paths, caplog):
 
 
 def test_ungrouped_completion_clears_stale_group_snapshots(paths):
-    with pytest.raises(RuntimeError, match="injected crash"):
-        _ws2(paths, fold_batch=3, checkpoint_every=2, _crash_after_chunk=1)
+    with pytest.raises(RuntimeError, match="injected crash"), _crash_after(1):
+        _ws2(paths, fold_batch=3, checkpoint_every=2)
     assert list(paths.models.glob("*.run.npz.g*"))
     _ws2(paths, checkpoint_every=2)
     assert not list(paths.models.glob("*.run.npz*"))
@@ -382,7 +399,8 @@ def test_out_of_memory_halves_the_group_and_completes(paths, monkeypatch,
     monkeypatch.setattr(protocols, "_fold_batch_limit_path", lambda: record)
     one = _cs6(paths, fold_batch=0)
     with caplog.at_level(logging.WARNING):
-        halved = _cs6(paths, fold_batch=4, _fault_if_folds_over=2)
+        with _oom_over(2):
+            halved = _cs6(paths, fold_batch=4)
     assert any("halving the fold group to 2" in m for m in _messages(caplog))
     assert halved.fold_batch == 4
     assert halved.fault_retry_wall_s > 0
@@ -395,13 +413,13 @@ def test_out_of_memory_halves_the_group_and_completes(paths, monkeypatch,
 
 
 def test_other_errors_propagate_instead_of_halving(paths):
-    with pytest.raises(RuntimeError, match="injected crash"):
-        _cs6(paths, fold_batch=4, checkpoint_every=1, _crash_after_chunk=1)
+    with pytest.raises(RuntimeError, match="injected crash"), _crash_after(1):
+        _cs6(paths, fold_batch=4, checkpoint_every=1)
 
 
 def test_an_oom_in_one_group_propagates(paths):
-    with pytest.raises(torch.cuda.OutOfMemoryError):
-        _cs6(paths, fold_batch=0, _fault_if_folds_over=2)
+    with pytest.raises(torch.cuda.OutOfMemoryError), _oom_over(2):
+        _cs6(paths, fold_batch=0)
 
 
 def test_effective_fold_batch_mirrors_the_grouping():

@@ -26,6 +26,7 @@ import torch
 from torch_port_cases import (
     GEOMETRIES,
     PRODUCT,
+    child_env,
     jax_model,
     jax_variables,
     trials,
@@ -348,8 +349,8 @@ def test_predict_cli_prints_the_jax_line(checkpoint, tmp_path, monkeypatch,
 
 
 def test_serve_cli_drains_on_sigterm_and_exits_75(checkpoint):
-    env = dict(os.environ, EEGTPU_PLATFORM="cpu", EEGTPU_NO_LOG_FILE="1",
-               PYTHONUNBUFFERED="1")
+    env = child_env(EEGTPU_PLATFORM="cpu", EEGTPU_NO_LOG_FILE="1",
+                    PYTHONUNBUFFERED="1")
     proc = subprocess.Popen(
         [sys.executable, "-m", "eegnetreplication_tpu_torch.serve",
          "--checkpoint", str(checkpoint[0]), "--port", "0",

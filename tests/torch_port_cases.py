@@ -6,15 +6,36 @@ and the same weights carried into the port's ``EEGNet`` through
 ``training/checkpoint.py::from_jax_variables``.  The tree is drawn directly
 rather than through ``model.init`` (which compiles): ``test_torch_model``
 pins that it has exactly the structure and shapes ``model.init`` makes.
+
+Importing this module caps torch's intra-op threads at one per process.
+The tier-1 run puts six test workers on eight cores, and a full thread pool
+in each port worker slows every other worker; the port's tests run at a
+small size, where one thread costs them little.  Every
+``tests/test_torch_*.py`` imports this module, and the CLI processes they
+start get ``OMP_NUM_THREADS=1`` (:func:`child_env`).  The JAX package is
+imported only where a case needs it, so ``test_torch_gpu.py`` can import
+this module on the card's machine, which has no JAX.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import os
 
-from eegnetreplication_tpu.models import EEGNet as JaxEEGNet
+import numpy as np
+import torch
+
 from eegnetreplication_tpu_torch.models import EEGNet
 from eegnetreplication_tpu_torch.training.checkpoint import from_jax_variables
+
+torch.set_num_threads(1)
+
+
+def child_env(base=None, **extra) -> dict:
+    """The environment of a CLI process a port test starts: ``base``
+    (default ``os.environ``) with one OpenMP thread and ``extra``."""
+    env = dict(os.environ if base is None else base)
+    env.update(OMP_NUM_THREADS="1", **extra)
+    return env
 
 # (C, T, F1, D): the product width, an even T, the wide width, a small one.
 PRODUCT = (22, 257, 8, 2)
@@ -27,7 +48,9 @@ GEOMETRIES = {
 N_CLASSES = 4
 
 
-def jax_model(c, t, f1, d) -> JaxEEGNet:
+def jax_model(c, t, f1, d):
+    from eegnetreplication_tpu.models import EEGNet as JaxEEGNet
+
     return JaxEEGNet(n_channels=c, n_times=t, F1=f1, D=d)
 
 
@@ -160,3 +183,31 @@ def recording_with_nan(c=25, t=5000, seed=5) -> tuple[np.ndarray, np.ndarray,
     pos = np.array([300, 1301, 2602, 3903], np.int64)
     typ = np.array([769, 770, 771, 772], np.int64)
     return sig, pos, typ
+
+
+def write_processed_tree(root, subjects=(1, 2), n_trials=24, nan_in=None):
+    """``-trials.npz`` files of ``tests/synthetic.py``'s separable subjects
+    (C=4, T=64) under ``<root>/data/processed/{Train,Eval}``, what the train
+    CLI reads with ``EEGTPU_DATA_ROOT=<root>``; ``nan_in=s`` puts a NaN in
+    four of subject ``s``'s Train trials (from the middle on)."""
+    from pathlib import Path
+
+    from synthetic import make_loader
+
+    from eegnetreplication_tpu_torch.data.containers import BCICI2ADataset
+    from eegnetreplication_tpu_torch.data.io import (
+        save_trials,
+        trials_filename,
+    )
+
+    loader = make_loader(n_trials=n_trials, n_channels=4, n_times=64,
+                         class_sep=1.5)
+    for s in subjects:
+        for mode in ("Train", "Eval"):
+            ds = loader(s, mode)
+            x = ds.X.copy()
+            if s == nan_in and mode == "Train":
+                x[len(x) // 2:len(x) // 2 + 4, 0, 0] = np.nan
+            save_trials(BCICI2ADataset(X=x, y=ds.y),
+                        Path(root) / "data" / "processed" / mode
+                        / trials_filename(s, mode))
