@@ -72,7 +72,24 @@ hand-written kernel against its plain PyTorch version:
    read back with its ``run_end`` status and an ``epoch`` event per epoch
    trained); and the chaos leg (``--chaos train.step:if_folds_over=4`` in
    groups of 8 halves them to 4, journals ``device_fault`` and ``retry``,
-   and equals a run in groups of 4 bit for bit).
+   and equals a run in groups of 4 bit for bit);
+12. serving beyond one fp32 model: nine seeded checkpoints behind
+   ``serve --zoo`` (``/healthz`` stacked with nine tenants; mixed-tenant
+   JSON and npz requests 8 at once, each answer equal to ``predict
+   --zoo --model``'s; one K1-stacked launch per coalesced chunk and no
+   K1; ``stack_gate`` journaled ``pass``), ``serve --precision int8``
+   (``/healthz`` says int8, ``quant_gate`` pass at >= 0.99, answers equal
+   to ``predict --precision int8``'s, logits within atol 1e-5 / rtol 1e-4
+   of the plain int8 forward on the CPU, K1 once per chunk), ``/reload``
+   of a tenant and of the int8 model under 8 concurrent clients (200 with
+   the new digest, no request failed, answers after the swap equal the new
+   checkpoint's; a corrupt file 400 with the old digest serving), and the
+   timings: K1-stacked at a 128-trial chunk over nine tenants beside its
+   plain version, a grouped cuDNN composite and its bound, the engines'
+   ``infer`` at buckets 1 and 128, ``/predict`` at 1 and 128 trials.
+
+Phases 10 and 11 print GFLOP/s and the MFU against the card's FP32 peak
+(``utils/flops.py``) beside fold-epochs/s at 8, 36 and 90 folds.
 
 Phase 3b holds the stacked form of K1 (``block1_stacked``: G weight sets,
 an index per trial, what the training loop's validation and test passes
@@ -103,6 +120,7 @@ import tempfile
 import threading
 import time
 import traceback
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -478,11 +496,16 @@ def phase_forward(torch, dev):
     return worst
 
 
-def _post(url, body: bytes, ctype: str, timeout=60.0):
+def _post(url, body: bytes, ctype: str, timeout=60.0, headers=None):
+    """POST; ``(status, JSON reply)``, an HTTP error's too."""
     req = urllib.request.Request(url, data=body, method="POST",
-                                 headers={"Content-Type": ctype})
-    with urllib.request.urlopen(req, timeout=timeout) as resp:
-        return resp.status, json.loads(resp.read().decode())
+                                 headers={"Content-Type": ctype,
+                                          **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read().decode())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read().decode())
 
 
 def _get(url, timeout=30.0):
@@ -500,11 +523,14 @@ def _json_body(x) -> bytes:
     return json.dumps({"trials": x.tolist()}).encode()
 
 
-def _start_server(ckpt: Path, work: Path, env: dict):
-    stderr = open(work / "serve.stderr.log", "w")
+def _start_server(args: list, work: Path, env: dict, name: str = "serve"):
+    """Start the serve CLI with ``args`` on an ephemeral port and wait for
+    its ``serving at`` line; ``(process, url, stderr file)``."""
+    log_path = work / f"{name}.stderr.log"
+    stderr = open(log_path, "w")
     proc = subprocess.Popen(
         [sys.executable, "-u", "-m", "eegnetreplication_tpu_torch.serve",
-         "--checkpoint", str(ckpt), "--port", "0"],
+         *args, "--port", "0"],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=stderr, text=True)
     lines: queue.Queue = queue.Queue()
 
@@ -524,7 +550,7 @@ def _start_server(ckpt: Path, work: Path, env: dict):
         if line is None:
             raise SmokeFailure(
                 f"server exited {proc.wait()} before serving:\n"
-                + (work / "serve.stderr.log").read_text()[-4000:])
+                + log_path.read_text()[-4000:])
         if line.startswith("serving at "):
             return proc, line.split("serving at ", 1)[1].strip(), stderr
 
@@ -557,7 +583,8 @@ def phase_serve(torch, np, dev, work: Path, env: dict):
     in_process_launches = block1.launches
 
     result: dict = {"in_process_launches": in_process_launches}
-    proc, url, stderr = _start_server(ckpt, work, env)
+    proc, url, stderr = _start_server(["--checkpoint", str(ckpt)], work,
+                                      env)
     try:
         log(f"server up at {url}")
         status, one = _post(url + "/predict", _json_body(x[:1]),
@@ -1273,6 +1300,7 @@ def _epoch_times(torch, np, dev, loader, subjects, config):
            "val_steps": trainer.val_steps, "epoch_profile": profile,
            "determinism": _determinism_cost(torch, trainer.run_epoch,
                                             len(folds))}
+    row.update(_mfu_fields(row))
     if len(folds) == 8:
         from eegnetreplication_tpu_torch.training.loop import debug_nans
 
@@ -1401,6 +1429,8 @@ def phase_train(torch, np, dev, work: Path, env: dict, data_root: Path):
         times[n_folds] = row
         prof = row["epoch_profile"]
         log(f"{n_folds} folds: {row['fold_epochs_per_s']:.1f} fold-epochs/s, "
+            f"{row['gflops_per_s']:.2f} GFLOP/s = "
+            f"{100 * (row['mfu'] or 0):.4f}% MFU ({row['peak']}), "
             f"{row['wall_per_epoch_ms']:.1f} ms per epoch ({row['train_steps']}"
             f" train steps, {row['val_steps']} validation batches); one epoch "
             f"under the profiler: wall {prof['wall_ms_per_call']:.1f} ms, "
@@ -1510,10 +1540,12 @@ def _same_weights(got_dir: Path, want_dir: Path, names, what: str) -> None:
                   "runs must repeat bit for bit")
 
 
-def _spawn(argv, env: dict, log_path: Path):
-    """Start a CLI from the checkout with its stderr in ``log_path``."""
-    with open(log_path, "w") as stderr:
-        return subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.DEVNULL,
+def _spawn(argv, env: dict, log_path: Path, out_path: Path | None = None):
+    """Start a CLI from the checkout with its stderr in ``log_path`` (and
+    its stdout in ``out_path``, else dropped)."""
+    with open(log_path, "w") as stderr, \
+            open(out_path or os.devnull, "w") as stdout:
+        return subprocess.Popen(argv, cwd=ROOT, stdout=stdout,
                                 stderr=stderr, env=env)
 
 
@@ -1722,8 +1754,11 @@ def _group_sweep(torch, dev, setup) -> dict:
             "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
             "train_steps": trainers[0].train_steps,
             "val_steps": trainers[0].val_steps}
+        rows[size].update(_mfu_fields(rows[size]))
         log(f"group size {size} ({len(trainers)} groups): "
             f"{rows[size]['fold_epochs_per_s']:.2f} fold-epochs/s, "
+            f"{rows[size]['gflops_per_s']:.2f} GFLOP/s = "
+            f"{100 * (rows[size]['mfu'] or 0):.4f}% MFU, "
             f"{rows[size]['wall_per_epoch_ms']:.1f} ms per protocol epoch, "
             f"peak memory {rows[size]['peak_memory_gb']:.2f} GiB")
         del trainers
@@ -1975,6 +2010,493 @@ def phase_cross_subject(torch, np, dev, work: Path, env: dict,
             "trace_mb_per_epoch": trace_mb, "journal_cost": journal_cost}
 
 
+# --------------------------------------------------------------------------
+# Phase 12: serving beyond one fp32 model
+# --------------------------------------------------------------------------
+
+N_TENANTS = 9
+ZOO_REQ_TRIALS = 16       # 8 concurrent requests of 16 trials: 128 a batch
+ZOO_ROUNDS = 3
+RELOAD_CLIENTS = 8
+
+
+def _save_seeded(torch, path: Path, seed: int) -> Path:
+    from eegnetreplication_tpu_torch.training import checkpoint as ckpt_lib
+
+    model = seeded_model(torch, 22, 257, 8, 2, seed, "cpu")
+    return ckpt_lib.save_checkpoint(
+        path, model.state_dict(),
+        metadata={"model": "eegnet", "n_channels": 22, "n_times": 257,
+                  "F1": 8, "D": 2})
+
+
+def _spawn_predict(args: list, env: dict, work: Path, name: str):
+    """Start the predict CLI with ``args``, its stdout and stderr in files
+    under ``work``."""
+    return _spawn([sys.executable, "-m",
+                   "eegnetreplication_tpu_torch.predict", *args], env,
+                  work / f"{name}.stderr.log", work / f"{name}.stdout.log")
+
+
+def _check_predict_cli(np, proc, work: Path, name: str, served, y,
+                       what: str) -> str:
+    """The predict CLI's accuracy line and class counts equal those of the
+    served predictions."""
+    from eegnetreplication_tpu_torch.serve.engine import CLASS_NAMES
+
+    rc = proc.wait(timeout=600)
+    stdout = (work / f"{name}.stdout.log").read_text()
+    stderr = (work / f"{name}.stderr.log").read_text()
+    check(rc == 0, f"{what} exited {rc}:\n" + stderr[-4000:])
+    served = np.asarray(served)
+    want_line = f"accuracy: {100.0 * float(np.mean(served == y)):.2f}%"
+    got_line = stdout.strip().splitlines()[-1]
+    check(got_line == want_line, f"{what} printed {got_line!r}, served "
+          f"trials give {want_line!r}")
+    counts = np.bincount(served, minlength=4)
+    for k, cname in enumerate(CLASS_NAMES):
+        check(f"class {k} ({cname}): {counts[k]} trials" in stderr,
+              f"{what}: class {k} count differs from the served one")
+    return got_line
+
+
+def _health_counts(url) -> tuple[int, int, int]:
+    """(K1 launches, K1-stacked launches, coalesced forwards) of a
+    server, read from /healthz."""
+    status, health = _get(url + "/healthz")
+    check(status == 200, f"/healthz answered {status}")
+    k = health["kernel_launches"]
+    return k["block1"], k["block1_stacked"], health["batches"]
+
+
+def _reload_under_load(np, url, body: bytes, headers: dict, reload_body,
+                       what: str) -> tuple[dict, list]:
+    """POST /reload while RELOAD_CLIENTS clients send ``body`` to
+    /predict in a loop; every answer must be 200.  Returns the reload's
+    reply and the answers (status, reply) in the order they came."""
+    answers, stop = [], threading.Event()
+    lock = threading.Lock()
+
+    def client():
+        while not stop.is_set():
+            got = _post(url + "/predict", body, "application/octet-stream",
+                        headers=headers)
+            with lock:
+                answers.append(got)
+
+    threads = [threading.Thread(target=client)
+               for _ in range(RELOAD_CLIENTS)]
+    for th in threads:
+        th.start()
+    try:
+        time.sleep(0.3)
+        status, reply = _post(url + "/reload",
+                              json.dumps(reload_body).encode(),
+                              "application/json", timeout=300)
+        time.sleep(0.3)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(120)
+    check(status == 200, f"{what}: /reload answered {status}: {reply}")
+    failed = [a for a in answers if a[0] != 200]
+    check(not failed, f"{what}: {len(failed)} of {len(answers)} requests "
+          f"failed during the reload: {failed[:2]}")
+    return reply, answers
+
+
+def _stacked_library(torch, x, S, W, A, B, idx):
+    """One library composite of K1-stacked on a mixed-tenant batch (never
+    used by the port): the per-trial weights gathered, then cuDNN grouped
+    convolutions (a group per trial for the mix, per trial and filter for
+    the taps), the affine, ELU and the pool."""
+    import torch.nn.functional as F
+
+    n, c, t = x.shape
+    f2 = S.shape[1]
+    i = idx.long()
+    mixed = F.conv1d(x.reshape(1, n * c, t), S[i].reshape(n * f2, c, 1),
+                     groups=n)
+    acc = F.conv1d(F.pad(mixed, (15, 16)), W[i].reshape(n * f2, 1, 32),
+                   groups=n * f2)
+    out = F.avg_pool1d(F.elu(A[i].reshape(1, -1, 1) * acc
+                             + B[i].reshape(1, -1, 1)), 4)
+    return out.reshape(n, f2, -1)
+
+
+def phase_serving_zoo(torch, np, dev, work: Path, env: dict):
+    """Phase 12: the zoo of nine tenants behind ``serve --zoo`` (one
+    K1-stacked launch per coalesced chunk, no K1), int8 behind its gate
+    (``serve --precision int8``, K1 once per chunk), hot ``/reload`` under
+    8 concurrent clients for both, and their timings."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from eegnetreplication_tpu_torch.data.containers import BCICI2ADataset
+    from eegnetreplication_tpu_torch.data.io import save_trials
+    from eegnetreplication_tpu_torch.ops import quant
+    from eegnetreplication_tpu_torch.ops.fused_eegnet import (
+        block1_stacked,
+        block1_stacked_reference,
+    )
+    from eegnetreplication_tpu_torch.predict import predict_trials
+    from eegnetreplication_tpu_torch.serve.engine import (
+        InferenceEngine,
+        load_model_from_checkpoint,
+    )
+    from eegnetreplication_tpu_torch.serve.zoo import StackedEngine
+
+    zoo_dir = work / "zoo"
+    zoo_dir.mkdir(parents=True)
+    ids = [f"subject_{z + 1:02d}_best_model" for z in range(N_TENANTS)]
+    paths = {mid: _save_seeded(torch, zoo_dir / f"{mid}.npz", 1200 + z)
+             for z, mid in enumerate(ids)}
+    single = _save_seeded(torch, work / "single.npz", 1300)
+    new_tenant = _save_seeded(torch, work / "new_tenant.npz", 1301)
+    new_single = _save_seeded(torch, work / "new_single.npz", 1302)
+    corrupt = work / "corrupt.npz"
+    corrupt.write_bytes(new_single.read_bytes()[:400])
+    x = trials(torch, ZOO_REQ_TRIALS * 8, 22, 257, 1400).numpy()
+    y = np.random.RandomState(1401).randint(0, 4, len(x)).astype(np.int64)
+    trials_path = save_trials(BCICI2ADataset(X=x, y=y),
+                              work / "A01E-trials.npz")
+    zoo_obs, int8_obs = work / "obs_zoo", work / "obs_int8"
+
+    # Both servers and the predict CLIs start at once.
+    cli = {
+        "predict_zoo_3": _spawn_predict(
+            ["--zoo", str(zoo_dir), "--model", ids[3], "--input",
+             str(trials_path)], env, work, "predict_zoo_3"),
+        "predict_int8": _spawn_predict(
+            ["--checkpoint", str(single), "--precision", "int8", "--input",
+             str(trials_path)], env, work, "predict_int8"),
+    }
+    with ThreadPoolExecutor(2) as pool:
+        zoo_f = pool.submit(_start_server, [
+            "--zoo", str(zoo_dir), "--metricsDir", str(zoo_obs)], work, env,
+            "serve_zoo")
+        int8_f = pool.submit(_start_server, [
+            "--checkpoint", str(single), "--precision", "int8",
+            "--metricsDir", str(int8_obs)], work, env, "serve_int8")
+        servers = {}
+        for name, fut in (("zoo", zoo_f), ("int8", int8_f)):
+            try:
+                servers[name] = fut.result()
+            except Exception:
+                for proc, _, _ in servers.values():
+                    proc.kill()
+                raise
+    result: dict = {}
+    try:
+        zoo_url, int8_url = servers["zoo"][1], servers["int8"][1]
+
+        # --- the zoo --------------------------------------------------------
+        status, health = _get(zoo_url + "/healthz")
+        check(health["stacked"] is True and len(health["tenants"]) ==
+              N_TENANTS and health["precision"] == "fp32",
+              f"zoo /healthz: stacked {health['stacked']}, "
+              f"{len(health['tenants'] or [])} tenants, "
+              f"{health['precision']}")
+        tenant_digest = {e["model"]: e["digest"] for e in health["tenants"]}
+        want = {mid: predict_trials(load_model_from_checkpoint(
+            paths[mid], device=dev), x, device=dev) for mid in ids}
+        k1_0, k1s_0, b_0 = _health_counts(zoo_url)
+        n_requests = 0
+        for r in range(ZOO_ROUNDS):
+            answers: list = [None] * 8
+
+            def send(i, r=r):
+                mid = ids[(i + 3 * r) % N_TENANTS]
+                chunk = x[ZOO_REQ_TRIALS * i:ZOO_REQ_TRIALS * (i + 1)]
+                if i % 2:
+                    body = json.dumps({"trials": chunk.tolist(),
+                                       "model": mid}).encode()
+                    got = _post(zoo_url + "/predict", body,
+                                "application/json")
+                else:
+                    got = _post(zoo_url + "/predict", _npz_body(np, chunk),
+                                "application/octet-stream",
+                                headers={"X-Model": mid})
+                answers[i] = (mid, got)
+
+            threads = [threading.Thread(target=send, args=(i,))
+                       for i in range(8)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(120)
+            for i, ans in enumerate(answers):
+                check(ans is not None and ans[1][0] == 200,
+                      f"zoo request {i} of round {r} failed: {ans}")
+                mid, (_, reply) = ans
+                sl = slice(ZOO_REQ_TRIALS * i, ZOO_REQ_TRIALS * (i + 1))
+                check(reply["model"] == mid
+                      and reply["model_digest"] == tenant_digest[mid],
+                      f"zoo reply names {reply['model']} "
+                      f"{reply['model_digest'][:12]}, sent {mid}")
+                check(reply["predictions"] == want[mid][sl].tolist(),
+                      f"zoo answer for {mid} differs from predict --zoo "
+                      f"--model {mid}")
+            n_requests += 8
+        k1_1, k1s_1, b_1 = _health_counts(zoo_url)
+        batches = b_1 - b_0
+        check(k1_1 == k1_0, f"the zoo launched K1 {k1_1 - k1_0} times; a "
+              "stacked zoo launches K1-stacked only")
+        check(k1s_1 - k1s_0 == batches and batches > 0,
+              f"K1-stacked launched {k1s_1 - k1s_0} times for {batches} "
+              "coalesced chunks; want one each")
+        log(f"zoo: {n_requests} mixed-tenant requests of {ZOO_REQ_TRIALS} "
+            f"trials (JSON and npz, 8 at once) in {batches} chunks, "
+            f"K1-stacked launches {k1s_1 - k1s_0}, K1 0; every answer equal "
+            "to predict_trials of its tenant")
+        result["zoo"] = {"requests": n_requests, "chunks": batches,
+                         "k1_stacked_launches": k1s_1 - k1s_0}
+        status, whole = _post(zoo_url + "/predict", _npz_body(np, x),
+                              "application/octet-stream",
+                              headers={"X-Model": ids[3]})
+        check(status == 200
+              and whole["predictions"] == want[ids[3]].tolist(),
+              f"zoo answer for {ids[3]} (128 trials) differs from predict "
+              f"--zoo --model {ids[3]}")
+        result["zoo"]["predict_cli"] = _check_predict_cli(
+            np, cli.pop("predict_zoo_3"), work, "predict_zoo_3",
+            whole["predictions"], y, f"predict --zoo --model {ids[3]}")
+
+        # /predict latency, zoo (mixed tenants) and the int8 single model.
+        x128 = trials(torch, 128, 22, 257, 1402).numpy()
+        lat = {}
+        for name, url, hdr in (("zoo", zoo_url, {"X-Model": ids[5]}),
+                               ("int8", int8_url, {})):
+            for n, body in ((1, _npz_body(np, x128[:1])),
+                            (128, _npz_body(np, x128))):
+                lat[f"{name}_{n}"] = host_ms(
+                    lambda body=body, url=url, hdr=hdr: _post(
+                        url + "/predict", body, "application/octet-stream",
+                        headers=hdr), n=N_LATENCY)
+        result["predict_latency_ms"] = lat
+        log("/predict latency (median, host clock): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in lat.items()))
+
+        # A corrupt tenant reload: 400, the old digest still serves.
+        mid = ids[2]
+        status, reply = _post(zoo_url + "/reload", json.dumps(
+            {"model": mid, "checkpoint": str(corrupt)}).encode(),
+            "application/json", timeout=300)
+        check(status == 400, f"zoo /reload of a corrupt file: {status}")
+        status, reply = _post(zoo_url + "/predict", _npz_body(np, x[:4]),
+                              "application/octet-stream",
+                              headers={"X-Model": mid})
+        check(status == 200 and reply["model_digest"] == tenant_digest[mid],
+              "after a refused reload the tenant's old digest must serve")
+        reply, answers = _reload_under_load(
+            np, zoo_url, _npz_body(np, x[:8]), {"X-Model": mid},
+            {"model": mid, "checkpoint": str(new_tenant)}, "zoo reload")
+        check(reply["model_digest"] != tenant_digest[mid]
+              and reply["stacked"] is True,
+              f"zoo reload reply {reply}")
+        new_want = predict_trials(load_model_from_checkpoint(
+            new_tenant, device=dev), x[:8], device=dev).tolist()
+        old_want = want[mid][:8].tolist()
+        # An answer computed across the swap may name either digest (the
+        # reply reads it after the forward), but its predictions must be
+        # the old model's or the new one's.
+        for status, ans in answers:
+            check(ans["predictions"] in (old_want, new_want)
+                  and ans["model_digest"] in (tenant_digest[mid],
+                                              reply["model_digest"]),
+                  "an answer during the zoo reload is neither the old "
+                  "model's nor the new one's")
+        status, after = _post(zoo_url + "/predict", _npz_body(np, x[:8]),
+                              "application/octet-stream",
+                              headers={"X-Model": mid})
+        check(after["model_digest"] == reply["model_digest"]
+              and after["predictions"] == new_want,
+              "after the zoo reload the tenant serves other answers than "
+              "its new checkpoint's predict")
+        log(f"zoo reload of {mid} under {RELOAD_CLIENTS} clients: 200, "
+            f"{len(answers)} requests, none failed; corrupt file 400 with "
+            "the old digest serving")
+        result["zoo"]["reload_requests"] = len(answers)
+
+        # --- int8 -----------------------------------------------------------
+        status, health = _get(int8_url + "/healthz")
+        check(health["precision"] == "int8",
+              f"int8 server serves {health['precision']}")
+        int8_digest = health["model_digest"]
+        model = load_model_from_checkpoint(single, device=dev)
+        int8_want = predict_trials(model, x, device=dev, precision="int8")
+        k1_0, k1s_0, b_0 = _health_counts(int8_url)
+        status, many = _post(int8_url + "/predict", _npz_body(np, x),
+                             "application/octet-stream")
+        check(status == 200 and many["predictions"] == int8_want.tolist(),
+              "int8 served predictions differ from predict --precision "
+              "int8's")
+        k1_1, k1s_1, b_1 = _health_counts(int8_url)
+        check(k1_1 - k1_0 == b_1 - b_0 == 1 and k1s_1 == k1s_0,
+              f"int8: K1 {k1_1 - k1_0} launches for {b_1 - b_0} chunks")
+        engine = InferenceEngine(model, device=dev, precision="int8")
+        cpu = InferenceEngine(load_model_from_checkpoint(single,
+                                                         device="cpu"),
+                              device="cpu", precision="int8")
+        with torch.inference_mode():
+            got = engine.forward(torch.from_numpy(x).to(dev)).cpu()
+            plain = quant.quantized_eval_forward_reference(
+                cpu._qpack, torch.from_numpy(x))
+        err = float((got - plain).abs().max())
+        check(torch.allclose(got, plain, atol=LOGITS_ATOL, rtol=LOGITS_RTOL)
+              and torch.equal(got.argmax(-1), plain.argmax(-1)),
+              f"int8 logits on the card vs the plain CPU forward: {err:.3e}")
+        log(f"int8: served, predict_trials(precision=int8) equal; K1 once "
+            f"per chunk; logits vs the plain CPU int8 forward {err:.3e}")
+        result["int8"] = {"logits_max_abs_err": err,
+                          "k1_launches": k1_1 - k1_0,
+                          "predict_cli": _check_predict_cli(
+                              np, cli.pop("predict_int8"), work,
+                              "predict_int8", int8_want, y,
+                              "predict --precision int8")}
+        status, reply = _post(int8_url + "/reload", json.dumps(
+            {"checkpoint": str(corrupt)}).encode(), "application/json",
+            timeout=300)
+        check(status == 400, f"int8 /reload of a corrupt file: {status}")
+        status, reply = _post(int8_url + "/predict", _npz_body(np, x[:4]),
+                              "application/octet-stream")
+        check(reply["model_digest"] == int8_digest,
+              "after a refused reload the old digest must serve")
+        reply, answers = _reload_under_load(
+            np, int8_url, _npz_body(np, x[:8]), {},
+            {"checkpoint": str(new_single)}, "int8 reload")
+        new_want = predict_trials(load_model_from_checkpoint(
+            new_single, device=dev), x[:8], device=dev,
+            precision="int8").tolist()
+        for status, ans in answers:
+            check(ans["predictions"] in (int8_want[:8].tolist(), new_want),
+                  "an answer during the int8 reload is neither the old "
+                  "model's nor the new one's")
+        status, after = _post(int8_url + "/predict", _npz_body(np, x[:8]),
+                              "application/octet-stream")
+        check(reply["model_digest"] != int8_digest
+              and after["model_digest"] == reply["model_digest"]
+              and after["predictions"] == new_want,
+              "after the reload the server answers other than the new "
+              "checkpoint's predict --precision int8")
+        log(f"int8 reload under {RELOAD_CLIENTS} clients: 200, "
+            f"{len(answers)} requests, none failed; corrupt file 400")
+        result["int8"]["reload_requests"] = len(answers)
+
+        for name, (proc, _, stderr) in servers.items():
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+            check(rc == 75, f"{name} server exited {rc} after SIGTERM")
+    finally:
+        for proc, _, stderr in servers.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            stderr.close()
+        for proc in cli.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    # The journals: the gates passed, the restacks and swaps are there.
+    zoo_events = _journal(np, zoo_obs, "ok")
+    gates = [e for e in zoo_events if e["event"] == "stack_gate"]
+    restacks = [e["outcome"] for e in zoo_events
+                if e["event"] == "zoo_restack"]
+    check(gates and all(g["outcome"] == "pass" and g["agreement"] == 1.0
+                        for g in gates), f"zoo stack_gate events {gates}")
+    check(restacks == ["pass", "pass"], f"zoo_restack outcomes {restacks}")
+    int8_events = _journal(np, int8_obs, "ok")
+    qgates = [e for e in int8_events if e["event"] == "quant_gate"]
+    check(len(qgates) == 2 and all(
+        g["outcome"] == "pass" and g["agreement"] >= 0.99 for g in qgates),
+        f"quant_gate events {qgates}")
+    for events, what in ((zoo_events, "zoo"), (int8_events, "int8")):
+        swaps = [e for e in events if e["event"] == "model_swap"]
+        check(len(swaps) == 1, f"{what}: {len(swaps)} model_swap events")
+    result["stack_gate_agreement"] = gates[-1]["agreement"]
+    result["quant_gate_agreement"] = [g["agreement"] for g in qgates]
+    log(f"journals: stack_gate pass (agreement 1.0 over "
+        f"{gates[0]['n_trials']} trials), zoo_restack pass x2, quant_gate "
+        f"pass {result['quant_gate_agreement']}, one model_swap each")
+
+    # Timings: K1-stacked at a 128-trial chunk mixed over nine tenants,
+    # beside its plain version, a grouped cuDNN composite and its bound;
+    # the engines' infer at buckets 1 and 128.
+    models = [load_model_from_checkpoint(paths[mid], device=dev)
+              for mid in ids]
+    stack = StackedEngine(list(zip(ids, models)), device=dev)
+    pack = stack._pack
+    S, W, A, B = pack["S"], pack["W"], pack["A"], pack["B"]
+    xt = torch.from_numpy(x128).to(dev)
+    idx = (torch.arange(128, dtype=torch.int32, device=dev) % N_TENANTS)
+    idx = idx[torch.randperm(128, generator=torch.Generator().manual_seed(
+        5)).to(dev)].contiguous()
+    with torch.inference_mode():
+        k1s = block1_stacked(xt, S, W, A, B, idx)
+        ref = block1_stacked_reference(xt, S, W, A, B, idx)
+        lib = _stacked_library(torch, xt, S, W, A, B, idx)
+        check(torch.allclose(k1s, ref, atol=K1_ATOL, rtol=K1_RTOL)
+              and torch.allclose(lib, ref, atol=K1_ATOL, rtol=K1_RTOL),
+              "K1-stacked or the library composite disagrees at the zoo "
+              "chunk")
+        row = {
+            "max_abs_err": float((k1s - ref).abs().max()),
+            "ms": device_ms(torch, lambda: block1_stacked(
+                xt, S, W, A, B, idx)),
+            "plain_ms": device_ms(torch, lambda: block1_stacked_reference(
+                xt, S, W, A, B, idx)),
+            "library_ms": device_ms(torch, lambda: _stacked_library(
+                torch, xt, S, W, A, B, idx)),
+            "call_ms": call_ms(torch, lambda: block1_stacked(
+                xt, S, W, A, B, idx)),
+        }
+    bound, by, nbytes, flops = block1_bound(128, 22, 257, 16,
+                                            sets=N_TENANTS)
+    row.update(bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
+    result["k1_stacked_zoo_chunk"] = row
+    log(f"K1-stacked at a 128-trial chunk over {N_TENANTS} tenants: "
+        f"{row['ms']:.4f} ms (call {row['call_ms']:.4f}), plain "
+        f"{row['plain_ms']:.4f}, grouped library {row['library_ms']:.4f}, "
+        f"bound {bound:.5f} ({by})")
+    infer = {}
+    fp32 = InferenceEngine(models[0], device=dev)
+    int8 = InferenceEngine(models[0], device=dev, precision="int8")
+    for eng in (fp32, int8, stack):
+        eng.warmup()
+    for n in (1, 128):
+        xn = x128[:n]
+        tn = np.arange(n) % N_TENANTS
+        infer[f"fp32_{n}"] = host_ms(lambda xn=xn: fp32.infer(xn))
+        infer[f"int8_{n}"] = host_ms(lambda xn=xn: int8.infer(xn))
+        infer[f"zoo_{n}"] = host_ms(lambda xn=xn, tn=tn: stack.infer(xn,
+                                                                     tn))
+    result["infer_ms"] = infer
+    log("engine infer (median, host clock): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in infer.items()))
+    return result
+
+
+def _mfu_fields(row: dict) -> dict:
+    """GFLOP/s and MFU of a fold-epochs/s row at the product width, from
+    the port's FLOP count (``utils/flops.py``) and the card's FP32 peak."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from eegnetreplication_tpu_torch.config import DEFAULT_TRAINING
+    from eegnetreplication_tpu_torch.utils import flops
+
+    model = SimpleNamespace(n_channels=22, n_times=257, F1=8, D=2,
+                            n_classes=4)
+    batch = DEFAULT_TRAINING.batch_size
+    per_fe = (row["train_steps"] * flops.train_step_flops(model, batch)
+              + row["val_steps"] * flops.eval_step_flops(model, batch))
+    rate = row["fold_epochs_per_s"] * per_fe
+    peak, label = flops.assumed_peak_flops(torch.cuda.get_device_name(0))
+    return {"fold_epoch_gflop": per_fe / 1e9, "gflops_per_s": rate / 1e9,
+            "mfu": None if peak is None else rate / peak, "peak": label}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None,
@@ -2024,6 +2546,8 @@ def main(argv=None) -> int:
                                 Path(tmp) / "cli")
             cs = phase_cross_subject(torch, np, dev, Path(tmp) / "cs", env,
                                      Path(tmp) / "cli")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
+            zoo = phase_serving_zoo(torch, np, dev, Path(tmp), env)
     except Exception:  # noqa: BLE001 — every failure ends the run
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -2035,7 +2559,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "eegnetreplication_tpu_torch/ops/csrc/block1.cu",
         "replaces": "eegnetreplication_tpu/ops/fused_eegnet.py:134",
-        "launches": serve["launches"],
+        # the serve phase's server and the int8 server of phase 12
+        "launches": serve["launches"] + zoo["int8"]["k1_launches"],
         "max_abs_err": k1_err,
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
@@ -2047,9 +2572,11 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "eegnetreplication_tpu_torch/ops/csrc/block1.cu",
         "replaces": "eegnetreplication_tpu/ops/fused_eegnet.py:134",
-        # the counted runs of the training phases (10 and 11)
+        # the counted runs of the training phases (10 and 11) and the
+        # zoo server's counted chunks (phase 12)
         "launches": (train["launches"] + cs["launches_one_group"]
-                     + cs["launches_groups"]),
+                     + cs["launches_groups"]
+                     + zoo["zoo"]["k1_stacked_launches"]),
         "max_abs_err": k1s_err,
         # at the 90-fold cross-subject validation batch, (5760, 22, 257)
         "ms": k1s_times[5760]["ms"],
@@ -2057,6 +2584,9 @@ def main(argv=None) -> int:
         "bound_ms": k1s_times[5760]["bound_ms"],
         "bound_by": k1s_times[5760]["bound_by"],
         "library_ms": k1s_times[5760]["library_ms"],
+        # at the zoo's 128-trial chunk mixed over nine tenants
+        "zoo_chunk": {k: zoo["k1_stacked_zoo_chunk"][k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
     }, {
         "name": "ems",
         "route": "cuda",
@@ -2079,6 +2609,7 @@ def main(argv=None) -> int:
         "k2_vs_methods_max_abs_err": k2_vs_methods, "dataset": dataset,
         "k2_times": k2_times, "k1_stacked_max_abs_err": k1s_err,
         "k1_stacked_times": k1s_times, "train": train, "cross_subject": cs,
+        "serving_zoo": zoo,
         "wall_s": time.perf_counter() - t_start,
     }
     print(json.dumps({"timings": record}), flush=True)

@@ -1,13 +1,16 @@
 """Run journal: one run's structured JSONL event stream and its metrics.
 
 The port's copy of ``eegnetreplication_tpu/obs/journal.py``.  A training
-run opens a journal with :func:`run`: every event of the run is appended
-as one JSON object per line to ``<metrics_dir>/<run_id>/events.jsonl``
-(``run_start`` with the git sha, the device and the config; the protocol's
-``train_setup``, ``fold_group``, ``epoch``, ``device_fault`` and
-``checkpoint_write``; ``run_end`` with the exit status), and the run's
-:class:`~eegnetreplication_tpu_torch.obs.metrics.MetricsRegistry` is
-flushed to ``metrics.json`` beside it at the end.
+or serving run opens a journal with :func:`run`: every event of the run
+is appended as one JSON object per line to
+``<metrics_dir>/<run_id>/events.jsonl`` (``run_start`` with the git sha,
+the device and the config; the protocol's ``train_setup``,
+``fold_group``, ``epoch``, ``device_fault`` and ``checkpoint_write``, or
+the service's ``serve_start``, ``request``, ``quant_gate``,
+``stack_gate``, ``zoo_restack``, ``model_load``, ``model_evict``,
+``model_swap`` and ``serve_end``; ``run_end`` with the exit status), and
+the run's :class:`~eegnetreplication_tpu_torch.obs.metrics.MetricsRegistry`
+is flushed to ``metrics.json`` beside it at the end.
 
 The active journal sits in a :mod:`contextvars` variable, so deep callees
 reach it through :func:`current`, which outside a run returns an inert

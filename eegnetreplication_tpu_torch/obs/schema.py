@@ -1,11 +1,12 @@
 """Telemetry schemas: what a run journal and its metrics file must hold.
 
-The port's copy of the training part of ``eegnetreplication_tpu/obs/
-schema.py``, so the JAX package's readers (``scripts/obs_report.py``,
-``obs/agg.py``, the supervisor) read a training run of either package:
+The port's copy of the training and serving parts of
+``eegnetreplication_tpu/obs/schema.py``, so the JAX package's readers
+(``scripts/obs_report.py``, ``obs/agg.py``, the supervisor) read a
+training or serving run of either package:
 
 - **events.jsonl**, one JSON object per line (:data:`EVENT_REQUIRED` names
-  each training event's required keys, equal to the JAX table's rows);
+  each event's required keys, equal to the JAX table's rows);
 - **metrics.json**, the metrics registry's flushed summary
   (:func:`validate_metrics`).
 
@@ -26,8 +27,9 @@ SCHEMA_VERSION = 1
 # Keys every journal event carries (stamped by RunJournal.event).
 EVENT_BASE_REQUIRED = ("event", "t", "run_id")
 
-# The training events' required keys beyond the base: the rows of the JAX
-# package's table for the events a training run of the port emits.
+# The events' required keys beyond the base: the rows of the JAX
+# package's table for the events a training or serving run of the port
+# emits.
 EVENT_REQUIRED: dict[str, tuple[str, ...]] = {
     "run_start": ("schema_version", "git_sha", "platform", "device_kind",
                   "n_devices", "config"),
@@ -48,6 +50,18 @@ EVENT_REQUIRED: dict[str, tuple[str, ...]] = {
     "retry": ("site", "attempt", "max_attempts", "classification", "error"),
     "checkpoint_quarantine": ("path", "quarantined_to"),
     "run_end": ("status", "wall_s"),
+    # Serving: the service's lifecycle, hot swaps, the int8 gate, and the
+    # zoo's loads, evictions, restacks and stacked-engine gate.
+    "serve_start": ("checkpoint", "buckets", "max_batch", "max_wait_ms"),
+    "request": ("n_trials", "latency_ms", "status"),
+    "model_swap": ("checkpoint", "digest"),
+    "serve_end": ("n_requests", "rejected", "wall_s"),
+    "quant_gate": ("precision", "outcome", "agreement", "floor"),
+    "model_load": ("model", "digest"),
+    "model_evict": ("model", "reason"),
+    "zoo_restack": ("n_tenants", "outcome", "reason"),
+    "stack_gate": ("precision", "outcome", "agreement", "floor",
+                   "n_tenants"),
 }
 
 # metrics.json top-level sections and the keys every series entry needs.

@@ -4,10 +4,18 @@
   fold block 1 once, bucketed padded forwards (1/8/32/128) through the
   hand-written block-1 kernel, thread-safe ``infer``; the ``predict`` CLI
   runs the same engine, so CLI and server cannot drift.
+  ``precision="int8"`` serves quantized weights behind the quant gate.
 - :mod:`~eegnetreplication_tpu_torch.serve.batcher` — dynamic
-  micro-batching with explicit 429 backpressure and dequeue deadlines.
+  micro-batching with explicit 429 backpressure and dequeue deadlines,
+  tenant-aware for the zoo.
+- :mod:`~eegnetreplication_tpu_torch.serve.zoo` — the stacked engine
+  (a mixed-tenant batch through one K1-stacked launch per chunk), the
+  stack gate, the zoo's addressing.
+- :mod:`~eegnetreplication_tpu_torch.serve.registry` — hot reload
+  (``ModelRegistry``) and the multi-tenant ``ModelZoo``.
 - :mod:`~eegnetreplication_tpu_torch.serve.service` — the stdlib HTTP
-  wiring (``POST /predict``, ``GET /healthz``) and the SIGTERM drain.
+  wiring (``POST /predict``, ``POST /reload``, ``GET /healthz``), the
+  serving journal and the SIGTERM drain.
 """
 
 from eegnetreplication_tpu_torch.serve.batcher import (
@@ -20,8 +28,13 @@ from eegnetreplication_tpu_torch.serve.engine import (
     DEFAULT_BUCKETS,
     InferenceEngine,
     bucket_ladder,
+    build_gated_engine,
     load_model_from_checkpoint,
     variables_digest,
+)
+from eegnetreplication_tpu_torch.serve.registry import (
+    ModelRegistry,
+    ModelZoo,
 )
 from eegnetreplication_tpu_torch.serve.service import (
     ServeApp,
@@ -30,7 +43,7 @@ from eegnetreplication_tpu_torch.serve.service import (
 
 __all__ = [
     "CLASS_NAMES", "DEFAULT_BUCKETS", "DeadlineExceeded", "InferenceEngine",
-    "MicroBatcher", "Rejected", "ServeApp", "bucket_ladder",
-    "load_model_from_checkpoint", "serve_until_preempted",
-    "variables_digest",
+    "MicroBatcher", "ModelRegistry", "ModelZoo", "Rejected", "ServeApp",
+    "bucket_ladder", "build_gated_engine", "load_model_from_checkpoint",
+    "serve_until_preempted", "variables_digest",
 ]

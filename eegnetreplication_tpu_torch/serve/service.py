@@ -8,17 +8,32 @@ torch engine (stdlib ``http.server`` + threads):
   names and the serving ``model_digest``.  Bad geometry or an unparsable
   body answers 400, a full queue 429.  A deadline (``X-Deadline-Ms``
   header or ``deadline_ms`` JSON field) is enforced at dequeue and at
-  response time; both answer 504.
+  response time; both answer 504.  Under ``--zoo`` the request names its
+  model (``X-Model`` header or ``"model"`` JSON field: a tenant id, a
+  digest prefix, or none for the default); an unknown model answers 404.
+- ``POST /reload`` — ``{"checkpoint": path}``: the new model is loaded,
+  gated and warmed off to the side and swapped in with no request
+  dropped; 200 with the new digest, or 400 with the old model still
+  serving.  Under ``--zoo``, ``{"model": id, "checkpoint": path}``
+  swaps one tenant and restacks (``zoo_restack``).
 - ``GET /healthz`` — the JAX server's identity and queue fields for what
   this port has (``status``, ``checkpoint``, ``model_digest``,
   ``variables_digest``, ``geometry``, ``buckets``, ``max_batch``,
-  ``max_wait_ms``, ``precision``, ``queue_depth_trials``), plus the
+  ``max_wait_ms``, ``precision`` as served and ``requested_precision``,
+  ``queue_depth_trials``, ``model_swaps``, the zoo's state), plus the
   coalesced forwards dispatched (``batches``) and the hand-written
-  kernels' launch counts (``kernel_launches``).
+  kernels' launch counts (``kernel_launches``: ``block1`` and
+  ``block1_stacked``).
 
+``--precision int8`` serves int8 weights behind the quant gate (fp32 if
+it refuses).  The run writes the JAX service's journal (``serve_start``,
+``request``, ``quant_gate``, ``stack_gate``, ``zoo_restack``,
+``model_load``, ``model_evict``, ``model_swap``, ``serve_end``) under
+``--metricsDir``.
 SIGTERM/SIGINT stop the listener, drain the queue and exit 75
-(``resil/preempt.py``).  Hot reload, the zoo, sessions, the tuner, tracing,
-metrics, the circuit breaker and the chaos sites arrive with later slices.
+(``resil/preempt.py``).  Sessions, the tuner, tracing, ``/metrics``,
+``/profile``, admission, the circuit breaker and the chaos sites arrive
+with later slices.
 """
 
 from __future__ import annotations
@@ -35,7 +50,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from eegnetreplication_tpu_torch.ops.fused_eegnet import block1
+from eegnetreplication_tpu_torch.obs import journal as obs_journal
+from eegnetreplication_tpu_torch.ops.fused_eegnet import (
+    block1,
+    block1_stacked,
+)
 from eegnetreplication_tpu_torch.resil import preempt
 from eegnetreplication_tpu_torch.serve.batcher import (
     DeadlineExceeded,
@@ -45,9 +64,18 @@ from eegnetreplication_tpu_torch.serve.batcher import (
 from eegnetreplication_tpu_torch.serve.engine import (
     CLASS_NAMES,
     DEFAULT_BUCKETS,
+    PRECISIONS,
+    QUANT_AGREEMENT_FLOOR,
     InferenceEngine,
 )
-from eegnetreplication_tpu_torch.utils.device import select_device
+from eegnetreplication_tpu_torch.serve.registry import (
+    ModelRegistry,
+    ModelZoo,
+)
+from eegnetreplication_tpu_torch.utils.device import (
+    resolve_device,
+    select_device,
+)
 from eegnetreplication_tpu_torch.utils.logging import logger
 
 # How long a handler waits for its request's forward before answering 500.
@@ -57,29 +85,63 @@ HANDLER_DRAIN_S = 15.0
 
 
 class ServeApp:
-    """The assembled service: engine + batcher + HTTP listener.
+    """The assembled service: registry (or zoo) + batcher + HTTP listener.
 
-    Construction loads and warms the checkpoint, so the listener never
-    accepts a request it would answer cold; ``start`` binds the socket,
-    ``stop(drain=True)`` stops accepting and drains the queue.
+    Construction loads, gates and warms the model(s), so the listener
+    never accepts a request it would answer cold; ``start`` binds the
+    socket and journals ``serve_start``, ``stop(drain=True)`` stops
+    accepting, drains the queue and journals ``serve_end``.
     """
 
-    def __init__(self, checkpoint: str | Path, *, host: str = "127.0.0.1",
+    def __init__(self, checkpoint: str | Path | None = None, *,
+                 host: str = "127.0.0.1",
                  port: int = 0, buckets: tuple[int, ...] = DEFAULT_BUCKETS,
                  max_wait_ms: float = 5.0, max_queue_trials: int = 512,
-                 device: torch.device | str | None = None):
-        self.checkpoint = str(checkpoint)
-        self.engine = InferenceEngine.from_checkpoint(
-            checkpoint, tuple(buckets), device=device)
+                 device: torch.device | str | None = None,
+                 precision: str = "fp32",
+                 quant_floor: float = QUANT_AGREEMENT_FLOOR,
+                 gate_set=None, zoo=None, default_model: str | None = None,
+                 max_programs: int = 0, stack: bool = True, journal=None):
+        self.journal = journal if journal is not None \
+            else obs_journal.current()
+        device = resolve_device(device)
+        if zoo is not None:
+            self.registry = ModelZoo(
+                zoo, default=default_model, buckets=tuple(buckets),
+                precision=precision, quant_floor=quant_floor,
+                gate_set=gate_set, max_programs=max_programs, stack=stack,
+                journal=self.journal, device=device)
+            self.zoo: ModelZoo | None = self.registry
+            self.checkpoint = str(
+                self.registry.checkpoint_for(self.registry.default_id))
+        else:
+            if checkpoint is None:
+                raise ValueError("ServeApp needs a checkpoint or a zoo")
+            self.zoo = None
+            self.checkpoint = str(checkpoint)
+            self.registry = ModelRegistry(
+                tuple(buckets), precision=precision,
+                quant_floor=quant_floor, gate_set=gate_set,
+                journal=self.journal, device=device)
+            self.registry.load(checkpoint)
         self.batcher = MicroBatcher(
-            self.engine.infer, max_batch=buckets[-1],
-            max_wait_ms=max_wait_ms, max_queue_trials=max_queue_trials)
+            self.registry.infer, max_batch=buckets[-1], max_wait_ms=max_wait_ms,
+            max_queue_trials=max_queue_trials,
+            tenant_aware=self.zoo is not None)
         self._host, self._port = host, int(port)
         self._httpd: ThreadingHTTPServer | None = None
         self._listener: threading.Thread | None = None
         self._stopped = False
         self._inflight = 0
         self._idle = threading.Condition()
+        self._t_start = time.perf_counter()
+        # Request outcomes for serve_end (guarded by _idle's lock).
+        self._counts = {"ok": 0, "rejected": 0, "error": 0, "expired": 0}
+
+    @property
+    def engine(self) -> InferenceEngine:
+        """The live engine (the stacked one under a stacking zoo)."""
+        return self.registry.engine
 
     # -- lifecycle --------------------------------------------------------
     @property
@@ -105,10 +167,42 @@ class ServeApp:
         self._listener = threading.Thread(target=self._httpd.serve_forever,
                                           name="serve-http", daemon=True)
         self._listener.start()
+        gate = self.registry.last_gate
+        self.journal.event(
+            "serve_start", checkpoint=self.checkpoint,
+            buckets=list(self.buckets), max_batch=self.batcher.max_batch,
+            max_wait_ms=self.batcher.max_wait_s * 1000.0,
+            max_queue_trials=self.batcher.max_queue_trials,
+            digest=self.registry.digest,
+            precision=self.registry.serving_precision,
+            requested_precision=self.registry.precision,
+            quant_agreement=(round(gate.agreement, 6) if gate else None),
+            tenants=(list(self.zoo.tenant_ids)
+                     if self.zoo is not None else None),
+            stacked=(self.zoo.stacked is not None
+                     if self.zoo is not None else None),
+            host=self.address[0], port=self.address[1])
         logger.info("Serving %s at %s (buckets %s, %s on %s)",
-                    self.checkpoint, self.url, self.engine.buckets,
-                    self.engine.precision, self.engine.device)
+                    self.checkpoint, self.url, self.buckets,
+                    self.registry.serving_precision, self.registry.device)
         return self
+
+    @property
+    def buckets(self) -> tuple[int, ...]:
+        return tuple(self.registry.buckets)
+
+    def record_request(self, outcome: str, n_trials: int = 0,
+                       t0: float | None = None,
+                       model: str | None = None) -> None:
+        """Journal one ``request`` event (status ``ok``, ``rejected``,
+        ``error`` or ``expired``) and count it for ``serve_end``."""
+        latency_ms = (0.0 if t0 is None
+                      else (time.perf_counter() - t0) * 1000.0)
+        with self._idle:
+            self._counts[outcome] += 1
+        self.journal.event("request", n_trials=int(n_trials),
+                           latency_ms=round(latency_ms, 3), status=outcome,
+                           model=model)
 
     def stop(self, drain: bool = True) -> None:
         """Stop the listener, drain (default) or fail queued requests, and
@@ -126,8 +220,20 @@ class ServeApp:
                 logger.warning("%d in-flight request handler(s) did not "
                                "finish within %.1fs", self._inflight,
                                HANDLER_DRAIN_S)
-        logger.info("Serve drained and stopped after %d forwards",
-                    self.batcher.batches)
+            counts = dict(self._counts)
+        self.journal.event(
+            "serve_end", n_requests=sum(counts.values()),
+            rejected=counts["rejected"], errors=counts["error"],
+            expired=counts["expired"],
+            wall_s=round(time.perf_counter() - self._t_start, 3),
+            batches=self.batcher.batches, model_swaps=self.registry.swaps,
+            n_tenants=(self.zoo.n_tenants if self.zoo is not None
+                       else None),
+            zoo_restacks=(self.zoo.restacks if self.zoo is not None
+                          else None),
+            precision=self.registry.serving_precision)
+        logger.info("Serve drained and stopped after %d forwards, %d model "
+                    "swap(s)", self.batcher.batches, self.registry.swaps)
 
     def begin_request(self) -> None:
         with self._idle:
@@ -140,20 +246,31 @@ class ServeApp:
                 self._idle.notify_all()
 
     def healthz(self) -> dict:
-        c, t = self.engine.geometry
+        """The /healthz body; identity reads never build an engine."""
+        zoo = self.zoo
+        c, t = self.registry.geometry
+        digest = self.registry.digest
+        snap = zoo.snapshot() if zoo is not None else None
         return {
             "status": "ok",
             "checkpoint": self.checkpoint,
-            "model_digest": self.engine.digest,
-            "variables_digest": self.engine.digest,
+            "model_digest": digest,
+            "variables_digest": digest,
             "geometry": {"n_channels": c, "n_times": t},
-            "buckets": list(self.engine.buckets),
+            "buckets": list(self.buckets),
             "max_batch": self.batcher.max_batch,
             "max_wait_ms": round(self.batcher.max_wait_s * 1000.0, 3),
-            "precision": self.engine.precision,
+            "precision": self.registry.serving_precision,
+            "requested_precision": self.registry.precision,
             "queue_depth_trials": self.batcher.queue_depth,
             "batches": self.batcher.batches,
-            "kernel_launches": {"block1": block1.launches},
+            "model_swaps": self.registry.swaps,
+            "stacked": zoo.stacked is not None if zoo is not None else None,
+            "zoo_restacks": zoo.restacks if zoo is not None else None,
+            "zoo": snap,
+            "tenants": snap["tenants"] if snap else None,
+            "kernel_launches": {"block1": block1.launches,
+                                "block1_stacked": block1_stacked.launches},
         }
 
 
@@ -178,19 +295,21 @@ class _ServeHandler(BaseHTTPRequestHandler):
         length = int(self.headers.get("Content-Length", 0) or 0)
         return self.rfile.read(length) if length else b""
 
-    def _parse_predict_body(self, body: bytes) -> tuple[np.ndarray, object]:
-        """One decode of a /predict body -> (trials, deadline_ms-or-None).
-        npz bodies carry the deadline in the header only."""
+    def _parse_predict_body(self, body: bytes
+                            ) -> tuple[np.ndarray, object, object]:
+        """One decode of a /predict body -> (trials, deadline_ms-or-None,
+        model-spec-or-None).  npz bodies carry the deadline and the model
+        in headers only."""
         ctype = (self.headers.get("Content-Type") or "").split(";")[0].strip()
         if ctype == "application/json":
             payload = json.loads(body.decode())
             if not isinstance(payload, dict) or "trials" not in payload:
                 raise ValueError('JSON body must be {"trials": [...]}')
             return (np.asarray(payload["trials"], np.float32),
-                    payload.get("deadline_ms"))
+                    payload.get("deadline_ms"), payload.get("model"))
         with np.load(io.BytesIO(body)) as data:
             if "X" in getattr(data, "files", ()):
-                return np.asarray(data["X"], np.float32), None
+                return np.asarray(data["X"], np.float32), None, None
             raise ValueError("npz body carries no 'X' trials array")
 
     def _deadline_ms(self, payload_deadline) -> float | None:
@@ -216,55 +335,126 @@ class _ServeHandler(BaseHTTPRequestHandler):
         app = self.app
         app.begin_request()
         try:
-            if self.path == "/predict":
-                self._predict(app)
-            else:
-                self._read_body()
-                self._reply(404, {"error": f"unknown path {self.path}"})
+            with obs_journal.bound(app.journal):
+                if self.path == "/predict":
+                    self._predict(app)
+                elif self.path == "/reload":
+                    self._reload(app)
+                else:
+                    self._read_body()
+                    self._reply(404, {"error": f"unknown path {self.path}"})
         finally:
             app.end_request()
 
     def _predict(self, app: ServeApp) -> None:
         t0 = time.perf_counter()
         try:
-            x, payload_deadline = self._parse_predict_body(self._read_body())
+            x, payload_deadline, payload_model = self._parse_predict_body(
+                self._read_body())
             deadline_ms = self._deadline_ms(payload_deadline)
             if x.ndim == 2:
                 x = x[None]
-            c, t = app.engine.geometry
+            c, t = app.registry.geometry
             if x.ndim != 3 or x.shape[1:] != (c, t):
                 raise ValueError(
                     f"expected trials shaped (n, {c}, {t}), got "
                     f"{tuple(x.shape)}")
         except Exception as exc:  # noqa: BLE001 — client error
+            app.record_request("rejected", 0, t0)
             self._reply(400, {"error": f"{type(exc).__name__}: {exc}"})
+            return
+        # The X-Model header wins, else the JSON "model" field; none means
+        # the default tenant.  An unknown model is 404.
+        model_spec = self.headers.get("X-Model")
+        if model_spec is None:
+            model_spec = payload_model
+        model_id, tenant = None, 0
+        if app.zoo is not None:
+            try:
+                model_id = app.zoo.resolve(model_spec)
+                tenant = app.zoo.tenant_index(model_id)
+            except KeyError as exc:
+                app.record_request("rejected", len(x), t0)
+                self._reply(404, {"error": str(exc.args[0]),
+                                  "tenants": app.zoo.tenant_ids})
+                return
+        elif model_spec not in (None, "", "default"):
+            app.record_request("rejected", len(x), t0)
+            self._reply(404, {
+                "error": f"model {model_spec!r} requested but no model zoo "
+                         "is configured (single-model server; start with "
+                         "--zoo)"})
             return
         deadline = (None if deadline_ms is None
                     else time.monotonic() + deadline_ms / 1000.0)
         try:
-            preds = app.batcher.submit(x, deadline=deadline).result(
+            preds = app.batcher.submit(x, deadline=deadline,
+                                       tenant=tenant).result(
                 timeout=REQUEST_TIMEOUT_S)
         except DeadlineExceeded as exc:
+            app.record_request("expired", len(x), t0, model_id)
             self._reply(504, {"error": str(exc), "deadline_ms": deadline_ms})
             return
         except Rejected as exc:
+            app.record_request("rejected", len(x), t0, model_id)
             self._reply(429, {"error": str(exc)})
             return
         except Exception as exc:  # noqa: BLE001 — inference/timeout
+            app.record_request("error", len(x), t0, model_id)
             self._reply(500, {"error": f"{type(exc).__name__}: {exc}"})
             return
         latency_ms = (time.perf_counter() - t0) * 1000.0
         if deadline is not None and time.monotonic() > deadline:
+            app.record_request("expired", len(x), t0, model_id)
             self._reply(504, {"error": "response ready after the request "
                                        "deadline expired",
                               "deadline_ms": deadline_ms,
                               "latency_ms": round(latency_ms, 3)})
             return
-        self._reply(200, {
+        app.record_request("ok", len(x), t0, model_id)
+        reply = {
             "predictions": [int(p) for p in preds],
             "class_names": list(CLASS_NAMES), "n": len(x),
             "latency_ms": round(latency_ms, 3),
-            "model_digest": app.engine.digest})
+            "model_digest": (app.zoo.digest_for(model_id)
+                             if app.zoo is not None
+                             else app.registry.digest)}
+        if model_id is not None:
+            reply["model"] = model_id
+        self._reply(200, reply)
+
+    def _reload(self, app: ServeApp) -> None:
+        """``POST /reload``: 200 with the new digest, or 400 with the old
+        model still serving."""
+        try:
+            payload = json.loads(self._read_body().decode() or "{}")
+            if not isinstance(payload, dict):
+                raise ValueError("body must be a JSON object")
+            if app.zoo is not None:
+                # One tenant's weights ("model" defaults to the default
+                # tenant; no checkpoint re-pushes that tenant's own file).
+                model_id = app.zoo.resolve(payload.get("model"))
+                checkpoint = (payload.get("checkpoint")
+                              or app.zoo.checkpoint_for(model_id))
+                digest = app.zoo.reload(model_id, checkpoint)
+                if model_id == app.zoo.default_id:
+                    app.checkpoint = str(checkpoint)
+                self._reply(200, {
+                    "status": "ok", "model": model_id,
+                    "checkpoint": str(checkpoint), "model_digest": digest,
+                    "stacked": app.zoo.stacked is not None,
+                    "zoo_restacks": app.zoo.restacks,
+                    "model_swaps": app.registry.swaps})
+                return
+            checkpoint = payload.get("checkpoint") or app.checkpoint
+            engine = app.registry.reload(checkpoint)
+        except Exception as exc:  # noqa: BLE001 — reload must not kill serving
+            self._reply(400, {"error": f"{type(exc).__name__}: {exc}"})
+            return
+        app.checkpoint = str(checkpoint)
+        self._reply(200, {"status": "ok", "checkpoint": str(checkpoint),
+                          "model_digest": engine.digest,
+                          "model_swaps": app.registry.swaps})
 
 
 def serve_until_preempted(app: ServeApp, poll_s: float = 0.2) -> None:
@@ -281,9 +471,30 @@ def main(argv=None) -> int:
     device = select_device()
     parser = argparse.ArgumentParser(
         description="Online EEG inference service (torch port: bucketed "
-                    "engine on the card, dynamic micro-batching).")
-    parser.add_argument("--checkpoint", required=True,
-                        help=".npz (native) or .pth (reference format).")
+                    "engine on the card, dynamic micro-batching, model "
+                    "hot-reload).")
+    parser.add_argument("--checkpoint", default=None,
+                        help=".npz (native) or .pth (reference format).  "
+                             "Required unless --zoo is given.")
+    parser.add_argument("--zoo", default=None,
+                        help="Multi-tenant model zoo: 'id=path,id=path' "
+                             "pairs or a directory of checkpoints (each "
+                             "*.npz/*.pth becomes a tenant keyed by file "
+                             "stem).  Requests then address a model via "
+                             "the X-Model header / 'model' JSON field; "
+                             "same-architecture tenants serve through ONE "
+                             "stacked forward per bucket.")
+    parser.add_argument("--defaultModel", default=None,
+                        help="The tenant answering requests that name no "
+                             "model (default: the zoo's first entry).")
+    parser.add_argument("--maxPrograms", type=int, default=0,
+                        help="Budget of resident per-model engines in "
+                             "bucket programs (each costs one per bucket); "
+                             "LRU tenants evict past it.  0 = unbounded.  "
+                             "The stacked engine is exempt.")
+    parser.add_argument("--noStack", action="store_true",
+                        help="Serve the zoo through per-model engines "
+                             "only (skip the stacked forward).")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8790,
                         help="Listen port (0 = ephemeral).")
@@ -296,7 +507,34 @@ def main(argv=None) -> int:
     parser.add_argument("--maxQueue", type=int, default=512,
                         help="Queue bound in trials; beyond it requests "
                              "are rejected with 429.")
+    parser.add_argument("--precision", choices=list(PRECISIONS),
+                        default="fp32",
+                        help="Engine weight precision.  int8 runs the "
+                             "mandatory fp32-argmax equivalence gate at "
+                             "load and falls back to fp32 on refusal.")
+    parser.add_argument("--quantFloor", type=float,
+                        default=QUANT_AGREEMENT_FLOOR,
+                        help="Minimum per-subject int8-vs-fp32 argmax "
+                             "agreement for the quantized engine to "
+                             "serve.")
+    parser.add_argument("--metricsDir", type=str, default=None,
+                        help="Run-journal root (default reports/obs).")
     args = parser.parse_args(argv)
+
+    if bool(args.checkpoint) == bool(args.zoo):
+        parser.error("exactly one of --checkpoint or --zoo is required")
+    zoo_spec = None
+    if args.zoo:
+        from eegnetreplication_tpu_torch.serve.zoo import parse_zoo_spec
+
+        try:
+            zoo_spec = parse_zoo_spec(args.zoo)
+            if args.defaultModel and args.defaultModel not in zoo_spec:
+                raise ValueError(
+                    f"--defaultModel {args.defaultModel!r} is not a zoo "
+                    f"tenant (have {list(zoo_spec)})")
+        except ValueError as exc:
+            parser.error(f"--zoo: {exc}")
     try:
         buckets = (tuple(sorted({int(b) for b in args.buckets.split(",")}))
                    if args.buckets else DEFAULT_BUCKETS)
@@ -305,10 +543,20 @@ def main(argv=None) -> int:
     except ValueError as exc:
         parser.error(f"--buckets: {exc}")
 
-    with preempt.guard():
+    from eegnetreplication_tpu_torch.config import Paths
+
+    metrics_dir = (Path(args.metricsDir) if args.metricsDir
+                   else Paths.from_here().reports / "obs")
+    with obs_journal.run(metrics_dir, config=vars(args)) as journal, \
+            preempt.guard():
         app = ServeApp(args.checkpoint, host=args.host, port=args.port,
                        buckets=buckets, max_wait_ms=args.maxWaitMs,
-                       max_queue_trials=args.maxQueue, device=device)
+                       max_queue_trials=args.maxQueue, device=device,
+                       precision=args.precision,
+                       quant_floor=args.quantFloor, zoo=zoo_spec,
+                       default_model=args.defaultModel,
+                       max_programs=args.maxPrograms,
+                       stack=not args.noStack, journal=journal)
         app.start()
         print(f"serving at {app.url}", flush=True)
         serve_until_preempted(app)

@@ -12,8 +12,9 @@ Ported: ``--trainingType`` (``Within-Subject``, ``Cross-Subject``),
 ``--metricsDir``, ``--chaos``, ``--profileDir`` and ``--debugNans``, with
 the JAX CLI's parse-time errors.  A flag whose machinery is not ported
 stops the CLI with a message naming ROADMAP.md instead of being ignored:
-``--meshFold``, ``--meshData`` above 1, ``--precision`` other than
-``highest`` and ``--ckptFormat orbax``.
+a device mesh larger than ``--meshFold 1 --meshData 1`` (one card runs a
+1 x 1 mesh), ``--precision`` other than ``highest`` and ``--ckptFormat
+orbax``.
 
 Every run writes a journal, as the JAX CLI does: ``events.jsonl`` and
 ``metrics.json`` under ``<metricsDir>/<run_id>/`` (default
@@ -76,8 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Model registry name (eegnet, eegnet_wide).")
     parser.add_argument("--seed", type=int, default=0, help="Seed.")
     parser.add_argument("--meshFold", type=int, default=None,
-                        help="Fold-axis size of the device mesh (not "
-                             "ported).")
+                        help="Fold-axis size of the device mesh (only 1: "
+                             "one card).")
     parser.add_argument("--meshData", type=int, default=1,
                         help="Data-axis size of the device mesh (only 1).")
     parser.add_argument("--maxnormMode", type=str, default="reference",
@@ -144,15 +145,19 @@ def build_parser() -> argparse.ArgumentParser:
 def unported_flags(args: argparse.Namespace) -> list[str]:
     """The flags of ``args`` whose machinery the port does not have."""
     refused = []
-    if args.meshFold is not None or args.meshData != 1:
-        refused.append("--meshFold/--meshData (the device mesh: ROADMAP.md "
-                       "queue A.5)")
+    if args.meshFold not in (None, 1) or args.meshData != 1:
+        refused.append("--meshFold/--meshData above 1 (a device mesh over "
+                       "several cards: ROADMAP.md queue A.5; one card runs "
+                       "the 1 x 1 mesh)")
     if args.precision != "highest":
         refused.append(f"--precision {args.precision} (TPU matmul modes; the "
                        "port computes in full f32)")
     if args.ckptFormat != "npz":
-        refused.append("--ckptFormat orbax (Orbax checkpoints: ROADMAP.md "
-                       "queue A.1)")
+        refused.append("--ckptFormat orbax (ROADMAP.md queue A.1.iv: the "
+                       "JAX package writes it through Orbax's "
+                       "StandardCheckpointer in tensorstore's on-disk "
+                       "format, which needs JAX, and the card's machine "
+                       "has none; the .npz holds the same variables)")
     return refused
 
 

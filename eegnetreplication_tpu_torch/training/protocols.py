@@ -424,9 +424,31 @@ def _cs_auto_fold_batch(n_folds: int, fold_batch: int | None,
     return None
 
 
-def _log_throughput(fold_epochs: float, wall: float, detail: str) -> None:
-    logger.info("Throughput: %.2f fold-epochs/s (%s in %.1fs)",
-                fold_epochs / max(wall, 1e-9), detail, wall)
+def _log_throughput(model, config, fold_epochs: float, wall: float,
+                    train_pad: int, val_pad: int, detail: str,
+                    device: torch.device) -> None:
+    """Log fold-epochs/s, the achieved GFLOP/s and, on the card, the MFU.
+
+    ``fold_epochs`` is the count this process trained (a resumed run's wall
+    covers only the rest).  The FLOPs of a fold-epoch are counted from the
+    shapes (``utils/flops.py``); the MFU is against the card's FP32 peak,
+    and a card without a known peak gets GFLOP/s only."""
+    from eegnetreplication_tpu_torch.utils.flops import (
+        assumed_peak_flops,
+        fold_epoch_flops,
+    )
+
+    rate = fold_epochs / max(wall, 1e-9)
+    flops_per_s = rate * fold_epoch_flops(
+        model, batch_size=config.batch_size, train_pad=train_pad,
+        val_pad=val_pad)
+    extra = f", {flops_per_s / 1e9:.2f} GFLOP/s"
+    if device.type == "cuda":
+        peak, label = assumed_peak_flops(_device_kind(device))
+        if peak is not None:
+            extra += f" = {100 * flops_per_s / peak:.4f}% MFU ({label})"
+    logger.info("Throughput: %.2f fold-epochs/s (%s in %.1fs)%s", rate,
+                detail, wall, extra)
 
 
 def _resume_carry(path: Path, signature: dict
@@ -559,7 +581,10 @@ def _train_group(setup: FoldSetup, lo: int, hi: int, *, epochs: int,
                 "throughput)", time.perf_counter() - t0)
     trained = float(n * (epochs - start))
     jr.metrics.inc("fold_epochs_total", trained)
-    _log_throughput(trained, wall, f"{n} folds x {epochs - start} epochs")
+    _log_throughput(setup.model, cfg, trained, wall,
+                    int(setup.spec.train_idx.shape[1]),
+                    int(setup.spec.val_idx.shape[1]),
+                    f"{n} folds x {epochs - start} epochs", setup.device)
     return result, wall, trained
 
 
@@ -714,8 +739,10 @@ def run_folds(setup: FoldSetup, *, epochs: int,
             _record_fold_batch_limit(cur, setup.device)
             halved = False
     _clear_run_snapshots(checkpoint_path)
-    _log_throughput(trained, wall, f"{n_folds} folds x {epochs} epochs in "
-                    f"{len(results)} groups")
+    _log_throughput(setup.model, setup.config, trained, wall, train_pad,
+                    int(spec.val_idx.shape[1]),
+                    f"{n_folds} folds x {epochs} epochs in "
+                    f"{len(results)} groups", setup.device)
     return _concat(results), wall, trained, fault_wall
 
 

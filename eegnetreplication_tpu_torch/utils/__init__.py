@@ -1,1 +1,1 @@
-"""Shared utilities: logging and device selection."""
+"""Shared utilities: logging, device selection, FLOP accounting."""

@@ -27,7 +27,12 @@ edge shapes (K2's tile boundaries among them), atol/rtol 1e-4 (the JAX
 package's Pallas-vs-scan tolerance).  Each kernel called three times on one
 input gives the same bits.  The card's preprocessing path with
 ``EEGTPU_EMS_METHOD=pallas`` must launch K2 and never hand a CUDA tensor to
-``ems_reference``.
+``ems_reference``.  Serving beyond one fp32 model: the int8 engine
+launches K1 once per bucket chunk and matches the plain int8 forward on the
+CPU (atol 1e-5 / rtol 1e-4); the stacked engine, fp32 and int8, launches
+K1-stacked once per chunk and K1 never, and matches its CPU twin; a zoo of
+nine tenants stacks through the gate on the card and answers as each
+tenant's own engine.
 """
 
 import numpy as np
@@ -496,3 +501,78 @@ def test_determinism_raises_on_no_path(cuda, tmp_path, monkeypatch):
         paths=Paths.from_root(tmp_path / "cs"), save_models=False,
         device=cuda, fold_batch=4)
     assert np.isfinite(cs.fold_min_val_loss).all()
+
+
+# --- Serving beyond one fp32 model: int8 through K1, the zoo through
+# K1-stacked -----------------------------------------------------------------
+
+def test_int8_engine_on_card_launches_k1_and_matches_the_plain_cpu_forward(
+        cuda, monkeypatch):
+    from eegnetreplication_tpu_torch.ops import quant
+
+    model = _model(22, 257, 8, 2)
+    engine = InferenceEngine(model, (1, 8, 32, 128), device=cuda,
+                             precision="int8")
+    cpu = InferenceEngine(_model(22, 257, 8, 2), device="cpu",
+                          precision="int8")
+    x = _trials(37, 22, 257)
+    want = quant.quantized_eval_forward_reference(cpu._qpack, x)
+
+    def no_plain_on_card(*args):
+        raise AssertionError("a CUDA tensor reached block1_reference")
+
+    monkeypatch.setattr(fused, "block1_reference", no_plain_on_card)
+    before = fused.block1.launches
+    got = engine.forward(x.to(cuda)).cpu()
+    assert fused.block1.launches == before + 1
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+    before = fused.block1.launches
+    preds = engine.infer(_trials(300, 22, 257).numpy())
+    assert preds.shape == (300,)
+    assert fused.block1.launches == before + 3      # one per bucket chunk
+
+
+@pytest.mark.parametrize("precision", ["fp32", "int8"])
+def test_stacked_engine_on_card_launches_k1_stacked_once_per_chunk(
+        cuda, precision):
+    from eegnetreplication_tpu_torch.serve.zoo import StackedEngine
+
+    members = [(f"s{z}", _model(22, 257, 8, 2, seed=z)) for z in range(9)]
+    engine = StackedEngine(members, (1, 8, 32, 128), precision=precision,
+                           device=cuda)
+    cpu = StackedEngine([(m, _model(22, 257, 8, 2, seed=z))
+                         for z, (m, _) in enumerate(members)],
+                        precision=precision, device="cpu")
+    x = _trials(128, 22, 257)
+    idx = torch.arange(128, dtype=torch.int32) % 9
+    with torch.no_grad():
+        want = cpu.forward(x, idx)
+    before = (fused.block1.launches, fused.block1_stacked.launches)
+    got = engine.forward(x.to(cuda), idx.to(cuda)).cpu()
+    assert (fused.block1.launches,
+            fused.block1_stacked.launches) == (before[0], before[1] + 1)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+    before = fused.block1_stacked.launches
+    preds = engine.infer(_trials(200, 22, 257).numpy(),
+                         np.arange(200) % 9)
+    assert preds.shape == (200,)
+    assert fused.block1_stacked.launches == before + 2
+
+
+def test_zoo_on_card_stacks_nine_tenants_through_the_gate(cuda, tmp_path):
+    from eegnetreplication_tpu_torch.serve.registry import ModelZoo
+
+    for z in range(9):
+        checkpoint.save_checkpoint(
+            tmp_path / f"subject_{z + 1:02d}_best_model.npz",
+            _model(22, 257, 8, 2, seed=z).state_dict(),
+            metadata={"model": "eegnet", "n_channels": 22, "n_times": 257,
+                      "F1": 8, "D": 2})
+    zoo = ModelZoo(str(tmp_path), device=cuda)
+    assert zoo.stacked is not None and zoo.last_stack_gate.agreement == 1.0
+    x = _trials(64, 22, 257).numpy()
+    idx = np.arange(64) % 9
+    got = zoo.infer(x, idx)
+    for z, mid in enumerate(zoo.tenant_ids):
+        solo = InferenceEngine(_model(22, 257, 8, 2, seed=z), device=cuda)
+        np.testing.assert_array_equal(got[idx == z], solo.infer(x[idx == z]))

@@ -51,7 +51,8 @@ _CHILD = textwrap.dedent("""
                  "training.report", "training.checkpoint",
                  "training.async_ckpt", "resil.preempt", "obs",
                  "obs.schema", "obs.metrics", "obs.journal", "resil.inject",
-                 "resil.retry"):
+                 "resil.retry", "utils.flops", "ops.quant", "ops.stacked",
+                 "serve.zoo", "serve.registry"):
         assert "eegnetreplication_tpu_torch." + name in names, name
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   {chip_smoke!r})

@@ -40,11 +40,15 @@ REPO = Path(__file__).resolve().parents[1]
 TRAINING_EVENTS = ("run_start", "train_setup", "fold_group", "epoch",
                    "device_fault", "checkpoint_write", "checkpoint_quarantine",
                    "fault_injected", "retry", "run_end")
+SERVING_EVENTS = ("serve_start", "request", "model_swap", "serve_end",
+                  "quant_gate", "model_load", "model_evict", "zoo_restack",
+                  "stack_gate")
 
 
 def test_event_table_equals_the_jax_rows():
-    assert set(schema.EVENT_REQUIRED) == set(TRAINING_EVENTS)
-    for name in TRAINING_EVENTS:
+    assert set(schema.EVENT_REQUIRED) == set(TRAINING_EVENTS
+                                             + SERVING_EVENTS)
+    for name in TRAINING_EVENTS + SERVING_EVENTS:
         assert schema.EVENT_REQUIRED[name] == jax_schema.EVENT_REQUIRED[name]
     assert schema.EVENT_BASE_REQUIRED == jax_schema.EVENT_BASE_REQUIRED
     assert schema.SCHEMA_VERSION == jax_schema.SCHEMA_VERSION

@@ -165,7 +165,7 @@ def test_report_equals_the_jax_report(tmp_path):
 
 
 UNPORTED = {
-    "mesh_fold": ["--meshFold", "1"],
+    "mesh_fold": ["--meshFold", "2"],
     "mesh_data": ["--meshData", "2"],
     "precision": ["--precision", "bf16"],
     "orbax": ["--ckptFormat", "orbax"],

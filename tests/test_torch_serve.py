@@ -307,7 +307,8 @@ def test_http_healthz_has_the_jax_fields(server):
     assert body["status"] == "ok" and body["precision"] == "fp32"
     assert body["geometry"] == {"n_channels": 22, "n_times": 257}
     assert body["buckets"] == [1, 8, 32, 128] and body["max_batch"] == 128
-    assert body["kernel_launches"] == {"block1": 0}    # CPU: no kernel
+    assert body["kernel_launches"] == {"block1": 0,     # CPU: no kernel
+                                       "block1_stacked": 0}
 
 
 @pytest.mark.parametrize("body, ctype, headers, code", [
@@ -325,7 +326,7 @@ def test_http_bad_requests_answer_400(server, body, ctype, headers, code):
 
 def test_http_unknown_paths_answer_404(server):
     assert _request(server.url + "/nope")[0] == 404
-    assert _request(server.url + "/reload", b"{}")[0] == 404
+    assert _request(server.url + "/profile", b"{}")[0] == 404
 
 
 @pytest.mark.parametrize("source", ["input", "subject"])
