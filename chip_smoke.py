@@ -86,7 +86,30 @@ hand-written kernel against its plain PyTorch version:
    checkpoint's; a corrupt file 400 with the old digest serving), and the
    timings: K1-stacked at a 128-trial chunk over nine tenants beside its
    plain version, a grouped cuDNN composite and its bound, the engines'
-   ``infer`` at buckets 1 and 128, ``/predict`` at 1 and 128 trials.
+   ``infer`` at buckets 1 and 128, ``/predict`` at 1 and 128 trials;
+13. live streaming sessions (K2s, ``ems_stream``, the EMS carry): K2s
+   against its plain version with the carry threaded through 3 chunks at C
+   in {1, 22, 64} and n from 1 to 15000, atol/rtol 1e-6 (and whether they
+   are bitwise equal); a (22, 15000) stream in chunks of 25, 64, 997, 1
+   (the first 2000 samples) and whole gives the one-shot ``scan``'s bytes
+   and final carry; three calls bitwise equal.  Three servers start at
+   once: nine concurrent sessions, one per subject, each 60 s of a seeded
+   22-channel 250 Hz recording pushed as raw f32 chunks of 25 samples
+   (window 257, hop 64, seed block 1000, deadline 1024 ms): every decision
+   ``ok`` and equal to the offline pipeline (one-shot ``scan`` on the card,
+   the same windows, the engine), each exported carry equal to the
+   one-shot kernel's bit for bit, ``/healthz``'s ``ems_stream`` launches
+   equal to the pushes from the seeding push on, p95 window latency under
+   the 256 ms hop, the journal read back with its session events; a
+   session SIGKILLed after half its windows (``--sessionSnapshotEvery
+   20``), relaunched with ``--resume`` and replayed from the acked cursor
+   equals the uninterrupted stream, every window decided again equals
+   what the client was told, and SIGTERM exits 75 with the open session
+   in ``sessions.npz``; one session against a ``--zoo`` server equals the
+   offline pipeline through the default tenant's engine.  Then K2s's
+   times at (22, 25), (22, 250) and (22, 345600), its plain version at the
+   first two, K2 and ``associative`` at the last, beside the bound and the
+   serial chain's latency at the card's maximum SM clock.
 
 Phases 10 and 11 print GFLOP/s and the MFU against the card's FP32 peak
 (``utils/flops.py``) beside fold-epochs/s at 8, 36 and 90 folds.
@@ -2476,6 +2499,568 @@ def phase_serving_zoo(torch, np, dev, work: Path, env: dict):
     return result
 
 
+# --------------------------------------------------------------------------
+# Phase 13: live streaming sessions
+# --------------------------------------------------------------------------
+
+# K2s against its plain version: each operation is rounded on its own in
+# both (csrc/ems_stream.cu, ops/ems_kernel.py), so they should agree to the
+# bit; 1e-6 leaves room for nothing but that.
+K2S_ATOL, K2S_RTOL = 1e-6, 1e-6
+K2S_CHANNELS = (1, 22, 64)
+K2S_LENGTHS = (1, 2, 25, 64, 250, 1000, 4096, 15000)
+K2S_SPLITS = (25, 64, 997, 1)
+K2S_SPLIT_ONE = 2000     # chunks of one sample over the first 2000
+# K2s's step (csrc/ems_stream.cu::step): 12 operations a sample, and a
+# chain of a dependent multiply and add (4 cycles each) from one sample's
+# m (and v) to the next.
+K2S_OPS_PER_SAMPLE = 12
+K2S_CHAIN_CYCLES = 8
+# The live streams: one headset per BCI IV 2a subject, 22 channels at
+# 250 Hz for 60 s, pushed 100 ms at a time; EEGNet's 257-sample window
+# every 64 samples; the stream bench's per-window deadline of four hops.
+STREAM_SUBJECTS = 9
+STREAM_HZ = 250
+STREAM_SAMPLES = 60 * STREAM_HZ
+STREAM_CHUNK = 25
+STREAM_WINDOW, STREAM_HOP = 257, 64
+STREAM_BLOCK = 1000
+STREAM_DEADLINE_MS = 1024.0
+HOP_MS = 1000.0 * STREAM_HOP / STREAM_HZ        # 256 ms
+STREAM_OPEN = {"window": STREAM_WINDOW, "hop": STREAM_HOP,
+               "ems_init_block_size": STREAM_BLOCK,
+               "deadline_ms": STREAM_DEADLINE_MS}
+KILL_SNAPSHOT_EVERY = 20
+K2S_TIMED = (STREAM_CHUNK, 250, SESSION[1])
+
+
+def stream_recording(np, seed, c=22, n=None):
+    """A seeded synthetic headset recording ``(c, n)`` f32 in microvolts
+    (``n`` defaults to STREAM_SAMPLES): noise, a 10 Hz rhythm and a
+    per-channel offset."""
+    n = STREAM_SAMPLES if n is None else n
+    rng = np.random.RandomState(seed)
+    t = np.arange(n) / STREAM_HZ
+    x = (8.0 * rng.randn(c, n) + 20.0 * rng.randn(c, 1)
+         + 5.0 * np.sin(2 * np.pi * 10.0 * t + rng.rand(c, 1) * 6.28))
+    return x.astype(np.float32)
+
+
+def n_windows(n, window=STREAM_WINDOW, hop=STREAM_HOP) -> int:
+    return (n - window) // hop + 1 if n >= window else 0
+
+
+def k2s_bound(c, n):
+    """(bound_ms, bound_by, bytes, ops) of one K2s call: x read once, the
+    seed mean and the carry read once, out and the carry written once; 12
+    operations a sample."""
+    nbytes = 4 * (2 * c * n + 5 * c)
+    ops = K2S_OPS_PER_SAMPLE * c * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
+def max_sm_clock_ghz() -> float:
+    """The card's maximum SM clock from ``nvidia-smi``."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    return float(smi.stdout.strip().splitlines()[0]) / 1e3
+
+
+def _get_bytes(url, timeout=60.0) -> bytes:
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.read()
+
+
+def _k2s_against_plain(torch, np, dev) -> dict:
+    """13a: K2s against ``ems_stream_reference`` on the card, the carry
+    threaded through 3 chunks, at every (C, n) of the grid."""
+    from eegnetreplication_tpu_torch.ops.ems_kernel import (
+        ems_stream,
+        ems_stream_reference,
+        seed_stats,
+    )
+
+    worst, bitwise = 0.0, True
+    for c in K2S_CHANNELS:
+        for n in K2S_LENGTHS:
+            x = torch.from_numpy(stream_recording(np, 500 + c, c, 3 * n)
+                                 ).to(dev)
+            mean0, var0 = seed_stats(x, STREAM_BLOCK)
+            mk, vk = torch.zeros_like(mean0), var0.clone()
+            mp, vp = torch.zeros_like(mean0), var0.clone()
+            for k in range(3):
+                chunk = x[:, k * n:(k + 1) * n].contiguous()
+                got = ems_stream(chunk, mean0, mk, vk)
+                want = ems_stream_reference(chunk, mean0, mp, vp)
+                torch.cuda.synchronize()
+                for g, w, what in ((got, want, "out"), (mk, mp, "m"),
+                                   (vk, vp, "v")):
+                    check(torch.allclose(g, w, atol=K2S_ATOL,
+                                         rtol=K2S_RTOL),
+                          f"K2s {what} at C={c}, n={n}, chunk {k}: max "
+                          f"err {float((g - w).abs().max()):.3e}")
+                    bitwise = bitwise and bool(torch.equal(g, w))
+                worst = max(worst, float((got - want).abs().max()))
+    log(f"K2s vs its plain version at C {K2S_CHANNELS} x n {K2S_LENGTHS}, "
+        f"3 chunks each: max abs err {worst:.3e} (atol/rtol {K2S_ATOL}); "
+        f"bitwise equal: {bitwise}")
+    return {"max_abs_err": worst, "bitwise": bitwise}
+
+
+def _k2s_invariance(torch, np, dev) -> None:
+    """13a: any split of a (22, 15000) stream through the carrier gives the
+    one-shot ``scan``'s bytes and final carry; three calls repeat."""
+    from eegnetreplication_tpu_torch.ops.ems import (
+        StreamingEMS,
+        exponential_moving_standardize,
+        scan_with_carry,
+    )
+    from eegnetreplication_tpu_torch.ops.ems_kernel import (
+        ems_stream,
+        seed_stats,
+    )
+
+    x = stream_recording(np, 600)
+    xt = torch.from_numpy(x).to(dev)
+    check(torch.equal(scan_with_carry(xt, init_block_size=STREAM_BLOCK)[0],
+                      exponential_moving_standardize(
+                          xt, init_block_size=STREAM_BLOCK, method="scan")),
+          "scan_with_carry and method='scan' differ on the card")
+    for split in K2S_SPLITS + (STREAM_SAMPLES,):
+        n = K2S_SPLIT_ONE if split == 1 else STREAM_SAMPLES
+        out, m, v = (t.cpu().numpy() for t in scan_with_carry(
+            xt[:, :n].contiguous(), init_block_size=STREAM_BLOCK))
+        ems = StreamingEMS(22, init_block_size=STREAM_BLOCK, device=dev)
+        got = np.concatenate([ems.push(x[:, p:min(p + split, n)])
+                              for p in range(0, n, split)], axis=1)
+        state = ems.state_arrays()
+        check(np.array_equal(got, out) and np.array_equal(state["m"], m)
+              and np.array_equal(state["v"], v),
+              f"a stream in chunks of {split} differs from the one-shot "
+              "scan on the card")
+    mean0, var0 = seed_stats(xt, STREAM_BLOCK)
+    runs = []
+    for _ in range(3):
+        mm, vv = torch.zeros_like(mean0), var0.clone()
+        runs.append((ems_stream(xt, mean0, mm, vv), mm, vv))
+    check(all(torch.equal(a, b) for r in runs[1:]
+              for a, b in zip(runs[0], r)),
+          "three K2s calls on one input differ")
+    log(f"chunk invariance on the card: chunks of "
+        f"{list(K2S_SPLITS + (STREAM_SAMPLES,))} (1 over the first "
+        f"{K2S_SPLIT_ONE}) give the one-shot scan's out and carry bit for "
+        "bit; three calls bitwise equal")
+
+
+def _k2s_times(torch, np, dev) -> dict:
+    """13b: K2s at a push, a second's chunk and a 45-minute session; its
+    plain version at the first two; K2 and ``associative`` at the last."""
+    from eegnetreplication_tpu_torch.ops.ems import (
+        exponential_moving_standardize,
+    )
+    from eegnetreplication_tpu_torch.ops.ems_kernel import (
+        ems,
+        ems_stream,
+        ems_stream_reference,
+        seed_stats,
+    )
+
+    clock = max_sm_clock_ghz()
+    rows = {}
+    for n in K2S_TIMED:
+        x = torch.from_numpy(stream_recording(np, 700, 22, n)).to(dev)
+        mean0, var0 = seed_stats(x, STREAM_BLOCK)
+        m, v = torch.zeros_like(mean0), var0.clone()
+        bound, by, nbytes, ops = k2s_bound(22, n)
+        row = {"ms": device_ms(torch, lambda: ems_stream(x, mean0, m, v)),
+               "call_ms": call_ms(torch, lambda: ems_stream(x, mean0, m,
+                                                            v)),
+               "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+               "ops": ops, "chain_ms": n * K2S_CHAIN_CYCLES / clock / 1e6,
+               "plain_ms": None}
+        if n < STREAM_BLOCK:
+            mp, vp = m.clone(), v.clone()
+            row["plain_ms"] = device_ms(torch, lambda: ems_stream_reference(
+                x, mean0, mp, vp), warmup=2)
+        else:
+            flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+            row["k2_ms"] = device_ms(torch, lambda: ems(x), flush=flush)
+            row["associative_ms"] = device_ms(
+                torch, lambda: exponential_moving_standardize(
+                    x, method="associative"), flush=flush)
+        rows[n] = row
+        log(f"K2s at (22, {n}): {row['ms']:.4f} ms (call "
+            f"{row['call_ms']:.4f}), plain {row['plain_ms']}, bound "
+            f"{bound:.6f} ({by}), serial chain {row['chain_ms']:.4f} at "
+            f"{clock:.2f} GHz" + (
+                f"; K2 {row['k2_ms']:.4f}, associative "
+                f"{row['associative_ms']:.4f}" if "k2_ms" in row else ""))
+    # A push's host side: StreamingEMS.push of 25 samples once seeded, and
+    # the two copies in it (the chunk to the card, the samples back).
+    from eegnetreplication_tpu_torch.ops.ems import StreamingEMS
+
+    rec = stream_recording(np, 701, 22, STREAM_BLOCK + STREAM_CHUNK)
+    ems = StreamingEMS(22, init_block_size=STREAM_BLOCK, device=dev)
+    ems.push(rec[:, :STREAM_BLOCK])
+    chunk = np.ascontiguousarray(rec[:, STREAM_BLOCK:])
+    on_card = torch.from_numpy(chunk).to(dev)
+
+    def to_card():
+        torch.from_numpy(chunk).to(dev)
+        torch.cuda.synchronize()
+
+    push = {"push_ms": host_ms(lambda: ems.push(chunk), n=N_TIMED),
+            "to_card_ms": host_ms(to_card, n=N_TIMED),
+            "to_host_ms": host_ms(lambda: on_card.cpu().numpy(),
+                                  n=N_TIMED)}
+    push["copies_share"] = ((push["to_card_ms"] + push["to_host_ms"])
+                            / push["push_ms"])
+    log(f"StreamingEMS.push of (22, {STREAM_CHUNK}) on the host clock: "
+        f"{push['push_ms']:.4f} ms, of which the copies to the card "
+        f"{push['to_card_ms']:.4f} and back {push['to_host_ms']:.4f} "
+        f"({100 * push['copies_share']:.1f}%)")
+    return {"sm_clock_ghz": clock, "by_n": rows, "push": push}
+
+
+def _stream_client(np, url, sid, x, start=0, open_session=True) -> dict:
+    """Open ``sid`` (unless resuming) and push ``x[:, start:]`` in raw f32
+    chunks of STREAM_CHUNK as fast as the server answers; the decisions,
+    the push round trips and the pushes that ran the EMS carry."""
+    if open_session:
+        status, opened = _post(url + "/session/open", json.dumps(
+            dict(STREAM_OPEN, session=sid)).encode(), "application/json")
+        check(status == 200 and not opened["resumed"],
+              f"/session/open {sid}: {status} {opened}")
+    decisions, push_ms, seeded_pushes = [], [], 0
+    for pos in range(start, x.shape[1], STREAM_CHUNK):
+        body = np.ascontiguousarray(
+            x[:, pos:pos + STREAM_CHUNK]).astype("<f4").tobytes()
+        t0 = time.perf_counter()
+        status, reply = _post(f"{url}/session/{sid}/samples", body,
+                              "application/octet-stream")
+        push_ms.append((time.perf_counter() - t0) * 1000.0)
+        check(status == 200, f"{sid} push at {pos}: {status} {reply}")
+        decisions.extend(reply["decisions"])
+        seeded_pushes += bool(reply["seeded"])
+    return {"decisions": decisions, "push_ms": push_ms,
+            "seeded_pushes": seeded_pushes}
+
+
+def _offline(torch, np, engine, x, dev):
+    """The offline pipeline: one-shot ``scan`` on the card, the same
+    windows, the engine; ``(preds, m, v)``."""
+    from eegnetreplication_tpu_torch.ops.ems import scan_with_carry
+
+    std, m, v = scan_with_carry(torch.from_numpy(x).to(dev),
+                                init_block_size=STREAM_BLOCK)
+    std = std.cpu().numpy()
+    wins = np.stack([std[:, k * STREAM_HOP:k * STREAM_HOP + STREAM_WINDOW]
+                     for k in range(n_windows(x.shape[1]))])
+    return engine.infer(wins), m.cpu().numpy(), v.cpu().numpy()
+
+
+def _exported_carry(np, url, sid):
+    from eegnetreplication_tpu_torch.serve.sessions.store import (
+        unpack_session,
+    )
+
+    got, state = unpack_session(_get_bytes(f"{url}/session/{sid}/export"))
+    check(got == sid, f"export of {sid} names {got}")
+    return np.asarray(state["ems/m"]), np.asarray(state["ems/v"])
+
+
+def _ems_launches(url) -> int:
+    status, health = _get(url + "/healthz")
+    check(status == 200, f"/healthz answered {status}")
+    return health["kernel_launches"]["ems_stream"]
+
+
+def _live_streams(torch, np, dev, url, engine) -> dict:
+    """13c: nine concurrent sessions, one per subject, against one server;
+    every gate of the live path."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    xs = {f"subject{s:02d}": stream_recording(np, 800 + s)
+          for s in range(1, STREAM_SUBJECTS + 1)}
+    check(_ems_launches(url) == 0, "ems_stream launched before any push")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(STREAM_SUBJECTS) as pool:
+        futs = {sid: pool.submit(_stream_client, np, url, sid, x)
+                for sid, x in xs.items()}
+        runs = {sid: f.result() for sid, f in futs.items()}
+    wall = time.perf_counter() - t0
+    launches = _ems_launches(url)
+    want_launches = sum(r["seeded_pushes"] for r in runs.values())
+    n_pushes = sum(len(r["push_ms"]) for r in runs.values())
+    check(launches == want_launches, f"ems_stream launched {launches} "
+          f"times; {want_launches} pushes ran the carry")
+    lat = []
+    for sid, x in xs.items():
+        decs = runs[sid]["decisions"]
+        n_win = n_windows(x.shape[1])
+        check(len(decs) == n_win and [d["window"] for d in decs]
+              == list(range(n_win)), f"{sid}: {len(decs)} decisions in "
+              f"order, want {n_win}")
+        check(all(d["status"] == "ok" for d in decs),
+              f"{sid}: statuses {sorted({d['status'] for d in decs})}")
+        preds, m, v = _offline(torch, np, engine, x, dev)
+        got = np.asarray([d["pred"] for d in decs])
+        check(np.array_equal(got, preds), f"{sid}: "
+              f"{int((got != preds).sum())} decisions differ from the "
+              "offline pipeline")
+        em, ev = _exported_carry(np, url, sid)
+        check(np.array_equal(em, m) and np.array_equal(ev, v),
+              f"{sid}: the exported carry differs from the one-shot "
+              "kernel's final carry")
+        status, closed = _post(f"{url}/session/{sid}/close", b"{}",
+                               "application/json")
+        check(status == 200 and closed["preds"] == got.tolist(),
+              f"{sid}: close answered {status} with other predictions")
+        lat.extend(d["latency_ms"] for d in decs)
+    lat = np.asarray(lat)
+    push = np.concatenate([r["push_ms"] for r in runs.values()])
+    row = {
+        "sessions": len(xs), "windows": int(lat.size), "pushes": n_pushes,
+        "ems_stream_launches": launches, "wall_s": wall,
+        "window_ms": {f"p{q}": float(np.percentile(lat, q))
+                      for q in (50, 95, 99)},
+        "push_ms": {f"p{q}": float(np.percentile(push, q))
+                    for q in (50, 95, 99)},
+        "windows_per_s": lat.size / wall, "pushes_per_s": n_pushes / wall,
+    }
+    check(row["window_ms"]["p95"] < HOP_MS, f"p95 window latency "
+          f"{row['window_ms']['p95']:.1f} ms is not under the {HOP_MS:.0f} "
+          "ms hop interval")
+    log(f"live streams: {len(xs)} sessions x {n_windows(STREAM_SAMPLES)} "
+        f"windows, all ok and equal to the offline pipeline, carries "
+        f"bitwise; {launches} ems_stream launches = pushes from the seed "
+        f"on; window latency p50/p95/p99 "
+        + "/".join(f"{row['window_ms'][k]:.2f}" for k in ("p50", "p95",
+                                                          "p99"))
+        + f" ms; push p50/p95 {row['push_ms']['p50']:.2f}/"
+        f"{row['push_ms']['p95']:.2f} ms; {row['windows_per_s']:.1f} "
+        f"windows/s, {row['pushes_per_s']:.1f} pushes/s over {wall:.2f} s")
+    return row
+
+
+def _kill_and_resume(torch, np, dev, url, proc, args, work, env,
+                     engine) -> dict:
+    """13d: SIGKILL mid-stream, relaunch with --resume, replay from the
+    acked cursor; then a SIGTERM leg on the relaunched server."""
+    x = stream_recording(np, 900)
+    total = n_windows(STREAM_SAMPLES)
+    sid = "killed"
+    status, _ = _post(url + "/session/open", json.dumps(
+        dict(STREAM_OPEN, session=sid)).encode(), "application/json")
+    check(status == 200, f"/session/open {sid}: {status}")
+    told, pos = [], 0
+    while len(told) < total // 2:
+        body = np.ascontiguousarray(
+            x[:, pos:pos + STREAM_CHUNK]).astype("<f4").tobytes()
+        status, reply = _post(f"{url}/session/{sid}/samples", body,
+                              "application/octet-stream")
+        check(status == 200, f"{sid} push at {pos}: {status}")
+        told.extend(reply["decisions"])
+        pos += STREAM_CHUNK
+    proc.kill()
+    proc.wait(timeout=60)
+    proc2, url2, stderr2 = _start_server(args + ["--resume"], work, env,
+                                         "serve_resumed")
+    try:
+        status, state = _get(f"{url2}/session/{sid}/state")
+        acked, restored = state["acked"], state["windows"]
+        check(status == 200 and 0 < acked <= pos
+              and 0 < restored <= len(told),
+              f"restored cursor {acked} / {restored} windows past what was "
+              f"pushed ({pos}) or told ({len(told)})")
+        status, reopened = _post(url2 + "/session/open", json.dumps(
+            dict(STREAM_OPEN, session=sid)).encode(), "application/json")
+        check(reopened["resumed"] and reopened["acked"] == acked,
+              f"re-open after --resume: {reopened}")
+        replay = _stream_client(np, url2, sid, x, start=acked,
+                                open_session=False)
+        again = {d["window"]: d for d in replay["decisions"]}
+        redecided = list(range(restored, len(told)))
+        check(all(again[w]["pred"] == told[w]["pred"] for w in redecided),
+              "a window decided again after the resume differs from what "
+              "the client was told before the kill")
+        status, closed = _post(f"{url2}/session/{sid}/close", b"{}",
+                               "application/json")
+        preds, _, _ = _offline(torch, np, engine, x, dev)
+        check(status == 200 and closed["preds"] == preds.tolist(),
+              "the resumed decision stream differs from the uninterrupted "
+              "one")
+        # SIGTERM: the drain snapshots the open session and exits 75.
+        term = _stream_client(np, url2, "drained", x[:, :2000])
+        launches = _ems_launches(url2)
+        check(launches == replay["seeded_pushes"] + term["seeded_pushes"],
+              f"resumed server: {launches} ems_stream launches for "
+              f"{replay['seeded_pushes'] + term['seeded_pushes']} pushes")
+        proc2.send_signal(signal.SIGTERM)
+        rc = proc2.wait(timeout=120)
+        check(rc == 75, f"resumed server exited {rc} after SIGTERM")
+    finally:
+        if proc2.poll() is None:
+            proc2.kill()
+            proc2.wait()
+        stderr2.close()
+    snap = Path(args[args.index("--sessionsDir") + 1]) / "sessions.npz"
+    with np.load(snap) as npz:
+        meta = json.loads(bytes(npz["__meta__"]).decode())
+        check(meta["sessions"] == ["drained"]
+              and "s/drained/ems/m" in npz.files,
+              f"the SIGTERM drain left {meta['sessions']} in {snap}")
+    row = {"pushed_before_kill": pos, "told_before_kill": len(told),
+           "acked": acked, "restored_windows": restored,
+           "redecided": len(redecided),
+           "replay_pushes": len(replay["push_ms"]),
+           "drained_sessions": meta["sessions"],
+           "ems_stream_launches": launches}
+    log(f"kill and resume: SIGKILL after {len(told)} of {total} windows "
+        f"({pos} samples); --resume restored acked {acked}, {restored} "
+        f"windows; {len(redecided)} windows decided again as told; the "
+        f"stream equals the uninterrupted one; SIGTERM -> 75 with "
+        f"{meta['sessions']} in {snap.name}")
+    return row
+
+
+def _zoo_session(torch, np, dev, url, zoo_dir) -> dict:
+    """13e: one session against a ``--zoo`` server classifies under the
+    default tenant."""
+    from eegnetreplication_tpu_torch.serve.engine import (
+        InferenceEngine,
+        load_model_from_checkpoint,
+    )
+
+    status, health = _get(url + "/healthz")
+    check(status == 200 and health["stacked"] is True,
+          f"zoo /healthz: {status}, stacked {health.get('stacked')}")
+    default = health["zoo"]["default"]
+    engine = InferenceEngine(load_model_from_checkpoint(
+        zoo_dir / f"{default}.npz", device=dev), device=dev)
+    x = stream_recording(np, 950)
+    run = _stream_client(np, url, "zoo", x)
+    preds, _, _ = _offline(torch, np, engine, x, dev)
+    got = [d["pred"] for d in run["decisions"]]
+    check(all(d["status"] == "ok" for d in run["decisions"])
+          and got == preds.tolist(), "the zoo session differs from the "
+          f"offline pipeline through the default tenant {default}")
+    launches = _ems_launches(url)
+    check(launches == run["seeded_pushes"], f"zoo server: {launches} "
+          f"ems_stream launches for {run['seeded_pushes']} pushes")
+    log(f"zoo session: {len(got)} windows under the default tenant "
+        f"{default}, equal to its engine's offline pipeline")
+    return {"default": default, "windows": len(got),
+            "ems_stream_launches": launches}
+
+
+def phase_streams(torch, np, dev, work: Path, env: dict) -> dict:
+    """Phase 13: K2s against its plain version and chunk invariance on the
+    card, live sessions through ``serve`` (nine at once, kill -> --resume,
+    SIGTERM, a zoo), and the times of K2s."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from eegnetreplication_tpu_torch.serve.engine import (
+        InferenceEngine,
+        load_model_from_checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    ckpt = _save_seeded(torch, work / "stream.npz", 1500)
+    zoo_dir = work / "zoo"
+    zoo_dir.mkdir(parents=True)
+    for z in range(N_TENANTS):
+        _save_seeded(torch, zoo_dir / f"subject_{z + 1:02d}_best_model.npz",
+                     1600 + z)
+
+    def server_args(name, *extra):
+        return [*extra, "--sessionsDir", str(work / f"sess_{name}"),
+                "--metricsDir", str(work / f"obs_{name}")]
+
+    kill_flags = ("--sessionSnapshotEvery", str(KILL_SNAPSHOT_EVERY))
+    args = {"live": server_args("live", "--checkpoint", str(ckpt)),
+            "kill": server_args("kill", "--checkpoint", str(ckpt),
+                                *kill_flags),
+            "zoo": server_args("zoo", "--zoo", str(zoo_dir))}
+    servers: dict = {}
+    errors = []
+    try:
+        # The servers start while K2s is checked in this process.
+        with ThreadPoolExecutor(len(args)) as pool:
+            futs = {name: pool.submit(_start_server, a, work, env,
+                                      f"serve_{name}")
+                    for name, a in args.items()}
+            try:
+                result: dict = {"k2s": _k2s_against_plain(torch, np, dev)}
+                _k2s_invariance(torch, np, dev)
+            finally:
+                for name, fut in futs.items():
+                    try:
+                        servers[name] = fut.result()
+                    except Exception as exc:  # noqa: BLE001 — raised below
+                        errors.append(exc)
+        if errors:
+            raise errors[0]
+        engine = InferenceEngine(load_model_from_checkpoint(
+            ckpt, device=dev), device=dev)
+        result["live"] = _live_streams(torch, np, dev, servers["live"][1],
+                                       engine)
+        # The relaunch keeps the killed server's sessions and journals
+        # apart from it.
+        proc, url, stderr = servers.pop("kill")
+        stderr.close()
+        resumed_args = [*args["kill"][:-2], "--metricsDir",
+                        str(work / "obs_resumed")]
+        result["kill_resume"] = _kill_and_resume(
+            torch, np, dev, url, proc, resumed_args, work, env, engine)
+        result["zoo"] = _zoo_session(torch, np, dev, servers["zoo"][1],
+                                     zoo_dir)
+        for name, (proc, _, _) in servers.items():
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+            check(rc == 75, f"{name} server exited {rc} after SIGTERM")
+    finally:
+        for proc, _, stderr in servers.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            stderr.close()
+
+    events = _journal(np, work / "obs_live", "ok")
+    kinds = [e["event"] for e in events]
+    for kind in ("session_start", "session_window", "session_snapshot",
+                 "session_end"):
+        check(kind in kinds, f"the live server's journal has no {kind}")
+    check(kinds.count("session_window") == result["live"]["windows"],
+          f"{kinds.count('session_window')} session_window events for "
+          f"{result['live']['windows']} windows")
+    end = [e for e in events if e["event"] == "serve_end"][-1]
+    check(end["sessions"] == STREAM_SUBJECTS
+          and end["session_windows"] == result["live"]["windows"],
+          f"serve_end counts sessions {end['sessions']}, windows "
+          f"{end['session_windows']}")
+    resumed = _journal(np, work / "obs_resumed", "ok")
+    check(any(e["event"] == "session_resume" for e in resumed),
+          "the resumed server journaled no session_resume")
+    result["journal"] = {"events": len(events),
+                         "session_snapshots": end["session_snapshots"]}
+    log(f"journals read back clean: {len(events)} events, "
+        f"{end['session_snapshots']} session snapshots, run_end ok; the "
+        "resumed server's session_resume")
+    result["launches"] = (result["live"]["ems_stream_launches"]
+                          + result["kill_resume"]["ems_stream_launches"]
+                          + result["zoo"]["ems_stream_launches"])
+    result["times"] = _k2s_times(torch, np, dev)
+    result["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 13 in {result['wall_s']:.1f} s")
+    return result
+
+
 def _mfu_fields(row: dict) -> dict:
     """GFLOP/s and MFU of a fold-epochs/s row at the product width, from
     the port's FLOP count (``utils/flops.py``) and the card's FP32 peak."""
@@ -2548,6 +3133,9 @@ def main(argv=None) -> int:
                                      Path(tmp) / "cli")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
             zoo = phase_serving_zoo(torch, np, dev, Path(tmp), env)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_streams_") \
+                as tmp:
+            streams = phase_streams(torch, np, dev, Path(tmp), env)
     except Exception:  # noqa: BLE001 — every failure ends the run
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -2600,6 +3188,23 @@ def main(argv=None) -> int:
         "bound_by": k2_times["bound_by"],
         "library_ms": None,   # no single PyTorch call computes EMS
         "associative_ms": k2_times["associative_ms"],
+    }, {
+        "name": "ems_stream",
+        "route": "cuda",
+        "source": "eegnetreplication_tpu_torch/ops/csrc/ems_stream.cu",
+        "replaces": ("eegnetreplication_tpu/ops/ems.py:235 (_stream_chunk, "
+                     "lax.scan, not Pallas)"),
+        # the three session servers of phase 13
+        "launches": streams["launches"],
+        "max_abs_err": streams["k2s"]["max_abs_err"],
+        # at a push of 25 samples, (22, 25)
+        **{k: streams["times"]["by_n"][STREAM_CHUNK][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,   # no single PyTorch call computes the carry
+        "chain_ms": streams["times"]["by_n"][STREAM_CHUNK]["chain_ms"],
+        "by_n": {str(n): {k: row[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "chain_ms")}
+            for n, row in streams["times"]["by_n"].items()},
     }]}
     record = {
         "card": card, "build_s": build_s, "k1_max_abs_err": k1_err,
@@ -2609,7 +3214,7 @@ def main(argv=None) -> int:
         "k2_vs_methods_max_abs_err": k2_vs_methods, "dataset": dataset,
         "k2_times": k2_times, "k1_stacked_max_abs_err": k1s_err,
         "k1_stacked_times": k1s_times, "train": train, "cross_subject": cs,
-        "serving_zoo": zoo,
+        "serving_zoo": zoo, "streams": streams,
         "wall_s": time.perf_counter() - t_start,
     }
     print(json.dumps({"timings": record}), flush=True)

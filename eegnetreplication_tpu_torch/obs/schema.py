@@ -29,7 +29,7 @@ EVENT_BASE_REQUIRED = ("event", "t", "run_id")
 
 # The events' required keys beyond the base: the rows of the JAX
 # package's table for the events a training or serving run of the port
-# emits.
+# emits (streaming sessions included).
 EVENT_REQUIRED: dict[str, tuple[str, ...]] = {
     "run_start": ("schema_version", "git_sha", "platform", "device_kind",
                   "n_devices", "config"),
@@ -62,6 +62,18 @@ EVENT_REQUIRED: dict[str, tuple[str, ...]] = {
     "zoo_restack": ("n_tenants", "outcome", "reason"),
     "stack_gate": ("precision", "outcome", "agreement", "floor",
                    "n_tenants"),
+    # Streaming sessions: one stream's lifecycle, every window decision,
+    # the durable snapshot and restore, a window that missed its deadline,
+    # and a client's cue label.  serve_end also carries the sessions
+    # opened, the windows decided and the snapshots written (``sessions``,
+    # ``session_windows``, ``session_snapshots``).
+    "session_start": ("session", "hop", "window"),
+    "session_window": ("session", "window", "status", "latency_ms"),
+    "window_expired": ("session", "window"),
+    "session_snapshot": ("path", "n_sessions"),
+    "session_resume": ("session", "acked"),
+    "session_end": ("session", "windows", "expired"),
+    "session_label": ("session", "window", "label"),
 }
 
 # metrics.json top-level sections and the keys every series entry needs.

@@ -33,8 +33,8 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
 # Every kernel source of the port.  The C interface each one exports is
 # declared next to its wrapper (``ops/fused_eegnet.py`` for block1,
-# ``ops/ems_kernel.py`` for ems).
-SOURCES = ("block1", "ems")
+# ``ops/ems_kernel.py`` for ems and ems_stream).
+SOURCES = ("block1", "ems", "ems_stream")
 
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",

@@ -18,6 +18,17 @@ and the seed statistics of the first ``min(init_block_size, T)`` samples
   card; nothing on the card's main path calls it.
 - :func:`ems` dispatches: a CPU tensor takes :func:`ems_reference`, a CUDA
   tensor launches K2 (``csrc/ems.cu``) or raises; there is no fallback.
+
+The carry form, K2s, advances the same recurrences over one chunk of a
+stream from a carried ``(m, v)`` and hands the carry back (the JAX
+package's jitted ``lax.scan`` ``_stream_chunk`` in ``ops/ems.py``):
+
+- :func:`ems_stream_reference` is its plain version, the per-sample loop
+  of the sequential scan with the carry threaded in and out;
+- :func:`ems_stream` dispatches the same way: a CPU tensor takes the
+  plain version, a CUDA tensor launches K2s (``csrc/ems_stream.cu``) or
+  raises.  The two equal each other bit for bit (each operation rounded on
+  its own), and any chunking of a stream equals the one-shot call.
 """
 
 from __future__ import annotations
@@ -52,7 +63,9 @@ def seed_stats(x: torch.Tensor, init_block_size: int):
     """``(mean0, var0)``, each ``x.shape[:-1]``: the mean and the biased
     variance of the first ``min(init_block_size, T)`` samples of
     ``x (..., T)``."""
-    block = x[..., :min(int(init_block_size), x.shape[-1])]
+    # A contiguous copy: the same block reduces to the same bits whether it
+    # is sliced from a whole recording or from a stream's seed buffer.
+    block = x[..., :min(int(init_block_size), x.shape[-1])].contiguous()
     return (torch.mean(block, dim=-1),
             torch.var(block, dim=-1, correction=0))
 
@@ -182,3 +195,111 @@ def ems(x: torch.Tensor, factor_new: float = 1e-3,
 
 
 ems.launches = 0
+
+
+# K2s's channels a block (``csrc/ems_stream.cu``: kChannels).
+EMS_STREAM_CHANNELS = 32
+
+
+def ems_stream_reference(x: torch.Tensor, mean0: torch.Tensor,
+                         m: torch.Tensor, v: torch.Tensor,
+                         factor_new: float = 1e-3,
+                         eps: float = 1e-10) -> torch.Tensor:
+    """Plain PyTorch EMS carry over a chunk ``x (C, n)``: one step per
+    sample, each operation a separate PyTorch call (so each is rounded on
+    its own, as K2s rounds them).  The square root is taken in float64 and
+    rounded once to ``x``'s dtype: PyTorch's vectorized float32 ``sqrt`` on
+    the CPU is not correctly rounded, K2s's ``__fsqrt_rn`` is.  ``mean0``
+    is the seed mean; ``m`` and ``v`` hold the carry entering the chunk and
+    are overwritten with the carry leaving it.  Returns ``out (C, n)``."""
+    a, c = f32_coefficients(factor_new)
+    z = x - mean0[:, None]
+    means = torch.empty_like(z)
+    variances = torch.empty_like(z)
+    mm, vv = m.clone(), v.clone()
+    for t in range(x.shape[-1]):
+        z_t = z[:, t]
+        mm = c * mm + a * z_t
+        vv = c * vv + a * torch.square(z_t - mm)
+        means[:, t] = mm
+        variances[:, t] = vv
+    m.copy_(mm)
+    v.copy_(vv)
+    scale = variances + eps
+    return (z - means) / torch.sqrt(scale.double()).to(scale.dtype)
+
+
+def _k2s_library() -> ctypes.CDLL:
+    lib = build.load("ems_stream")
+    if lib.eeg_ems_stream_launch.argtypes is None:
+        lib.eeg_ems_stream_channels.argtypes = []
+        lib.eeg_ems_stream_channels.restype = ctypes.c_int
+        lib.eeg_ems_stream_error_string.argtypes = [ctypes.c_int]
+        lib.eeg_ems_stream_error_string.restype = ctypes.c_char_p
+        lib.eeg_ems_stream_launch.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong]
+            + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+        lib.eeg_ems_stream_launch.restype = ctypes.c_int
+    built = lib.eeg_ems_stream_channels()
+    if built != EMS_STREAM_CHANNELS:
+        raise RuntimeError(f"ems_stream: the built K2s takes {built} "
+                           f"channels a block, the wrapper expects "
+                           f"{EMS_STREAM_CHANNELS}")
+    return lib
+
+
+def ems_stream(x: torch.Tensor, mean0: torch.Tensor, m: torch.Tensor,
+               v: torch.Tensor, factor_new: float = 1e-3,
+               eps: float = 1e-10) -> torch.Tensor:
+    """Advance the EMS carry ``(m, v)`` over the chunk ``x (C, n)`` and
+    return the standardized ``out (C, n)``; ``m`` and ``v`` are updated in
+    place.
+
+    CPU tensors run :func:`ems_stream_reference`.  CUDA tensors must all be
+    float32, contiguous and on one device, ``x`` 2-D and the others
+    ``(C,)`` (``m`` and ``v`` distinct); K2s then runs on the current
+    stream, one launch a call with ``n > 0`` (counted in
+    ``ems_stream.launches``).  Anything else raises.
+    """
+    if x.dim() != 2:
+        raise ValueError(f"ems_stream: x must be (C, n), got "
+                         f"{tuple(x.shape)}")
+    n_ch, n = x.shape
+    for name, t in (("mean0", mean0), ("m", m), ("v", v)):
+        if tuple(t.shape) != (n_ch,):
+            raise ValueError(f"ems_stream: {name} must be ({n_ch},), got "
+                             f"{tuple(t.shape)}")
+        if t.device != x.device:
+            raise ValueError(f"ems_stream: {name} is on {t.device}, x on "
+                             f"{x.device}")
+    if x.device.type == "cpu":
+        return ems_stream_reference(x, mean0, m, v, factor_new, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"ems_stream: no kernel for device {x.device}")
+    for name, t in (("x", x), ("mean0", mean0), ("m", m), ("v", v)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"ems_stream: {name} must be float32, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"ems_stream: {name} must be contiguous")
+    if m.data_ptr() == v.data_ptr() and n_ch:
+        raise ValueError("ems_stream: m and v must be distinct tensors")
+    out = torch.empty_like(x)
+    if n_ch == 0 or n == 0:
+        return out
+    lib = _k2s_library()
+    a, c = f32_coefficients(factor_new)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.eeg_ems_stream_launch(
+            x.data_ptr(), mean0.data_ptr(), m.data_ptr(), v.data_ptr(),
+            out.data_ptr(), n_ch, n, a, c, float(eps), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"ems_stream: K2s launch failed with CUDA error {err} "
+            f"({lib.eeg_ems_stream_error_string(err).decode()})")
+    ems_stream.launches += 1
+    return out
+
+
+ems_stream.launches = 0

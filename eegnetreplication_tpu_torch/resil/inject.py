@@ -1,7 +1,8 @@
-"""Deterministic fault injection at named sites of the training path.
+"""Deterministic fault injection at named sites of the training path and
+the session store.
 
-The port's copy of the training part of ``eegnetreplication_tpu/resil/
-inject.py``.  Instrumented code calls :func:`fire` at a named site; the call
+The port's copy of the training and session-store part of
+``eegnetreplication_tpu/resil/inject.py``.  Instrumented code calls :func:`fire` at a named site; the call
 is a no-op (one dict lookup) unless a test or a ``--chaos`` plan has
 :func:`arm`-ed that site.  Arming counts hits, so a chaos run repeats
 exactly: ``after=N`` skips the first N eligible hits, ``times=M`` fires on
@@ -28,6 +29,14 @@ site                       action     effect
                                       snapshot writer's thread
 ``host.preempt``           preempt    request a graceful stop (what SIGTERM
                                       does), honoured at the next safe point
+``session.snapshot``       corrupt    garble the staged bytes of a session
+                                      store snapshot; restore falls back to
+                                      the previous generation
+``session.restore``        raise      ``OSError`` while the store restores at
+                                      startup (transient: retried)
+``spool.mirror``           corrupt    garble the staged bytes of the
+                                      session snapshot's mirror copy (the
+                                      primary write has landed)
 =========================  =========  =====================================
 
 A plan (the ``--chaos`` flag) is comma-separated site specs with
@@ -35,9 +44,9 @@ colon-separated options, or ``@plan.json`` holding a list of spec objects::
 
     --chaos "train.step:if_folds_over=4,checkpoint.write:after=1"
 
-The JAX package's other sites (fetch, data reads, serving, sessions,
-fleets, cells, adaptation) instrument code the port does not have yet; a
-plan that names one is refused.
+The JAX package's other sites (fetch, data reads, the serving forward,
+``session.drift``, fleets, cells, adaptation) instrument code the port does
+not have yet; a plan that names one is refused.
 """
 
 from __future__ import annotations
@@ -56,14 +65,14 @@ from eegnetreplication_tpu_torch.obs import journal as obs_journal
 from eegnetreplication_tpu_torch.utils.logging import logger
 
 SITES = ("train.step", "train.chunk", "train.hang", "checkpoint.write",
-         "checkpoint.write_async", "host.preempt")
+         "checkpoint.write_async", "host.preempt", "session.snapshot",
+         "session.restore", "spool.mirror")
 
 # The JAX package's sites that instrument modules not ported yet.
 UNPORTED_SITES = ("fetch.download", "data.read", "serve.forward",
-                  "serve.hang", "session.snapshot", "session.restore",
-                  "serve.degrade", "replica.network", "cell.partition",
-                  "fleet.scale", "session.drift", "adapt.train",
-                  "adapt.promote", "front.lease", "spool.mirror")
+                  "serve.hang", "serve.degrade", "replica.network",
+                  "cell.partition", "fleet.scale", "session.drift",
+                  "adapt.train", "adapt.promote", "front.lease")
 
 ACTIONS = ("raise", "corrupt", "preempt", "sleep", "slow")
 
@@ -97,6 +106,12 @@ _DEFAULTS: dict[str, tuple[str, str | None, str]] = {
                                "injected fault: checkpoint.write_async "
                                "(hit {hit})"),
     "host.preempt": ("preempt", None, "injected host.preempt (hit {hit})"),
+    "session.snapshot": ("corrupt", "OSError",
+                         "injected fault: session.snapshot (hit {hit})"),
+    "session.restore": ("raise", "OSError",
+                        "injected fault: session.restore (hit {hit})"),
+    "spool.mirror": ("corrupt", "OSError",
+                     "injected fault: spool.mirror (hit {hit})"),
 }
 
 

@@ -13,9 +13,12 @@
   stack gate, the zoo's addressing.
 - :mod:`~eegnetreplication_tpu_torch.serve.registry` — hot reload
   (``ModelRegistry``) and the multi-tenant ``ModelZoo``.
+- :mod:`~eegnetreplication_tpu_torch.serve.sessions` — live headset
+  streams: the EMS carry on K2s, the window slider, the durable session
+  store.
 - :mod:`~eegnetreplication_tpu_torch.serve.service` — the stdlib HTTP
-  wiring (``POST /predict``, ``POST /reload``, ``GET /healthz``), the
-  serving journal and the SIGTERM drain.
+  wiring (``POST /predict``, ``POST /reload``, ``/session/*``, ``GET
+  /healthz``), the serving journal and the SIGTERM drain.
 """
 
 from eegnetreplication_tpu_torch.serve.batcher import (

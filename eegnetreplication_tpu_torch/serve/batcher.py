@@ -9,7 +9,9 @@ dequeue order.  A request too big for the rest of a batch is skipped in
 order (later ones that fit ride along) and leads the next batch.
 
 Backpressure is explicit: a request that would push the queue past
-``max_queue_trials`` raises :class:`Rejected` at once (HTTP 429).  A
+``max_queue_trials`` raises :class:`Rejected` at once (HTTP 429).  The
+port has no adaptive admission yet, so that hard cliff is the only limit,
+for priority (session) traffic as for bulk.  A
 request whose deadline passed while it was queued is dropped at dequeue
 with :class:`DeadlineExceeded` (HTTP 504) before its forward runs.
 
@@ -96,13 +98,16 @@ class MicroBatcher:
             return self._pending_trials
 
     def submit(self, trials: np.ndarray,
-               deadline: float | None = None, tenant: int = 0) -> Future:
+               deadline: float | None = None, priority: bool = False,
+               tenant: int = 0) -> Future:
         """Enqueue ``(n, C, T)`` trials; the future resolves to their
         ``(n,)`` predictions.  Raises :class:`Rejected` when the queue is
         full or the batcher is closed.  ``deadline`` (a ``time.monotonic()``
-        instant) drops the request at dequeue once passed.  ``tenant``
-        indexes the request's model in a zoo (a ``tenant_aware`` batcher
-        only)."""
+        instant) drops the request at dequeue once passed.  ``priority``
+        marks session traffic, which the JAX batcher exempts from its
+        adaptive admission limit; only the ``max_queue_trials`` cliff
+        applies to it, as to every request here.  ``tenant`` indexes the
+        request's model in a zoo (a ``tenant_aware`` batcher only)."""
         x = np.asarray(trials, np.float32)
         if x.ndim == 2:
             x = x[None]

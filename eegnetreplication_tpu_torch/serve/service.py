@@ -21,19 +21,36 @@ torch engine (stdlib ``http.server`` + threads):
   ``variables_digest``, ``geometry``, ``buckets``, ``max_batch``,
   ``max_wait_ms``, ``precision`` as served and ``requested_precision``,
   ``queue_depth_trials``, ``model_swaps``, the zoo's state), plus the
-  coalesced forwards dispatched (``batches``) and the hand-written
-  kernels' launch counts (``kernel_launches``: ``block1`` and
-  ``block1_stacked``).
+  coalesced forwards dispatched (``batches``), the open streaming
+  ``sessions`` and the hand-written kernels' launch counts
+  (``kernel_launches``: ``block1``, ``block1_stacked`` and
+  ``ems_stream``).
+- Streaming sessions (``serve/sessions/``), the JAX service's routes:
+  ``POST /session/open`` (``{"session", "hop", "deadline_ms",
+  "ems_init_block_size", ...}``; re-opening a live or restored id returns
+  its acked cursor), ``POST /session/<id>/samples`` (raw little-endian
+  f32 ``(C, n)`` bytes, channel-major, or ``{"samples": [[...]]}``): the
+  chunk goes through the session's EMS carry (one K2s launch on the card)
+  and every window it completes through the batcher, answered in the same
+  reply; ``POST /session/<id>/label`` (recorded and journaled),
+  ``/close``, ``/import``, ``/discard``, ``GET /session/<id>/state`` and
+  ``/export``.  Windows classify under the zoo's default tenant.  A window
+  past its deadline is decided ``expired`` with ``pred = -1`` and the
+  stream goes on.  ``--sessionsDir`` holds the stamped snapshots (every
+  ``--sessionSnapshotEvery`` decided windows, at every close and at the
+  drain; ``--sessionsMirror`` writes each twice), ``--resume`` restores
+  them before the listener binds.
 
 ``--precision int8`` serves int8 weights behind the quant gate (fp32 if
 it refuses).  The run writes the JAX service's journal (``serve_start``,
 ``request``, ``quant_gate``, ``stack_gate``, ``zoo_restack``,
-``model_load``, ``model_evict``, ``model_swap``, ``serve_end``) under
-``--metricsDir``.
-SIGTERM/SIGINT stop the listener, drain the queue and exit 75
-(``resil/preempt.py``).  Sessions, the tuner, tracing, ``/metrics``,
-``/profile``, admission, the circuit breaker and the chaos sites arrive
-with later slices.
+``model_load``, ``model_evict``, ``model_swap``, the session events,
+``serve_end``) under ``--metricsDir``.
+SIGTERM/SIGINT stop the listener, drain the queue, snapshot the sessions
+and exit 75 (``resil/preempt.py``).  The tuner, tracing (no ``trace``
+spans around session windows), ``/metrics``, ``/profile``, admission, the
+circuit breaker, adaptation (no ``session.drift`` site) and the other
+chaos sites arrive with later slices.
 """
 
 from __future__ import annotations
@@ -42,6 +59,7 @@ import argparse
 import io
 import json
 import math
+import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -51,11 +69,13 @@ import numpy as np
 import torch
 
 from eegnetreplication_tpu_torch.obs import journal as obs_journal
+from eegnetreplication_tpu_torch.ops.ems_kernel import ems_stream
 from eegnetreplication_tpu_torch.ops.fused_eegnet import (
     block1,
     block1_stacked,
 )
 from eegnetreplication_tpu_torch.resil import preempt
+from eegnetreplication_tpu_torch.resil.integrity import IntegrityError
 from eegnetreplication_tpu_torch.serve.batcher import (
     DeadlineExceeded,
     MicroBatcher,
@@ -71,6 +91,17 @@ from eegnetreplication_tpu_torch.serve.engine import (
 from eegnetreplication_tpu_torch.serve.registry import (
     ModelRegistry,
     ModelZoo,
+)
+from eegnetreplication_tpu_torch.serve.sessions.session import (
+    STATUS_ERROR,
+    STATUS_EXPIRED,
+    STATUS_OK,
+    LabelConflict,
+    WindowDecision,
+)
+from eegnetreplication_tpu_torch.serve.sessions.store import (
+    SessionExists,
+    SessionStore,
 )
 from eegnetreplication_tpu_torch.utils.device import (
     resolve_device,
@@ -101,7 +132,11 @@ class ServeApp:
                  precision: str = "fp32",
                  quant_floor: float = QUANT_AGREEMENT_FLOOR,
                  gate_set=None, zoo=None, default_model: str | None = None,
-                 max_programs: int = 0, stack: bool = True, journal=None):
+                 max_programs: int = 0, stack: bool = True,
+                 sessions_dir: str | Path | None = None,
+                 sessions_mirror: str | Path | None = None,
+                 session_snapshot_every: int = 50, resume: bool = False,
+                 journal=None):
         self.journal = journal if journal is not None \
             else obs_journal.current()
         device = resolve_device(device)
@@ -124,6 +159,22 @@ class ServeApp:
                 quant_floor=quant_floor, gate_set=gate_set,
                 journal=self.journal, device=device)
             self.registry.load(checkpoint)
+        # Streaming sessions: durable when sessions_dir is given (the CLI
+        # always passes one), in memory otherwise.  --resume restores the
+        # newest valid snapshot generation before the listener binds, so a
+        # resuming client's first read already sees its acked cursor.
+        self.sessions_dir = Path(sessions_dir) if sessions_dir else None
+        self.sessions_mirror = (Path(sessions_mirror) if sessions_mirror
+                                else None)
+        self.sessions = SessionStore(
+            self.sessions_dir / "sessions.npz" if self.sessions_dir
+            else None,
+            mirror=(self.sessions_mirror / "sessions.npz"
+                    if self.sessions_mirror else None),
+            snapshot_every_windows=session_snapshot_every,
+            journal=self.journal, device=device)
+        if resume:
+            self.sessions.restore()
         self.batcher = MicroBatcher(
             self.registry.infer, max_batch=buckets[-1], max_wait_ms=max_wait_ms,
             max_queue_trials=max_queue_trials,
@@ -137,6 +188,11 @@ class ServeApp:
         self._t_start = time.perf_counter()
         # Request outcomes for serve_end (guarded by _idle's lock).
         self._counts = {"ok": 0, "rejected": 0, "error": 0, "expired": 0}
+        # Session counts for serve_end (guarded by _stats_lock).
+        self._stats_lock = threading.Lock()
+        self._n_sessions_opened = 0
+        self._n_session_windows = 0
+        self._n_windows_expired = 0
 
     @property
     def engine(self) -> InferenceEngine:
@@ -221,10 +277,23 @@ class ServeApp:
                                "finish within %.1fs", self._inflight,
                                HANDLER_DRAIN_S)
             counts = dict(self._counts)
+        # The final session snapshot lands after the handler wait: every
+        # in-flight ingest has recorded its decisions, so it is the whole
+        # durable state a --resume restores.  A background periodic
+        # snapshot finishes first, so the drain's write comes last.
+        self.sessions.drain_background()
+        self.sessions.snapshot()
+        self.sessions.detach()
+        with self._stats_lock:
+            n_sess, n_win, n_wexp = (self._n_sessions_opened,
+                                     self._n_session_windows,
+                                     self._n_windows_expired)
         self.journal.event(
             "serve_end", n_requests=sum(counts.values()),
             rejected=counts["rejected"], errors=counts["error"],
-            expired=counts["expired"],
+            expired=counts["expired"], sessions=n_sess,
+            session_windows=n_win, windows_expired=n_wexp,
+            session_snapshots=self.sessions.snapshots,
             wall_s=round(time.perf_counter() - self._t_start, 3),
             batches=self.batcher.batches, model_swaps=self.registry.swaps,
             n_tenants=(self.zoo.n_tenants if self.zoo is not None
@@ -234,6 +303,73 @@ class ServeApp:
             precision=self.registry.serving_precision)
         logger.info("Serve drained and stopped after %d forwards, %d model "
                     "swap(s)", self.batcher.batches, self.registry.swaps)
+
+    # -- streaming sessions (called from handler threads) ------------------
+    def decide_windows(self, session, ready) -> list[WindowDecision]:
+        """Route freshly completed windows through the shared batcher and
+        record one decision per window, in window order.
+
+        Every window is submitted before any result is awaited, so a burst
+        of windows from one chunk (the seeding push releases many)
+        coalesces into few forwards.  A session's per-window deadline
+        starts at submit and is enforced at batcher dequeue (the forward
+        never runs for a window already late) and at the response.  An
+        expired or failed window records ``pred = -1`` and the stream goes
+        on.  Windows classify under the zoo's default tenant.  Caller holds
+        ``session.lock``.
+        """
+        tenant = (self.zoo.tenant_index(self.zoo.default_id)
+                  if self.zoo is not None else 0)
+        submitted = []
+        for index, start, win in ready:
+            t0 = time.perf_counter()
+            deadline = (None if session.deadline_ms is None
+                        else time.monotonic() + session.deadline_ms / 1000.0)
+            try:
+                fut = self.batcher.submit(win[None], deadline=deadline,
+                                          priority=True, tenant=tenant)
+            except Rejected:
+                fut = None
+            submitted.append((index, start, t0, deadline, fut))
+        decisions = []
+        for index, start, t0, deadline, fut in submitted:
+            status, pred = STATUS_ERROR, -1
+            if fut is not None:
+                try:
+                    preds = fut.result(timeout=REQUEST_TIMEOUT_S)
+                    if deadline is not None and time.monotonic() > deadline:
+                        status = STATUS_EXPIRED   # answered, but too late
+                    else:
+                        status, pred = STATUS_OK, int(preds[0])
+                except DeadlineExceeded:
+                    status = STATUS_EXPIRED
+                except Exception:  # noqa: BLE001 — recorded, not raised
+                    status = STATUS_ERROR
+            latency_ms = (time.perf_counter() - t0) * 1000.0
+            decision = WindowDecision(index=index, start=start, pred=pred,
+                                      status=status, latency_ms=latency_ms)
+            session.record(decision)
+            decisions.append(decision)
+            self.journal.event("session_window", session=session.session_id,
+                               window=index, start=start, status=status,
+                               pred=pred, latency_ms=round(latency_ms, 3))
+            self.journal.metrics.inc("session_windows", status=status)
+            if status == STATUS_OK:
+                self.journal.metrics.observe("window_latency_ms", latency_ms)
+            elif status == STATUS_EXPIRED:
+                self.journal.event("window_expired",
+                                   session=session.session_id, window=index,
+                                   deadline_ms=session.deadline_ms,
+                                   latency_ms=round(latency_ms, 3))
+            with self._stats_lock:
+                self._n_session_windows += 1
+                if status == STATUS_EXPIRED:
+                    self._n_windows_expired += 1
+        return decisions
+
+    def count_session_opened(self) -> None:
+        with self._stats_lock:
+            self._n_sessions_opened += 1
 
     def begin_request(self) -> None:
         with self._idle:
@@ -269,8 +405,10 @@ class ServeApp:
             "zoo_restacks": zoo.restacks if zoo is not None else None,
             "zoo": snap,
             "tenants": snap["tenants"] if snap else None,
+            "sessions": len(self.sessions),
             "kernel_launches": {"block1": block1.launches,
-                                "block1_stacked": block1_stacked.launches},
+                                "block1_stacked": block1_stacked.launches,
+                                "ems_stream": ems_stream.launches},
         }
 
 
@@ -287,6 +425,14 @@ class _ServeHandler(BaseHTTPRequestHandler):
         body = json.dumps(payload).encode()
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _reply_bytes(self, code: int, body: bytes,
+                     content_type: str = "application/octet-stream") -> None:
+        self.send_response(code)
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         self.wfile.write(body)
@@ -329,6 +475,19 @@ class _ServeHandler(BaseHTTPRequestHandler):
         if self.path == "/healthz":
             self._reply(200, self.app.healthz())
             return
+        parts = self.path.strip("/").split("/")
+        if len(parts) == 3 and parts[0] == "session" \
+                and parts[2] in ("state", "export"):
+            app = self.app
+            app.begin_request()
+            try:
+                if parts[2] == "state":
+                    self._session_state(app, parts[1])
+                else:
+                    self._session_export(app, parts[1])
+            finally:
+                app.end_request()
+            return
         self._reply(404, {"error": f"unknown path {self.path}"})
 
     def do_POST(self):  # noqa: N802 — stdlib naming
@@ -336,15 +495,34 @@ class _ServeHandler(BaseHTTPRequestHandler):
         app.begin_request()
         try:
             with obs_journal.bound(app.journal):
-                if self.path == "/predict":
-                    self._predict(app)
-                elif self.path == "/reload":
-                    self._reload(app)
-                else:
-                    self._read_body()
-                    self._reply(404, {"error": f"unknown path {self.path}"})
+                self._route_post(app)
         finally:
             app.end_request()
+
+    def _route_post(self, app: ServeApp) -> None:
+        if self.path == "/predict":
+            self._predict(app)
+            return
+        if self.path == "/reload":
+            self._reload(app)
+            return
+        parts = self.path.strip("/").split("/")
+        if parts[0] == "session":
+            if len(parts) == 2 and parts[1] == "open":
+                self._session_open(app)
+                return
+            if len(parts) == 2 and parts[1] == "import":
+                self._session_import(app)
+                return
+            route = {"samples": self._session_samples,
+                     "label": self._session_label,
+                     "close": self._session_close,
+                     "discard": self._session_discard}
+            if len(parts) == 3 and parts[2] in route:
+                route[parts[2]](app, parts[1])
+                return
+        self._read_body()
+        self._reply(404, {"error": f"unknown path {self.path}"})
 
     def _predict(self, app: ServeApp) -> None:
         t0 = time.perf_counter()
@@ -457,6 +635,240 @@ class _ServeHandler(BaseHTTPRequestHandler):
                           "model_swaps": app.registry.swaps})
 
 
+    # -- streaming session routes ------------------------------------------
+    def _session_json(self, session, **extra) -> dict:
+        return {"session": session.session_id, "acked": session.acked,
+                "windows": session.windows_decided,
+                "expired": session.n_expired,
+                "seeded": session.ems.seeded,
+                "window": session.window, "hop": session.hop,
+                "deadline_ms": session.deadline_ms, **extra}
+
+    def _session_open(self, app: ServeApp) -> None:
+        try:
+            payload = json.loads(self._read_body().decode() or "{}")
+            if not isinstance(payload, dict):
+                raise ValueError("body must be a JSON object")
+            sid = payload.get("session") or os.urandom(6).hex()
+            c, t = app.registry.geometry
+            window = int(payload.get("window", t))
+            if window != t:
+                raise ValueError(
+                    f"window must equal the model's input length ({t}), "
+                    f"got {window}")
+            hop = int(payload.get("hop", max(1, t // 4)))
+            deadline_ms = payload.get("deadline_ms")
+            session, resumed = app.sessions.open(
+                sid, n_channels=c, window=window, hop=hop,
+                deadline_ms=(None if deadline_ms is None
+                             else float(deadline_ms)),
+                ems_factor_new=float(payload.get("ems_factor_new", 1e-3)),
+                ems_init_block_size=int(
+                    payload.get("ems_init_block_size", 1000)),
+                ems_eps=float(payload.get("ems_eps", 1e-10)))
+        except Exception as exc:  # noqa: BLE001 — client error
+            self._reply(400, {"error": f"{type(exc).__name__}: {exc}"})
+            return
+        if not resumed:
+            app.count_session_opened()
+            app.journal.event("session_start", session=session.session_id,
+                              hop=session.hop, window=session.window,
+                              deadline_ms=session.deadline_ms,
+                              n_channels=session.n_channels)
+            app.journal.metrics.inc("sessions_opened")
+        # Re-opening a restored (or live) session returns its acked cursor
+        # unchanged: this reply is the resume handshake, and the client
+        # replays its stream from sample ``acked``.
+        self._reply(200, self._session_json(
+            session, resumed=resumed, n_channels=session.n_channels,
+            class_names=list(CLASS_NAMES)))
+
+    def _get_session(self, app: ServeApp, sid: str):
+        try:
+            return app.sessions.get(sid)
+        except KeyError:
+            self._reply(404, {"error": f"unknown session {sid!r}"})
+            return None
+
+    def _parse_samples(self, session, body: bytes) -> np.ndarray:
+        """A ``(C, n)`` chunk from raw little-endian float32 bytes
+        (channel-major) or ``{"samples": [[...]]}`` JSON."""
+        ctype = (self.headers.get("Content-Type") or "").split(";")[0].strip()
+        c = session.n_channels
+        if ctype == "application/json":
+            payload = json.loads(body.decode())
+            if not isinstance(payload, dict) or "samples" not in payload:
+                raise ValueError('JSON body must be {"samples": [[...]]}')
+            x = np.asarray(payload["samples"], np.float32)
+        else:
+            if len(body) % (4 * c):
+                raise ValueError(
+                    f"raw body length {len(body)} is not a whole number of "
+                    f"float32 ({c}, n) samples")
+            x = np.frombuffer(body, np.dtype("<f4")).reshape(c, -1)
+        if x.ndim != 2 or x.shape[0] != c:
+            raise ValueError(
+                f"expected a ({c}, n) chunk, got {tuple(x.shape)}")
+        return x
+
+    def _session_samples(self, app: ServeApp, sid: str) -> None:
+        body = self._read_body()
+        session = self._get_session(app, sid)
+        if session is None:
+            return
+        try:
+            chunk = self._parse_samples(session, body)
+        except Exception as exc:  # noqa: BLE001 — client error
+            self._reply(400, {"error": f"{type(exc).__name__}: {exc}"})
+            return
+        # One lock across ingest and decide: two pushes of one session
+        # must not interleave their windows.
+        with session.lock:
+            ready = session.ingest(chunk)
+            decisions = app.decide_windows(session, ready)
+            reply = self._session_json(
+                session, decisions=[d.as_json() for d in decisions])
+        app.sessions.maybe_snapshot()
+        self._reply(200, reply)
+
+    def _session_label(self, app: ServeApp, sid: str) -> None:
+        """``POST /session/<id>/label`` — ``{"window": i, "label": c}``:
+        the true class of a decided window, recorded in the session's
+        durable state and journaled (``session_label``).  Unknown session
+        or undecided window 404, a malformed body 400, a conflicting
+        duplicate or a window without an ``ok`` decision 409, an exact
+        duplicate 200 with ``fresh: false``.  Nothing adapts to labels
+        yet: ``paired`` is always false."""
+        body = self._read_body()
+        session = self._get_session(app, sid)
+        if session is None:
+            return
+        try:
+            payload = json.loads(body.decode() or "{}")
+            if not isinstance(payload, dict):
+                raise ValueError("body must be a JSON object")
+            if "window" not in payload or "label" not in payload:
+                raise ValueError('body must carry {"window": i, "label": c}')
+            window = int(payload["window"])
+            label = int(payload["label"])
+            if not 0 <= label < len(CLASS_NAMES):
+                raise ValueError(
+                    f"label must be in [0, {len(CLASS_NAMES) - 1}], "
+                    f"got {label}")
+        except Exception as exc:  # noqa: BLE001 — client error
+            self._reply(400, {"error": f"{type(exc).__name__}: {exc}"})
+            return
+        with session.lock:
+            try:
+                fresh = session.label(window, label)
+            except LabelConflict as exc:
+                self._reply(409, {"error": str(exc)})
+                return
+            except KeyError as exc:
+                self._reply(404, {"error": str(exc.args[0])})
+                return
+            except ValueError as exc:
+                self._reply(400, {"error": str(exc)})
+                return
+            live_pred = None
+            rel = window - session.preds_offset
+            if 0 <= rel < len(session.decisions):
+                decision = session.decisions[rel]
+                if decision.status == STATUS_OK:
+                    live_pred = int(decision.pred)
+            n_labels = len(session.labels)
+        if fresh:
+            app.journal.event("session_label", session=sid, window=window,
+                              label=label, live_pred=live_pred)
+            app.journal.metrics.inc("session_labels")
+        self._reply(200, {"session": sid, "window": window, "label": label,
+                          "fresh": fresh, "paired": False,
+                          "labels": n_labels})
+
+    def _session_state(self, app: ServeApp, sid: str) -> None:
+        session = self._get_session(app, sid)
+        if session is None:
+            return
+        with session.lock:
+            tail = [d.as_json() for d in session.decisions[-16:]]
+            reply = self._session_json(session, decisions_tail=tail,
+                                       model_digest=app.registry.digest)
+        self._reply(200, reply)
+
+    def _session_export(self, app: ServeApp, sid: str) -> None:
+        """One session as a stamped single-session npz (the migration wire
+        format).  A GET: the session stays live here until ``/discard``."""
+        try:
+            data = app.sessions.export_session(sid)
+        except KeyError:
+            self._reply(404, {"error": f"unknown session {sid!r}"})
+            return
+        self._reply_bytes(200, data)
+
+    def _session_import(self, app: ServeApp) -> None:
+        """Re-materialize an exported session here: a corrupt or tampered
+        payload 400, an id already open 409, both with every live session
+        untouched."""
+        try:
+            session = app.sessions.import_session(self._read_body())
+        except SessionExists as exc:
+            self._reply(409, {"error": str(exc)})
+            return
+        except IntegrityError as exc:
+            self._reply(400, {"error": f"IntegrityError: {exc}"})
+            return
+        except Exception as exc:  # noqa: BLE001 — client error
+            self._reply(400, {"error": f"{type(exc).__name__}: {exc}"})
+            return
+        self._reply(200, self._session_json(
+            session, imported=True, n_channels=session.n_channels))
+
+    def _session_discard(self, app: ServeApp, sid: str) -> None:
+        """Drop a session without deciding its buffered windows (the
+        source of a migration, once the target imported it); the removal
+        is persisted and scrubbed from the snapshot generations."""
+        self._read_body()
+        session = app.sessions.take(sid)
+        if session is None:
+            self._reply(404, {"error": f"unknown session {sid!r}"})
+            return
+        with session.lock:
+            reply = self._session_json(session, discarded=True)
+            app.journal.event("session_end", session=session.session_id,
+                              windows=session.windows_decided,
+                              expired=session.n_expired,
+                              acked=session.acked, reason="migrated")
+        app.sessions.snapshot()
+        app.sessions.compact_departed(sid)
+        self._reply(200, reply)
+
+    def _session_close(self, app: ServeApp, sid: str) -> None:
+        # Claim the session atomically: of two racing closes one drains
+        # and journals, the other gets a clean 404.
+        self._read_body()
+        session = app.sessions.take(sid)
+        if session is None:
+            self._reply(404, {"error": f"unknown session {sid!r}"})
+            return
+        with session.lock:
+            ready = session.finish()
+            app.decide_windows(session, ready)
+            preds = [int(p) for p in session.preds()]
+            reply = self._session_json(session, preds=preds,
+                                       preds_offset=session.preds_offset,
+                                       class_names=list(CLASS_NAMES))
+            app.journal.event("session_end", session=session.session_id,
+                              windows=session.windows_decided,
+                              expired=session.n_expired,
+                              acked=session.acked)
+            app.journal.metrics.inc("sessions_closed")
+        # Persist the smaller table, and scrub the closed stream from the
+        # generation chain, so no restart resurrects it.
+        app.sessions.snapshot()
+        app.sessions.compact_departed(sid)
+        self._reply(200, reply)
+
+
 def serve_until_preempted(app: ServeApp, poll_s: float = 0.2) -> None:
     """Block until a graceful-stop request, then drain and stop."""
     try:
@@ -519,6 +931,23 @@ def main(argv=None) -> int:
                              "serve.")
     parser.add_argument("--metricsDir", type=str, default=None,
                         help="Run-journal root (default reports/obs).")
+    parser.add_argument("--sessionsDir", type=str, default=None,
+                        help="Durable session-snapshot directory (default "
+                             "checkpoints/serve_sessions under the data "
+                             "root).  Must be stable across restarts: it "
+                             "is what --resume restores from.")
+    parser.add_argument("--sessionSnapshotEvery", type=int, default=50,
+                        help="Snapshot session state every N decided "
+                             "windows (plus at every close and at the "
+                             "SIGTERM drain).")
+    parser.add_argument("--sessionsMirror", type=str, default=None,
+                        help="Second directory every session snapshot is "
+                             "also written to.")
+    parser.add_argument("--resume", action="store_true",
+                        help="Restore streaming sessions from the newest "
+                             "valid snapshot generation in --sessionsDir; "
+                             "clients then replay from their acked "
+                             "cursor.")
     args = parser.parse_args(argv)
 
     if bool(args.checkpoint) == bool(args.zoo):
@@ -545,8 +974,11 @@ def main(argv=None) -> int:
 
     from eegnetreplication_tpu_torch.config import Paths
 
+    paths = Paths.from_here()
     metrics_dir = (Path(args.metricsDir) if args.metricsDir
-                   else Paths.from_here().reports / "obs")
+                   else paths.reports / "obs")
+    sessions_dir = (Path(args.sessionsDir) if args.sessionsDir
+                    else paths.project_root / "checkpoints" / "serve_sessions")
     with obs_journal.run(metrics_dir, config=vars(args)) as journal, \
             preempt.guard():
         app = ServeApp(args.checkpoint, host=args.host, port=args.port,
@@ -556,7 +988,10 @@ def main(argv=None) -> int:
                        quant_floor=args.quantFloor, zoo=zoo_spec,
                        default_model=args.defaultModel,
                        max_programs=args.maxPrograms,
-                       stack=not args.noStack, journal=journal)
+                       stack=not args.noStack, sessions_dir=sessions_dir,
+                       sessions_mirror=args.sessionsMirror,
+                       session_snapshot_every=args.sessionSnapshotEvery,
+                       resume=args.resume, journal=journal)
         app.start()
         print(f"serving at {app.url}", flush=True)
         serve_until_preempted(app)

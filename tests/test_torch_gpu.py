@@ -576,3 +576,139 @@ def test_zoo_on_card_stacks_nine_tenants_through_the_gate(cuda, tmp_path):
     for z, mid in enumerate(zoo.tenant_ids):
         solo = InferenceEngine(_model(22, 257, 8, 2, seed=z), device=cuda)
         np.testing.assert_array_equal(got[idx == z], solo.infer(x[idx == z]))
+
+
+# --- K2s: the EMS carry over a stream's chunks ------------------------------
+
+def _stream_signal(c, n, seed=11):
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy((rng.randn(c, n) * 5.0 + 9.0).astype(np.float32))
+
+
+@pytest.mark.parametrize("n", [1, 2, 25, 64, 250, 1000, 4096, 15000])
+@pytest.mark.parametrize("c", [1, 22, 64])
+def test_ems_stream_kernel_matches_its_plain_version(cuda, c, n):
+    """K2s against ``ems_stream_reference`` on the card, the carry
+    threaded through 3 chunks; 1e-6 abs/rel (each operation is rounded on
+    its own in both, so they should agree to the bit)."""
+    x = _stream_signal(c, 3 * n).to(cuda)
+    mean0, var0 = ems_kernel.seed_stats(x, 1000)
+    mk, vk = torch.zeros_like(mean0), var0.clone()
+    mp, vp = torch.zeros_like(mean0), var0.clone()
+    before = ems_kernel.ems_stream.launches
+    for k in range(3):
+        chunk = x[:, k * n:(k + 1) * n].contiguous()
+        got = ems_kernel.ems_stream(chunk, mean0, mk, vk)
+        want = ems_kernel.ems_stream_reference(chunk, mean0, mp, vp)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+        torch.testing.assert_close(mk, mp, atol=1e-6, rtol=1e-6)
+        torch.testing.assert_close(vk, vp, atol=1e-6, rtol=1e-6)
+    assert ems_kernel.ems_stream.launches == before + 3
+
+
+@pytest.mark.parametrize("sizes", [[25], [64], [997], [1, 2, 3, 5, 7],
+                                   [15000]])
+def test_ems_stream_is_chunk_invariant_on_the_card(cuda, sizes):
+    from eegnetreplication_tpu_torch.ops.ems import (
+        StreamingEMS,
+        scan_with_carry,
+    )
+
+    n = 2000 if sizes[0] < 25 else 15000
+    x = _stream_signal(22, n, seed=12)
+    out, m, v = scan_with_carry(x.to(cuda))
+    ems = StreamingEMS(22, device=cuda)
+    outs, pos, i = [], 0, 0
+    while pos < n:
+        step = sizes[i % len(sizes)]
+        outs.append(ems.push(x[:, pos:pos + step].numpy()))
+        pos, i = pos + step, i + 1
+    state = ems.state_arrays()
+    assert np.array_equal(np.concatenate(outs, axis=1), out.cpu().numpy())
+    assert np.array_equal(state["m"], m.cpu().numpy())
+    assert np.array_equal(state["v"], v.cpu().numpy())
+
+
+def test_scan_on_the_card_is_one_k2s_launch_and_repeats(cuda):
+    from eegnetreplication_tpu_torch.ops.ems import (
+        exponential_moving_standardize,
+    )
+
+    x = _stream_signal(22, 15000, seed=13).to(cuda)
+    before = ems_kernel.ems_stream.launches
+    runs = [exponential_moving_standardize(x, method="scan")
+            for _ in range(3)]
+    assert ems_kernel.ems_stream.launches == before + 3
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    cpu = exponential_moving_standardize(x.cpu(), method="scan")
+    torch.testing.assert_close(runs[0].cpu(), cpu, atol=1e-4, rtol=1e-4)
+
+
+def test_streaming_ems_on_the_card_is_within_1e_4_of_the_cpu(cuda):
+    from eegnetreplication_tpu_torch.ops.ems import StreamingEMS
+
+    x = _stream_signal(22, 3000, seed=14).numpy()
+    card, cpu = StreamingEMS(22, device=cuda), StreamingEMS(22, device="cpu")
+    for pos in range(0, 3000, 25):
+        got, want = card.push(x[:, pos:pos + 25]), cpu.push(
+            x[:, pos:pos + 25])
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+    for key, want in cpu.state_arrays().items():
+        np.testing.assert_allclose(card.state_arrays()[key], want,
+                                   atol=1e-4, rtol=1e-4, err_msg=key)
+
+
+def test_ems_stream_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros(4, 8, device=cuda)
+    mu, m, v = (torch.zeros(4, device=cuda) for _ in range(3))
+    with pytest.raises(TypeError, match="float32"):
+        ems_kernel.ems_stream(x.double(), mu, m, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        ems_kernel.ems_stream(torch.zeros(8, 4, device=cuda).t(), mu, m, v)
+    with pytest.raises(ValueError, match="distinct"):
+        ems_kernel.ems_stream(x, mu, m, m)
+    with pytest.raises(ValueError, match="is on"):
+        ems_kernel.ems_stream(x, mu.cpu(), m, v)
+
+
+def test_one_session_through_the_card_engine_counts_its_launches(cuda,
+                                                                 tmp_path):
+    """A session on the card: one K2s launch per non-empty push from the
+    seeding push on, one K1 launch per coalesced forward, and the decisions
+    of the offline pipeline (one-shot scan on the card, the same windows,
+    the engine)."""
+    from eegnetreplication_tpu_torch.ops.ems import (
+        exponential_moving_standardize,
+    )
+    from eegnetreplication_tpu_torch.serve.batcher import MicroBatcher
+    from eegnetreplication_tpu_torch.serve.sessions import (
+        StreamSession,
+        WindowDecision,
+    )
+
+    engine = InferenceEngine(_model(22, 257, 8, 2, seed=5), device=cuda)
+    batcher = MicroBatcher(engine.infer, max_batch=128, max_wait_ms=1.0)
+    x = _stream_signal(22, 5000, seed=15).numpy()
+    session = StreamSession("g", n_channels=22, window=257, hop=64,
+                            device=cuda)
+    k2s, k1 = ems_kernel.ems_stream.launches, fused.block1.launches
+    pushes = 0
+    try:
+        for pos in range(0, 5000, 25):
+            ready = session.ingest(x[:, pos:pos + 25])
+            pushes += session.ems.seeded
+            futs = [(i, s, batcher.submit(w[None], priority=True))
+                    for i, s, w in ready]
+            for i, s, fut in futs:
+                session.record(WindowDecision(i, s, int(fut.result(30)[0]),
+                                              "ok", 0.0))
+    finally:
+        batcher.close()
+    assert ems_kernel.ems_stream.launches - k2s == pushes == 200 - 39
+    assert fused.block1.launches - k1 == batcher.batches
+    std = exponential_moving_standardize(torch.from_numpy(x).to(cuda),
+                                         method="scan").cpu().numpy()
+    wins = np.stack([std[:, k * 64:k * 64 + 257]
+                     for k in range((5000 - 257) // 64 + 1)])
+    np.testing.assert_array_equal(session.preds(), engine.infer(wins))

@@ -52,7 +52,8 @@ _CHILD = textwrap.dedent("""
                  "training.async_ckpt", "resil.preempt", "obs",
                  "obs.schema", "obs.metrics", "obs.journal", "resil.inject",
                  "resil.retry", "utils.flops", "ops.quant", "ops.stacked",
-                 "serve.zoo", "serve.registry"):
+                 "serve.zoo", "serve.registry", "serve.sessions",
+                 "serve.sessions.session", "serve.sessions.store"):
         assert "eegnetreplication_tpu_torch." + name in names, name
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   {chip_smoke!r})

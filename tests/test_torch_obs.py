@@ -2,7 +2,7 @@
 package's.
 
 - The port's ``EVENT_REQUIRED`` holds exactly the JAX table's rows for the
-  ten training events.
+  ten training events, the serving events and the seven session events.
 - A journal written by ``python -m eegnetreplication_tpu_torch.train
   --metricsDir ...`` passes the JAX ``validate_events`` with no
   ``_schema_error``; ``scripts/obs_report.py::summarize_run`` reads it with
@@ -43,12 +43,16 @@ TRAINING_EVENTS = ("run_start", "train_setup", "fold_group", "epoch",
 SERVING_EVENTS = ("serve_start", "request", "model_swap", "serve_end",
                   "quant_gate", "model_load", "model_evict", "zoo_restack",
                   "stack_gate")
+SESSION_EVENTS = ("session_start", "session_window", "window_expired",
+                  "session_snapshot", "session_resume", "session_end",
+                  "session_label")
 
 
 def test_event_table_equals_the_jax_rows():
     assert set(schema.EVENT_REQUIRED) == set(TRAINING_EVENTS
-                                             + SERVING_EVENTS)
-    for name in TRAINING_EVENTS + SERVING_EVENTS:
+                                             + SERVING_EVENTS
+                                             + SESSION_EVENTS)
+    for name in TRAINING_EVENTS + SERVING_EVENTS + SESSION_EVENTS:
         assert schema.EVENT_REQUIRED[name] == jax_schema.EVENT_REQUIRED[name]
     assert schema.EVENT_BASE_REQUIRED == jax_schema.EVENT_BASE_REQUIRED
     assert schema.SCHEMA_VERSION == jax_schema.SCHEMA_VERSION

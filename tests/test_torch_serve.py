@@ -308,7 +308,8 @@ def test_http_healthz_has_the_jax_fields(server):
     assert body["geometry"] == {"n_channels": 22, "n_times": 257}
     assert body["buckets"] == [1, 8, 32, 128] and body["max_batch"] == 128
     assert body["kernel_launches"] == {"block1": 0,     # CPU: no kernel
-                                       "block1_stacked": 0}
+                                       "block1_stacked": 0,
+                                       "ems_stream": 0}
 
 
 @pytest.mark.parametrize("body, ctype, headers, code", [

@@ -124,7 +124,8 @@ def test_zoo_healthz_and_unknown_models(zoo_app):
     assert health["zoo_restacks"] == 1 and health["model_swaps"] == 0
     assert health["zoo"]["n_tenants"] == N_TENANTS
     assert health["precision"] == "fp32"
-    assert health["kernel_launches"] == {"block1": 0, "block1_stacked": 0}
+    assert health["kernel_launches"] == {"block1": 0, "block1_stacked": 0,
+                                         "ems_stream": 0}
     c, t, _, _ = GEOMETRY
     status, reply = _request(zoo_app.url + "/predict", _npz(trials(1, c, t)),
                              "application/octet-stream",
