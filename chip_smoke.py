@@ -92,7 +92,9 @@ hand-written kernel against its plain PyTorch version:
    in {1, 22, 64} and n from 1 to 15000, atol/rtol 1e-6 (and whether they
    are bitwise equal); a (22, 15000) stream in chunks of 25, 64, 997, 1
    (the first 2000 samples) and whole gives the one-shot ``scan``'s bytes
-   and final carry; three calls bitwise equal.  Three servers start at
+   and final carry; three calls bitwise equal; a whole 45-minute session at
+   1 and at 64 channels in pushes of 25 and in chunks of 997 gives the
+   one-shot call's bits, out and carry.  Three servers start at
    once: nine concurrent sessions, one per subject, each 60 s of a seeded
    22-channel 250 Hz recording pushed as raw f32 chunks of 25 samples
    (window 257, hop 64, seed block 1000, deadline 1024 ms): every decision
@@ -117,8 +119,10 @@ Phases 10 and 11 print GFLOP/s and the MFU against the card's FP32 peak
 Phase 3b holds the stacked form of K1 (``block1_stacked``: G weight sets,
 an index per trial, what the training loop's validation and test passes
 launch) against ``block1_stacked_reference`` at G in {1, 8, 36}, B in {1,
-64}, T in {257, 1125} and permuted indices, atol/rtol 1e-5, and checks
-three calls at (512, 22, 257) bitwise equal; the timing phase times it at
+64}, T in {257, 1125} and permuted indices, atol/rtol 1e-5, checks three
+calls at (512, 22, 257) bitwise equal, and holds it to K1 bit for bit per
+weight set at the 90-fold validation batch (90 x 64 trials, permuted) and
+at a zoo chunk (128 trials over nine sets); the timing phase times it at
 (512, 22, 257) and (2304, 22, 257), the 8- and 36-fold validation batches,
 beside its plain version, a grouped cuDNN composite and its bound.
 
@@ -489,7 +493,40 @@ def phase_k1_stacked(torch, dev):
     check(torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2]),
           "K1-stacked gave different bits on three calls at (512, 22, 257)")
     log("K1-stacked at (512, 22, 257): three calls, bitwise equal")
+    _k1_stacked_equals_k1(torch, dev)
     return worst
+
+
+def _k1_stacked_equals_k1(torch, dev):
+    """K1-stacked keeps K1's order of every sum (csrc/block1_stacked.cu), so
+    each trial equals K1 on its trial and weight set bit for bit: the
+    90-fold validation batch permuted, and a zoo chunk of 128 trials mixed
+    over nine sets (the short work items)."""
+    from eegnetreplication_tpu_torch.ops.fused_eegnet import (
+        block1,
+        block1_stacked,
+        fold_index,
+    )
+
+    for what, g, n, seed in (("(90, 64, 257) permuted", 90, 5760, 31),
+                             ("the zoo chunk, 128 over 9", N_TENANTS, 128,
+                              32)):
+        S, W, A, B = (v.to(dev) for v in stacked_weights(torch, g, 22, 16,
+                                                         seed))
+        x = trials(torch, n, 22, 257, seed + 1).to(dev)
+        idx = (fold_index(g, n // g, dev) if n % g == 0 else
+               (torch.arange(n, dtype=torch.int32, device=dev) % g))
+        perm = torch.randperm(n, generator=torch.Generator().manual_seed(seed))
+        idx = idx[perm.to(dev)].contiguous()
+        with torch.no_grad():
+            got = block1_stacked(x, S, W, A, B, idx)
+            for s in range(g):
+                rows = (idx == s).nonzero()[:, 0]
+                want = block1(x[rows].contiguous(), S[s], W[s], A[s], B[s])
+                check(torch.equal(got[rows], want),
+                      f"K1-stacked differs from K1 on set {s} at {what}")
+        torch.cuda.synchronize()
+        log(f"K1-stacked equals K1 bit for bit per weight set at {what}")
 
 
 def phase_forward(torch, dev):
@@ -1486,19 +1523,18 @@ def _finish_profile_leg(proc, log_path: Path, trace_dir: Path,
                         t0: float) -> dict:
     """The ``torch.profiler`` trace of the ``--profileDir`` run landed in
     its directory and names K1-stacked's kernel (the ``kStacked`` instance
-    of ``block1_kernel``)."""
+    ``block1_stacked_kernel``, ``csrc/block1_stacked.cu``)."""
     ((rc, err),) = _wait_all({"p": proc}, {"p": log_path}, 900).values()
     wall = time.perf_counter() - t0
     check(rc == 0, f"train --profileDir exited {rc}:\n" + err[-4000:])
     traces = sorted(trace_dir.glob("trace-*.json"))
     check(len(traces) == 1, f"--profileDir wrote {traces}")
     text = traces[0].read_text()
-    stacked = ("block1_kernel<true>" in text or "block1_kernelILb1E" in text)
-    check(stacked, "the --profileDir trace does not name K1-stacked's "
-          "kernel block1_kernel<true>")
+    check("block1_stacked_kernel" in text, "the --profileDir trace does not "
+          "name K1-stacked's kernel block1_stacked_kernel")
     mb = traces[0].stat().st_size / 1e6
     log(f"train --profileDir, 8 folds x 1 epoch: {mb:.1f} MB Chrome trace "
-        f"naming block1_kernel<true> ({wall:.1f}s)")
+        f"naming block1_stacked_kernel ({wall:.1f}s)")
     return {"trace_mb": mb, "wall_s": wall}
 
 
@@ -2511,6 +2547,7 @@ K2S_CHANNELS = (1, 22, 64)
 K2S_LENGTHS = (1, 2, 25, 64, 250, 1000, 4096, 15000)
 K2S_SPLITS = (25, 64, 997, 1)
 K2S_SPLIT_ONE = 2000     # chunks of one sample over the first 2000
+K2S_SESSION_CHANNELS = (1, 64)   # whole sessions, chunked and one-shot
 # K2s's step (csrc/ems_stream.cu::step): 12 operations a sample, and a
 # chain of a dependent multiply and add (4 cycles each) from one sample's
 # m (and v) to the next.
@@ -2651,10 +2688,30 @@ def _k2s_invariance(torch, np, dev) -> None:
     check(all(torch.equal(a, b) for r in runs[1:]
               for a, b in zip(runs[0], r)),
           "three K2s calls on one input differ")
+    # A whole 45-minute session at one channel (one SM) and at 64 (64
+    # SMs): the one-shot call against pushes of 25 (one warp each) and
+    # chunks of 997 (the ring), out and carry to the bit.
+    for c in K2S_SESSION_CHANNELS:
+        xs = torch.from_numpy(stream_recording(np, 610 + c, c, SESSION[1])
+                              ).to(dev)
+        mean0, var0 = seed_stats(xs, STREAM_BLOCK)
+        m1, v1 = torch.zeros_like(mean0), var0.clone()
+        one = ems_stream(xs, mean0, m1, v1)
+        for split in (STREAM_CHUNK, 997):
+            mm, vv = torch.zeros_like(mean0), var0.clone()
+            parts = [ems_stream(xs[:, p:p + split].contiguous(), mean0, mm,
+                                vv) for p in range(0, SESSION[1], split)]
+            torch.cuda.synchronize()
+            check(torch.equal(torch.cat(parts, dim=1), one)
+                  and torch.equal(mm, m1) and torch.equal(vv, v1),
+                  f"K2s at ({c}, {SESSION[1]}) in chunks of {split} differs "
+                  "from the one-shot call")
     log(f"chunk invariance on the card: chunks of "
         f"{list(K2S_SPLITS + (STREAM_SAMPLES,))} (1 over the first "
         f"{K2S_SPLIT_ONE}) give the one-shot scan's out and carry bit for "
-        "bit; three calls bitwise equal")
+        f"bit; three calls bitwise equal; {SESSION[1]} samples at "
+        f"{' and '.join(map(str, K2S_SESSION_CHANNELS))} channels in chunks "
+        f"of {STREAM_CHUNK} and 997 give the one-shot call's bits")
 
 
 def _k2s_times(torch, np, dev) -> dict:
@@ -3158,7 +3215,7 @@ def main(argv=None) -> int:
     }, {
         "name": "block1_stacked",
         "route": "cuda",
-        "source": "eegnetreplication_tpu_torch/ops/csrc/block1.cu",
+        "source": "eegnetreplication_tpu_torch/ops/csrc/block1_stacked.cu",
         "replaces": "eegnetreplication_tpu/ops/fused_eegnet.py:134",
         # the counted runs of the training phases (10 and 11) and the
         # zoo server's counted chunks (phase 12)
@@ -3192,7 +3249,7 @@ def main(argv=None) -> int:
         "name": "ems_stream",
         "route": "cuda",
         "source": "eegnetreplication_tpu_torch/ops/csrc/ems_stream.cu",
-        "replaces": ("eegnetreplication_tpu/ops/ems.py:235 (_stream_chunk, "
+        "replaces": ("eegnetreplication_tpu/ops/ems.py:244 (_stream_chunk, "
                      "lax.scan, not Pallas)"),
         # the three session servers of phase 13
         "launches": streams["launches"],

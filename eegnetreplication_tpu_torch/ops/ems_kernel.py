@@ -197,8 +197,9 @@ def ems(x: torch.Tensor, factor_new: float = 1e-3,
 ems.launches = 0
 
 
-# K2s's channels a block (``csrc/ems_stream.cu``: kChannels).
-EMS_STREAM_CHANNELS = 32
+# K2s's channels a block (``csrc/ems_stream.cu``: kChannels): one, so a
+# session's channels run on as many SMs.
+EMS_STREAM_CHANNELS = 1
 
 
 def ems_stream_reference(x: torch.Tensor, mean0: torch.Tensor,

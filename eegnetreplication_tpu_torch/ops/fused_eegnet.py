@@ -23,7 +23,9 @@ mix and a 32-tap filter on F2 mixed rows, then ELU and AvgPool(4).
   trial, the form ``block1_pallas`` takes under ``jax.vmap`` over the
   weights; :func:`fused_eval_forward_stacked` runs every fold of a
   fold-stacked state through it in one launch (the training loop's
-  validation and test passes).
+  validation and test passes).  On the card it launches K1-stacked
+  (``csrc/block1_stacked.cu``), K1's arithmetic redesigned for the
+  training batch; :func:`stacked_plan` sizes its launch.
 
 The JAX package's ``EEGTPU_FUSED_EVAL=0`` escape hatch and its Pallas probe
 have no counterpart: on the card the kernel runs, or the call raises.
@@ -32,6 +34,7 @@ have no counterpart: on the card the kernel runs, or the call raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Mapping
 
 import torch
@@ -42,6 +45,12 @@ from eegnetreplication_tpu_torch.ops import build
 TEMPORAL_K = 32
 PAD_LEFT = 15   # SAME padding of an even kernel: (15, 16)
 PAD_RIGHT = 16
+
+# K1-stacked's work items (``csrc/block1_stacked.cu``: kLongPool,
+# kShortPool): one trial and one time tile of that many pooled outputs.
+# The wrapper checks them against the built library.
+K1S_LONG_POOL = 64
+K1S_SHORT_POOL = 32
 
 
 def fold_block1_params(state_dict: Mapping[str, torch.Tensor],
@@ -130,10 +139,73 @@ def _k1_library() -> ctypes.CDLL:
         lib.eeg_block1_launch.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.eeg_block1_launch.restype = ctypes.c_int
-        lib.eeg_block1_stacked_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        lib.eeg_block1_stacked_launch.restype = ctypes.c_int
     return lib
+
+
+def _k1s_library() -> ctypes.CDLL:
+    lib = build.load("block1_stacked")
+    if lib.eeg_block1_stacked_launch.argtypes is None:
+        for fn in (lib.eeg_block1_stacked_long_pool,
+                   lib.eeg_block1_stacked_short_pool):
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
+        lib.eeg_block1_stacked_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+        lib.eeg_block1_stacked_blocks_per_sm.restype = ctypes.c_int
+        lib.eeg_block1_stacked_error_string.argtypes = [ctypes.c_int]
+        lib.eeg_block1_stacked_error_string.restype = ctypes.c_char_p
+        lib.eeg_block1_stacked_launch.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.eeg_block1_stacked_launch.restype = ctypes.c_int
+    built = (lib.eeg_block1_stacked_long_pool(),
+             lib.eeg_block1_stacked_short_pool())
+    if built != (K1S_LONG_POOL, K1S_SHORT_POOL):
+        raise RuntimeError(f"block1_stacked: the built K1-stacked takes work "
+                           f"items of {built} pooled outputs, the wrapper "
+                           f"expects {(K1S_LONG_POOL, K1S_SHORT_POOL)}")
+    return lib
+
+
+def stacked_plan(n_trials: int, t: int, n_sms: int, per_sm_long: int,
+                 per_sm_short: int) -> tuple[int, int, int, int]:
+    """``(pool, n_items, per_block, grid)`` of a K1-stacked launch over
+    ``n_trials`` trials of ``t`` samples on a card of ``n_sms`` SMs that
+    holds ``per_sm_long``/``per_sm_short`` blocks of each item length.
+
+    A work item is one trial and one time tile of ``pool`` pooled outputs.
+    Long items (a whole trial at T=257) when there are enough of them to
+    give every resident block one; short ones otherwise, so a small batch
+    still spreads over the card.  Each block walks ``per_block``
+    consecutive items (the last block fewer), ``grid`` blocks in all, no
+    more than the card holds at once.  Raises when no item fits a block's
+    shared memory."""
+    t_pool = int(t) // 4
+
+    def items(pool):
+        return int(n_trials) * -(-t_pool // pool)
+
+    if per_sm_long > 0 and items(K1S_LONG_POOL) >= n_sms * per_sm_long:
+        pool, slots = K1S_LONG_POOL, n_sms * per_sm_long
+    elif per_sm_short > 0:
+        pool, slots = K1S_SHORT_POOL, n_sms * per_sm_short
+    else:   # a short item's stages are smaller: neither fits
+        raise ValueError("block1_stacked: a block's shared memory does not "
+                         "hold this geometry's stages")
+    n_items = items(pool)
+    per_block = -(-n_items // max(1, min(n_items, slots)))
+    return pool, n_items, per_block, -(-n_items // per_block)
+
+
+@functools.lru_cache(maxsize=32)
+def _k1s_occupancy(device_index: int, c: int, f2: int) -> tuple[int, int,
+                                                                 int]:
+    """``(n_sms, per_sm_long, per_sm_short)`` of the card at ``(C, F2)``."""
+    lib = _k1s_library()
+    with torch.cuda.device(device_index):
+        n_sms = torch.cuda.get_device_properties(
+            device_index).multi_processor_count
+        return (n_sms,
+                lib.eeg_block1_stacked_blocks_per_sm(K1S_LONG_POOL, c, f2),
+                lib.eeg_block1_stacked_blocks_per_sm(K1S_SHORT_POOL, c, f2))
 
 
 def _check_operands(x, S, W, A, B, idx=None) -> None:
@@ -238,8 +310,9 @@ def block1_stacked(x, S, W, A, B, idx):
 
     ``S`` ``(G, F2, C)``, ``W`` ``(G, F2, 32)``, ``A`` and ``B`` ``(G, F2)``,
     ``idx`` ``(N,)`` int32.  A CPU ``x`` runs
-    :func:`block1_stacked_reference`.  A CUDA ``x`` launches K1's stacked
-    entry point on the current stream (one launch per call, counted in
+    :func:`block1_stacked_reference`.  A CUDA ``x`` launches K1-stacked
+    (``csrc/block1_stacked.cu``, sized by :func:`stacked_plan`) on the
+    current stream (one launch per call, counted in
     ``block1_stacked.launches``, apart from ``block1.launches``) after
     checking device, dtype, shape, contiguity and ``0 <= idx < G``;
     anything the kernel does not take raises.
@@ -255,15 +328,21 @@ def block1_stacked(x, S, W, A, B, idx):
     if n == 0:
         return out
     _check_index_range(idx, g)
-    lib = _k1_library()
+    lib = _k1s_library()
+    dev_index = x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+    pool, _, per_block, _ = stacked_plan(n, t, *_k1s_occupancy(dev_index, c,
+                                                                f2))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.eeg_block1_stacked_launch(
             x.data_ptr(), S.data_ptr(), W.data_ptr(), A.data_ptr(),
             B.data_ptr(), idx.data_ptr(), out.data_ptr(), n, c, t, f2, g,
-            stream)
+            pool, per_block, stream)
     if err != 0:
-        raise _launch_error(lib, err)
+        raise RuntimeError(
+            f"block1_stacked: K1-stacked launch failed with CUDA error {err} "
+            f"({lib.eeg_block1_stacked_error_string(err).decode()})")
     block1_stacked.launches += 1
     return out
 

@@ -13,7 +13,8 @@ and at B=1024; the engine's fused forward on the card against the
 plain forward on the CPU at atol 1e-5 / rtol 1e-4.  K1's stacked form
 (``block1_stacked``: G weight sets and an index per trial) is held against
 ``block1_stacked_reference`` at the shapes of ``chip_smoke.py`` phase 3b,
-atol/rtol 1e-5; one fold-stacked train step on the card against the CPU at
+atol/rtol 1e-5, and equals K1 bit for bit per weight set on the 90-fold
+validation batch (fold-major and permuted); one fold-stacked train step on the card against the CPU at
 dropout 0 (2e-3, the tolerance the CPU tests hold the port to against JAX);
 one training epoch launches the stacked K1 once per validation batch; a
 grouped cross-subject run on the card equals one group per fold at dropout
@@ -27,7 +28,9 @@ edge shapes (K2's tile boundaries among them), atol/rtol 1e-4 (the JAX
 package's Pallas-vs-scan tolerance).  Each kernel called three times on one
 input gives the same bits.  The card's preprocessing path with
 ``EEGTPU_EMS_METHOD=pallas`` must launch K2 and never hand a CUDA tensor to
-``ems_reference``.  Serving beyond one fp32 model: the int8 engine
+``ems_reference``.  K2s (``ems_stream``) equals its plain version bit for
+bit at 1, 22 and 64 channels, pushes and longer chunks alike, the carry
+threaded through.  Serving beyond one fp32 model: the int8 engine
 launches K1 once per bucket chunk and matches the plain int8 forward on the
 CPU (atol 1e-5 / rtol 1e-4); the stacked engine, fp32 and int8, launches
 K1-stacked once per chunk and K1 never, and matches its CPU twin; a zoo of
@@ -331,6 +334,46 @@ def test_block1_stacked_kernel_is_deterministic_and_checks_idx(cuda):
         fused.block1_stacked(x, S, W, A, B, idx.long())
 
 
+@pytest.mark.parametrize("order", ["fold-major", "permuted"])
+def test_block1_stacked_equals_k1_bit_for_bit_per_set(cuda, order):
+    """K1-stacked (``block1_stacked.cu``) keeps K1's order of every sum, so
+    each trial equals K1 on the same trial and weight set to the bit: the
+    90-fold validation batch, 5760 trials."""
+    g, b = 90, 64
+    S, W, A, B = (v.to(cuda) for v in _stacked_weights(g, seed=13))
+    x = _trials(g * b, 22, 257, seed=14).to(cuda)
+    idx = fused.fold_index(g, b, cuda)
+    if order == "permuted":
+        perm = torch.randperm(g * b, generator=torch.Generator().manual_seed(2))
+        idx = idx[perm.to(cuda)].contiguous()
+    with torch.no_grad():
+        got = fused.block1_stacked(x, S, W, A, B, idx)
+        for s in range(g):
+            rows = (idx == s).nonzero()[:, 0]
+            want = fused.block1(x[rows].contiguous(), S[s], W[s], A[s], B[s])
+            assert torch.equal(got[rows], want), f"set {s}"
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_block1_stacked_on_a_misaligned_view(cuda, offset):
+    """Trials that start 1-3 floats past a 16-byte boundary: K1-stacked's
+    bulk row copies must not reach outside x (its first and last rows'
+    edge chunks go float by float), and the answer is K1's."""
+    g, b = 4, 33
+    S, W, A, B = (v.to(cuda) for v in _stacked_weights(g, seed=15))
+    x0 = _trials(g * b, 22, 257, seed=16).to(cuda)
+    buf = torch.empty(x0.numel() + offset, device=cuda)
+    x = buf[offset:].view(x0.shape)
+    x.copy_(x0)
+    idx = fused.fold_index(g, b, cuda)
+    with torch.no_grad():
+        got = fused.block1_stacked(x, S, W, A, B, idx)
+        for s in range(g):
+            rows = (idx == s).nonzero()[:, 0]
+            want = fused.block1(x0[rows].contiguous(), S[s], W[s], A[s], B[s])
+            assert torch.equal(got[rows], want), f"set {s}"
+
+
 def _fold_state(n_folds, c=22, t=257, seed=0):
     model = EEGNet(c, t, dropout_rate=0.0, device="cpu")
     return model, loop.init_fold_states(
@@ -605,6 +648,27 @@ def test_ems_stream_kernel_matches_its_plain_version(cuda, c, n):
         torch.testing.assert_close(mk, mp, atol=1e-6, rtol=1e-6)
         torch.testing.assert_close(vk, vp, atol=1e-6, rtol=1e-6)
     assert ems_kernel.ems_stream.launches == before + 3
+
+
+@pytest.mark.parametrize("c", [1, 22, 64])
+def test_ems_stream_kernel_is_bitwise_its_plain_version(cuda, c):
+    """K2s and ``ems_stream_reference`` round every operation on their own:
+    out and the carry agree to the bit, for pushes (one warp) and longer
+    chunks (the ring), the carry threaded through."""
+    x = _stream_signal(c, 3948, seed=c).to(cuda)
+    mean0, var0 = ems_kernel.seed_stats(x, 1000)
+    mk, vk = torch.zeros_like(mean0), var0.clone()
+    mp, vp = torch.zeros_like(mean0), var0.clone()
+    pos = 0
+    for n in (25, 1, 256, 257, 250, 512, 513, 1000, 1134):
+        chunk = x[:, pos:pos + n].contiguous()
+        got = ems_kernel.ems_stream(chunk, mean0, mk, vk)
+        want = ems_kernel.ems_stream_reference(chunk, mean0, mp, vp)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"out at chunk of {n}"
+        assert torch.equal(mk, mp) and torch.equal(vk, vp), f"carry at {n}"
+        pos += n
+    assert pos == 3948
 
 
 @pytest.mark.parametrize("sizes", [[25], [64], [997], [1, 2, 3, 5, 7],
