@@ -20,7 +20,8 @@ hand-written kernel against its plain PyTorch version:
    ``save_checkpoint``, ``python -m eegnetreplication_tpu_torch.serve``
    answering JSON, npz and 8 concurrent requests plus ``/healthz``; its
    predictions must equal the ``predict`` CLI's, every forward must have
-   launched K1 exactly once, and SIGTERM must drain and exit 75;
+   replayed its bucket's CUDA graph and so launched K1 exactly once, and
+   SIGTERM must drain and exit 75;
 6. the timer's floor (an empty event window and one one-element kernel);
    times per bucket (1/8/32/128): K1, the plain version and one library
    composite (cuDNN ``conv1d`` + ELU + ``avg_pool1d``) as the median of
@@ -113,6 +114,25 @@ hand-written kernel against its plain PyTorch version:
    first two, K2 and ``associative`` at the last, beside the bound and the
    serial chain's latency at the card's maximum SM clock.
 
+14. the serving control plane: at every bucket of the fp32, int8 and
+   nine-tenant engines the replay of the bucket's captured CUDA graph gives
+   the eager forward's logits bit for bit and the plain CPU forward's to
+   atol 1e-5 / rtol 1e-4, with the capture's wall and memory pool bytes and
+   ``infer`` eager against graphed (host ms, the device's idle share and
+   device ops per call under ``torch.profiler``); ``serve --tuneEveryS 1``
+   under 8 clients of steady 40-trial requests (each one every 100 ms,
+   on a kept-alive connection) applies a ``ladder_retune``
+   under load with no request failed and every answer equal to
+   ``predict_trials`` (and the ``predict`` CLI's accuracy line and class
+   counts), K1's launches equal to the eager warm runs plus the graph
+   replays, ``/metrics`` (JSON and Prometheus text) agreeing with
+   ``/healthz``, and ``POST /profile``'s trace naming ``block1_kernel``
+   inside the replays; then the breaker (a retried ``serve.forward``
+   fault, a persistent one opening the circuit, the close after the
+   cooldown), adaptive admission (429 ``shed``), parented trace spans
+   under a client's trace id and an SLO breach degrading ``/healthz``, in
+   process on the card.
+
 Phases 10 and 11 print GFLOP/s and the MFU against the card's FP32 peak
 (``utils/flops.py``) beside fold-epochs/s at 8, 36 and 90 folds.
 
@@ -135,6 +155,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import http.client
 import io
 import json
 import os
@@ -701,8 +722,12 @@ def phase_serve(torch, np, dev, work: Path, env: dict):
         batches = health["batches"]
         n_warm = len(health["buckets"])
         # Every forward is one bucket chunk (no request here exceeds 128
-        # trials) and so exactly one K1 launch, after one per bucket at
-        # warmup.
+        # trials), one replay of its bucket's CUDA graph and so exactly one
+        # K1 launch, after one eager warm run per bucket (the capture
+        # itself launches nothing).
+        check(health["graph_replays"] == batches,
+              f"{health['graph_replays']} graph replays for {batches} "
+              "forwards")
         check(launches == n_warm + batches,
               f"K1 launches {launches} != {n_warm} warmup + {batches} "
               "forwards")
@@ -3118,6 +3143,472 @@ def phase_streams(torch, np, dev, work: Path, env: dict) -> dict:
     return result
 
 
+# --------------------------------------------------------------------------
+# Phase 14: the serving control plane
+# --------------------------------------------------------------------------
+
+TUNE_CLIENTS = 8
+TUNE_REQ_TRIALS = 40      # the steady 40-trial requests the tuner targets
+TUNE_PERIOD_S = 0.1       # one request a client every 100 ms, staggered
+TUNE_MAX_S = 30.0         # load until a retune has served, at most this
+TUNE_AFTER_S = 3.0        # load kept on after the first applied retune
+N_BREAKDOWN = 20          # calls under the profiler per breakdown
+
+
+def _breakdown_row(torch, fn) -> dict:
+    """``infer``'s host ms (median, no profiler) and, under the profiler,
+    the device's idle share and device ops per call."""
+    from eegnetreplication_tpu_torch.utils import profiling
+
+    row = {"host_ms": host_ms(fn)}
+    prof = profiling.breakdown(fn, N_BREAKDOWN)
+    row.update({k: prof[k] for k in (
+        "wall_ms_per_call", "device_busy_ms_per_call", "device_idle_share",
+        "device_ops_per_call")})
+    return row
+
+
+def _graph_phase(torch, np, dev) -> dict:
+    """Every bucket of the fp32, int8 and nine-tenant engines: the
+    replay's logits equal the eager forward's bit for bit and the plain CPU
+    forward's to LOGITS_ATOL/RTOL; capture wall and pool bytes; ``infer``
+    eager against graphed."""
+    from eegnetreplication_tpu_torch.ops import quant
+    from eegnetreplication_tpu_torch.ops import stacked as ops_stacked
+    from eegnetreplication_tpu_torch.serve.engine import InferenceEngine
+    from eegnetreplication_tpu_torch.serve.zoo import StackedEngine
+
+    gpu = seeded_model(torch, 22, 257, 8, 2, 1500, dev)
+    cpu = seeded_model(torch, 22, 257, 8, 2, 1500, "cpu")
+    ids = [f"s{z}" for z in range(N_TENANTS)]
+    gpu_zoo = [seeded_model(torch, 22, 257, 8, 2, 1510 + z, dev)
+               for z in range(N_TENANTS)]
+    cpu_zoo = [seeded_model(torch, 22, 257, 8, 2, 1510 + z, "cpu")
+               for z in range(N_TENANTS)]
+    cpu_int8 = InferenceEngine(cpu, device="cpu", precision="int8")
+    cpu_stack = StackedEngine(list(zip(ids, cpu_zoo)), device="cpu")
+    kinds = {
+        "fp32": (InferenceEngine(gpu, BUCKETS, device=dev),
+                 InferenceEngine(gpu, BUCKETS, device=dev),
+                 lambda x, idx: cpu.eval()(x)),
+        "int8": (InferenceEngine(gpu, BUCKETS, device=dev,
+                                 precision="int8"),
+                 InferenceEngine(gpu, BUCKETS, device=dev,
+                                 precision="int8"),
+                 lambda x, idx: quant.quantized_eval_forward_reference(
+                     cpu_int8._qpack, x)),
+        "zoo": (StackedEngine(list(zip(ids, gpu_zoo)), BUCKETS, device=dev),
+                StackedEngine(list(zip(ids, gpu_zoo)), BUCKETS, device=dev),
+                lambda x, idx: ops_stacked.stacked_eval_forward_reference(
+                    cpu_stack._pack, x, idx)),
+    }
+    out: dict = {}
+    for kind, (graphed, eager, plain) in kinds.items():
+        t0 = time.perf_counter()
+        graphed.warmup()            # the captures; `eager` is never warmed
+        warm_s = time.perf_counter() - t0
+        stats = graphed.graph_stats()
+        check(sorted(stats) == list(BUCKETS),
+              f"{kind}: graphs for buckets {sorted(stats)}")
+        worst, rows = 0.0, {}
+        for b in BUCKETS:
+            x = trials(torch, b, 22, 257, 1600 + b)
+            idx = torch.from_numpy(np.random.RandomState(b).randint(
+                0, N_TENANTS, b).astype(np.int32))
+            args = (x.to(dev),) if kind != "zoo" else (x.to(dev),
+                                                       idx.to(dev))
+            with torch.inference_mode():
+                want = eager.forward(*args).cpu()
+                ref = plain(x, idx)
+            got = graphed.graph_logits(*args).cpu()
+            check(torch.equal(got, want), f"{kind} B={b}: the replay's "
+                  "logits differ from the eager forward's")
+            err = float((got - ref).abs().max())
+            check(torch.allclose(got, ref, atol=LOGITS_ATOL,
+                                 rtol=LOGITS_RTOL),
+                  f"{kind} B={b}: replay vs the plain CPU forward {err:.3e}")
+            worst = max(worst, err)
+            host = (x.numpy(),) if kind != "zoo" else (x.numpy(),
+                                                       idx.numpy())
+            check((graphed.infer(*host) == want.argmax(-1).numpy()).all(),
+                  f"{kind} B={b}: graphed infer differs from the eager "
+                  "argmax")
+            if kind == "fp32" or b in (1, 128):
+                rows[b] = {
+                    "eager": _breakdown_row(torch,
+                                            lambda: eager.infer(*host)),
+                    "graphed": _breakdown_row(torch,
+                                              lambda: graphed.infer(*host))}
+                e, g = rows[b]["eager"], rows[b]["graphed"]
+                log(f"{kind} B={b}: infer {e['host_ms']:.3f} -> "
+                    f"{g['host_ms']:.3f} ms, device idle "
+                    f"{e['device_idle_share']:.2f} -> "
+                    f"{g['device_idle_share']:.2f}, device ops "
+                    f"{e['device_ops_per_call']:.1f} -> "
+                    f"{g['device_ops_per_call']:.1f} per call (eager -> "
+                    "graphed)")
+        out[kind] = {"max_abs_err_vs_plain": worst, "warmup_s": warm_s,
+                     "graphs": {str(b): s for b, s in stats.items()},
+                     "infer": {str(b): r for b, r in rows.items()}}
+        log(f"{kind}: replay bitwise the eager forward at buckets "
+            f"{list(BUCKETS)}, {worst:.3e} from the plain CPU forward; "
+            "capture ms / pool MiB per bucket " + ", ".join(
+                f"{b}: {s['capture_s'] * 1e3:.2f}/"
+                f"{s['pool_bytes'] / 2**20:.1f}" for b, s in stats.items()))
+    return out
+
+
+def _get_text(url, headers=None, timeout=30.0) -> str:
+    req = urllib.request.Request(url, headers=headers or {})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.read().decode()
+
+
+def _prom_value(text: str, series: str) -> float:
+    for line in text.splitlines():
+        if line.startswith(series + " "):
+            return float(line.rsplit(" ", 1)[1])
+    raise SmokeFailure(f"/metrics text has no series {series}")
+
+
+def _tuned_server(torch, np, dev, work: Path, env: dict) -> dict:
+    """``serve --tuneEveryS 1`` under TUNE_CLIENTS clients of steady
+    TUNE_REQ_TRIALS-trial requests: a retune applied under load, no
+    request dropped, every answer the predict path's, K1's launches the
+    warm runs plus the replays; ``/metrics`` against ``/healthz``;
+    ``/profile``'s trace names ``block1_kernel``."""
+    from eegnetreplication_tpu_torch.data.containers import BCICI2ADataset
+    from eegnetreplication_tpu_torch.data.io import save_trials
+    from eegnetreplication_tpu_torch.obs.metrics import quantile_from_buckets
+    from eegnetreplication_tpu_torch.predict import predict_trials
+    from eegnetreplication_tpu_torch.serve.engine import (
+        load_model_from_checkpoint,
+    )
+
+    ckpt = _save_seeded(torch, work / "tuned.npz", 1520)
+    x = trials(torch, TUNE_CLIENTS * TUNE_REQ_TRIALS, 22, 257, 1521).numpy()
+    y = np.random.RandomState(1522).randint(0, 4, len(x)).astype(np.int64)
+    trials_path = save_trials(BCICI2ADataset(X=x, y=y),
+                              work / "A01E-trials.npz")
+    cli = _spawn_predict(["--checkpoint", str(ckpt), "--input",
+                          str(trials_path)], env, work, "predict_tuned")
+    want = predict_trials(load_model_from_checkpoint(ckpt, device=dev), x,
+                          device=dev)
+    obs = work / "obs_tuned"
+    proc, url, stderr = _start_server(
+        ["--checkpoint", str(ckpt), "--tuneEveryS", "1", "--metricsDir",
+         str(obs)], work, env, "serve_tuned")
+    result: dict = {}
+    try:
+        bodies = [_npz_body(np, x[i * TUNE_REQ_TRIALS:
+                                  (i + 1) * TUNE_REQ_TRIALS])
+                  for i in range(TUNE_CLIENTS)]
+        stop = threading.Event()
+        answers: list = [[] for _ in range(TUNE_CLIENTS)]
+        host, port = url.split("//", 1)[1].rsplit(":", 1)
+
+        def client(i):
+            # One kept-alive connection a client, as a streaming client
+            # holds it, and one request every TUNE_PERIOD_S: the steady
+            # traffic that pads 40-trial forwards up to 128.
+            conn = http.client.HTTPConnection(host, int(port), timeout=60)
+            due = time.monotonic() + i * TUNE_PERIOD_S / TUNE_CLIENTS
+            try:
+                while not stop.is_set():
+                    time.sleep(max(0.0, due - time.monotonic()))
+                    due += TUNE_PERIOD_S
+                    try:
+                        conn.request("POST", "/predict", bodies[i], {
+                            "Content-Type": "application/octet-stream"})
+                        resp = conn.getresponse()
+                        answers[i].append((resp.status,
+                                           json.loads(resp.read())))
+                    except Exception as exc:  # noqa: BLE001 — checked
+                        answers[i].append((None, repr(exc)))
+                        conn.close()
+            finally:
+                conn.close()
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(TUNE_CLIENTS)]
+        batches_0 = _get(url + "/healthz")[1]["batches"]
+        t0 = time.monotonic()
+        for th in threads:
+            th.start()
+        first_retune = None
+        try:
+            while time.monotonic() - t0 < TUNE_MAX_S:
+                time.sleep(0.25)
+                # A retune that moved the ladder: its graphs were captured
+                # while the clients' forwards replayed the old ones.
+                ladder = _get(url + "/healthz")[1]["buckets"]
+                if ladder != list(BUCKETS) and first_retune is None:
+                    first_retune = time.monotonic()
+                if first_retune and time.monotonic() - first_retune \
+                        >= TUNE_AFTER_S:
+                    break
+        finally:
+            stop.set()
+            for th in threads:
+                th.join(120)
+        load_s = time.monotonic() - t0
+        rate = (_get(url + "/healthz")[1]["batches"] - batches_0) / load_s
+        stderr.flush()
+        server_log = [line for line in (
+            work / "serve_tuned.stderr.log").read_text().splitlines()
+            if "log_message" not in line]
+        check(first_retune is not None, "no ladder_retune moved the "
+              f"ladder in {load_s:.0f} s of {TUNE_CLIENTS} clients' load "
+              f"({rate:.1f} forwards/s); the server's log ends:\n"
+              + "\n".join(server_log[-30:]))
+        n_answers = 0
+        for i, got in enumerate(answers):
+            sl = want[i * TUNE_REQ_TRIALS:(i + 1) * TUNE_REQ_TRIALS]
+            for status, reply in got:
+                check(status == 200, f"client {i}: a request failed under "
+                      f"the tuner: {status} {reply}")
+                check(reply["predictions"] == sl.tolist(),
+                      f"client {i}: an answer differs from predict_trials")
+                n_answers += 1
+        served = np.concatenate([np.asarray(got[-1][1]["predictions"])
+                                 for got in answers])
+        result["predict_cli"] = _check_predict_cli(
+            np, cli, work, "predict_tuned", served, y, "predict")
+        # /profile under a few requests: its trace names K1.
+        status, prof = _post(url + "/profile", json.dumps(
+            {"seconds": 1.5}).encode(), "application/json")
+        check(status == 202, f"/profile answered {status}: {prof}")
+        for _ in range(20):
+            _post(url + "/predict", bodies[0], "application/octet-stream")
+        trace_path = None
+        for _ in range(120):
+            time.sleep(0.25)
+            found = list(Path(prof["log_dir"]).glob("trace-*.json"))
+            if found and found[0].stat().st_size:
+                trace_path = found[0]
+                break
+        check(trace_path is not None, "/profile wrote no trace")
+        time.sleep(0.5)
+        check("block1_kernel" in trace_path.read_text(),
+              "/profile's trace does not name block1_kernel inside the "
+              "graph replays")
+        # The counts, /healthz against /metrics, with no traffic left.
+        status, health = _get(url + "/healthz")
+        check(status == 200 and health["status"] == "ok",
+              f"/healthz {status}: {health.get('degraded')}")
+        snap = json.loads(_get_text(url + "/metrics"))
+        text = _get_text(url + "/metrics", {"Accept": "text/plain"})
+        ok_json = next(e["value"] for e in snap["counters"]["requests_total"]
+                       if e["labels"] == {"status": "ok"})
+        check(ok_json == _prom_value(text, 'requests_total{status="ok"}')
+              == n_answers + 20, f"requests_total ok {ok_json} vs "
+              f"{n_answers + 20} answered")
+        check(_prom_value(text, "ladder_retunes")
+              == health["ladder_retunes"] >= 1,
+              "ladder_retunes differs between /metrics and /healthz")
+        lat = snap["histograms"]["request_latency_ms"][0]
+        p50 = quantile_from_buckets(lat["bounds"], lat["buckets"], 0.5,
+                                    lo=lat["min"], hi=lat["max"])
+        check(abs(p50 - health["latency_ms"]["p50"]) < 1e-9,
+              f"p50 {p50} from /metrics vs {health['latency_ms']['p50']}")
+        launches = health["kernel_launches"]["block1"]
+        replays, batches = health["graph_replays"], health["batches"]
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        check(rc == 75, f"tuned server exited {rc} after SIGTERM")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        stderr.close()
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+    events = _journal(np, obs, "ok")
+    retunes = [e for e in events if e["event"] == "ladder_retune"]
+    failed = [e for e in events if e["event"] == "ladder_retune_failed"]
+    compiles = [e for e in events if e["event"] == "compile"]
+    check(retunes and not failed, f"{len(retunes)} ladder_retune, "
+          f"{len(failed)} failed: {failed[:1]}")
+    # One eager warm run a captured bucket, one launch a replay; each
+    # forward is one chunk (the batcher's cap follows the top bucket).
+    check(launches == len(compiles) + replays,
+          f"K1 launches {launches} != {len(compiles)} warm runs + "
+          f"{replays} replays")
+    check(replays == batches, f"{replays} replays for {batches} forwards")
+    graphs = {}
+    for e in compiles:
+        graphs.setdefault(e["what"], []).append(
+            {"capture_s": e.get("capture_s"),
+             "pool_bytes": e.get("pool_bytes")})
+    result.update(
+        load_s=load_s, forwards_per_s=rate,
+        answers=n_answers, launches=launches, replays=replays,
+        batches=batches, warm_runs=len(compiles),
+        ladders=[r["new_buckets"] for r in retunes],
+        reasons=[r["reason"] for r in retunes],
+        final_buckets=health["buckets"], graphs=graphs,
+        retune_s=[r["elapsed_s"] for r in retunes],
+        trace_bytes=trace_path.stat().st_size)
+    log(f"tuned server: {n_answers} requests of {TUNE_REQ_TRIALS} trials "
+        f"from {TUNE_CLIENTS} clients in {load_s:.1f} s ({rate:.1f} "
+        "forwards/s), none failed, every answer "
+        f"predict_trials'; retunes {result['reasons']} -> "
+        f"{result['ladders']}; K1 {launches} = {len(compiles)} warm runs + "
+        f"{replays} replays; /metrics == /healthz; /profile trace names "
+        "block1_kernel")
+    return result
+
+
+def _control_legs(torch, np, dev, work: Path) -> dict:
+    """The breaker, admission, trace and SLO legs of the CPU tests, on the
+    card, each through an in-process server and its own journal."""
+    from eegnetreplication_tpu_torch.obs import journal as obs_journal
+    from eegnetreplication_tpu_torch.obs import read_events
+    from eegnetreplication_tpu_torch.resil import inject
+    from eegnetreplication_tpu_torch.serve.service import ServeApp
+
+    ckpt = _save_seeded(torch, work / "control.npz", 1530)
+    x = trials(torch, 8, 22, 257, 1531).numpy()
+    body = _npz_body(np, x)
+
+    def post(app, headers=None):
+        return _post(app.url + "/predict", body, "application/octet-stream",
+                     headers=headers)
+
+    def leg(name, **kw):
+        kw.setdefault("buckets", (1, 8, 32))
+        jr = obs_journal.run(work / f"obs_{name}", config={})
+        journal = jr.__enter__()
+        app = ServeApp(ckpt, port=0, device=dev, journal=journal,
+                       **kw).start()
+        return jr, journal, app
+
+    def finish(jr, journal, app):
+        app.stop()
+        jr.__exit__(None, None, None)
+        return read_events(journal.events_path)
+
+    out = {}
+    # Breaker: a retried fault answers; a persistent one opens the circuit
+    # (fast 503s, /healthz 503), and it closes after the cooldown.
+    jr, journal, app = leg("breaker", breaker_threshold=2,
+                           breaker_reset_s=0.5)
+    try:
+        with inject.scoped(*inject.parse_plan("serve.forward:times=1")):
+            check(post(app)[0] == 200, "a retried serve.forward fault "
+                  "did not answer 200")
+        handle = inject.arm("serve.forward", times=0)
+        try:
+            codes = [post(app)[0] for _ in range(2)]
+            check(codes == [500, 500], f"persistent fault answered {codes}")
+            status, health = _get_status(app.url + "/healthz")
+            check(status == 503 and health["circuit"] == "open",
+                  f"/healthz with the circuit open: {status}")
+            t0 = time.perf_counter()
+            status, reply = post(app)
+            fast_ms = (time.perf_counter() - t0) * 1e3
+            check(status == 503, f"open circuit answered {status}")
+        finally:
+            inject.disarm(handle)
+        time.sleep(0.6)
+        check(post(app)[0] == 200, "the half-open probe did not answer")
+        check(_get(app.url + "/healthz")[1]["circuit"] == "closed",
+              "the circuit did not close")
+    finally:
+        events = finish(jr, journal, app)
+    states = [e["state"] for e in events if e["event"] == "circuit_state"]
+    check(states == ["open", "half_open", "closed"], f"circuit {states}")
+    out["breaker"] = {"fast_503_ms": fast_ms, "states": states}
+
+    # Admission: slow forwards, 6 clients of 8 trials under the hard bound
+    # of 64; the adaptive limit sheds bulk with 429.
+    with inject.scoped(*inject.parse_plan(
+            "serve.degrade:slow=0.05:times=0")):
+        jr, journal, app = leg("admission", buckets=(1, 8),
+                               max_queue_trials=64, admission_target_ms=1.0)
+        codes: list = []
+        try:
+            stop = threading.Event()
+
+            def client():
+                while not stop.is_set():
+                    status, reply = post(app)
+                    codes.append((status, reply.get("shed")))
+
+            threads = [threading.Thread(target=client) for _ in range(6)]
+            for th in threads:
+                th.start()
+            time.sleep(3.0)
+            stop.set()
+            for th in threads:
+                th.join(60)
+            adm = _get_status(app.url + "/healthz")[1]["admission"]
+        finally:
+            events = finish(jr, journal, app)
+    check((429, True) in codes and (200, None) in codes
+          and set(codes) <= {(200, None), (429, True)},
+          f"admission answers {sorted(set(codes), key=str)}")
+    out["admission"] = {"shed": adm["shed"], "limit": adm["limit_trials"],
+                        "answered": sum(c == 200 for c, _ in codes)}
+
+    # Traces: the client's trace id kept, the spans parented.
+    jr, journal, app = leg("trace", trace_sample=1.0)
+    tid = "5eed" * 8
+    try:
+        check(post(app, {"X-Trace-Id": tid, "X-Parent-Span": "ab" * 8,
+                         "X-Trace-Sampled": "1"})[0] == 200, "traced request")
+    finally:
+        events = finish(jr, journal, app)
+    spans = {e["name"]: e for e in events
+             if e["event"] == "span" and e["trace_id"] == tid}
+    check({"replica.request", "http.parse", "queue.wait", "batch.forward",
+           "engine.forward", "batch.scatter"} <= set(spans),
+          f"spans {sorted(spans)}")
+    check(spans["replica.request"]["parent_span_id"] == "ab" * 8
+          and spans["engine.forward"]["parent_span_id"]
+          == spans["batch.forward"]["span_id"], "span parents")
+    out["trace"] = {"spans": sorted(spans)}
+
+    # SLO: an objective no request meets degrades /healthz.
+    jr, journal, app = leg("slo", slo_spec="p95_latency_ms<0.001",
+                           slo_interval_s=0)
+    try:
+        check(post(app)[0] == 200, "SLO leg request")
+        status, health = _get_status(app.url + "/healthz")
+    finally:
+        events = finish(jr, journal, app)
+    check(status == 503 and health["degraded"] == [
+        "slo:p95_latency_ms<0.001"], f"/healthz under the SLO: {status}")
+    check(sum(e["event"] == "slo_breach" for e in events) == 1,
+          "slo_breach not journaled once")
+    out["slo"] = {"degraded": health["degraded"]}
+    log(f"control legs on the card: breaker {states} (open circuit "
+        f"answers in {fast_ms:.2f} ms), admission shed {adm['shed']} at "
+        f"limit {adm['limit_trials']}, trace spans parented, SLO breach "
+        "degrades /healthz")
+    return out
+
+
+def _get_status(url, timeout=30.0):
+    """GET; ``(status, JSON reply)``, an HTTP error's too."""
+    try:
+        return _get(url, timeout)
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read().decode())
+
+
+def phase_control(torch, np, dev, work: Path, env: dict) -> dict:
+    """Phase 14: the serving control plane on the card."""
+    t0 = time.perf_counter()
+    result = {"graphs": _graph_phase(torch, np, dev),
+              "tuned": _tuned_server(torch, np, dev, work, env),
+              "legs": _control_legs(torch, np, dev, work)}
+    result["wall_s"] = time.perf_counter() - t0
+    log(f"phase 14 in {result['wall_s']:.1f} s")
+    return result
+
+
 def _mfu_fields(row: dict) -> dict:
     """GFLOP/s and MFU of a fold-epochs/s row at the product width, from
     the port's FLOP count (``utils/flops.py``) and the card's FP32 peak."""
@@ -3193,6 +3684,9 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_streams_") \
                 as tmp:
             streams = phase_streams(torch, np, dev, Path(tmp), env)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_control_") \
+                as tmp:
+            control = phase_control(torch, np, dev, Path(tmp), env)
     except Exception:  # noqa: BLE001 — every failure ends the run
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -3204,8 +3698,10 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "eegnetreplication_tpu_torch/ops/csrc/block1.cu",
         "replaces": "eegnetreplication_tpu/ops/fused_eegnet.py:134",
-        # the serve phase's server and the int8 server of phase 12
-        "launches": serve["launches"] + zoo["int8"]["k1_launches"],
+        # the serve phase's server, the int8 server of phase 12 and the
+        # tuned server of phase 14 (graph replays counted per replay)
+        "launches": (serve["launches"] + zoo["int8"]["k1_launches"]
+                     + control["tuned"]["launches"]),
         "max_abs_err": k1_err,
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
@@ -3271,7 +3767,7 @@ def main(argv=None) -> int:
         "k2_vs_methods_max_abs_err": k2_vs_methods, "dataset": dataset,
         "k2_times": k2_times, "k1_stacked_max_abs_err": k1s_err,
         "k1_stacked_times": k1s_times, "train": train, "cross_subject": cs,
-        "serving_zoo": zoo, "streams": streams,
+        "serving_zoo": zoo, "streams": streams, "control": control,
         "wall_s": time.perf_counter() - t_start,
     }
     print(json.dumps({"timings": record}), flush=True)

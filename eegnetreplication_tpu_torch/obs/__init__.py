@@ -1,7 +1,7 @@
-"""Structured telemetry of a training run: journal, metrics, schema.
+"""Structured telemetry: journal, metrics, schema, traces, SLOs.
 
 The port's counterpart of ``eegnetreplication_tpu/obs``, for the training
-path:
+and serving paths:
 
 - :mod:`~eegnetreplication_tpu_torch.obs.journal`, run-scoped JSONL event
   streams (``events.jsonl``) with a context-local active journal;
@@ -9,16 +9,30 @@ path:
   histograms flushed to ``metrics.json``, with an optional TensorBoard
   scalar mirror;
 - :mod:`~eegnetreplication_tpu_torch.obs.schema`, the required keys of the
-  training events and the validation the JAX package's readers apply.
+  training and serving events and the validation the JAX package's
+  readers apply;
 
+- :mod:`~eegnetreplication_tpu_torch.obs.trace`, request-scoped trace
+  spans (the runtime half; the JAX package's reader stitches them);
+- :mod:`~eegnetreplication_tpu_torch.obs.slo`, sliding-window SLO
+  verdicts over the live registry;
+- :mod:`~eegnetreplication_tpu_torch.obs.stats`, the shared percentile.
+
+The registry also renders the Prometheus text of ``GET /metrics``.
 Entry points open a run with :func:`journal.run`; library code reaches the
 active journal through :func:`journal.current` (a no-op outside a run).
-Tracing, SLOs, probes, aggregation, Prometheus text and the ``BENCH_*.json``
-writer serve the JAX package's HTTP tiers and benchmarks and are not
-ported (ROADMAP.md queue A.5).
+Probes, aggregation, the trace reader and the ``BENCH_*.json`` writer are
+not ported (ROADMAP.md queue A.5).
 """
 
-from eegnetreplication_tpu_torch.obs import journal, metrics, schema
+from eegnetreplication_tpu_torch.obs import (
+    journal,
+    metrics,
+    schema,
+    slo,
+    stats,
+    trace,
+)
 from eegnetreplication_tpu_torch.obs.journal import (
     NullJournal,
     RunJournal,
@@ -39,7 +53,7 @@ from eegnetreplication_tpu_torch.obs.schema import (
 )
 
 __all__ = [
-    "journal", "metrics", "schema",
+    "journal", "metrics", "schema", "slo", "stats", "trace",
     "RunJournal", "NullJournal", "MetricsRegistry",
     "bound", "current", "run", "new_run_id",
     "SCHEMA_VERSION", "SchemaError",

@@ -1,6 +1,7 @@
 """Telemetry schemas: what a run journal and its metrics file must hold.
 
-The port's copy of the training and serving parts of
+The port's copy of the training and serving parts (the serving control
+plane's events included) of
 ``eegnetreplication_tpu/obs/schema.py``, so the JAX package's readers
 (``scripts/obs_report.py``, ``obs/agg.py``, the supervisor) read a
 training or serving run of either package:
@@ -74,6 +75,23 @@ EVENT_REQUIRED: dict[str, tuple[str, ...]] = {
     "session_resume": ("session", "acked"),
     "session_end": ("session", "windows", "expired"),
     "session_label": ("session", "window", "label"),
+    # The serving control plane: one captured CUDA graph per bucket
+    # (compile_begin, compile, compile_end, as the JAX engine journals its
+    # compiled programs), the ladder tuner's retunes, the circuit breaker's
+    # transitions, the adaptive admission's limit moves and sheds, trace
+    # spans, SLO transitions, profiler windows and worker heartbeats.
+    "compile_begin": ("what",),
+    "compile_end": ("what", "elapsed_s"),
+    "compile": ("what", "cache_hit"),
+    "ladder_retune": ("old_buckets", "new_buckets", "reason"),
+    "heartbeat": ("phase", "beat"),
+    "circuit_state": ("state", "previous", "reason"),
+    "admission_change": ("old_limit", "new_limit", "reason"),
+    "shed": ("n_shed",),
+    "span": ("name", "trace_id", "span_id", "start", "dur_ms"),
+    "slo_breach": ("objective", "value", "threshold"),
+    "slo_recovered": ("objective", "threshold"),
+    "profile_window": ("dur_s", "log_dir", "status"),
 }
 
 # metrics.json top-level sections and the keys every series entry needs.

@@ -265,6 +265,17 @@ def _check_index_range(idx: torch.Tensor, g: int) -> None:
         idx._eeg_checked_range = stamp
 
 
+def _count_launch(fn) -> None:
+    """Count one launch of ``fn``'s kernel in ``fn.launches``.  Inside a
+    CUDA graph capture nothing runs yet: the launch goes to
+    ``fn.captured``, and whoever replays the graph counts it per replay
+    (``serve/engine.py``)."""
+    if torch.cuda.is_current_stream_capturing():
+        fn.captured += 1
+    else:
+        fn.launches += 1
+
+
 def _launch_error(lib, err: int) -> RuntimeError:
     return RuntimeError(
         f"block1: K1 launch failed with CUDA error {err} "
@@ -276,8 +287,9 @@ def block1(x, S, W, A, B):
 
     A CPU ``x`` runs :func:`block1_reference`.  A CUDA ``x`` launches K1 on
     the current stream (one launch per call, counted in
-    ``block1.launches``) after checking device, dtype, shape and
-    contiguity; anything the kernel does not take raises.
+    ``block1.launches``, or in ``block1.captured`` inside a graph capture)
+    after checking device, dtype, shape and contiguity; anything the
+    kernel does not take raises.
     """
     if x.device.type == "cpu":
         return block1_reference(x, S, W, A, B)
@@ -297,14 +309,15 @@ def block1(x, S, W, A, B):
             B.data_ptr(), out.data_ptr(), n, c, t, f2, stream)
     if err != 0:
         raise _launch_error(lib, err)
-    block1.launches += 1
+    _count_launch(block1)
     return out
 
 
 block1.launches = 0
+block1.captured = 0
 
 
-def block1_stacked(x, S, W, A, B, idx):
+def block1_stacked(x, S, W, A, B, idx, *, idx_checked: bool = False):
     """Fused block 1 on stacked weights: ``(N, C, T) -> (N, F2, T//4)``,
     trial ``n`` with weight set ``idx[n]``.
 
@@ -313,9 +326,12 @@ def block1_stacked(x, S, W, A, B, idx):
     :func:`block1_stacked_reference`.  A CUDA ``x`` launches K1-stacked
     (``csrc/block1_stacked.cu``, sized by :func:`stacked_plan`) on the
     current stream (one launch per call, counted in
-    ``block1_stacked.launches``, apart from ``block1.launches``) after
-    checking device, dtype, shape, contiguity and ``0 <= idx < G``;
-    anything the kernel does not take raises.
+    ``block1_stacked.launches`` apart from ``block1.launches``, or in
+    ``block1_stacked.captured`` inside a graph capture) after checking
+    device, dtype, shape, contiguity and ``0 <= idx < G``; anything the
+    kernel does not take raises.  ``idx_checked=True`` skips the range
+    check, which waits for the device: the caller has checked the range
+    on the host (a graph capture may not wait).
     """
     if x.device.type == "cpu":
         return block1_stacked_reference(x, S, W, A, B, idx)
@@ -327,7 +343,8 @@ def block1_stacked(x, S, W, A, B, idx):
     out = torch.empty((n, f2, t // 4), device=x.device, dtype=torch.float32)
     if n == 0:
         return out
-    _check_index_range(idx, g)
+    if not idx_checked:
+        _check_index_range(idx, g)
     lib = _k1s_library()
     dev_index = x.device.index if x.device.index is not None \
         else torch.cuda.current_device()
@@ -343,11 +360,12 @@ def block1_stacked(x, S, W, A, B, idx):
         raise RuntimeError(
             f"block1_stacked: K1-stacked launch failed with CUDA error {err} "
             f"({lib.eeg_block1_stacked_error_string(err).decode()})")
-    block1_stacked.launches += 1
+    _count_launch(block1_stacked)
     return out
 
 
 block1_stacked.launches = 0
+block1_stacked.captured = 0
 
 
 def fused_eval_forward(model, x: torch.Tensor, block1_params=None

@@ -175,13 +175,15 @@ def _stacked_block2(h: torch.Tensor, pack: Mapping[str, torch.Tensor],
 
 
 def stacked_eval_forward(pack: Mapping[str, torch.Tensor], x: torch.Tensor,
-                         tenant_idx: torch.Tensor) -> torch.Tensor:
+                         tenant_idx: torch.Tensor, *,
+                         idx_checked: bool = False) -> torch.Tensor:
     """fp32 logits of a mixed-tenant batch: trial ``n`` of ``x`` ``(N, C,
     T)`` through tenant ``tenant_idx[n]`` (int32 ``(N,)``) of a
     :func:`fold_stacked_eegnet` pack.  Block 1 is one launch of
-    ``block1_stacked`` (its plain version for a CPU ``x``)."""
+    ``block1_stacked`` (its plain version for a CPU ``x``);
+    ``idx_checked`` passes on to it."""
     h = block1_stacked(x, pack["S"], pack["W"], pack["A"], pack["B"],
-                       tenant_idx)
+                       tenant_idx, idx_checked=idx_checked)
     return _stacked_block2(h, pack, tenant_idx)
 
 
@@ -195,12 +197,14 @@ def stacked_eval_forward_reference(pack, x, tenant_idx) -> torch.Tensor:
 
 def stacked_quantized_eval_forward(pack: Mapping[str, torch.Tensor],
                                    x: torch.Tensor,
-                                   tenant_idx: torch.Tensor) -> torch.Tensor:
+                                   tenant_idx: torch.Tensor, *,
+                                   idx_checked: bool = False
+                                   ) -> torch.Tensor:
     """int8 logits of a mixed-tenant batch from a stacked
     ``ops/quant.py::fold_quantized_eegnet`` pack: one ``block1_stacked``
     launch, then the int8 block 2 on per-trial gathered operands."""
     h = block1_stacked(x, pack["S"], pack["W"], pack["A"], pack["B"],
-                       tenant_idx)
+                       tenant_idx, idx_checked=idx_checked)
     return quantized_block2(h, pack, tenant_idx)
 
 

@@ -1,9 +1,12 @@
 """Resilience primitives of the port: checkpoint integrity, graceful stop
-on SIGTERM with drain hooks, fault injection at the training path's named
-sites, and the device-fault classifier (the ported part of the JAX
-package's ``resil`` exports)."""
+on SIGTERM with drain hooks, fault injection at the training and serving
+paths' named sites, the device-fault classifier, the serving circuit
+breaker and liveness heartbeats (the ported part of the JAX package's
+``resil`` exports)."""
 
 from eegnetreplication_tpu_torch.resil import (  # noqa: F401
+    breaker,
+    heartbeat,
     inject,
     integrity,
     preempt,
@@ -21,5 +24,6 @@ from eegnetreplication_tpu_torch.resil.preempt import (  # noqa: F401
     Preempted,
 )
 
-__all__ = ["inject", "integrity", "preempt", "retry", "FaultSpec",
+__all__ = ["breaker", "heartbeat", "inject", "integrity", "preempt",
+           "retry", "FaultSpec",
            "parse_plan", "IntegrityError", "EX_PREEMPTED", "Preempted"]

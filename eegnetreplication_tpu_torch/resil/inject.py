@@ -1,7 +1,7 @@
-"""Deterministic fault injection at named sites of the training path and
-the session store.
+"""Deterministic fault injection at named sites of the training path, the
+serving forward and the session store.
 
-The port's copy of the training and session-store part of
+The port's copy of the training, serving and session-store part of
 ``eegnetreplication_tpu/resil/inject.py``.  Instrumented code calls :func:`fire` at a named site; the call
 is a no-op (one dict lookup) unless a test or a ``--chaos`` plan has
 :func:`arm`-ed that site.  Arming counts hits, so a chaos run repeats
@@ -37,6 +37,16 @@ site                       action     effect
 ``spool.mirror``           corrupt    garble the staged bytes of the
                                       session snapshot's mirror copy (the
                                       primary write has landed)
+``serve.forward``          raise      a CUDA-error-shaped ``RuntimeError``
+                                      per dispatch attempt of the batcher
+                                      (a device fault: the serve retry
+                                      takes it; persistent faults open
+                                      the circuit breaker)
+``serve.hang``             sleep      a silent stall inside the batcher's
+                                      dispatch, after its ``serve_forward``
+                                      beat (the heartbeat goes stale)
+``serve.degrade``          slow       a bounded delay per dispatch attempt
+                                      (``if_tag=`` matches ``--chaosTag``)
 =========================  =========  =====================================
 
 A plan (the ``--chaos`` flag) is comma-separated site specs with
@@ -44,7 +54,7 @@ colon-separated options, or ``@plan.json`` holding a list of spec objects::
 
     --chaos "train.step:if_folds_over=4,checkpoint.write:after=1"
 
-The JAX package's other sites (fetch, data reads, the serving forward,
+The JAX package's other sites (fetch, data reads, ``replica.network``,
 ``session.drift``, fleets, cells, adaptation) instrument code the port does
 not have yet; a plan that names one is refused.
 """
@@ -66,11 +76,11 @@ from eegnetreplication_tpu_torch.utils.logging import logger
 
 SITES = ("train.step", "train.chunk", "train.hang", "checkpoint.write",
          "checkpoint.write_async", "host.preempt", "session.snapshot",
-         "session.restore", "spool.mirror")
+         "session.restore", "spool.mirror", "serve.forward", "serve.hang",
+         "serve.degrade")
 
 # The JAX package's sites that instrument modules not ported yet.
-UNPORTED_SITES = ("fetch.download", "data.read", "serve.forward",
-                  "serve.hang", "serve.degrade", "replica.network",
+UNPORTED_SITES = ("fetch.download", "data.read", "replica.network",
                   "cell.partition", "fleet.scale", "session.drift",
                   "adapt.train", "adapt.promote", "front.lease")
 
@@ -112,6 +122,14 @@ _DEFAULTS: dict[str, tuple[str, str | None, str]] = {
                         "injected fault: session.restore (hit {hit})"),
     "spool.mirror": ("corrupt", "OSError",
                      "injected fault: spool.mirror (hit {hit})"),
+    # A CUDA runtime token, so resil/retry.py classifies it a device
+    # fault, as the JAX package's "UNAVAILABLE" message is there.
+    "serve.forward": ("raise", "RuntimeError",
+                      "CUDA error: unspecified launch failure (injected "
+                      "fault: serve.forward, hit {hit})"),
+    "serve.hang": ("sleep", None, "injected hang: serve.hang (hit {hit})"),
+    "serve.degrade": ("slow", None,
+                      "injected degradation: serve.degrade (hit {hit})"),
 }
 
 

@@ -6,7 +6,24 @@ block 1's weights once, and serves ``infer`` over a fixed ladder of padded
 batch **buckets** (default 1/8/32/128), so an online batcher only ever
 produces a handful of shapes.  Each bucket chunk is one forward: the
 hand-written block-1 kernel (``ops/fused_eegnet.py::block1``, one launch)
-followed by block 2 and the classifier as torch ops.
+followed by block 2 and the classifier as torch ops, then the argmax.
+
+On the card each bucket's forward is one captured CUDA graph, the
+counterpart of the JAX engine's one compiled program per bucket.
+:meth:`InferenceEngine.warmup` runs each bucket once eagerly on the
+engine's side stream (the cuDNN and cuBLAS handles, their workspaces and
+the kernel libraries come up there) and then captures
+``argmax(forward(static_x))`` into a ``torch.cuda.CUDAGraph`` with static
+input and output tensors and a private memory pool, journaling
+``compile_begin``/``compile``/``compile_end`` per bucket as the JAX engine
+does.  ``infer`` copies each padded chunk into its bucket's static input,
+replays, and copies the predictions out, all under the engine lock, so a
+replay never overwrites a buffer another thread still reads.  A capture
+or a replay that fails raises: a warmed engine on the card never runs its
+forward eagerly.  An engine never warmed (the quant gate's fp32
+reference) and a CPU engine run eagerly.  Graph replays count the
+kernels they hold (``block1.launches``; the capture counts none) and
+:data:`BucketGraph.replays`.
 
 ``precision="int8"`` serves per-channel int8 weights (``ops/quant.py``),
 dequantized and folded once at build; block 1 still runs through K1.  An
@@ -15,11 +32,6 @@ equal to the fp32 engine's on the gate set (:func:`default_gate_set`) for
 at least :data:`QUANT_AGREEMENT_FLOOR` of every subject's trials;
 :func:`build_gated_engine` is the one way the server and the ``predict``
 CLI get an engine, so they reach the same verdict.
-
-PyTorch runs eagerly, so there is no compile to warm; :meth:`warmup` runs
-each bucket once so the kernel library is built and loaded, cuDNN picks
-its algorithms and the caching allocator holds the buffers before the
-first request arrives.
 
 Padding rows repeat the last real trial and are dropped after the argmax:
 eval-mode EEGNet is row-independent, so padding never changes a real
@@ -39,14 +51,18 @@ import torch
 
 from eegnetreplication_tpu_torch.models import EEGNet
 from eegnetreplication_tpu_torch.obs import journal as obs_journal
+from eegnetreplication_tpu_torch.obs import trace
 from eegnetreplication_tpu_torch.ops import quant
 from eegnetreplication_tpu_torch.ops.fused_eegnet import (
+    block1,
+    block1_stacked,
     fold_block1_params,
     fused_eval_forward,
 )
 from eegnetreplication_tpu_torch.resil import integrity
 from eegnetreplication_tpu_torch.training import checkpoint as ckpt_lib
 from eegnetreplication_tpu_torch.utils.device import resolve_device
+from eegnetreplication_tpu_torch.utils.flops import eval_forward_flops
 from eegnetreplication_tpu_torch.utils.logging import logger
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
@@ -118,18 +134,74 @@ def model_digest(model: EEGNet) -> str:
     return variables_digest(*ckpt_lib.to_jax_variables(model.state_dict()))
 
 
+# The hand-written kernels a captured forward may hold; a replay counts
+# each one's captured launches (ops/fused_eegnet.py::_count_launch).
+_GRAPH_KERNELS = (block1, block1_stacked)
+
+
+class BucketGraph:
+    """One bucket's captured forward: the CUDA graph, its static inputs,
+    its static logits and predictions, the kernel launches one replay
+    runs, and what the capture cost."""
+
+    # Graph replays in this process, every engine's (read by /healthz).
+    replays = 0
+
+    __slots__ = ("graph", "inputs", "logits", "preds", "launches",
+                 "capture_s", "pool_bytes")
+
+    def __init__(self, graph, inputs, logits, preds, launches, capture_s,
+                 pool_bytes):
+        self.graph = graph
+        self.inputs = inputs
+        self.logits = logits
+        self.preds = preds
+        self.launches = launches     # ((kernel wrapper, count), ...)
+        self.capture_s = capture_s
+        self.pool_bytes = pool_bytes
+
+    def replay(self, *arrays) -> None:
+        """Copy ``arrays`` into the static inputs and replay (caller holds
+        the engine lock)."""
+        for static, a in zip(self.inputs, arrays):
+            static.copy_(torch.as_tensor(a))
+        self.graph.replay()
+        for fn, n in self.launches:
+            fn.launches += n
+        BucketGraph.replays += 1
+
+    def stats(self) -> dict:
+        return {"capture_s": round(self.capture_s, 6),
+                "pool_bytes": int(self.pool_bytes),
+                "kernels": {fn.__name__: n for fn, n in self.launches}}
+
+
+def _end_failed_capture(graph) -> None:
+    """End a capture whose forward raised, so the stream leaves capture
+    mode; the capture's own error is the one that propagates."""
+    try:
+        graph.capture_end()
+    except Exception:  # noqa: BLE001 — the forward's error is reported
+        pass
+
+
 class InferenceEngine:
     """A loaded model served over a ladder of padded batch buckets.
 
     ``infer(trials)`` pads each chunk to the smallest bucket that fits
-    (chunking by the largest bucket first), runs the fused forward, and
-    returns int64 class predictions for the real rows only.
+    (chunking by the largest bucket first), runs the bucket's forward (its
+    graph on the card once warm), and returns int64 class predictions for
+    the real rows only.
     """
+
+    # The JAX engine's program names: serve_forward[_int8]_b{bucket}.
+    WHAT_PREFIX = "serve_forward"
 
     def __init__(self, model: EEGNet,
                  buckets: tuple[int, ...] = DEFAULT_BUCKETS, *,
                  device: torch.device | str | None = None,
-                 precision: str = "fp32", digest: str | None = None):
+                 precision: str = "fp32", digest: str | None = None,
+                 journal=None):
         _check_buckets(buckets)
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}, got "
@@ -154,8 +226,12 @@ class InferenceEngine:
             else:
                 self._block1 = fold_block1_params(self.model.state_dict(),
                                                   self.model.bn_epsilon)
+        self._journal = journal if journal is not None \
+            else obs_journal.current()
         self._lock = threading.Lock()
         self._warmed = False
+        self._graphs: dict[int, BucketGraph] = {}
+        self._stream = None          # the capture stream, made at warmup
 
     @classmethod
     def from_checkpoint(cls, path: str | Path,
@@ -190,28 +266,124 @@ class InferenceEngine:
                 return quant.quantized_eval_forward(self._qpack, x)
             return fused_eval_forward(self.model, x, self._block1)
 
+    def _static_inputs(self, b: int) -> tuple[torch.Tensor, ...]:
+        """A bucket's input tensors, zeroed (the graph's static inputs)."""
+        c, t = self.geometry
+        return (torch.zeros((b, c, t), device=self.device),)
+
+    def _graph_forward(self, *args) -> torch.Tensor:
+        """The forward a graph captures (no host wait inside)."""
+        return self.forward(*args)
+
     def warmup(self) -> dict[int, float]:
-        """Run the forward once per bucket; returns bucket -> seconds.
-        Idempotent."""
+        """Warm every bucket; returns bucket -> seconds.  On the card: an
+        eager run on the capture stream, then the capture of the bucket's
+        graph (a capture error raises).  On the CPU: one eager run.
+        Journals ``compile_begin``/``compile``/``compile_end`` and
+        observes ``compile_seconds`` per bucket.  Idempotent."""
         walls: dict[int, float] = {}
         with self._lock:
             if self._warmed:
                 return walls
-            c, t = self.geometry
+            tag = "" if self.precision == "fp32" else f"_{self.precision}"
             for b in self.buckets:
+                what = f"{self.WHAT_PREFIX}{tag}_b{b}"
+                self._journal.event("compile_begin", what=what)
                 t0 = time.perf_counter()
-                x = torch.zeros((b, c, t), device=self.device)
-                self.forward(x).argmax(-1).cpu()
-                walls[b] = time.perf_counter() - t0
+                graph = None
+                if self.device.type == "cuda":
+                    try:
+                        graph = self._graphs[b] = self._capture(b)
+                    except BaseException:
+                        self._graphs.clear()   # no half-graphed ladder
+                        raise
+                else:
+                    with torch.inference_mode():
+                        self.forward(*self._static_inputs(b)).argmax(-1)
+                wall = time.perf_counter() - t0
+                walls[b] = wall
+                self._journal.event(
+                    "compile", what=what, cache_hit=None, cache_dir=None,
+                    elapsed_s=round(wall, 3),
+                    flops=eval_forward_flops(self.model, b),
+                    bytes_accessed=None,
+                    **(graph.stats() if graph is not None else {}))
+                self._journal.event("compile_end", what=what,
+                                    elapsed_s=round(wall, 3),
+                                    includes_execution=True, cache_hit=None)
+                self._journal.metrics.observe("compile_seconds", wall,
+                                              what=what)
             self._warmed = True
-        logger.info("Engine warm on %s: buckets %s in %.2fs total (%s, %s)",
+        logger.info("Engine warm on %s: buckets %s in %.2fs total (%s, %s%s)",
                     self.device, self.buckets, sum(walls.values()),
-                    self.precision, self.digest[:12])
+                    self.precision, self.digest[:12],
+                    ", CUDA graphs" if self._graphs else "")
         return walls
+
+    def _capture(self, b: int) -> BucketGraph:
+        """Bucket ``b``'s graph: an eager run on the engine's capture
+        stream, then the capture in ``thread_local`` mode, so the other
+        threads' launches, copies and syncs (the batcher replaying the
+        live engine, session pushes) go on meanwhile."""
+        dev = self.device
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+        stream = self._stream
+        inputs = self._static_inputs(b)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.device(dev), torch.cuda.stream(stream), \
+                torch.inference_mode():
+            self._graph_forward(*inputs).argmax(-1)
+            stream.synchronize()
+            before = [fn.captured for fn in _GRAPH_KERNELS]
+            reserved = torch.cuda.memory_reserved(dev)
+            graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                logits = self._graph_forward(*inputs)
+                preds = logits.argmax(-1)
+            except BaseException:
+                _end_failed_capture(graph)
+                raise
+            graph.capture_end()
+            capture_s = time.perf_counter() - t0
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        launches = tuple((fn, fn.captured - n)
+                         for fn, n in zip(_GRAPH_KERNELS, before)
+                         if fn.captured != n)
+        return BucketGraph(graph, inputs, logits, preds, launches, capture_s,
+                           torch.cuda.memory_reserved(dev) - reserved)
+
+    def graph_stats(self) -> dict[int, dict]:
+        """Per bucket: the capture's wall, the bytes its memory pool
+        reserved and the kernels one replay launches (empty on the CPU or
+        before warmup)."""
+        return {b: g.stats() for b, g in self._graphs.items()}
+
+    def graph_logits(self, *args: torch.Tensor) -> torch.Tensor:
+        """Logits of one full bucket through its graph: ``args`` are the
+        forward's inputs on the card, their length a bucket (a copy)."""
+        with self._lock:
+            g = self._graphs[len(args[0])]
+            g.replay(*args)
+            return g.logits.clone()
 
     def infer(self, trials: np.ndarray) -> np.ndarray:
         """Class predictions for ``(n, C, T)`` trials (thread-safe)."""
         return self._infer_chunks(_as_trials(trials, self.geometry))
+
+    def _run_bucket(self, b: int, arrays: list[np.ndarray]) -> np.ndarray:
+        """Predictions of one padded chunk (``b`` rows): its graph's replay
+        once warm on the card, else the eager forward.  Caller holds the
+        lock."""
+        g = self._graphs.get(b)
+        if g is not None:
+            g.replay(*arrays)
+            return g.preds.cpu().numpy()
+        args = [torch.from_numpy(a).to(self.device) for a in arrays]
+        with torch.inference_mode():
+            return self.forward(*args).argmax(-1).cpu().numpy()
 
     def _infer_chunks(self, x: np.ndarray,
                       extra: np.ndarray | None = None) -> np.ndarray:
@@ -230,12 +402,19 @@ class InferenceEngine:
                     chunks.append(extra[start:start + top])
                 k = len(chunks[0])
                 b = self.bucket_for(k)
-                # Padding repeats the last real row (and its tenant).
-                args = [torch.from_numpy(np.ascontiguousarray(
-                    np.concatenate([c, np.repeat(c[-1:], b - k, axis=0)])
-                    if k < b else c)).to(self.device) for c in chunks]
-                preds = self.forward(*args).argmax(-1).cpu().numpy()
+                # The engine-forward span (a child of the batcher's batch
+                # span) carries the padding picture.
+                with trace.span("engine.forward", journal=self._journal,
+                                bucket=b, n_real=k, padded=b - k,
+                                precision=self.precision):
+                    # Padding repeats the last real row (and its tenant).
+                    arrays = [np.ascontiguousarray(
+                        np.concatenate([c, np.repeat(c[-1:], b - k, axis=0)])
+                        if k < b else c) for c in chunks]
+                    preds = self._run_bucket(b, arrays)
                 out[start:start + k] = preds[:k]
+                self._journal.metrics.observe("bucket_fill", k / b,
+                                              bucket=str(b))
         return out
 
 
@@ -359,13 +538,14 @@ def build_gated_engine(model: EEGNet,
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got "
                          f"{precision!r}")
-    fp32 = InferenceEngine(model, buckets, device=device)
+    fp32 = InferenceEngine(model, buckets, device=device, journal=journal)
     if precision == "fp32":
         if warm:
             fp32.warmup()
         return fp32, None
     int8 = InferenceEngine(model, buckets, device=fp32.device,
-                           precision="int8", digest=fp32.digest)
+                           precision="int8", digest=fp32.digest,
+                           journal=journal)
     gate = run_quant_gate(fp32, int8, gate_set, floor=floor,
                           journal=journal)
     chosen = int8 if gate.passed else fp32

@@ -8,6 +8,10 @@ bucket) and only then swaps the reference.  A request that took the old
 engine finishes on it, so a swap under load drops nothing.  A reload of a
 corrupt or missing checkpoint raises and leaves the current engine serving.
 Each swap is journaled as a ``model_swap`` event with both digests.
+``retune`` moves the live engine onto a new bucket ladder the same way
+(the ladder tuner's primitive): same weights, no gate, the new engine's
+graphs captured off the hot path before the swap; a reload lands on the
+ladder in force.
 
 :class:`ModelZoo` serves N tenants from one process.  Requests address a
 tenant by id, by a variables-digest prefix, or not at all (the default).
@@ -46,6 +50,7 @@ from eegnetreplication_tpu_torch.serve.engine import (
     model_digest,
 )
 from eegnetreplication_tpu_torch.serve.zoo import (
+    StackedEngine,
     build_stacked_engine,
     parse_zoo_spec,
     resolve_model_id,
@@ -78,7 +83,9 @@ class ModelRegistry:
         self._lock = threading.Lock()
         self._engine: InferenceEngine | None = None
         self._swaps = 0
-        # Two reloads must not interleave their builds and swaps.
+        self._retunes = 0
+        # Two reloads (or retunes) must not interleave their builds and
+        # swaps.
         self._reload_lock = threading.Lock()
 
     @property
@@ -94,6 +101,16 @@ class ModelRegistry:
             return self._swaps
 
     @property
+    def retunes(self) -> int:
+        with self._lock:
+            return self._retunes
+
+    @property
+    def active_buckets(self) -> tuple[int, ...]:
+        """The live ladder (what the tuner reads)."""
+        return self.engine.buckets
+
+    @property
     def serving_precision(self) -> str:
         """The precision answering requests (fp32 when the quant gate
         refused int8)."""
@@ -107,10 +124,11 @@ class ModelRegistry:
     def digest(self) -> str:
         return self.engine.digest
 
-    def _build(self, checkpoint: str | Path, warm: bool) -> InferenceEngine:
+    def _build(self, checkpoint: str | Path, buckets: tuple[int, ...],
+               warm: bool) -> InferenceEngine:
         model = load_model_from_checkpoint(checkpoint, device=self.device)
         engine, gate = build_gated_engine(
-            model, self.buckets, precision=self.precision,
+            model, buckets, precision=self.precision,
             floor=self.quant_floor, gate_set=self._gate_set, warm=warm,
             journal=self._journal, device=self.device)
         self.last_gate = gate
@@ -119,7 +137,7 @@ class ModelRegistry:
     def load(self, checkpoint: str | Path, *, warm: bool = True
              ) -> InferenceEngine:
         """Initial load (no swap event); returns the live engine."""
-        engine = self._build(checkpoint, warm)
+        engine = self._build(checkpoint, self.buckets, warm)
         with self._lock:
             self._engine = engine
         logger.info("Registry serving %s (digest %s, %s)", checkpoint,
@@ -133,7 +151,10 @@ class ModelRegistry:
         ``ValueError``, ...) without touching the current engine."""
         with self._reload_lock:
             t0 = time.perf_counter()
-            engine = self._build(checkpoint, warm)
+            with self._lock:
+                buckets = (self._engine.buckets if self._engine is not None
+                           else self.buckets)
+            engine = self._build(checkpoint, buckets, warm)
             with self._lock:
                 # Requests already validated against the live geometry
                 # must stay servable after the swap.
@@ -156,6 +177,27 @@ class ModelRegistry:
             logger.info("Model swapped in %.2fs: %s -> %s", wall,
                         old.digest[:12] if old is not None else "none",
                         engine.digest[:12])
+            return engine
+
+    def retune(self, buckets: tuple[int, ...], *, warm: bool = True
+               ) -> InferenceEngine:
+        """Swap the live engine onto a new bucket ladder: same weights,
+        precision and digest.  The new engine is built and its graphs
+        captured off the hot path, then the reference swaps under the
+        lock; a capture error raises with the old engine serving.  No
+        gate re-runs (the ladder changes the padding, not the numerics).
+        The caller journals ``ladder_retune``."""
+        with self._reload_lock:
+            current = self.engine
+            engine = InferenceEngine(
+                current.model, tuple(buckets), device=current.device,
+                precision=current.precision, digest=current.digest,
+                journal=self._journal)
+            if warm:
+                engine.warmup()
+            with self._lock:
+                self._engine = engine
+                self._retunes += 1
             return engine
 
     def infer(self, trials: np.ndarray) -> np.ndarray:
@@ -227,6 +269,7 @@ class ModelZoo:
         self.last_gate: QuantGateResult | None = None
         self._swaps = 0
         self._restacks = 0
+        self._retunes = 0
         if self.stack_requested:
             with self._build_lock:
                 for entry in self._entries.values():
@@ -487,6 +530,19 @@ class ModelZoo:
         with self._lock:
             return self._restacks
 
+    @property
+    def retunes(self) -> int:
+        with self._lock:
+            return self._retunes
+
+    @property
+    def active_buckets(self) -> tuple[int, ...]:
+        """The live ladder: the stack's while it serves, else the zoo's."""
+        stacked = self._stacked
+        if stacked is not None:
+            return stacked.buckets
+        return self.buckets
+
     # -- the hot path ------------------------------------------------------
     def infer(self, trials: np.ndarray,
               tenant_idx: np.ndarray | int = 0) -> np.ndarray:
@@ -574,6 +630,38 @@ class ModelZoo:
                 elapsed_s=round(time.perf_counter() - t0, 3))
             self._journal.metrics.inc("model_swaps")
             return new_digest
+
+    def retune(self, buckets: tuple[int, ...], *, warm: bool = True):
+        """Adopt a new bucket ladder (the tuner's primitive): the stacked
+        engine is rebuilt on it and its graphs captured off the hot path
+        (same weights, no re-gate), then swapped in; resident per-model
+        engines retire and rebuild lazily on the new ladder.  A capture
+        error raises with the old ladder serving."""
+        with self._reload_lock:
+            # An in-flight materialize() captured the old ladder: it lands
+            # before the ladder moves and the old engines retire.
+            with self._build_lock:
+                stacked = self._stacked
+                engine = None
+                if stacked is not None:
+                    engine = StackedEngine(
+                        stacked.members, tuple(buckets),
+                        precision=stacked.precision, device=self.device,
+                        journal=self._journal)
+                    if warm:
+                        engine.warmup()
+                self.buckets = tuple(int(b) for b in buckets)
+                if engine is not None:
+                    self._stacked = engine
+                with self._lock:
+                    for entry in self._entries.values():
+                        entry.engine = None    # old-ladder engines retire
+                    self._retunes += 1
+            if self._stacked is None:
+                # Per-model serving: the default engine comes up on the
+                # new ladder now, so the swap shows at once.
+                self.materialize(self.default_id, warm=warm)
+            return self.engine
 
     # -- observability -----------------------------------------------------
     def snapshot(self) -> dict:

@@ -16,15 +16,25 @@ torch engine (stdlib ``http.server`` + threads):
   dropped; 200 with the new digest, or 400 with the old model still
   serving.  Under ``--zoo``, ``{"model": id, "checkpoint": path}``
   swaps one tenant and restacks (``zoo_restack``).
-- ``GET /healthz`` — the JAX server's identity and queue fields for what
-  this port has (``status``, ``checkpoint``, ``model_digest``,
-  ``variables_digest``, ``geometry``, ``buckets``, ``max_batch``,
-  ``max_wait_ms``, ``precision`` as served and ``requested_precision``,
-  ``queue_depth_trials``, ``model_swaps``, the zoo's state), plus the
-  coalesced forwards dispatched (``batches``), the open streaming
-  ``sessions`` and the hand-written kernels' launch counts
+- ``GET /healthz`` — the JAX server's fields (``status``, ``degraded``,
+  ``slo``, ``latency_ms`` p50/p95/p99 from the live histogram,
+  ``circuit``, ``worker_heartbeat``, ``checkpoint``, ``model_digest``,
+  ``variables_digest``, ``geometry``, the active ``buckets``,
+  ``max_batch``, ``max_wait_ms``, ``precision`` as served and
+  ``requested_precision``, ``ladder_retunes``, the queue depths,
+  ``sessions``, ``admission``, the zoo's state, ``model_swaps``), plus the
+  coalesced forwards dispatched (``batches``), the CUDA graph replays
+  (``graph_replays``) and the hand-written kernels' launch counts
   (``kernel_launches``: ``block1``, ``block1_stacked`` and
-  ``ems_stream``).
+  ``ems_stream``; a replay counts the kernels its graph holds).  It
+  answers 503 (``status: degraded``) while the circuit breaker is open,
+  the batcher worker's heartbeat is stale or an SLO is breached.
+- ``GET /metrics`` — the run's metrics registry: the JSON snapshot, or the
+  Prometheus text when the ``Accept`` header asks for ``text/plain``.
+- ``POST /profile`` — ``{"seconds": s}``: one bounded ``torch.profiler``
+  window (at most :data:`PROFILE_MAX_S`) on a thread of its own; 202 at
+  once with the window's ``log_dir``, 409 while one runs, and a
+  ``profile_window`` journal event when it closes.
 - Streaming sessions (``serve/sessions/``), the JAX service's routes:
   ``POST /session/open`` (``{"session", "hop", "deadline_ms",
   "ems_init_block_size", ...}``; re-opening a live or restored id returns
@@ -41,16 +51,27 @@ torch engine (stdlib ``http.server`` + threads):
   drain; ``--sessionsMirror`` writes each twice), ``--resume`` restores
   them before the listener binds.
 
+The control plane is the JAX server's: each dispatch probes the
+``serve.forward`` and ``serve.degrade`` chaos sites under the shared retry
+policy (:data:`SERVE_RETRY`), and a :class:`CircuitBreaker` sees the
+outcome after the retry (``--breakerThreshold`` consecutive failures open
+it: fast 503s until a half-open probe succeeds after ``--breakerResetS``);
+``--tuneEveryS`` runs the :class:`LadderTuner` (a retune captures the new
+ladder's graphs off the hot path); ``--admissionTargetMs`` the adaptive
+admission (bulk 429 ``shed``); ``--traceSample`` head-samples traces
+(``X-Trace-Id`` from a client is kept); ``--slo``/``--sloWindowS`` the
+SLO monitor.
+
 ``--precision int8`` serves int8 weights behind the quant gate (fp32 if
 it refuses).  The run writes the JAX service's journal (``serve_start``,
-``request``, ``quant_gate``, ``stack_gate``, ``zoo_restack``,
-``model_load``, ``model_evict``, ``model_swap``, the session events,
-``serve_end``) under ``--metricsDir``.
+``request``, ``compile*``, ``quant_gate``, ``stack_gate``,
+``zoo_restack``, ``model_load``, ``model_evict``, ``model_swap``,
+``ladder_retune``, ``circuit_state``, ``admission_change``, ``shed``,
+``span``, ``slo_breach``, ``slo_recovered``, ``profile_window``,
+``heartbeat``, the session events, ``serve_end``) under ``--metricsDir``.
 SIGTERM/SIGINT stop the listener, drain the queue, snapshot the sessions
-and exit 75 (``resil/preempt.py``).  The tuner, tracing (no ``trace``
-spans around session windows), ``/metrics``, ``/profile``, admission, the
-circuit breaker, adaptation (no ``session.drift`` site) and the other
-chaos sites arrive with later slices.
+and exit 75 (``resil/preempt.py``).  The prober (``--probeIntervalS``),
+the zoo's shadow API, adaptation and ``replica.network`` are not ported.
 """
 
 from __future__ import annotations
@@ -60,6 +81,7 @@ import io
 import json
 import math
 import os
+import tempfile
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -69,23 +91,36 @@ import numpy as np
 import torch
 
 from eegnetreplication_tpu_torch.obs import journal as obs_journal
+from eegnetreplication_tpu_torch.obs import slo as obs_slo
+from eegnetreplication_tpu_torch.obs import trace
+from eegnetreplication_tpu_torch.obs.metrics import (
+    PROMETHEUS_CONTENT_TYPE,
+    to_prometheus_text,
+    wants_prometheus,
+)
 from eegnetreplication_tpu_torch.ops.ems_kernel import ems_stream
 from eegnetreplication_tpu_torch.ops.fused_eegnet import (
     block1,
     block1_stacked,
 )
-from eegnetreplication_tpu_torch.resil import preempt
+from eegnetreplication_tpu_torch.resil import heartbeat as hb
+from eegnetreplication_tpu_torch.resil import inject, preempt
+from eegnetreplication_tpu_torch.resil import retry as resil_retry
+from eegnetreplication_tpu_torch.resil.breaker import CircuitBreaker
 from eegnetreplication_tpu_torch.resil.integrity import IntegrityError
+from eegnetreplication_tpu_torch.serve.admission import AdmissionController
 from eegnetreplication_tpu_torch.serve.batcher import (
     DeadlineExceeded,
     MicroBatcher,
     Rejected,
+    Shed,
 )
 from eegnetreplication_tpu_torch.serve.engine import (
     CLASS_NAMES,
     DEFAULT_BUCKETS,
     PRECISIONS,
     QUANT_AGREEMENT_FLOOR,
+    BucketGraph,
     InferenceEngine,
 )
 from eegnetreplication_tpu_torch.serve.registry import (
@@ -103,6 +138,7 @@ from eegnetreplication_tpu_torch.serve.sessions.store import (
     SessionExists,
     SessionStore,
 )
+from eegnetreplication_tpu_torch.serve.tuner import LadderTuner
 from eegnetreplication_tpu_torch.utils.device import (
     resolve_device,
     select_device,
@@ -113,6 +149,54 @@ from eegnetreplication_tpu_torch.utils.logging import logger
 REQUEST_TIMEOUT_S = 30.0
 # How long stop() waits for in-flight handler threads after the drain.
 HANDLER_DRAIN_S = 15.0
+
+# A device hiccup is worth two spaced re-runs of the same small batch;
+# anything deterministic fails the batch at once.
+SERVE_RETRY = resil_retry.RetryPolicy(max_attempts=3, base_delay_s=0.05,
+                                      max_delay_s=1.0)
+
+# POST /profile: the window when the body names none, and the cap.
+DEFAULT_PROFILE_S = 2.0
+PROFILE_MAX_S = 60.0
+
+# /healthz's worker-liveness budgets: the batcher worker beats every poll,
+# so seconds of silence while idle mean it is gone or wedged; a beat
+# parked in serve_forward gets a forward-plus-retry allowance.
+SERVE_WATCHDOG_THRESHOLDS = {"serve_idle": 10.0, "serve_forward": 60.0}
+
+
+def make_infer_fn(registry, breaker: CircuitBreaker | None = None,
+                  chaos_tag: str | None = None):
+    """The batcher's inference callable: the chaos sites, the retry and
+    the registry, with each dispatch's outcome fed to ``breaker``.
+
+    ``serve.forward`` fires per attempt (so ``times=1`` faults one attempt
+    and the retry answers) and ``serve.degrade`` beside it (carrying
+    ``chaos_tag`` for ``if_tag=``).  The breaker sees the outcome after
+    the retry: a blip the retry absorbed is a success.  A tenant-aware
+    batcher passes the per-trial tenant vector as a second argument.
+    """
+    def dispatch(x: np.ndarray, tenants=None) -> np.ndarray:
+        inject.fire("serve.forward", n_trials=len(x))
+        inject.fire("serve.degrade", n_trials=len(x), tag=chaos_tag)
+        if tenants is None:
+            return registry.infer(x)
+        return registry.infer(x, tenants)
+
+    def infer_fn(x: np.ndarray, tenants=None) -> np.ndarray:
+        try:
+            out = resil_retry.call(lambda: dispatch(x, tenants),
+                                   policy=SERVE_RETRY,
+                                   site="serve.forward")
+        except Exception:
+            if breaker is not None:
+                breaker.record_failure()
+            raise
+        if breaker is not None:
+            breaker.record_success()
+        return out
+
+    return infer_fn
 
 
 class ServeApp:
@@ -136,7 +220,16 @@ class ServeApp:
                  sessions_dir: str | Path | None = None,
                  sessions_mirror: str | Path | None = None,
                  session_snapshot_every: int = 50, resume: bool = False,
-                 journal=None):
+                 journal=None, breaker_threshold: int = 5,
+                 breaker_reset_s: float = 30.0,
+                 watchdog_thresholds: dict | None = None,
+                 tune_every_s: float = 0.0,
+                 trace_sample: float = trace.DEFAULT_SAMPLE_RATE,
+                 slo_spec: str | None = None,
+                 slo_window_s: float = obs_slo.DEFAULT_WINDOW_S,
+                 slo_interval_s: float = 1.0,
+                 admission_target_ms: float = 0.0,
+                 chaos_tag: str | None = None):
         self.journal = journal if journal is not None \
             else obs_journal.current()
         device = resolve_device(device)
@@ -175,24 +268,73 @@ class ServeApp:
             journal=self.journal, device=device)
         if resume:
             self.sessions.restore()
+        # Liveness: the worker's heartbeat (in process, plus the
+        # EEGTPU_HEARTBEAT_FILE file when one is configured) feeds
+        # /healthz's staleness check; the breaker guards serve.forward.
+        self.heartbeat = hb.Heartbeat(
+            os.environ.get(hb.HEARTBEAT_FILE_ENV) or None)
+        self.watchdog = hb.Watchdog(
+            dict(SERVE_WATCHDOG_THRESHOLDS, **(watchdog_thresholds or {})))
+        self.breaker = CircuitBreaker(
+            failure_threshold=breaker_threshold,
+            reset_after_s=breaker_reset_s, site="serve.forward",
+            journal=self.journal)
+        self.chaos_tag = chaos_tag
+        # Adaptive admission between one full bucket and the hard queue
+        # bound (target 0: the static bound alone).
+        max_batch = buckets[-1]
+        self.admission = (AdmissionController(
+            target_wait_ms=admission_target_ms,
+            min_limit=min(max_batch, max_queue_trials),
+            max_limit=max_queue_trials, journal=self.journal)
+            if admission_target_ms and admission_target_ms > 0 else None)
         self.batcher = MicroBatcher(
-            self.registry.infer, max_batch=buckets[-1], max_wait_ms=max_wait_ms,
-            max_queue_trials=max_queue_trials,
+            make_infer_fn(self.registry, self.breaker, chaos_tag=chaos_tag),
+            max_batch=max_batch, max_wait_ms=max_wait_ms,
+            max_queue_trials=max_queue_trials, journal=self.journal,
+            heartbeat=self.heartbeat, admission=self.admission,
             tenant_aware=self.zoo is not None)
+        # The ladder tuner (0: off) retunes off the hot path.
+        self.tuner = (LadderTuner(self.registry, self.batcher,
+                                  journal=self.journal,
+                                  interval_s=tune_every_s)
+                      if tune_every_s and tune_every_s > 0 else None)
+        # Head-based sampling rate for requests without an X-Trace-Id.
+        self.trace_sample = float(trace_sample)
+        self.slo = (obs_slo.SLOMonitor(
+            self.journal.metrics, slo_spec, window_s=slo_window_s,
+            interval_s=slo_interval_s, journal=self.journal)
+            if slo_spec else None)
         self._host, self._port = host, int(port)
         self._httpd: ThreadingHTTPServer | None = None
         self._listener: threading.Thread | None = None
         self._stopped = False
-        self._inflight = 0
-        self._idle = threading.Condition()
-        self._t_start = time.perf_counter()
-        # Request outcomes for serve_end (guarded by _idle's lock).
-        self._counts = {"ok": 0, "rejected": 0, "error": 0, "expired": 0}
-        # Session counts for serve_end (guarded by _stats_lock).
+        # Request and session counts for serve_end, and the in-flight
+        # handlers stop() waits for (all under _stats_lock).
         self._stats_lock = threading.Lock()
+        self._idle = threading.Condition(self._stats_lock)
+        self._inflight = 0
+        self._n_requests = 0
+        self._n_rejected = 0
+        self._n_shed = 0
+        self._n_errors = 0
+        self._n_expired = 0
+        self._n_circuit_open = 0
         self._n_sessions_opened = 0
         self._n_session_windows = 0
         self._n_windows_expired = 0
+        # POST /profile: one bounded window at a time, off the hot path.
+        self._profile_lock = threading.Lock()
+        self._profiling = False
+        self._t_start = time.perf_counter()
+
+    @property
+    def ladder_retunes(self) -> int:
+        """Applied retunes: the tuner's count (wait-only proposals skip
+        the engine rebuild) when it runs, else the registry's."""
+        if self.tuner is not None:
+            return self.tuner.retunes
+        return self.registry.retunes
 
     @property
     def engine(self) -> InferenceEngine:
@@ -223,6 +365,10 @@ class ServeApp:
         self._listener = threading.Thread(target=self._httpd.serve_forever,
                                           name="serve-http", daemon=True)
         self._listener.start()
+        if self.tuner is not None:
+            self.tuner.start()
+        if self.slo is not None:
+            self.slo.start()
         gate = self.registry.last_gate
         self.journal.event(
             "serve_start", checkpoint=self.checkpoint,
@@ -232,6 +378,12 @@ class ServeApp:
             digest=self.registry.digest,
             precision=self.registry.serving_precision,
             requested_precision=self.registry.precision,
+            trace_sample=self.trace_sample,
+            slo=([o.name for o in self.slo.objectives]
+                 if self.slo is not None else None),
+            admission_target_ms=(self.admission.target_wait_ms
+                                 if self.admission else None),
+            ladder_tuning=self.tuner is not None,
             quant_agreement=(round(gate.agreement, 6) if gate else None),
             tenants=(list(self.zoo.tenant_ids)
                      if self.zoo is not None else None),
@@ -245,20 +397,36 @@ class ServeApp:
 
     @property
     def buckets(self) -> tuple[int, ...]:
-        return tuple(self.registry.buckets)
+        """The active ladder (a retune moves it)."""
+        return tuple(self.registry.active_buckets)
 
-    def record_request(self, outcome: str, n_trials: int = 0,
-                       t0: float | None = None,
-                       model: str | None = None) -> None:
-        """Journal one ``request`` event (status ``ok``, ``rejected``,
-        ``error`` or ``expired``) and count it for ``serve_end``."""
-        latency_ms = (0.0 if t0 is None
-                      else (time.perf_counter() - t0) * 1000.0)
-        with self._idle:
-            self._counts[outcome] += 1
+    def record_request(self, n_trials: int, latency_ms: float, status: str,
+                       *, model: str | None = None) -> None:
+        """Journal one ``request`` event and count it: ``ok``,
+        ``rejected``, ``shed``, ``expired``, ``circuit_open``, or an error
+        (``error``, ``bad_request``, ``bad_model``).  ``requests_total``
+        and the ok latency histogram feed ``/metrics``, ``/healthz`` and
+        the SLO monitor; an anomalous outcome flushes the request's
+        buffered trace spans."""
+        with self._stats_lock:
+            self._n_requests += 1
+            if status == "rejected":
+                self._n_rejected += 1
+            elif status == "shed":
+                self._n_shed += 1
+            elif status == "expired":
+                self._n_expired += 1
+            elif status == "circuit_open":
+                self._n_circuit_open += 1
+            elif status != "ok":
+                self._n_errors += 1
         self.journal.event("request", n_trials=int(n_trials),
-                           latency_ms=round(latency_ms, 3), status=outcome,
+                           latency_ms=round(latency_ms, 3), status=status,
                            model=model)
+        self.journal.metrics.inc("requests_total", status=status)
+        if status == "ok":
+            self.journal.metrics.observe("request_latency_ms", latency_ms)
+        trace.flush_if_anomalous(status, journal=self.journal)
 
     def stop(self, drain: bool = True) -> None:
         """Stop the listener, drain (default) or fail queued requests, and
@@ -266,6 +434,10 @@ class ServeApp:
         if self._stopped:
             return
         self._stopped = True
+        if self.tuner is not None:
+            self.tuner.stop()     # no retune mid-drain
+        if self.slo is not None:
+            self.slo.stop()
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -276,7 +448,13 @@ class ServeApp:
                 logger.warning("%d in-flight request handler(s) did not "
                                "finish within %.1fs", self._inflight,
                                HANDLER_DRAIN_S)
-            counts = dict(self._counts)
+            n_req, n_rej, n_shed = (self._n_requests, self._n_rejected,
+                                    self._n_shed)
+            n_err, n_exp, n_open = (self._n_errors, self._n_expired,
+                                    self._n_circuit_open)
+            n_sess, n_win, n_wexp = (self._n_sessions_opened,
+                                     self._n_session_windows,
+                                     self._n_windows_expired)
         # The final session snapshot lands after the handler wait: every
         # in-flight ingest has recorded its decisions, so it is the whole
         # durable state a --resume restores.  A background periodic
@@ -284,25 +462,75 @@ class ServeApp:
         self.sessions.drain_background()
         self.sessions.snapshot()
         self.sessions.detach()
-        with self._stats_lock:
-            n_sess, n_win, n_wexp = (self._n_sessions_opened,
-                                     self._n_session_windows,
-                                     self._n_windows_expired)
         self.journal.event(
-            "serve_end", n_requests=sum(counts.values()),
-            rejected=counts["rejected"], errors=counts["error"],
-            expired=counts["expired"], sessions=n_sess,
+            "serve_end", n_requests=n_req, rejected=n_rej, shed=n_shed,
+            admission_changes=(self.admission.n_changes
+                               if self.admission else 0),
+            errors=n_err, expired=n_exp, circuit_open=n_open,
+            breaker_trips=self.breaker.trips, sessions=n_sess,
             session_windows=n_win, windows_expired=n_wexp,
             session_snapshots=self.sessions.snapshots,
             wall_s=round(time.perf_counter() - self._t_start, 3),
             batches=self.batcher.batches, model_swaps=self.registry.swaps,
+            ladder_retunes=self.ladder_retunes,
+            slo_breaches=(self.slo.breach_events
+                          if self.slo is not None else 0),
+            graph_replays=BucketGraph.replays,
             n_tenants=(self.zoo.n_tenants if self.zoo is not None
                        else None),
             zoo_restacks=(self.zoo.restacks if self.zoo is not None
                           else None),
             precision=self.registry.serving_precision)
-        logger.info("Serve drained and stopped after %d forwards, %d model "
-                    "swap(s)", self.batcher.batches, self.registry.swaps)
+        logger.info("Serve drained and stopped: %d requests (%d rejected, "
+                    "%d errors, %d expired, %d refused by the open "
+                    "circuit), %d forwards, %d model swap(s), %d breaker "
+                    "trip(s)", n_req, n_rej, n_err, n_exp, n_open,
+                    self.batcher.batches, self.registry.swaps,
+                    self.breaker.trips)
+
+    # -- on-demand profiling (POST /profile) --------------------------------
+    def start_profile(self, seconds: float,
+                      log_dir: str | None = None) -> dict | None:
+        """Start one bounded ``torch.profiler`` window (at most
+        :data:`PROFILE_MAX_S`) on a thread of its own; the handler answers
+        at once.  Returns the window's descriptor, or ``None`` while one
+        is running (one at a time)."""
+        seconds = min(float(seconds), PROFILE_MAX_S)
+        if seconds <= 0:
+            raise ValueError(f"profile window must be > 0 s, got {seconds}")
+        with self._profile_lock:
+            if self._profiling:
+                return None
+            self._profiling = True
+        base = self.journal.dir if self.journal.dir is not None \
+            else Path(tempfile.gettempdir())
+        target = Path(log_dir) if log_dir else \
+            Path(base) / f"profile_{int(time.time() * 1000.0)}"
+        threading.Thread(target=self._profile_window,
+                         args=(seconds, target),
+                         name="eegtpu-profile", daemon=True).start()
+        return {"seconds": seconds, "log_dir": str(target)}
+
+    def _profile_window(self, seconds: float, log_dir: Path) -> None:
+        from eegnetreplication_tpu_torch.utils import profiling
+
+        t0 = time.perf_counter()
+        status, error, path = "ok", None, None
+        try:
+            with profiling.trace(str(log_dir)) as path:
+                time.sleep(seconds)
+        except Exception as exc:  # noqa: BLE001 — profiling is advisory
+            status, error = "error", f"{type(exc).__name__}: {exc}"
+            logger.warning("Profiling window failed: %s", error)
+        finally:
+            with self._profile_lock:
+                self._profiling = False
+        self.journal.event("profile_window",
+                           dur_s=round(time.perf_counter() - t0, 3),
+                           log_dir=str(log_dir), status=status,
+                           requested_s=seconds, error=error,
+                           trace=(str(path) if path else None))
+        self.journal.metrics.inc("profile_windows", status=status)
 
     # -- streaming sessions (called from handler threads) ------------------
     def decide_windows(self, session, ready) -> list[WindowDecision]:
@@ -346,6 +574,14 @@ class ServeApp:
                 except Exception:  # noqa: BLE001 — recorded, not raised
                     status = STATUS_ERROR
             latency_ms = (time.perf_counter() - t0) * 1000.0
+            # One span per window under the push's trace: submit, the
+            # coalesced forward, the decision.
+            trace.emit_span(trace.current(), "session.window",
+                            dur_s=latency_ms / 1000.0, journal=self.journal,
+                            session=session.session_id, window=index,
+                            status=status)
+            if status in (STATUS_EXPIRED, STATUS_ERROR):
+                trace.flush(journal=self.journal)
             decision = WindowDecision(index=index, start=start, pred=pred,
                                       status=status, latency_ms=latency_ms)
             session.record(decision)
@@ -381,14 +617,40 @@ class ServeApp:
             if self._inflight == 0:
                 self._idle.notify_all()
 
-    def healthz(self) -> dict:
-        """The /healthz body; identity reads never build an engine."""
+    def healthz(self) -> tuple[int, dict]:
+        """The /healthz code and body.  503 while the breaker is open, the
+        worker's heartbeat is stale or an SLO is breached.  Identity reads
+        never build an engine."""
         zoo = self.zoo
         c, t = self.registry.geometry
         digest = self.registry.digest
         snap = zoo.snapshot() if zoo is not None else None
-        return {
-            "status": "ok",
+        circuit = self.breaker.state
+        verdict = self.watchdog.check_beat(self.heartbeat.last())
+        degraded = []
+        if circuit == "open":
+            degraded.append("circuit_open")
+        if verdict.stale:
+            degraded.append("worker_heartbeat_stale")
+        slo_state = None
+        if self.slo is not None:
+            if self.slo.interval_s <= 0:
+                self.slo.evaluate()   # no ticker: the probe evaluates
+            slo_state = self.slo.state()
+            degraded.extend(f"slo:{name}" for name in self.slo.breached)
+        q = self.journal.metrics.quantile
+        return (503 if degraded else 200), {
+            "status": "degraded" if degraded else "ok",
+            "degraded": degraded,
+            "slo": slo_state,
+            "latency_ms": {"p50": q("request_latency_ms", 0.50),
+                           "p95": q("request_latency_ms", 0.95),
+                           "p99": q("request_latency_ms", 0.99)},
+            "circuit": circuit,
+            "worker_heartbeat": {"phase": verdict.phase,
+                                 "age_s": round(verdict.age_s, 3),
+                                 "threshold_s": verdict.threshold_s,
+                                 "stale": verdict.stale},
             "checkpoint": self.checkpoint,
             "model_digest": digest,
             "variables_digest": digest,
@@ -398,14 +660,19 @@ class ServeApp:
             "max_wait_ms": round(self.batcher.max_wait_s * 1000.0, 3),
             "precision": self.registry.serving_precision,
             "requested_precision": self.registry.precision,
+            "ladder_retunes": self.ladder_retunes,
             "queue_depth_trials": self.batcher.queue_depth,
-            "batches": self.batcher.batches,
-            "model_swaps": self.registry.swaps,
-            "stacked": zoo.stacked is not None if zoo is not None else None,
-            "zoo_restacks": zoo.restacks if zoo is not None else None,
+            "queue_depth_requests": self.batcher.queue_depth_requests,
+            "sessions": len(self.sessions),
+            "admission": (self.admission.snapshot()
+                          if self.admission is not None else None),
             "zoo": snap,
             "tenants": snap["tenants"] if snap else None,
-            "sessions": len(self.sessions),
+            "model_swaps": self.registry.swaps,
+            "batches": self.batcher.batches,
+            "stacked": zoo.stacked is not None if zoo is not None else None,
+            "zoo_restacks": zoo.restacks if zoo is not None else None,
+            "graph_replays": BucketGraph.replays,
             "kernel_launches": {"block1": block1.launches,
                                 "block1_stacked": block1_stacked.launches,
                                 "ems_stream": ems_stream.launches},
@@ -471,9 +738,22 @@ class _ServeHandler(BaseHTTPRequestHandler):
                              f"got {ms}")
         return ms
 
+    def _reply_metrics(self, journal) -> None:
+        """``GET /metrics``: the JSON snapshot, or the Prometheus text when
+        the Accept header names ``text/plain`` (or OpenMetrics)."""
+        snapshot = journal.metrics.snapshot(run_id=journal.run_id)
+        if wants_prometheus(self.headers.get("Accept")):
+            self._reply_bytes(200, to_prometheus_text(snapshot).encode(),
+                              content_type=PROMETHEUS_CONTENT_TYPE)
+            return
+        self._reply(200, snapshot)
+
     def do_GET(self):  # noqa: N802 — stdlib naming
         if self.path == "/healthz":
-            self._reply(200, self.app.healthz())
+            self._reply(*self.app.healthz())
+            return
+        if self.path == "/metrics":
+            self._reply_metrics(self.app.journal)
             return
         parts = self.path.strip("/").split("/")
         if len(parts) == 3 and parts[0] == "session" \
@@ -506,6 +786,9 @@ class _ServeHandler(BaseHTTPRequestHandler):
         if self.path == "/reload":
             self._reload(app)
             return
+        if self.path == "/profile":
+            self._profile(app)
+            return
         parts = self.path.strip("/").split("/")
         if parts[0] == "session":
             if len(parts) == 2 and parts[1] == "open":
@@ -525,71 +808,115 @@ class _ServeHandler(BaseHTTPRequestHandler):
         self._reply(404, {"error": f"unknown path {self.path}"})
 
     def _predict(self, app: ServeApp) -> None:
+        # The trace: the client's (X-Trace-Id) or a new one, head-sampled;
+        # the replica.request span parents everything the request touches.
+        ctx = trace.maybe_start(self.headers, app.trace_sample)
+        with trace.use(ctx), trace.span("replica.request",
+                                        journal=app.journal,
+                                        route="/predict"):
+            self._predict_traced(app)
+
+    def _predict_traced(self, app: ServeApp) -> None:
         t0 = time.perf_counter()
-        try:
-            x, payload_deadline, payload_model = self._parse_predict_body(
-                self._read_body())
-            deadline_ms = self._deadline_ms(payload_deadline)
-            if x.ndim == 2:
-                x = x[None]
-            c, t = app.registry.geometry
-            if x.ndim != 3 or x.shape[1:] != (c, t):
-                raise ValueError(
-                    f"expected trials shaped (n, {c}, {t}), got "
-                    f"{tuple(x.shape)}")
-        except Exception as exc:  # noqa: BLE001 — client error
-            app.record_request("rejected", 0, t0)
-            self._reply(400, {"error": f"{type(exc).__name__}: {exc}"})
+
+        def ms() -> float:
+            return (time.perf_counter() - t0) * 1000.0
+
+        # The circuit first: under an open breaker the request neither
+        # parses nor queues.  allow() claims a probe slot when half-open;
+        # it is released on every path where no forward runs.
+        if not app.breaker.allow():
+            self._read_body()
+            app.record_request(0, ms(), "circuit_open")
+            self._reply(503, {
+                "error": "circuit open: serve.forward is failing; retry "
+                         "after the cooldown",
+                "circuit": app.breaker.state})
             return
-        # The X-Model header wins, else the JSON "model" field; none means
-        # the default tenant.  An unknown model is 404.
-        model_spec = self.headers.get("X-Model")
-        if model_spec is None:
-            model_spec = payload_model
-        model_id, tenant = None, 0
-        if app.zoo is not None:
+        probe_open = True
+        try:
             try:
-                model_id = app.zoo.resolve(model_spec)
-                tenant = app.zoo.tenant_index(model_id)
-            except KeyError as exc:
-                app.record_request("rejected", len(x), t0)
-                self._reply(404, {"error": str(exc.args[0]),
-                                  "tenants": app.zoo.tenant_ids})
+                with trace.span("http.parse", journal=app.journal):
+                    x, payload_deadline, payload_model = \
+                        self._parse_predict_body(self._read_body())
+                deadline_ms = self._deadline_ms(payload_deadline)
+                if x.ndim == 2:
+                    x = x[None]
+                c, t = app.registry.geometry
+                if x.ndim != 3 or x.shape[1:] != (c, t):
+                    raise ValueError(
+                        f"expected trials shaped (n, {c}, {t}), got "
+                        f"{tuple(x.shape)}")
+            except Exception as exc:  # noqa: BLE001 — client error
+                app.record_request(0, ms(), "bad_request")
+                self._reply(400, {"error": f"{type(exc).__name__}: {exc}"})
                 return
-        elif model_spec not in (None, "", "default"):
-            app.record_request("rejected", len(x), t0)
-            self._reply(404, {
-                "error": f"model {model_spec!r} requested but no model zoo "
-                         "is configured (single-model server; start with "
-                         "--zoo)"})
-            return
-        deadline = (None if deadline_ms is None
-                    else time.monotonic() + deadline_ms / 1000.0)
-        try:
-            preds = app.batcher.submit(x, deadline=deadline,
-                                       tenant=tenant).result(
-                timeout=REQUEST_TIMEOUT_S)
-        except DeadlineExceeded as exc:
-            app.record_request("expired", len(x), t0, model_id)
-            self._reply(504, {"error": str(exc), "deadline_ms": deadline_ms})
-            return
-        except Rejected as exc:
-            app.record_request("rejected", len(x), t0, model_id)
-            self._reply(429, {"error": str(exc)})
-            return
-        except Exception as exc:  # noqa: BLE001 — inference/timeout
-            app.record_request("error", len(x), t0, model_id)
-            self._reply(500, {"error": f"{type(exc).__name__}: {exc}"})
-            return
-        latency_ms = (time.perf_counter() - t0) * 1000.0
+            # The X-Model header wins, else the JSON "model" field; none
+            # means the default tenant.  An unknown model is 404.
+            model_spec = self.headers.get("X-Model")
+            if model_spec is None:
+                model_spec = payload_model
+            model_id, tenant = None, 0
+            if app.zoo is not None:
+                try:
+                    model_id = app.zoo.resolve(model_spec)
+                    tenant = app.zoo.tenant_index(model_id)
+                except KeyError as exc:
+                    app.record_request(len(x), ms(), "bad_model")
+                    self._reply(404, {"error": str(exc.args[0]),
+                                      "tenants": app.zoo.tenant_ids})
+                    return
+            elif model_spec not in (None, "", "default"):
+                app.record_request(len(x), ms(), "bad_model")
+                self._reply(404, {
+                    "error": f"model {model_spec!r} requested but no model "
+                             "zoo is configured (single-model server; "
+                             "start with --zoo)"})
+                return
+            deadline = (None if deadline_ms is None
+                        else time.monotonic() + deadline_ms / 1000.0)
+            # X-Priority traffic passes the adaptive limit (bulk sheds
+            # first).
+            priority = (self.headers.get("X-Priority") or "").lower() \
+                in ("high", "control", "session")
+            try:
+                fut = app.batcher.submit(x, deadline=deadline,
+                                         priority=priority, tenant=tenant)
+                # Enqueued: the future's resolution owns the probe slot
+                # now (a request dropped before its forward never reaches
+                # the breaker through infer_fn).
+                probe_open = False
+                fut.add_done_callback(self._reconcile_probe)
+                preds = fut.result(timeout=REQUEST_TIMEOUT_S)
+            except DeadlineExceeded as exc:
+                app.record_request(len(x), ms(), "expired")
+                self._reply(504, {"error": str(exc),
+                                  "deadline_ms": deadline_ms})
+                return
+            except Shed as exc:
+                app.record_request(len(x), ms(), "shed")
+                self._reply(429, {"error": str(exc), "shed": True})
+                return
+            except Rejected as exc:
+                app.record_request(len(x), ms(), "rejected")
+                self._reply(429, {"error": str(exc)})
+                return
+            except Exception as exc:  # noqa: BLE001 — inference/timeout
+                app.record_request(len(x), ms(), "error")
+                self._reply(500, {"error": f"{type(exc).__name__}: {exc}"})
+                return
+        finally:
+            if probe_open:
+                app.breaker.cancel_probe()
+        latency_ms = ms()
         if deadline is not None and time.monotonic() > deadline:
-            app.record_request("expired", len(x), t0, model_id)
+            app.record_request(len(x), latency_ms, "expired")
             self._reply(504, {"error": "response ready after the request "
                                        "deadline expired",
                               "deadline_ms": deadline_ms,
                               "latency_ms": round(latency_ms, 3)})
             return
-        app.record_request("ok", len(x), t0, model_id)
+        app.record_request(len(x), latency_ms, "ok", model=model_id)
         reply = {
             "predictions": [int(p) for p in preds],
             "class_names": list(CLASS_NAMES), "n": len(x),
@@ -600,6 +927,40 @@ class _ServeHandler(BaseHTTPRequestHandler):
         if model_id is not None:
             reply["model"] = model_id
         self._reply(200, reply)
+
+    def _reconcile_probe(self, fut) -> None:
+        """Release the breaker's probe slot when the request was dropped
+        before any forward (expired at dequeue, refused at shutdown)."""
+        if fut.cancelled():
+            self.app.breaker.cancel_probe()
+            return
+        if isinstance(fut.exception(), (DeadlineExceeded, Rejected)):
+            self.app.breaker.cancel_probe()
+
+    def _profile(self, app: ServeApp) -> None:
+        """``POST /profile``: 202 with the window's descriptor, 409 while
+        one runs, 400 for a bad body."""
+        try:
+            payload = json.loads(self._read_body().decode() or "{}")
+            if not isinstance(payload, dict):
+                raise ValueError("body must be a JSON object")
+            seconds = float(payload.get("seconds", DEFAULT_PROFILE_S))
+            if not math.isfinite(seconds) or seconds <= 0:
+                raise ValueError(
+                    f"seconds must be a finite number > 0, got {seconds}")
+            log_dir = payload.get("log_dir")
+            if log_dir is not None and not isinstance(log_dir, str):
+                raise ValueError("log_dir must be a string path")
+        except Exception as exc:  # noqa: BLE001 — client error
+            self._reply(400, {"error": f"{type(exc).__name__}: {exc}"})
+            return
+        started = app.start_profile(seconds, log_dir=log_dir)
+        if started is None:
+            self._reply(409, {"error": "a profile window is already "
+                                       "running; retry after it closes"})
+            return
+        self._reply(202, {"status": "started", "max_s": PROFILE_MAX_S,
+                          **started})
 
     def _reload(self, app: ServeApp) -> None:
         """``POST /reload``: 200 with the new digest, or 400 with the old
@@ -716,18 +1077,22 @@ class _ServeHandler(BaseHTTPRequestHandler):
         session = self._get_session(app, sid)
         if session is None:
             return
-        try:
-            chunk = self._parse_samples(session, body)
-        except Exception as exc:  # noqa: BLE001 — client error
-            self._reply(400, {"error": f"{type(exc).__name__}: {exc}"})
-            return
-        # One lock across ingest and decide: two pushes of one session
-        # must not interleave their windows.
-        with session.lock:
-            ready = session.ingest(chunk)
-            decisions = app.decide_windows(session, ready)
-            reply = self._session_json(
-                session, decisions=[d.as_json() for d in decisions])
+        ctx = trace.maybe_start(self.headers, app.trace_sample)
+        with trace.use(ctx), trace.span("session.samples",
+                                        journal=app.journal, session=sid):
+            try:
+                with trace.span("http.parse", journal=app.journal):
+                    chunk = self._parse_samples(session, body)
+            except Exception as exc:  # noqa: BLE001 — client error
+                self._reply(400, {"error": f"{type(exc).__name__}: {exc}"})
+                return
+            # One lock across ingest and decide: two pushes of one session
+            # must not interleave their windows.
+            with session.lock:
+                ready = session.ingest(chunk)
+                decisions = app.decide_windows(session, ready)
+                reply = self._session_json(
+                    session, decisions=[d.as_json() for d in decisions])
         app.sessions.maybe_snapshot()
         self._reply(200, reply)
 
@@ -873,6 +1238,7 @@ def serve_until_preempted(app: ServeApp, poll_s: float = 0.2) -> None:
     """Block until a graceful-stop request, then drain and stop."""
     try:
         while not preempt.requested():
+            inject.fire("host.preempt")
             time.sleep(poll_s)
     finally:
         logger.info("Stop requested — draining the request queue")
@@ -883,8 +1249,9 @@ def main(argv=None) -> int:
     device = select_device()
     parser = argparse.ArgumentParser(
         description="Online EEG inference service (torch port: bucketed "
-                    "engine on the card, dynamic micro-batching, model "
-                    "hot-reload).")
+                    "engine on the card as captured CUDA graphs, dynamic "
+                    "micro-batching, model hot-reload, the serving "
+                    "control plane).")
     parser.add_argument("--checkpoint", default=None,
                         help=".npz (native) or .pth (reference format).  "
                              "Required unless --zoo is given.")
@@ -929,6 +1296,50 @@ def main(argv=None) -> int:
                         help="Minimum per-subject int8-vs-fp32 argmax "
                              "agreement for the quantized engine to "
                              "serve.")
+    parser.add_argument("--tuneEveryS", type=float, default=0.0,
+                        help="Ladder self-tuning interval in seconds "
+                             "(0 = off): observe bucket occupancy and "
+                             "arrival rate, retune the ladder (its graphs "
+                             "captured off the hot path).")
+    parser.add_argument("--traceSample", type=float,
+                        default=trace.DEFAULT_SAMPLE_RATE,
+                        help="Head-based trace sampling rate for requests "
+                             "arriving without an X-Trace-Id header "
+                             "(0 = off, 1 = every request).  Errors, "
+                             "expired deadlines and circuit refusals "
+                             "always flush their buffered spans.")
+    parser.add_argument("--admissionTargetMs", type=float, default=0.0,
+                        help="Adaptive overload control: AIMD the "
+                             "admitted queue depth so queue-wait p95 "
+                             "tracks this target (0 = the static queue "
+                             "bound alone).  Bulk /predict sheds first "
+                             "(429); X-Priority and session traffic meet "
+                             "only the --maxQueue bound.")
+    parser.add_argument("--chaos", type=str, default=None,
+                        help="Fault-injection plan armed for this serving "
+                             "process (the train CLI's syntax), e.g. "
+                             "'serve.forward:times=1' or "
+                             "'serve.degrade:slow=0.25:times=0'.")
+    parser.add_argument("--chaosTag", type=str, default=None,
+                        help="Tag carried to the serve.degrade site so an "
+                             "if_tag= spec targets exactly this server.")
+    parser.add_argument("--slo", type=str, default=None,
+                        help="SLO spec evaluated over a sliding window of "
+                             "live metrics, e.g. 'p95_latency_ms<50,"
+                             "error_rate<0.01,availability>0.999'.  A "
+                             "breach journals slo_breach and degrades "
+                             "/healthz until it recovers.")
+    parser.add_argument("--sloWindowS", type=float,
+                        default=obs_slo.DEFAULT_WINDOW_S,
+                        help="SLO evaluation window in seconds.")
+    parser.add_argument("--breakerThreshold", type=int, default=5,
+                        help="Consecutive serve.forward failures (after "
+                             "the retry) that open the circuit breaker "
+                             "(fast 503s until a half-open probe "
+                             "succeeds).")
+    parser.add_argument("--breakerResetS", type=float, default=30.0,
+                        help="Open-circuit cooldown before half-open "
+                             "probe requests are admitted.")
     parser.add_argument("--metricsDir", type=str, default=None,
                         help="Run-journal root (default reports/obs).")
     parser.add_argument("--sessionsDir", type=str, default=None,
@@ -971,6 +1382,17 @@ def main(argv=None) -> int:
             raise ValueError("buckets must be positive integers")
     except ValueError as exc:
         parser.error(f"--buckets: {exc}")
+    if args.slo:
+        try:
+            obs_slo.parse_slo_spec(args.slo)
+        except ValueError as exc:
+            parser.error(f"--slo: {exc}")
+    chaos_specs = []
+    if args.chaos:
+        try:
+            chaos_specs = inject.parse_plan(args.chaos)
+        except (ValueError, OSError) as exc:
+            parser.error(f"--chaos: {exc}")
 
     from eegnetreplication_tpu_torch.config import Paths
 
@@ -980,7 +1402,7 @@ def main(argv=None) -> int:
     sessions_dir = (Path(args.sessionsDir) if args.sessionsDir
                     else paths.project_root / "checkpoints" / "serve_sessions")
     with obs_journal.run(metrics_dir, config=vars(args)) as journal, \
-            preempt.guard():
+            preempt.guard(), inject.scoped(*chaos_specs):
         app = ServeApp(args.checkpoint, host=args.host, port=args.port,
                        buckets=buckets, max_wait_ms=args.maxWaitMs,
                        max_queue_trials=args.maxQueue, device=device,
@@ -991,7 +1413,14 @@ def main(argv=None) -> int:
                        stack=not args.noStack, sessions_dir=sessions_dir,
                        sessions_mirror=args.sessionsMirror,
                        session_snapshot_every=args.sessionSnapshotEvery,
-                       resume=args.resume, journal=journal)
+                       resume=args.resume, journal=journal,
+                       breaker_threshold=args.breakerThreshold,
+                       breaker_reset_s=args.breakerResetS,
+                       tune_every_s=args.tuneEveryS,
+                       trace_sample=args.traceSample, slo_spec=args.slo,
+                       slo_window_s=args.sloWindowS,
+                       admission_target_ms=args.admissionTargetMs,
+                       chaos_tag=args.chaosTag)
         app.start()
         print(f"serving at {app.url}", flush=True)
         serve_until_preempted(app)

@@ -7,6 +7,12 @@ within-subject protocol's nine per-subject EEGNets); a
 ``block1_stacked`` launch per bucket chunk (``ops/stacked.py``), however
 many tenants the batch holds.
 
+On the card each bucket of a warm stacked engine is one captured CUDA
+graph, as for the single-model engine, with a static tenant-index input
+beside the static trials; the graph launches K1-stacked without its
+device-side range check (``idx_checked``), since :meth:`StackedEngine.
+infer` checks the tenant range on the host first.
+
 A stacked engine serves only after :func:`run_stack_gate` found, for
 every tenant, its argmax equal to that tenant's own fp32 engine on the
 gate set: all of them at fp32 (:data:`STACK_FLOOR_FP32`), the quant floor
@@ -132,10 +138,12 @@ class StackedEngine(InferenceEngine):
     and channel.
     """
 
+    WHAT_PREFIX = "zoo_forward"
+
     def __init__(self, members: list[tuple[str, object]],
                  buckets: tuple[int, ...] = DEFAULT_BUCKETS, *,
                  precision: str = "fp32",
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None, journal=None):
         if not members:
             raise ValueError("a stacked engine needs at least one tenant")
         _check_buckets(buckets)
@@ -152,6 +160,7 @@ class StackedEngine(InferenceEngine):
         states = [{k: v.detach().to(self.device)
                    for k, v in m.state_dict().items()} for _, m in members]
         stacked_state = ops_stacked.stack_trees(states)
+        self.members = list(members)
         self.tenant_ids = [mid for mid, _ in members]
         self.buckets = tuple(int(b) for b in buckets)
         self.precision = precision
@@ -175,27 +184,42 @@ class StackedEngine(InferenceEngine):
             else:
                 self._pack = ops_stacked.fold_stacked_eegnet(stacked_state,
                                                              eps)
+        self._journal = journal if journal is not None \
+            else obs_journal.current()
         self._lock = threading.Lock()
         self._warmed = False
+        self._graphs = {}
+        self._stream = None
 
     @property
     def n_tenants(self) -> int:
         return len(self.tenant_ids)
 
     def forward(self, x: torch.Tensor,
-                tenant_idx: torch.Tensor | None = None) -> torch.Tensor:
+                tenant_idx: torch.Tensor | None = None, *,
+                idx_checked: bool = False) -> torch.Tensor:
         """Logits of ``(n, C, T)`` trials on the engine's device, trial
         ``i`` through tenant ``tenant_idx[i]`` (int32; all tenant 0 when
-        ``None``)."""
+        ``None``).  ``idx_checked``: the caller checked the range."""
         if tenant_idx is None:
             tenant_idx = torch.zeros(len(x), dtype=torch.int32,
                                      device=x.device)
         with torch.inference_mode():
             if self.precision == "int8":
                 return ops_stacked.stacked_quantized_eval_forward(
-                    self._pack, x, tenant_idx)
-            return ops_stacked.stacked_eval_forward(self._pack, x,
-                                                    tenant_idx)
+                    self._pack, x, tenant_idx, idx_checked=idx_checked)
+            return ops_stacked.stacked_eval_forward(
+                self._pack, x, tenant_idx, idx_checked=idx_checked)
+
+    def _static_inputs(self, b: int) -> tuple[torch.Tensor, ...]:
+        c, t = self.geometry
+        return (torch.zeros((b, c, t), device=self.device),
+                torch.zeros(b, dtype=torch.int32, device=self.device))
+
+    def _graph_forward(self, x: torch.Tensor,
+                       tenant_idx: torch.Tensor) -> torch.Tensor:
+        # Every index a replay sees passed infer's host check.
+        return self.forward(x, tenant_idx, idx_checked=True)
 
     def infer(self, trials: np.ndarray,
               tenant_idx: np.ndarray | int = 0) -> np.ndarray:
@@ -299,7 +323,7 @@ def build_stacked_engine(members: list[tuple[str, object]],
     propagates as it is."""
     t0 = time.perf_counter()
     candidate = StackedEngine(members, buckets, precision=precision,
-                              device=device)
+                              device=device, journal=journal)
     references = {mid: InferenceEngine(model, buckets,
                                        device=candidate.device)
                   for mid, model in members}

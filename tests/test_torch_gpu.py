@@ -35,8 +35,17 @@ launches K1 once per bucket chunk and matches the plain int8 forward on the
 CPU (atol 1e-5 / rtol 1e-4); the stacked engine, fp32 and int8, launches
 K1-stacked once per chunk and K1 never, and matches its CPU twin; a zoo of
 nine tenants stacks through the gate on the card and answers as each
-tenant's own engine.
+tenant's own engine.  The bucket ladder as captured CUDA graphs: a
+replay's logits equal the eager forward's bit for bit at every bucket
+(fp32, int8 and the nine-tenant stack), a replay counts the kernels its
+graph holds and a capture counts none, a retune captures while another
+thread replays and a session pushes K2s, a capture that would wait for
+the device raises, and the profiler sees ``block1_kernel`` inside the
+replays.
 """
+
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -776,3 +785,152 @@ def test_one_session_through_the_card_engine_counts_its_launches(cuda,
     wins = np.stack([std[:, k * 64:k * 64 + 257]
                      for k in range((5000 - 257) // 64 + 1)])
     np.testing.assert_array_equal(session.preds(), engine.infer(wins))
+
+
+# --- The bucket ladder as captured CUDA graphs -----------------------------
+
+def _graph_engine(cuda, kind, buckets=(1, 8, 32, 128)):
+    from eegnetreplication_tpu_torch.serve.zoo import StackedEngine
+
+    if kind == "zoo":
+        members = [(f"s{z}", _model(22, 257, 8, 2, seed=z)) for z in range(9)]
+        return StackedEngine(members, buckets, device=cuda)
+    return InferenceEngine(_model(22, 257, 8, 2, seed=4), buckets,
+                           device=cuda, precision=kind)
+
+
+def _bucket_args(cuda, kind, b, seed):
+    x = _trials(b, 22, 257, seed=seed).to(cuda)
+    if kind != "zoo":
+        return (x,)
+    idx = torch.from_numpy(
+        np.random.RandomState(seed).randint(0, 9, b).astype(np.int32))
+    return x, idx.to(cuda)
+
+
+@pytest.mark.parametrize("kind", ["fp32", "int8", "zoo"])
+def test_graph_replay_is_bitwise_the_eager_forward(cuda, kind):
+    engine = _graph_engine(cuda, kind)
+    engine.warmup()
+    assert sorted(engine.graph_stats()) == [1, 8, 32, 128]
+    for b in engine.buckets:
+        args = _bucket_args(cuda, kind, b, seed=50 + b)
+        with torch.inference_mode():
+            eager = engine.forward(*args).cpu()
+        replayed = engine.graph_logits(*args).cpu()
+        assert torch.equal(replayed, eager), (kind, b)
+        host = [a.cpu().numpy() for a in args]
+        np.testing.assert_array_equal(engine.infer(*host),
+                                      eager.argmax(-1).numpy())
+
+
+@pytest.mark.parametrize("kind", ["fp32", "int8", "zoo"])
+def test_graph_replays_count_their_kernel_launches(cuda, kind):
+    from eegnetreplication_tpu_torch.serve.engine import BucketGraph
+
+    counter = fused.block1_stacked if kind == "zoo" else fused.block1
+    other = fused.block1 if kind == "zoo" else fused.block1_stacked
+    engine = _graph_engine(cuda, kind)
+    before = (counter.launches, other.launches, counter.captured)
+    engine.warmup()
+    # One eager warm run a bucket; the captures count nothing.
+    assert counter.launches == before[0] + 4
+    assert counter.captured == before[2] + 4
+    assert other.launches == before[1]
+    assert all(s["kernels"] == {counter.__name__: 1}
+               for s in engine.graph_stats().values())
+    launches, replays = counter.launches, BucketGraph.replays
+    x = _trials(300, 22, 257).numpy()
+    args = (x,) if kind != "zoo" else (x, np.arange(300) % 9)
+    engine.infer(*args)                  # chunks 128 + 128 + 44 (-> 128)
+    assert counter.launches == launches + 3
+    assert BucketGraph.replays == replays + 3
+
+
+def test_retune_captures_while_the_batcher_replays_and_a_session_pushes(
+        cuda, tmp_path):
+    """A retune's captures run while another thread replays the live
+    engine's graphs and a third pushes a K2s session: nothing fails, every
+    answer equals the eager forward's, and the new ladder serves."""
+    from eegnetreplication_tpu_torch.serve.registry import ModelRegistry
+    from eegnetreplication_tpu_torch.serve.sessions import StreamSession
+
+    model = _model(22, 257, 8, 2, seed=6)
+    path = checkpoint.save_checkpoint(
+        tmp_path / "retune.npz", model.state_dict(),
+        metadata={"model": "eegnet", "n_channels": 22, "n_times": 257,
+                  "F1": 8, "D": 2})
+    registry = ModelRegistry((1, 8, 32, 128), device=cuda)
+    registry.load(path)
+    eager = InferenceEngine(_model(22, 257, 8, 2, seed=6), device=cuda)
+    x = _trials(40, 22, 257, seed=7).numpy()
+    want = eager.infer(x)
+    stop, errors, answers = threading.Event(), [], []
+
+    def serve():
+        while not stop.is_set():
+            try:
+                answers.append(registry.infer(x))
+            except Exception as exc:  # noqa: BLE001 — reported below
+                errors.append(exc)
+
+    def push():
+        session = StreamSession("r", n_channels=22, window=257, hop=64,
+                                device=cuda)
+        sig = _stream_signal(22, 200_000, seed=8).numpy()
+        pos = 0
+        while not stop.is_set() and pos < sig.shape[1]:
+            try:
+                session.ingest(sig[:, pos:pos + 25])
+            except Exception as exc:  # noqa: BLE001 — reported below
+                errors.append(exc)
+            pos += 25
+
+    threads = [threading.Thread(target=serve), threading.Thread(target=push)]
+    for th in threads:
+        th.start()
+    try:
+        time.sleep(0.5)
+        engine = registry.retune((1, 8, 32, 64, 128))
+        time.sleep(0.5)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(60)
+    assert not errors, errors[:3]
+    assert registry.retunes == 1 and engine.buckets == (1, 8, 32, 64, 128)
+    assert sorted(engine.graph_stats()) == [1, 8, 32, 64, 128]
+    assert answers and all((a == want).all() for a in answers)
+    np.testing.assert_array_equal(registry.infer(x), want)
+
+
+def test_a_failed_capture_raises_and_never_serves_eagerly(cuda, monkeypatch):
+    engine = _graph_engine(cuda, "fp32", buckets=(1, 8))
+    real = engine._graph_forward
+
+    def waits_for_the_device(x):
+        # A host wait inside the capture: not capturable.
+        if torch.cuda.is_current_stream_capturing():
+            float(x.sum())
+        return real(x)
+
+    monkeypatch.setattr(engine, "_graph_forward", waits_for_the_device)
+    with pytest.raises(RuntimeError):
+        engine.warmup()
+    assert not engine._warmed and not engine.graph_stats()
+    # The card is still usable.
+    monkeypatch.setattr(engine, "_graph_forward", real)
+    fresh = _graph_engine(cuda, "fp32", buckets=(1, 8))
+    fresh.warmup()
+    assert sorted(fresh.graph_stats()) == [1, 8]
+
+
+def test_the_profiler_sees_block1_inside_graph_replays(cuda):
+    from eegnetreplication_tpu_torch.utils import profiling
+
+    engine = _graph_engine(cuda, "fp32")
+    engine.warmup()
+    x = _trials(128, 22, 257).numpy()
+    row = profiling.engine_breakdown(engine, x, n_calls=5)
+    names = [k["name"] for k in row["top_device_ms_per_call"]]
+    assert any("block1_kernel" in n for n in names), names

@@ -53,7 +53,10 @@ _CHILD = textwrap.dedent("""
                  "obs.schema", "obs.metrics", "obs.journal", "resil.inject",
                  "resil.retry", "utils.flops", "ops.quant", "ops.stacked",
                  "serve.zoo", "serve.registry", "serve.sessions",
-                 "serve.sessions.session", "serve.sessions.store"):
+                 "serve.sessions.session", "serve.sessions.store",
+                 "obs.stats", "obs.trace", "obs.slo", "resil.breaker",
+                 "resil.heartbeat", "serve.admission", "serve.tuner",
+                 "serve.batcher", "serve.service"):
         assert "eegnetreplication_tpu_torch." + name in names, name
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   {chip_smoke!r})

@@ -46,13 +46,16 @@ SERVING_EVENTS = ("serve_start", "request", "model_swap", "serve_end",
 SESSION_EVENTS = ("session_start", "session_window", "window_expired",
                   "session_snapshot", "session_resume", "session_end",
                   "session_label")
+CONTROL_EVENTS = ("compile_begin", "compile_end", "compile", "ladder_retune",
+                  "heartbeat", "circuit_state", "admission_change", "shed",
+                  "span", "slo_breach", "slo_recovered", "profile_window")
 
 
 def test_event_table_equals_the_jax_rows():
-    assert set(schema.EVENT_REQUIRED) == set(TRAINING_EVENTS
-                                             + SERVING_EVENTS
-                                             + SESSION_EVENTS)
-    for name in TRAINING_EVENTS + SERVING_EVENTS + SESSION_EVENTS:
+    events = TRAINING_EVENTS + SERVING_EVENTS + SESSION_EVENTS \
+        + CONTROL_EVENTS
+    assert set(schema.EVENT_REQUIRED) == set(events)
+    for name in events:
         assert schema.EVENT_REQUIRED[name] == jax_schema.EVENT_REQUIRED[name]
     assert schema.EVENT_BASE_REQUIRED == jax_schema.EVENT_BASE_REQUIRED
     assert schema.SCHEMA_VERSION == jax_schema.SCHEMA_VERSION

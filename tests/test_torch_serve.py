@@ -327,7 +327,7 @@ def test_http_bad_requests_answer_400(server, body, ctype, headers, code):
 
 def test_http_unknown_paths_answer_404(server):
     assert _request(server.url + "/nope")[0] == 404
-    assert _request(server.url + "/profile", b"{}")[0] == 404
+    assert _request(server.url + "/adapt/rollback", b"{}")[0] == 404
 
 
 @pytest.mark.parametrize("source", ["input", "subject"])
