@@ -131,7 +131,26 @@ hand-written kernel against its plain PyTorch version:
    fault, a persistent one opening the circuit, the close after the
    cooldown), adaptive admission (429 ``shed``), parented trace spans
    under a client's trace id and an SLO breach degrading ``/healthz``, in
-   process on the card.
+   process on the card;
+15. online adaptation (``utils/adapt_drill.py``) at the product width: a
+   baseline trained on the card with the port's step on a synthetic cue
+   stream serves as the default tenant of a nine-tenant ``serve --zoo``;
+   one 250 Hz session streams a window a push and drifts after 16 pushes
+   (``--chaos session.drift``).  A server without ``--adapt`` is the
+   no-adaptation control; then ``--adapt --probeIntervalS 0.2`` with the
+   JAX defaults (60 steps of 32, 16 labels, floor 0.55 over 12 shadow / 8
+   labeled evals) and ``adapt.promote`` armed once: the client labels every
+   drifted window, the fine-tune runs on its own stream beside the
+   serving, the shadow's bucket-1 graph is captured under load, the first
+   promotion fails mid-swap with the prior digest serving and the retry
+   promotes; accuracy before, during and after, recovery above the
+   drifted accuracy, the journal's causal order, ``POST /adapt/rollback``
+   under 8 ``/predict`` clients with none failed, probes outside
+   ``requests_total``, exact K1, K1-stacked and K2s counts from the
+   journal, the candidate's card logits against its CPU forward, two card
+   fine-tunes bitwise equal, and the fine-tune's wall, the shadow's capture,
+   the promotion's reload and ``/predict`` and window latency during the
+   fine-tune against the control.
 
 Phases 10 and 11 print GFLOP/s and the MFU against the card's FP32 peak
 (``utils/flops.py``) beside fold-epochs/s at 8, 36 and 90 folds.
@@ -3426,7 +3445,10 @@ def _tuned_server(torch, np, dev, work: Path, env: dict) -> dict:
             cli.wait()
     events = _journal(np, obs, "ok")
     retunes = [e for e in events if e["event"] == "ladder_retune"]
-    failed = [e for e in events if e["event"] == "ladder_retune_failed"]
+    # A failed retune journals nothing (as the JAX tuner): it shows as
+    # the tuner's warning in the server's log.
+    failed = [line for line in (work / "serve_tuned.stderr.log").read_text(
+        ).splitlines() if "Ladder tune pass failed" in line]
     compiles = [e for e in events if e["event"] == "compile"]
     check(retunes and not failed, f"{len(retunes)} ladder_retune, "
           f"{len(failed)} failed: {failed[:1]}")
@@ -3609,6 +3631,205 @@ def phase_control(torch, np, dev, work: Path, env: dict) -> dict:
     return result
 
 
+# --------------------------------------------------------------------------
+# Phase 15: online adaptation
+# --------------------------------------------------------------------------
+
+ADAPT_STEPS = 60          # the JAX defaults: --adaptSteps, batch 32,
+ADAPT_TRIGGER = 16        # --adaptTriggerLabels, the 0.55 floor over
+ADAPT_FLOOR = 0.55        # 12 shadow / 8 labeled evals
+ADAPT_MIN_SHADOW = 12
+ADAPT_MIN_LABELED = 8
+LOGIT_ATOL, LOGIT_RTOL = 1e-5, 1e-4
+
+
+def _candidate_logits(torch, np, dev, checkpoint: str, x) -> float:
+    """The promoted candidate's logits on the card (K1) against its plain
+    forward on the CPU; returns the largest difference."""
+    from eegnetreplication_tpu_torch.serve.engine import (
+        InferenceEngine,
+        load_model_from_checkpoint,
+    )
+
+    card = InferenceEngine(load_model_from_checkpoint(checkpoint,
+                                                      device=dev), (1,),
+                           device=dev)
+    cpu = load_model_from_checkpoint(checkpoint, device="cpu")
+    with torch.inference_mode():
+        got = card.forward(torch.from_numpy(x).to(dev)).cpu()
+        want = cpu(torch.from_numpy(x))
+    check(torch.allclose(got, want, atol=LOGIT_ATOL, rtol=LOGIT_RTOL),
+          f"the candidate's card logits differ from its CPU forward by "
+          f"{float((got - want).abs().max()):.3g}")
+    check(torch.equal(got.argmax(-1), want.argmax(-1)),
+          "the candidate's card argmax differs from its CPU forward")
+    return float((got - want).abs().max())
+
+
+def _repeat_fine_tune(torch, np, dev, work: Path, record: dict) -> dict:
+    """Two card fine-tunes from the baseline checkpoint on the drifted
+    windows the client labeled, one seed: bitwise equal candidates.  Their
+    walls and steps/s."""
+    from eegnetreplication_tpu_torch.adapt import (
+        AdaptationWorker,
+        ReplayBuffer,
+    )
+    from eegnetreplication_tpu_torch.utils import adapt_drill
+
+    rec = record["recovery"]
+    cue = adapt_drill.CueStream(22, 257, 7)
+    x, y = adapt_drill.drifted_windows(cue, rec["promote_seen"],
+                                       rec["drift_start"], device=dev)
+    buf = ReplayBuffer()
+    for k in range(rec["drift_start"], rec["promote_seen"]):
+        buf.observe("adapted", "s", k, x[k])
+        buf.label("adapted", "s", k, int(y[k]))
+    runs = []
+    for i in range(2):
+        worker = AdaptationWorker(buf, work / f"repeat{i}",
+                                  steps=ADAPT_STEPS, batch_size=32,
+                                  seed=0, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cand = worker.fine_tune("adapted", work / "drill" / "baseline.npz")
+        wall = time.perf_counter() - t0
+        runs.append((cand, wall, cand.path.read_bytes()))
+    (a, wall_a, bytes_a), (b, wall_b, bytes_b) = runs
+    check(a.digest == b.digest and bytes_a == bytes_b,
+          f"two card fine-tunes differ: {a.digest[:12]} vs {b.digest[:12]}")
+    return {"digest": a.digest, "n_labeled": a.n_labeled,
+            "wall_s": [wall_a, wall_b],
+            "steps_per_s": [ADAPT_STEPS / wall_a, ADAPT_STEPS / wall_b],
+            "loss": a.loss, "fit_accuracy": a.fit_accuracy}
+
+
+def phase_adapt(torch, np, dev, work: Path, env: dict) -> dict:
+    """Phase 15: online adaptation on the card (``utils/adapt_drill.py``):
+    drift, labels, fine-tune, shadow, promotion, recovery, and a rollback
+    under 8 ``/predict`` clients, at the product width."""
+    from eegnetreplication_tpu_torch.utils import adapt_drill
+
+    t0 = time.perf_counter()
+    record = adapt_drill.run_drill(
+        work / "drill", env, n_channels=22, window=257, F1=8, D=2,
+        n_tenants=N_TENANTS, trigger_labels=ADAPT_TRIGGER,
+        adapt_steps=ADAPT_STEPS, min_shadow=ADAPT_MIN_SHADOW,
+        min_labeled=ADAPT_MIN_LABELED, accuracy_floor=ADAPT_FLOOR,
+        probe_interval_s=0.2, device=dev)
+    drill_s = time.perf_counter() - t0
+    events = record["events"]
+    base, rec = record["baseline"], record["recovery"]
+    check(record["baseline_rc"] == record["adapt_rc"] == 75,
+          f"servers exited {record['baseline_rc']}, {record['adapt_rc']} "
+          "after SIGTERM")
+    check(record["model"]["holdout_accuracy"] >= 0.7,
+          f"the baseline learned the cue stream to only "
+          f"{record['model']['holdout_accuracy']}")
+    check(record["order"]["ordered"],
+          f"journal order violated: {record['order']}")
+    decisions = [e for e in events if e["event"] == "promotion"]
+    refusals = [e for e in decisions if e["action"] == "refused"]
+    steps = [e for e in decisions if e["action"] != "refused"]
+    seen = [(e["action"], e.get("stage")) for e in decisions]
+    check([(e["action"], e.get("stage")) for e in steps]
+          == [("error", "reload"), ("promote", None), ("rollback", None)],
+          f"promotion events: {seen}")
+    err, prom, roll = steps
+    i_err, i_prom = events.index(err), events.index(prom)
+    swaps = [e for e in events[i_err:i_prom] if e["event"] == "model_swap"]
+    check(len(swaps) == 1 and swaps[0]["previous_digest"]
+          == record["prior_digest"] == prom["previous_digest"],
+          "the failed promotion (adapt.promote) did not leave the prior "
+          f"digest serving: {swaps}")
+    check(roll["digest"] == record["prior_digest"]
+          == record["counts_end"]["digest"],
+          "the rollback did not restore the prior digest")
+    rb = record["rollback"]
+    check(rb["status"] == 200 and rb["failed"] == 0,
+          f"rollback under load: {rb['status']}, {rb['failed']} of "
+          f"{rb['requests']} requests failed")
+    check(rec["failed"] == 0 and base["failed"] == 0,
+          f"{rec['failed']} + {base['failed']} session pushes, windows or "
+          "labels failed")
+    pre, drifted = rec["pre_drift_accuracy"], rec["drifted_accuracy"]
+    recovered = rec["recovered_accuracy"]
+    log(f"accuracy: pre-drift {pre}, drifted {drifted}, after promotion "
+        f"{recovered}; no-adaptation control {base['drifted_accuracy']}")
+    check(drifted < pre, f"the drift cost no accuracy ({pre} -> {drifted})")
+    check(recovered is not None and recovered > drifted,
+          f"no recovery: drifted {drifted}, after promotion {recovered}")
+    # Probes: ok while the model they pinned serves; outside
+    # requests_total.
+    probes = [e for e in events if e["event"] == "probe"]
+    lo, hi = swaps[0]["t"] - 1.0, roll["t"] + 1.0
+    check(probes and all(e["status"] == "ok" for e in probes
+                         if not lo <= e["t"] <= hi)
+          and {e["status"] for e in probes} <= {"ok", "mismatch"},
+          f"probe statuses: {sorted({e['status'] for e in probes})}")
+    end = next(e for e in events if e["event"] == "serve_end")
+    n_user = len(record["predict_records"]) + rb["requests"]
+    check(end["n_requests"] == n_user and end["probes"] == len(probes),
+          f"serve_end counts {end['n_requests']} requests and "
+          f"{end['probes']} probes; sent {n_user} and {len(probes)}")
+    counters = record["metrics"]["counters"]
+    check(sum(e["value"] for e in counters["requests_total"])
+          <= n_user, "probes reached requests_total")
+    launches = adapt_drill.expected_launches(record)
+    check(launches["got"] == launches["want"],
+          f"launch counts: got {launches['got']}, want {launches['want']}")
+    # The promoted candidate on the card against its CPU forward, and two
+    # card fine-tunes.
+    cue = adapt_drill.CueStream(22, 257, 7)
+    x, _ = adapt_drill.drifted_windows(cue, 32, 8, device=dev)
+    max_err = _candidate_logits(torch, np, dev, prom["checkpoint"], x)
+    repeat = _repeat_fine_tune(torch, np, dev, work, record)
+    cand = next(e for e in events if e["event"] == "adaptation_candidate")
+    shadow_compile = [e for e in events if e["event"] == "compile"
+                      and e["what"] == "serve_forward_b1"]
+    swap = swaps[0]
+    result = {
+        "drill_s": drill_s,
+        "model": record["model"],
+        "accuracy": {"pre_drift": pre, "drifted": drifted,
+                     "recovered": recovered,
+                     "no_adaptation_control": base["drifted_accuracy"]},
+        "windows": {"baseline": base["windows_decided"],
+                    "adapt": rec["windows_decided"],
+                    "drift_start": rec["drift_start"],
+                    "promote_seen": rec["promote_seen"],
+                    "labels": rec["labels_posted"]},
+        "refusals": len(refusals),
+        "fine_tune_server": {"elapsed_s": cand["elapsed_s"],
+                             "steps": cand["steps"],
+                             "steps_per_s": cand["steps"]
+                             / cand["elapsed_s"],
+                             "n_labeled": cand["n_labeled"],
+                             "fit_accuracy": cand["fit_accuracy"]},
+        "fine_tune_repeat": repeat,
+        "shadow_capture_s": [e.get("capture_s") for e in shadow_compile],
+        "shadow_compile_s": [e["elapsed_s"] for e in shadow_compile],
+        "adapt_warmup_s": next(e for e in events
+                               if e["event"] == "serve_start"
+                               )["adapt_warmup_s"],
+        "promotion_s": prom["elapsed_s"],
+        "promotion_reload_s": swap["elapsed_s"],
+        "rollback": {k: rb[k] for k in ("status", "wall_s", "requests",
+                                        "failed")},
+        "latency": record["latency"],
+        "launches": launches,
+        "probes": {"n": len(probes),
+                   "statuses": sorted({e["status"] for e in probes})},
+        "candidate_max_abs_err": max_err,
+    }
+    result["wall_s"] = time.perf_counter() - t0
+    log(f"phase 15 in {result['wall_s']:.1f} s: fine-tune "
+        f"{cand['elapsed_s']} s in the server, repeat "
+        f"{repeat['wall_s'][0]:.3f}/{repeat['wall_s'][1]:.3f} s; shadow "
+        f"capture {result['shadow_capture_s']}; promotion reload "
+        f"{swap['elapsed_s']} s; latency {record['latency']}")
+    return result
+
+
 def _mfu_fields(row: dict) -> dict:
     """GFLOP/s and MFU of a fold-epochs/s row at the product width, from
     the port's FLOP count (``utils/flops.py``) and the card's FP32 peak."""
@@ -3687,6 +3908,8 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_control_") \
                 as tmp:
             control = phase_control(torch, np, dev, Path(tmp), env)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_adapt_") as tmp:
+            adapt = phase_adapt(torch, np, dev, Path(tmp), env)
     except Exception:  # noqa: BLE001 — every failure ends the run
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -3698,10 +3921,13 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "eegnetreplication_tpu_torch/ops/csrc/block1.cu",
         "replaces": "eegnetreplication_tpu/ops/fused_eegnet.py:134",
-        # the serve phase's server, the int8 server of phase 12 and the
-        # tuned server of phase 14 (graph replays counted per replay)
+        # the serve phase's server, the int8 server of phase 12, the
+        # tuned server of phase 14 (graph replays counted per replay) and
+        # the adapting server of phase 15 (the shadow's replays, the stack
+        # gates' references)
         "launches": (serve["launches"] + zoo["int8"]["k1_launches"]
-                     + control["tuned"]["launches"]),
+                     + control["tuned"]["launches"]
+                     + adapt["launches"]["got"]["block1"]),
         "max_abs_err": k1_err,
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
@@ -3713,11 +3939,13 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "eegnetreplication_tpu_torch/ops/csrc/block1_stacked.cu",
         "replaces": "eegnetreplication_tpu/ops/fused_eegnet.py:134",
-        # the counted runs of the training phases (10 and 11) and the
-        # zoo server's counted chunks (phase 12)
+        # the counted runs of the training phases (10 and 11), the zoo
+        # server's counted chunks (phase 12) and the adapting server of
+        # phase 15 (its chunks, fit accuracies and restacks)
         "launches": (train["launches"] + cs["launches_one_group"]
                      + cs["launches_groups"]
-                     + zoo["zoo"]["k1_stacked_launches"]),
+                     + zoo["zoo"]["k1_stacked_launches"]
+                     + adapt["launches"]["got"]["block1_stacked"]),
         "max_abs_err": k1s_err,
         # at the 90-fold cross-subject validation batch, (5760, 22, 257)
         "ms": k1s_times[5760]["ms"],
@@ -3747,8 +3975,10 @@ def main(argv=None) -> int:
         "source": "eegnetreplication_tpu_torch/ops/csrc/ems_stream.cu",
         "replaces": ("eegnetreplication_tpu/ops/ems.py:244 (_stream_chunk, "
                      "lax.scan, not Pallas)"),
-        # the three session servers of phase 13
-        "launches": streams["launches"],
+        # the three session servers of phase 13 and the drifting
+        # session of phase 15
+        "launches": (streams["launches"]
+                     + adapt["launches"]["got"]["ems_stream"]),
         "max_abs_err": streams["k2s"]["max_abs_err"],
         # at a push of 25 samples, (22, 25)
         **{k: streams["times"]["by_n"][STREAM_CHUNK][k] for k in (
@@ -3768,6 +3998,7 @@ def main(argv=None) -> int:
         "k2_times": k2_times, "k1_stacked_max_abs_err": k1s_err,
         "k1_stacked_times": k1s_times, "train": train, "cross_subject": cs,
         "serving_zoo": zoo, "streams": streams, "control": control,
+        "adapt": adapt,
         "wall_s": time.perf_counter() - t_start,
     }
     print(json.dumps({"timings": record}), flush=True)

@@ -16,12 +16,13 @@ and serving paths:
   spans (the runtime half; the JAX package's reader stitches them);
 - :mod:`~eegnetreplication_tpu_torch.obs.slo`, sliding-window SLO
   verdicts over the live registry;
-- :mod:`~eegnetreplication_tpu_torch.obs.stats`, the shared percentile.
+- :mod:`~eegnetreplication_tpu_torch.obs.stats`, the shared percentile;
+- :mod:`~eegnetreplication_tpu_torch.obs.probe`, the black-box prober.
 
 The registry also renders the Prometheus text of ``GET /metrics``.
 Entry points open a run with :func:`journal.run`; library code reaches the
 active journal through :func:`journal.current` (a no-op outside a run).
-Probes, aggregation, the trace reader and the ``BENCH_*.json`` writer are
+Aggregation, the trace reader and the ``BENCH_*.json`` writer are
 not ported (ROADMAP.md queue A.5).
 """
 

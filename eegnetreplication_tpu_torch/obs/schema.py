@@ -75,6 +75,16 @@ EVENT_REQUIRED: dict[str, tuple[str, ...]] = {
     "session_resume": ("session", "acked"),
     "session_end": ("session", "windows", "expired"),
     "session_label": ("session", "window", "label"),
+    # A failed (or garbled) write of the session snapshot's mirror copy.
+    "spool_mirror": ("action",),
+    # Online adaptation (adapt/): a fine-tune's start and its stamped
+    # candidate, one teed shadow comparison of live and candidate
+    # predictions, and every promotion decision (action promote, refused,
+    # rollback or error) with the gate's inputs.
+    "adaptation_start": ("model", "n_labeled"),
+    "adaptation_candidate": ("model", "digest", "steps"),
+    "shadow_eval": ("model", "digest", "n_trials", "agree"),
+    "promotion": ("model", "action", "digest"),
     # The serving control plane: one captured CUDA graph per bucket
     # (compile_begin, compile, compile_end, as the JAX engine journals its
     # compiled programs), the ladder tuner's retunes, the circuit breaker's
@@ -92,6 +102,9 @@ EVENT_REQUIRED: dict[str, tuple[str, ...]] = {
     "slo_breach": ("objective", "value", "threshold"),
     "slo_recovered": ("objective", "threshold"),
     "profile_window": ("dur_s", "log_dir", "status"),
+    # One canary through the front door (obs/probe.py): status "ok" only
+    # for a 200 that matched the pinned answer.
+    "probe": ("status", "latency_ms", "url"),
 }
 
 # metrics.json top-level sections and the keys every series entry needs.

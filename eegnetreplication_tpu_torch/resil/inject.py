@@ -1,9 +1,10 @@
 """Deterministic fault injection at named sites of the training path, the
-serving forward and the session store.
+serving forward, the session store and online adaptation.
 
-The port's copy of the training, serving and session-store part of
-``eegnetreplication_tpu/resil/inject.py``.  Instrumented code calls :func:`fire` at a named site; the call
-is a no-op (one dict lookup) unless a test or a ``--chaos`` plan has
+The port's copy of the training, serving, session-store and adaptation
+part of ``eegnetreplication_tpu/resil/inject.py``.  Instrumented code
+calls :func:`fire` at a named site; the call is a no-op (one dict lookup)
+unless a test or a ``--chaos`` plan has
 :func:`arm`-ed that site.  Arming counts hits, so a chaos run repeats
 exactly: ``after=N`` skips the first N eligible hits, ``times=M`` fires on
 the next M (``times=0``: every later hit), ``every=N`` only on every Nth.
@@ -47,6 +48,17 @@ site                       action     effect
                                       beat (the heartbeat goes stale)
 ``serve.degrade``          slow       a bounded delay per dispatch attempt
                                       (``if_tag=`` matches ``--chaosTag``)
+``session.drift``          drift      a mid-stream distribution shift: the
+                                      session ingest catches
+                                      :class:`DriftInjected` and feeds
+                                      ``x*scale + offset`` on (``scale=``
+                                      finite and > 0, ``offset=`` finite)
+``adapt.train``            corrupt    garble the candidate checkpoint a
+                                      fine-tune just wrote (the shadow
+                                      load refuses it); ``action=raise``
+                                      aborts the fine-tune instead
+``adapt.promote``          raise      ``RuntimeError`` inside a promotion's
+                                      swap; the prior model keeps serving
 =========================  =========  =====================================
 
 A plan (the ``--chaos`` flag) is comma-separated site specs with
@@ -55,8 +67,8 @@ colon-separated options, or ``@plan.json`` holding a list of spec objects::
     --chaos "train.step:if_folds_over=4,checkpoint.write:after=1"
 
 The JAX package's other sites (fetch, data reads, ``replica.network``,
-``session.drift``, fleets, cells, adaptation) instrument code the port does
-not have yet; a plan that names one is refused.
+fleets, cells, the HA front) instrument code the port does not have yet; a
+plan that names one is refused.
 """
 
 from __future__ import annotations
@@ -77,20 +89,34 @@ from eegnetreplication_tpu_torch.utils.logging import logger
 SITES = ("train.step", "train.chunk", "train.hang", "checkpoint.write",
          "checkpoint.write_async", "host.preempt", "session.snapshot",
          "session.restore", "spool.mirror", "serve.forward", "serve.hang",
-         "serve.degrade")
+         "serve.degrade", "session.drift", "adapt.train", "adapt.promote")
 
 # The JAX package's sites that instrument modules not ported yet.
 UNPORTED_SITES = ("fetch.download", "data.read", "replica.network",
-                  "cell.partition", "fleet.scale", "session.drift",
-                  "adapt.train", "adapt.promote", "front.lease")
+                  "cell.partition", "fleet.scale", "front.lease")
 
-ACTIONS = ("raise", "corrupt", "preempt", "sleep", "slow")
+ACTIONS = ("raise", "corrupt", "preempt", "sleep", "slow", "drift")
 
 # action="sleep" without sleep=: long enough that a watchdog fires first,
 # short enough that an unwatched plan eventually lets the process go.
 DEFAULT_HANG_S = 60.0
 # action="slow" without slow=: late, not stuck.
 DEFAULT_SLOW_S = 0.25
+# action="drift" without scale=/offset=: a model calibrated before the
+# drift visibly misclassifies, and the numbers stay tame.
+DEFAULT_DRIFT_SCALE = 3.0
+DEFAULT_DRIFT_OFFSET = 2.0
+
+
+class DriftInjected(Exception):
+    """Raised by ``action="drift"``: the session ingest catches it and
+    applies ``chunk*scale + offset`` to the samples it was about to
+    ingest (a fault that carries data, not a failure)."""
+
+    def __init__(self, message: str, scale: float, offset: float):
+        super().__init__(message)
+        self.scale = float(scale)
+        self.offset = float(offset)
 
 _EXC_TYPES: dict[str, type[Exception]] = {
     "RuntimeError": RuntimeError,
@@ -130,6 +156,12 @@ _DEFAULTS: dict[str, tuple[str, str | None, str]] = {
     "serve.hang": ("sleep", None, "injected hang: serve.hang (hit {hit})"),
     "serve.degrade": ("slow", None,
                       "injected degradation: serve.degrade (hit {hit})"),
+    "session.drift": ("drift", None,
+                      "injected drift: session.drift (hit {hit})"),
+    "adapt.train": ("corrupt", "OSError",
+                    "injected fault: adapt.train (hit {hit})"),
+    "adapt.promote": ("raise", "RuntimeError",
+                      "injected fault: adapt.promote (hit {hit})"),
 }
 
 
@@ -165,6 +197,8 @@ class FaultSpec:
     slow: float | None = None   # action="slow": added latency in seconds
     every: int | None = None    # fire only on every Nth due hit
     if_tag: str | None = None   # only hits whose ctx tag= matches
+    scale: float | None = None  # action="drift": multiplicative magnitude
+    offset: float | None = None  # action="drift": additive magnitude
 
     def __post_init__(self):
         _check_site(self.site)
@@ -197,6 +231,26 @@ class FaultSpec:
                     f"{field_name} must be a non-negative finite number "
                     f"of seconds, got {value}")
             setattr(self, field_name, value)
+        # A NaN or inf drift would poison every window downstream, and a
+        # scale <= 0 is a sign flip a plan almost never means.
+        for field_name in ("scale", "offset"):
+            value = getattr(self, field_name)
+            if value is None:
+                continue
+            try:
+                value = float(value)
+            except (TypeError, ValueError):
+                raise ValueError(
+                    f"{field_name} must be a finite number, got "
+                    f"{getattr(self, field_name)!r}") from None
+            if not math.isfinite(value):
+                raise ValueError(
+                    f"{field_name} must be finite, got {value}")
+            setattr(self, field_name, value)
+        if self.scale is not None and self.scale <= 0:
+            raise ValueError(
+                f"scale must be > 0 (a drift multiplies the signal), "
+                f"got {self.scale}")
 
 
 class ArmedFault:
@@ -344,6 +398,12 @@ def fire(site: str, **ctx) -> None:
         seconds = getattr(spec, action)
         time.sleep(default if seconds is None else seconds)
         return
+    if action == "drift":
+        raise DriftInjected(
+            message,
+            spec.scale if spec.scale is not None else DEFAULT_DRIFT_SCALE,
+            spec.offset if spec.offset is not None
+            else DEFAULT_DRIFT_OFFSET)
     raise _EXC_TYPES[spec.exc or d_exc or "RuntimeError"](message)
 
 

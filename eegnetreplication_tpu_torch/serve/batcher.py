@@ -14,7 +14,9 @@ Backpressure is explicit: a request that would push the queue past
 ``max_queue_trials`` raises :class:`Rejected` at once (HTTP 429), and with
 an ``admission`` controller (``serve/admission.py``) a bulk request over
 its adaptive limit raises :class:`Shed` (also 429, status ``shed``);
-priority (session) traffic meets only the hard bound.  A request whose
+priority (session) traffic meets only the hard bound, and ``exempt``
+(probe) traffic bypasses the adaptive limit and is left out of the
+observations admission and the tuner read.  A request whose
 deadline passed while it was queued is dropped at dequeue with
 :class:`DeadlineExceeded` (HTTP 504) before its forward runs.
 
@@ -134,6 +136,11 @@ class MicroBatcher:
         self._rr: deque[int] = deque()
         self._pending_trials = 0
         self._closed = False
+        # Futures of exempt requests (probes): they ride the real queue
+        # and forward but stay out of the admission and tuner
+        # observations.  Added under ``_cv`` at submit, discarded on every
+        # terminal path (scatter, expiry, failed forward, close).
+        self._exempt: set[Future] = set()
         # Coalesced forwards dispatched so far (read by /healthz).
         self.batches = 0
         # Run the worker inside a copy of the constructing thread's
@@ -176,7 +183,8 @@ class MicroBatcher:
 
     def submit(self, trials: np.ndarray,
                deadline: float | None = None,
-               priority: bool = False, tenant: int = 0) -> Future:
+               priority: bool = False, tenant: int = 0,
+               exempt: bool = False) -> Future:
         """Enqueue ``(n, C, T)`` trials; the future resolves to their
         ``(n,)`` predictions.  Raises :class:`Rejected` when the queue is
         full or the batcher is shut down, :class:`Shed` when the adaptive
@@ -188,7 +196,11 @@ class MicroBatcher:
         adaptive limit (never shed before bulk) and only the hard
         ``max_queue_trials`` cliff applies.  ``tenant`` indexes the
         request's model in a multi-tenant zoo (``tenant_aware``
-        batchers only — the single-model contract pins tenant 0)."""
+        batchers only — the single-model contract pins tenant 0).
+        ``exempt=True`` marks canary traffic (probes): it bypasses the
+        adaptive limit and is left out of the queue-wait and batch-shape
+        observations that admission and the ladder tuner read (it still
+        fills a batch slot, so ``bucket_fill`` counts it)."""
         x = np.asarray(trials, np.float32)
         if x.ndim == 2:
             x = x[None]
@@ -214,7 +226,7 @@ class MicroBatcher:
                 raise Rejected(
                     f"queue full ({self._pending_trials} trials pending, "
                     f"limit {self.max_queue_trials})")
-            if (self.admission is not None and not priority
+            if (self.admission is not None and not priority and not exempt
                     and not self.admission.admit(self._pending_trials, n)):
                 # Shed verdict noted here, recorded BELOW: record_shed
                 # may write a throttled journal line, and disk I/O under
@@ -228,6 +240,8 @@ class MicroBatcher:
                     self._rr.append(tenant)
                 q.append((x, fut, time.perf_counter(), deadline,
                           trace.current(), tenant))
+                if exempt:
+                    self._exempt.add(fut)
                 self._pending_trials += n
                 self._gauge_depth_locked()
                 self._cv.notify_all()
@@ -273,6 +287,7 @@ class MicroBatcher:
                 for q in self._queues.values():
                     while q:
                         _, fut, _, _, _, _ = q.popleft()
+                        self._exempt.discard(fut)
                         fut.set_exception(
                             Rejected("serving is shutting down"))
                 self._queues.clear()
@@ -318,11 +333,14 @@ class MicroBatcher:
                 trace.emit_span(
                     ctx, "queue.wait", dur_s=wait_s,
                     journal=self._journal, status="expired")
-                if self.admission is not None:
+                if self.admission is not None \
+                        and fut not in self._exempt:
                     # An expired wait is the strongest overload evidence
                     # there is — it must feed the AIMD loop, not just the
-                    # completions that squeaked through.
+                    # completions that squeaked through.  A probe's
+                    # expiry stays out: it must never clamp admission.
                     self.admission.observe_wait(wait_s * 1000.0)
+                self._exempt.discard(fut)
                 if not fut.cancelled():
                     fut.set_exception(DeadlineExceeded(
                         "request deadline expired while queued; dropped "
@@ -495,6 +513,7 @@ class MicroBatcher:
                     preds = np.asarray(self._dispatch(x, tenants))
             except BaseException as exc:  # noqa: BLE001 — routed to futures
                 for _, fut, _, _, _ in batch:
+                    self._exempt.discard(fut)
                     if not fut.cancelled():
                         fut.set_exception(exc)
                 continue
@@ -503,15 +522,25 @@ class MicroBatcher:
             self.batches += 1
             t_scatter = time.perf_counter()
             off = 0
+            n_exempt_trials = 0
+            n_exempt_reqs = 0
             for bx, fut, t_enq, ctx, _ in batch:
                 k = len(bx)
                 if not fut.cancelled():
                     fut.set_result(preds[off:off + k])
                 off += k
-                self._journal.metrics.observe(
-                    "queue_wait_ms", (now - t_enq) * 1000.0)
-                if self.admission is not None:
-                    self.admission.observe_wait((now - t_enq) * 1000.0)
+                if fut in self._exempt:
+                    # Probes ride the forward but never feed the tuner or
+                    # admission: their cadence is the operator's.
+                    self._exempt.discard(fut)
+                    n_exempt_trials += k
+                    n_exempt_reqs += 1
+                else:
+                    self._journal.metrics.observe(
+                        "queue_wait_ms", (now - t_enq) * 1000.0)
+                    if self.admission is not None:
+                        self.admission.observe_wait(
+                            (now - t_enq) * 1000.0)
                 # Per-request scatter span: dequeue -> result delivered,
                 # linked to the shared forward it rode.
                 trace.emit_span(
@@ -520,6 +549,11 @@ class MicroBatcher:
                     journal=self._journal, n_trials=k,
                     link_span=forward_span,
                     forward_ms=round((t_scatter - t_fwd) * 1000.0, 3))
-            self._journal.metrics.observe("batch_trials", len(x))
-            self._journal.metrics.observe("batch_requests", len(batch))
+            # Batch shapes count user work only: an all-probe batch
+            # records nothing.
+            if len(batch) > n_exempt_reqs:
+                self._journal.metrics.observe(
+                    "batch_trials", len(x) - n_exempt_trials)
+                self._journal.metrics.observe(
+                    "batch_requests", len(batch) - n_exempt_reqs)
             self.heartbeat.beat("serve_idle")

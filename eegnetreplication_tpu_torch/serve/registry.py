@@ -21,6 +21,10 @@ demand and evict least-recently-used past ``max_programs``
 :class:`~eegnetreplication_tpu_torch.serve.zoo.StackedEngine` serves every
 mixed-tenant batch, gated per tenant; ``reload`` of one tenant builds and
 gates the new stack off to the side and swaps it in (``zoo_restack``).
+Online adaptation registers a tenant's candidate as a non-serving shadow
+(``register_shadow``, ``shadow_infer``, ``shadow_digest``,
+``drop_shadow``): a bucket-1 fp32 engine outside the stack, the LRU budget
+and request addressing.
 
 One departure from the JAX zoo: its restack turns ANY exception into
 per-model serving.  Here only trees that cannot stack
@@ -265,6 +269,10 @@ class ModelZoo:
         self._build_lock = threading.Lock()   # serializes engine builds
         self._reload_lock = threading.Lock()  # serializes reload/restack
         self._stacked = None                  # the one-launch hot path
+        # Non-serving shadow candidates (online adaptation): tenant id ->
+        # (engine, digest), outside tenant_ids, the stack and the LRU
+        # budget, so no request can address one.
+        self._shadows: dict[str, tuple[InferenceEngine, str]] = {}
         self.last_stack_gate = None
         self.last_gate: QuantGateResult | None = None
         self._swaps = 0
@@ -631,6 +639,55 @@ class ModelZoo:
             self._journal.metrics.inc("model_swaps")
             return new_digest
 
+    # -- shadows (online adaptation) ---------------------------------------
+    def register_shadow(self, model_id: str, checkpoint: str | Path) -> str:
+        """Load an adaptation candidate as a non-serving shadow of
+        ``model_id``: integrity-verified and geometry-gated like a reload
+        (a corrupt candidate raises here and never sees traffic), an fp32
+        engine on bucket 1 only (the tee scores one window at a time).  On
+        the card that bucket is one captured graph, captured as a retune
+        captures (its own stream, ``thread_local`` mode, after an eager
+        run there), so serving goes on meanwhile.  Returns the shadow's
+        digest."""
+        resolved = self.resolve(model_id)
+        model = load_model_from_checkpoint(checkpoint, device=self.device)
+        if (model.n_channels, model.n_times) != self.geometry:
+            raise ValueError(
+                f"shadow geometry mismatch: serving {self.geometry}, "
+                f"candidate {checkpoint} is "
+                f"{(model.n_channels, model.n_times)}")
+        digest = model_digest(model)
+        engine = InferenceEngine(model, (1,), device=self.device,
+                                 precision="fp32", digest=digest,
+                                 journal=self._journal)
+        engine.warmup()
+        with self._lock:
+            self._shadows[resolved] = (engine, digest)
+        self._journal.event("model_load", model=resolved, digest=digest,
+                            shadow=True, checkpoint=str(checkpoint))
+        self._journal.metrics.inc("zoo_shadow_loads")
+        logger.info("Zoo shadow registered for %s: %s", resolved,
+                    digest[:12])
+        return digest
+
+    def shadow_infer(self, model_id: str, trials: np.ndarray) -> np.ndarray:
+        """Predictions of the tenant's shadow engine (``KeyError`` when
+        none is registered)."""
+        with self._lock:
+            engine, _ = self._shadows[self.resolve(model_id)]
+        return engine.infer(trials)
+
+    def shadow_digest(self, model_id: str) -> str | None:
+        with self._lock:
+            entry = self._shadows.get(self.resolve(model_id))
+            return None if entry is None else entry[1]
+
+    def drop_shadow(self, model_id: str) -> bool:
+        """Retire the tenant's shadow (no-op when none is registered)."""
+        with self._lock:
+            return self._shadows.pop(self.resolve(model_id), None) \
+                is not None
+
     def retune(self, buckets: tuple[int, ...], *, warm: bool = True):
         """Adopt a new bucket ladder (the tuner's primitive): the stacked
         engine is rebuilt on it and its graphs captured off the hot path
@@ -697,4 +754,6 @@ class ModelZoo:
                 "resident_programs": self._resident_programs_locked(),
                 "max_programs": self.max_programs,
                 "restacks": self._restacks,
+                "shadows": [{"model": mid, "digest": digest}
+                            for mid, (_, digest) in self._shadows.items()],
                 "tenants": tenants}

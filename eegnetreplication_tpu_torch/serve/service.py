@@ -42,7 +42,8 @@ torch engine (stdlib ``http.server`` + threads):
   f32 ``(C, n)`` bytes, channel-major, or ``{"samples": [[...]]}``): the
   chunk goes through the session's EMS carry (one K2s launch on the card)
   and every window it completes through the batcher, answered in the same
-  reply; ``POST /session/<id>/label`` (recorded and journaled),
+  reply; ``POST /session/<id>/label`` (recorded, journaled, and with
+  ``--adapt`` fed to the adaptation loop),
   ``/close``, ``/import``, ``/discard``, ``GET /session/<id>/state`` and
   ``/export``.  Windows classify under the zoo's default tenant.  A window
   past its deadline is decided ``expired`` with ``pred = -1`` and the
@@ -50,6 +51,18 @@ torch engine (stdlib ``http.server`` + threads):
   ``--sessionSnapshotEvery`` decided windows, at every close and at the
   drain; ``--sessionsMirror`` writes each twice), ``--resume`` restores
   them before the listener binds.
+
+- Online adaptation (``--adapt``, zoo serving; a lone ``--checkpoint``
+  becomes a one-tenant zoo): each decided window of a session is captured
+  for replay, the client's labels pair with it, ``--adaptTriggerLabels``
+  fresh labels start a background fine-tune (``adapt/``), the candidate
+  serves as a non-serving shadow on sampled live traffic (the zoo's
+  bucket-1 shadow engine) and is promoted through the zoo's zero-drop
+  reload when the gate's floors clear.  ``GET /adapt/status`` reports the
+  loop, ``POST /adapt/rollback`` (``{"model": id?}``) restores the
+  pre-promotion weights (409 with nothing to roll back); both answer 404
+  without ``--adapt``.  An armed ``session.drift`` chaos site turns each
+  pushed chunk into ``x*scale + offset`` before the EMS carry sees it.
 
 The control plane is the JAX server's: each dispatch probes the
 ``serve.forward`` and ``serve.degrade`` chaos sites under the shared retry
@@ -60,7 +73,12 @@ it: fast 503s until a half-open probe succeeds after ``--breakerResetS``);
 ladder's graphs off the hot path); ``--admissionTargetMs`` the adaptive
 admission (bulk 429 ``shed``); ``--traceSample`` head-samples traces
 (``X-Trace-Id`` from a client is kept); ``--slo``/``--sloWindowS`` the
-SLO monitor.
+SLO monitor; ``--probeIntervalS`` an in-process :class:`Prober` that
+posts known-answer canaries (``X-Probe``) to this server's ``/predict``
+and evaluates ``--probeSlo`` from the client's side.  A probe runs the
+real path but counts in ``probe_requests_total`` (``/healthz``
+``probes``), never in ``requests_total``, the request SLO, the admission
+limit or the tuner's observations.
 
 ``--precision int8`` serves int8 weights behind the quant gate (fp32 if
 it refuses).  The run writes the JAX service's journal (``serve_start``,
@@ -68,10 +86,10 @@ it refuses).  The run writes the JAX service's journal (``serve_start``,
 ``zoo_restack``, ``model_load``, ``model_evict``, ``model_swap``,
 ``ladder_retune``, ``circuit_state``, ``admission_change``, ``shed``,
 ``span``, ``slo_breach``, ``slo_recovered``, ``profile_window``,
-``heartbeat``, the session events, ``serve_end``) under ``--metricsDir``.
-SIGTERM/SIGINT stop the listener, drain the queue, snapshot the sessions
-and exit 75 (``resil/preempt.py``).  The prober (``--probeIntervalS``),
-the zoo's shadow API, adaptation and ``replica.network`` are not ported.
+``heartbeat``, ``probe``, the session and adaptation events,
+``serve_end``) under ``--metricsDir``.  SIGTERM/SIGINT stop the listener,
+drain the queue, snapshot the sessions and exit 75
+(``resil/preempt.py``).  ``replica.network`` is not ported.
 """
 
 from __future__ import annotations
@@ -90,7 +108,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from eegnetreplication_tpu_torch.adapt import (
+    AdaptationController,
+    PromotionGate,
+)
 from eegnetreplication_tpu_torch.obs import journal as obs_journal
+from eegnetreplication_tpu_torch.obs import probe as obs_probe
 from eegnetreplication_tpu_torch.obs import slo as obs_slo
 from eegnetreplication_tpu_torch.obs import trace
 from eegnetreplication_tpu_torch.obs.metrics import (
@@ -98,6 +121,7 @@ from eegnetreplication_tpu_torch.obs.metrics import (
     to_prometheus_text,
     wants_prometheus,
 )
+from eegnetreplication_tpu_torch.obs.probe import PROBE_HEADER
 from eegnetreplication_tpu_torch.ops.ems_kernel import ems_stream
 from eegnetreplication_tpu_torch.ops.fused_eegnet import (
     block1,
@@ -229,7 +253,15 @@ class ServeApp:
                  slo_window_s: float = obs_slo.DEFAULT_WINDOW_S,
                  slo_interval_s: float = 1.0,
                  admission_target_ms: float = 0.0,
-                 chaos_tag: str | None = None):
+                 chaos_tag: str | None = None,
+                 adapt: bool = False,
+                 adapt_dir: str | Path | None = None,
+                 adapt_trigger_labels: int = 16,
+                 adapt_steps: int = 60, adapt_lr: float = 1e-3,
+                 adapt_batch: int = 32, adapt_sample_every: int = 1,
+                 adapt_min_shadow: int = 12, adapt_min_labeled: int = 8,
+                 adapt_accuracy_floor: float = 0.55,
+                 adapt_agreement_floor: float = 0.0):
         self.journal = journal if journal is not None \
             else obs_journal.current()
         device = resolve_device(device)
@@ -268,6 +300,37 @@ class ServeApp:
             journal=self.journal, device=device)
         if resume:
             self.sessions.restore()
+        # Online adaptation (opt-in) needs the zoo: the candidate registers
+        # as a non-serving shadow and promotion rides the zoo's reload (the
+        # CLI wraps a lone --checkpoint into a one-tenant zoo).
+        self.adapt: AdaptationController | None = None
+        self.adapt_warmup_s = None
+        if adapt:
+            if self.zoo is None:
+                raise ValueError(
+                    "online adaptation requires zoo serving (pass zoo=, "
+                    "or let the CLI wrap --checkpoint into a one-tenant "
+                    "zoo)")
+            adapt_root = (Path(adapt_dir) if adapt_dir
+                          else (self.sessions_dir / "adapt"
+                                if self.sessions_dir
+                                else Path(tempfile.mkdtemp(
+                                    prefix="eegtpu_adapt_"))))
+            self.adapt = AdaptationController(
+                self.zoo, adapt_root,
+                trigger_labels=adapt_trigger_labels,
+                sample_every=adapt_sample_every,
+                gate=PromotionGate(
+                    min_samples=adapt_min_shadow,
+                    min_labeled=adapt_min_labeled,
+                    accuracy_floor=adapt_accuracy_floor,
+                    agreement_floor=adapt_agreement_floor),
+                learning_rate=adapt_lr, steps=adapt_steps,
+                batch_size=adapt_batch, journal=self.journal)
+            # The training path's first use on the card, before the
+            # listener binds (see AdaptationWorker.warmup).
+            self.adapt_warmup_s = self.adapt.worker.warmup(
+                self.zoo.checkpoint_for(self.zoo.default_id))
         # Liveness: the worker's heartbeat (in process, plus the
         # EEGTPU_HEARTBEAT_FILE file when one is configured) feeds
         # /healthz's staleness check; the breaker guards serve.forward.
@@ -320,6 +383,7 @@ class ServeApp:
         self._n_errors = 0
         self._n_expired = 0
         self._n_circuit_open = 0
+        self._n_probes = 0
         self._n_sessions_opened = 0
         self._n_session_windows = 0
         self._n_windows_expired = 0
@@ -389,6 +453,9 @@ class ServeApp:
                      if self.zoo is not None else None),
             stacked=(self.zoo.stacked is not None
                      if self.zoo is not None else None),
+            adaptation=self.adapt is not None,
+            adapt_warmup_s=(round(self.adapt_warmup_s, 3)
+                            if self.adapt_warmup_s is not None else None),
             host=self.address[0], port=self.address[1])
         logger.info("Serving %s at %s (buckets %s, %s on %s)",
                     self.checkpoint, self.url, self.buckets,
@@ -401,13 +468,25 @@ class ServeApp:
         return tuple(self.registry.active_buckets)
 
     def record_request(self, n_trials: int, latency_ms: float, status: str,
-                       *, model: str | None = None) -> None:
+                       *, probe: bool = False,
+                       model: str | None = None) -> None:
         """Journal one ``request`` event and count it: ``ok``,
         ``rejected``, ``shed``, ``expired``, ``circuit_open``, or an error
         (``error``, ``bad_request``, ``bad_model``).  ``requests_total``
         and the ok latency histogram feed ``/metrics``, ``/healthz`` and
         the SLO monitor; an anomalous outcome flushes the request's
-        buffered trace spans."""
+        buffered trace spans.  A probe (``X-Probe``) journals with
+        ``probe=True`` and counts in ``probe_requests_total`` only, so the
+        request SLO and the latency tails see user traffic alone."""
+        if probe:
+            with self._stats_lock:
+                self._n_probes += 1
+            self.journal.event("request", n_trials=int(n_trials),
+                               latency_ms=round(latency_ms, 3),
+                               status=status, probe=True)
+            self.journal.metrics.inc("probe_requests_total", status=status)
+            trace.flush_if_anomalous(status, journal=self.journal)
+            return
         with self._stats_lock:
             self._n_requests += 1
             if status == "rejected":
@@ -442,6 +521,8 @@ class ServeApp:
             self._httpd.shutdown()
             self._httpd.server_close()
         self.batcher.close(drain=drain)
+        if self.adapt is not None:
+            self.adapt.close()
         with self._idle:
             if not self._idle.wait_for(lambda: self._inflight == 0,
                                        timeout=HANDLER_DRAIN_S):
@@ -455,6 +536,7 @@ class ServeApp:
             n_sess, n_win, n_wexp = (self._n_sessions_opened,
                                      self._n_session_windows,
                                      self._n_windows_expired)
+            n_probes = self._n_probes
         # The final session snapshot lands after the handler wait: every
         # in-flight ingest has recorded its decisions, so it is the whole
         # durable state a --resume restores.  A background periodic
@@ -480,7 +562,10 @@ class ServeApp:
                        else None),
             zoo_restacks=(self.zoo.restacks if self.zoo is not None
                           else None),
-            precision=self.registry.serving_precision)
+            probes=n_probes, precision=self.registry.serving_precision,
+            kernel_launches={"block1": block1.launches,
+                             "block1_stacked": block1_stacked.launches,
+                             "ems_stream": ems_stream.launches})
         logger.info("Serve drained and stopped: %d requests (%d rejected, "
                     "%d errors, %d expired, %d refused by the open "
                     "circuit), %d forwards, %d model swap(s), %d breaker "
@@ -543,8 +628,9 @@ class ServeApp:
         starts at submit and is enforced at batcher dequeue (the forward
         never runs for a window already late) and at the response.  An
         expired or failed window records ``pred = -1`` and the stream goes
-        on.  Windows classify under the zoo's default tenant.  Caller holds
-        ``session.lock``.
+        on.  Windows classify under the zoo's default tenant.  With
+        adaptation on, each ``ok`` window is captured for replay and teed
+        to an active shadow.  Caller holds ``session.lock``.
         """
         tenant = (self.zoo.tenant_index(self.zoo.default_id)
                   if self.zoo is not None else 0)
@@ -558,9 +644,9 @@ class ServeApp:
                                           priority=True, tenant=tenant)
             except Rejected:
                 fut = None
-            submitted.append((index, start, t0, deadline, fut))
+            submitted.append((index, start, win, t0, deadline, fut))
         decisions = []
-        for index, start, t0, deadline, fut in submitted:
+        for index, start, win, t0, deadline, fut in submitted:
             status, pred = STATUS_ERROR, -1
             if fut is not None:
                 try:
@@ -601,6 +687,13 @@ class ServeApp:
                 self._n_session_windows += 1
                 if status == STATUS_EXPIRED:
                     self._n_windows_expired += 1
+            if self.adapt is not None and status == STATUS_OK:
+                # The standardized window the model classified (a
+                # fine-tune trains on the serving distribution); both
+                # hooks are O(1) enqueues off the hot path.
+                self.adapt.observe_window(
+                    self.zoo.default_id, session.session_id, index, win,
+                    pred)
         return decisions
 
     def count_session_opened(self) -> None:
@@ -673,6 +766,7 @@ class ServeApp:
             "stacked": zoo.stacked is not None if zoo is not None else None,
             "zoo_restacks": zoo.restacks if zoo is not None else None,
             "graph_replays": BucketGraph.replays,
+            "probes": self._n_probes,
             "kernel_launches": {"block1": block1.launches,
                                 "block1_stacked": block1_stacked.launches,
                                 "ems_stream": ems_stream.launches},
@@ -684,6 +778,11 @@ class _ServeHandler(BaseHTTPRequestHandler):
 
     app: ServeApp = None  # bound by ServeApp.start()
     protocol_version = "HTTP/1.1"
+    # TCP_NODELAY on each connection: a reply goes out as two writes
+    # (headers, body), and on a kept-alive connection Nagle's algorithm
+    # would hold the body until the client's delayed ACK of the headers.
+    # The reply bytes are the same.
+    disable_nagle_algorithm = True
 
     def log_message(self, fmt, *args):  # noqa: A003 — stdlib signature
         logger.debug("serve http: " + fmt, *args)
@@ -755,6 +854,13 @@ class _ServeHandler(BaseHTTPRequestHandler):
         if self.path == "/metrics":
             self._reply_metrics(self.app.journal)
             return
+        if self.path == "/adapt/status":
+            if self.app.adapt is None:
+                self._reply(404, {"error": "adaptation not enabled; "
+                                           "start with --adapt"})
+                return
+            self._reply(200, self.app.adapt.status())
+            return
         parts = self.path.strip("/").split("/")
         if len(parts) == 3 and parts[0] == "session" \
                 and parts[2] in ("state", "export"):
@@ -790,6 +896,9 @@ class _ServeHandler(BaseHTTPRequestHandler):
             self._profile(app)
             return
         parts = self.path.strip("/").split("/")
+        if parts == ["adapt", "rollback"]:
+            self._adapt_rollback(app)
+            return
         if parts[0] == "session":
             if len(parts) == 2 and parts[1] == "open":
                 self._session_open(app)
@@ -822,12 +931,17 @@ class _ServeHandler(BaseHTTPRequestHandler):
         def ms() -> float:
             return (time.perf_counter() - t0) * 1000.0
 
+        # A canary (X-Probe) takes the whole real path, but its outcome is
+        # counted apart and its queue residency is left out of the
+        # admission and tuner observations: it measures, never steers.
+        is_probe = self.headers.get(PROBE_HEADER) is not None
+
         # The circuit first: under an open breaker the request neither
         # parses nor queues.  allow() claims a probe slot when half-open;
         # it is released on every path where no forward runs.
         if not app.breaker.allow():
             self._read_body()
-            app.record_request(0, ms(), "circuit_open")
+            app.record_request(0, ms(), "circuit_open", probe=is_probe)
             self._reply(503, {
                 "error": "circuit open: serve.forward is failing; retry "
                          "after the cooldown",
@@ -848,7 +962,7 @@ class _ServeHandler(BaseHTTPRequestHandler):
                         f"expected trials shaped (n, {c}, {t}), got "
                         f"{tuple(x.shape)}")
             except Exception as exc:  # noqa: BLE001 — client error
-                app.record_request(0, ms(), "bad_request")
+                app.record_request(0, ms(), "bad_request", probe=is_probe)
                 self._reply(400, {"error": f"{type(exc).__name__}: {exc}"})
                 return
             # The X-Model header wins, else the JSON "model" field; none
@@ -862,12 +976,13 @@ class _ServeHandler(BaseHTTPRequestHandler):
                     model_id = app.zoo.resolve(model_spec)
                     tenant = app.zoo.tenant_index(model_id)
                 except KeyError as exc:
-                    app.record_request(len(x), ms(), "bad_model")
+                    app.record_request(len(x), ms(), "bad_model",
+                                       probe=is_probe)
                     self._reply(404, {"error": str(exc.args[0]),
                                       "tenants": app.zoo.tenant_ids})
                     return
             elif model_spec not in (None, "", "default"):
-                app.record_request(len(x), ms(), "bad_model")
+                app.record_request(len(x), ms(), "bad_model", probe=is_probe)
                 self._reply(404, {
                     "error": f"model {model_spec!r} requested but no model "
                              "zoo is configured (single-model server; "
@@ -881,7 +996,8 @@ class _ServeHandler(BaseHTTPRequestHandler):
                 in ("high", "control", "session")
             try:
                 fut = app.batcher.submit(x, deadline=deadline,
-                                         priority=priority, tenant=tenant)
+                                         priority=priority, tenant=tenant,
+                                         exempt=is_probe)
                 # Enqueued: the future's resolution owns the probe slot
                 # now (a request dropped before its forward never reaches
                 # the breaker through infer_fn).
@@ -889,20 +1005,20 @@ class _ServeHandler(BaseHTTPRequestHandler):
                 fut.add_done_callback(self._reconcile_probe)
                 preds = fut.result(timeout=REQUEST_TIMEOUT_S)
             except DeadlineExceeded as exc:
-                app.record_request(len(x), ms(), "expired")
+                app.record_request(len(x), ms(), "expired", probe=is_probe)
                 self._reply(504, {"error": str(exc),
                                   "deadline_ms": deadline_ms})
                 return
             except Shed as exc:
-                app.record_request(len(x), ms(), "shed")
+                app.record_request(len(x), ms(), "shed", probe=is_probe)
                 self._reply(429, {"error": str(exc), "shed": True})
                 return
             except Rejected as exc:
-                app.record_request(len(x), ms(), "rejected")
+                app.record_request(len(x), ms(), "rejected", probe=is_probe)
                 self._reply(429, {"error": str(exc)})
                 return
             except Exception as exc:  # noqa: BLE001 — inference/timeout
-                app.record_request(len(x), ms(), "error")
+                app.record_request(len(x), ms(), "error", probe=is_probe)
                 self._reply(500, {"error": f"{type(exc).__name__}: {exc}"})
                 return
         finally:
@@ -910,13 +1026,17 @@ class _ServeHandler(BaseHTTPRequestHandler):
                 app.breaker.cancel_probe()
         latency_ms = ms()
         if deadline is not None and time.monotonic() > deadline:
-            app.record_request(len(x), latency_ms, "expired")
+            app.record_request(len(x), latency_ms, "expired", probe=is_probe)
             self._reply(504, {"error": "response ready after the request "
                                        "deadline expired",
                               "deadline_ms": deadline_ms,
                               "latency_ms": round(latency_ms, 3)})
             return
-        app.record_request(len(x), latency_ms, "ok", model=model_id)
+        app.record_request(len(x), latency_ms, "ok", probe=is_probe,
+                           model=model_id)
+        if app.adapt is not None and model_id is not None and not is_probe:
+            # The shadow's tee of bulk traffic: sampled, never blocking.
+            app.adapt.tee_predictions(model_id, x, preds)
         reply = {
             "predictions": [int(p) for p in preds],
             "class_names": list(CLASS_NAMES), "n": len(x),
@@ -1086,6 +1206,14 @@ class _ServeHandler(BaseHTTPRequestHandler):
             except Exception as exc:  # noqa: BLE001 — client error
                 self._reply(400, {"error": f"{type(exc).__name__}: {exc}"})
                 return
+            # An armed session.drift turns the chunk into x*scale + offset
+            # before the EMS carry (K2s on the card) sees it; fire()
+            # journals the fault_injected event.
+            try:
+                inject.fire("session.drift", session=sid,
+                            n_samples=int(chunk.shape[1]))
+            except inject.DriftInjected as drift:
+                chunk = chunk * drift.scale + drift.offset
             # One lock across ingest and decide: two pushes of one session
             # must not interleave their windows.
             with session.lock:
@@ -1102,8 +1230,9 @@ class _ServeHandler(BaseHTTPRequestHandler):
         durable state and journaled (``session_label``).  Unknown session
         or undecided window 404, a malformed body 400, a conflicting
         duplicate or a window without an ``ok`` decision 409, an exact
-        duplicate 200 with ``fresh: false``.  Nothing adapts to labels
-        yet: ``paired`` is always false."""
+        duplicate 200 with ``fresh: false``.  With ``--adapt`` the label
+        also pairs with the captured window for the adaptation loop
+        (``paired``); labels persist with the session either way."""
         body = self._read_body()
         session = self._get_session(app, sid)
         if session is None:
@@ -1146,9 +1275,45 @@ class _ServeHandler(BaseHTTPRequestHandler):
             app.journal.event("session_label", session=sid, window=window,
                               label=label, live_pred=live_pred)
             app.journal.metrics.inc("session_labels")
+        paired = False
+        if app.adapt is not None:
+            paired = app.adapt.on_label(app.zoo.default_id, sid, window,
+                                        label, live_pred=live_pred)
         self._reply(200, {"session": sid, "window": window, "label": label,
-                          "fresh": fresh, "paired": False,
+                          "fresh": fresh, "paired": paired,
                           "labels": n_labels})
+
+    def _adapt_rollback(self, app: ServeApp) -> None:
+        """``POST /adapt/rollback`` — ``{"model": id?}``: the tenant's
+        pre-promotion weights back through the zero-drop reload; 409 when
+        nothing was promoted, 404 for an unknown tenant or without
+        ``--adapt``, 400 for a bad body or a failed reload."""
+        body = self._read_body()
+        if app.adapt is None:
+            self._reply(404, {"error": "adaptation not enabled; start "
+                                       "with --adapt"})
+            return
+        try:
+            payload = json.loads(body.decode() or "{}")
+            if not isinstance(payload, dict):
+                raise ValueError("body must be a JSON object")
+            model = payload.get("model")
+        except Exception as exc:  # noqa: BLE001 — client error
+            self._reply(400, {"error": f"{type(exc).__name__}: {exc}"})
+            return
+        try:
+            result = app.adapt.rollback(model)
+        except LookupError as exc:
+            if isinstance(exc, KeyError):
+                self._reply(404, {"error": str(exc.args[0])})
+            else:
+                self._reply(409, {"error": str(exc)})
+            return
+        except Exception as exc:  # noqa: BLE001 — a reload must not 500
+            self._reply(400, {"error": f"{type(exc).__name__}: {exc}"})
+            return
+        self._reply(200, {"status": "ok", **result,
+                          "model_swaps": app.registry.swaps})
 
     def _session_state(self, app: ServeApp, sid: str) -> None:
         session = self._get_session(app, sid)
@@ -1234,14 +1399,19 @@ class _ServeHandler(BaseHTTPRequestHandler):
         self._reply(200, reply)
 
 
-def serve_until_preempted(app: ServeApp, poll_s: float = 0.2) -> None:
-    """Block until a graceful-stop request, then drain and stop."""
+def serve_until_preempted(app: ServeApp, poll_s: float = 0.2,
+                          before_stop=None) -> None:
+    """Block until a graceful-stop request, then drain and stop
+    (``before_stop`` runs first: the prober stops before the listener
+    closes, so no canary meets a draining server)."""
     try:
         while not preempt.requested():
             inject.fire("host.preempt")
             time.sleep(poll_s)
     finally:
         logger.info("Stop requested — draining the request queue")
+        if before_stop is not None:
+            before_stop()
         app.stop(drain=True)
 
 
@@ -1354,6 +1524,57 @@ def main(argv=None) -> int:
     parser.add_argument("--sessionsMirror", type=str, default=None,
                         help="Second directory every session snapshot is "
                              "also written to.")
+    parser.add_argument("--probeIntervalS", type=float, default=0.0,
+                        help="Black-box self-probing interval in seconds "
+                             "(0 = off): POST a known-answer canary to "
+                             "this server's own /predict on a jittered "
+                             "cadence, journal probe events, and evaluate "
+                             "the outside-in --probeSlo.  Probes carry "
+                             "X-Probe and stay out of the admission/"
+                             "tuner statistics and the server-side SLO.")
+    parser.add_argument("--probeSlo", type=str,
+                        default=obs_probe.DEFAULT_PROBE_SLO,
+                        help="SLO spec evaluated over the prober's own "
+                             "sliding window of client-vantage outcomes "
+                             "(availability / error_rate / pNN_latency_"
+                             "ms).")
+    parser.add_argument("--adapt", action="store_true",
+                        help="Closed-loop online adaptation: accumulate "
+                             "POST /session/<id>/label ground truth, "
+                             "fine-tune the tenant off the hot path, "
+                             "score the candidate as a non-serving "
+                             "shadow on sampled live traffic, and "
+                             "promote through the zero-drop reload only "
+                             "when the gate floors clear.  A single "
+                             "--checkpoint is auto-wrapped into a "
+                             "one-tenant zoo.")
+    parser.add_argument("--adaptDir", type=str, default=None,
+                        help="Candidate/promoted checkpoint directory "
+                             "(default: <sessionsDir>/adapt).")
+    parser.add_argument("--adaptTriggerLabels", type=int, default=16,
+                        help="Fresh labels that trigger a fine-tune.")
+    parser.add_argument("--adaptSteps", type=int, default=60,
+                        help="Fine-tune optimization steps per "
+                             "candidate.")
+    parser.add_argument("--adaptLr", type=float, default=1e-3,
+                        help="Fine-tune learning rate (the reference "
+                             "Adam).")
+    parser.add_argument("--adaptSampleEvery", type=int, default=1,
+                        help="Tee every Nth live window to the shadow "
+                             "(labeled windows are always teed).")
+    parser.add_argument("--adaptMinShadow", type=int, default=12,
+                        help="Minimum shadow forwards before the "
+                             "promotion gate decides.")
+    parser.add_argument("--adaptMinLabeled", type=int, default=8,
+                        help="Minimum ground-truth shadow evals before "
+                             "the promotion gate decides.")
+    parser.add_argument("--adaptAccuracyFloor", type=float, default=0.55,
+                        help="Labeled-accuracy floor the candidate must "
+                             "clear to promote (refused below it).")
+    parser.add_argument("--adaptAgreementFloor", type=float, default=0.0,
+                        help="Live-agreement floor (0 disables: after a "
+                             "real drift the live model is the wrong "
+                             "reference).")
     parser.add_argument("--resume", action="store_true",
                         help="Restore streaming sessions from the newest "
                              "valid snapshot generation in --sessionsDir; "
@@ -1375,6 +1596,31 @@ def main(argv=None) -> int:
                     f"tenant (have {list(zoo_spec)})")
         except ValueError as exc:
             parser.error(f"--zoo: {exc}")
+    if args.adapt:
+        if zoo_spec is None:
+            # Adaptation needs the zoo's shadow and per-tenant reload; a
+            # lone checkpoint becomes a one-tenant zoo whose default tenant
+            # answers as before.
+            zoo_spec = {"default": args.checkpoint}
+            args.checkpoint = None
+        try:
+            PromotionGate(min_samples=args.adaptMinShadow,
+                          min_labeled=args.adaptMinLabeled,
+                          accuracy_floor=args.adaptAccuracyFloor,
+                          agreement_floor=args.adaptAgreementFloor)
+            if args.adaptTriggerLabels < 1:
+                raise ValueError(
+                    f"--adaptTriggerLabels must be >= 1, got "
+                    f"{args.adaptTriggerLabels}")
+            if args.adaptSampleEvery < 1:
+                raise ValueError(
+                    f"--adaptSampleEvery must be >= 1, got "
+                    f"{args.adaptSampleEvery}")
+            if args.adaptSteps < 1:
+                raise ValueError(
+                    f"--adaptSteps must be >= 1, got {args.adaptSteps}")
+        except ValueError as exc:
+            parser.error(f"--adapt: {exc}")
     try:
         buckets = (tuple(sorted({int(b) for b in args.buckets.split(",")}))
                    if args.buckets else DEFAULT_BUCKETS)
@@ -1387,6 +1633,11 @@ def main(argv=None) -> int:
             obs_slo.parse_slo_spec(args.slo)
         except ValueError as exc:
             parser.error(f"--slo: {exc}")
+    if args.probeSlo:
+        try:
+            obs_slo.parse_slo_spec(args.probeSlo)
+        except ValueError as exc:
+            parser.error(f"--probeSlo: {exc}")
     chaos_specs = []
     if args.chaos:
         try:
@@ -1420,10 +1671,26 @@ def main(argv=None) -> int:
                        trace_sample=args.traceSample, slo_spec=args.slo,
                        slo_window_s=args.sloWindowS,
                        admission_target_ms=args.admissionTargetMs,
-                       chaos_tag=args.chaosTag)
+                       chaos_tag=args.chaosTag, adapt=args.adapt,
+                       adapt_dir=args.adaptDir,
+                       adapt_trigger_labels=args.adaptTriggerLabels,
+                       adapt_steps=args.adaptSteps, adapt_lr=args.adaptLr,
+                       adapt_sample_every=args.adaptSampleEvery,
+                       adapt_min_shadow=args.adaptMinShadow,
+                       adapt_min_labeled=args.adaptMinLabeled,
+                       adapt_accuracy_floor=args.adaptAccuracyFloor,
+                       adapt_agreement_floor=args.adaptAgreementFloor)
         app.start()
         print(f"serving at {app.url}", flush=True)
-        serve_until_preempted(app)
+        # Self-probing: canaries through this server's own front door,
+        # journaled into the same run.
+        prober = None
+        if args.probeIntervalS > 0:
+            prober = obs_probe.Prober(
+                app.url, interval_s=args.probeIntervalS,
+                slo=args.probeSlo or None, journal=journal).start()
+        serve_until_preempted(
+            app, before_stop=prober.stop if prober is not None else None)
     # A SIGTERM-drained server exits EX_PREEMPTED ("relaunch me"); a clean
     # 0 means the service ended on purpose.
     return preempt.EX_PREEMPTED if preempt.requested() else 0

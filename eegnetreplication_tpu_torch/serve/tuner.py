@@ -16,8 +16,9 @@ guardrails), and :meth:`LadderTuner.apply` realizes it:
 off the hot path, then swaps the reference; the batcher adopts the new
 cap and window live; a ``ladder_retune`` event records the decision.
 Requests in flight finish on the old engine, whose graphs are freed with
-it.  A retune that fails (a capture error among them) is journaled as
-``ladder_retune_failed`` and logged, and the old ladder keeps serving.
+it.  A retune that fails (a capture error among them) is logged as a
+warning and the old ladder keeps serving; nothing is journaled, as in the
+JAX tuner.
 """
 
 from __future__ import annotations
@@ -268,7 +269,6 @@ class LadderTuner:
     def tune_once(self) -> Proposal | None:
         """One loop body: collect the window, maybe retune.  Never raises
         — a tuner bug must not take serving down."""
-        current = proposal = None
         try:
             stats = self.collect()
             # active_buckets, not engine.buckets: the zoo's engine
@@ -286,18 +286,9 @@ class LadderTuner:
             return proposal
         except Exception as exc:  # noqa: BLE001 — advisory subsystem
             # A failed capture raised before the swap: the old engine and
-            # its graphs still serve.  Journaled, so a tuner that always
-            # fails shows.
+            # its graphs still serve.
             logger.warning("Ladder tune pass failed (%s: %s); serving "
                            "unaffected", type(exc).__name__, exc)
-            self._journal.event(
-                "ladder_retune_failed",
-                old_buckets=list(current) if current is not None else None,
-                new_buckets=(list(proposal.buckets) if proposal is not None
-                             else None),
-                reason=proposal.reason if proposal is not None else None,
-                error=f"{type(exc).__name__}: {exc}"[:300])
-            self._journal.metrics.inc("ladder_retune_failures")
             return None
 
     # -- lifecycle --------------------------------------------------------

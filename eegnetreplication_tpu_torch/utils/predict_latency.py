@@ -7,8 +7,9 @@ Each ``--tree`` is the root of a checkout of this repository.  One seeded
 checkpoint (the product width, 22 x 257, F1=8, D=2, perturbed BatchNorm)
 is served by every tree's ``python -m eegnetreplication_tpu_torch.serve``
 (started from that tree, all at once), then each server takes ``--n``
-``/predict`` requests (npz bodies, one at a time, a connection each, as
-``chip_smoke.py`` sends them) at 1 and at 128 trials,
+``/predict`` requests (npz bodies, one at a time: a connection each, as
+``chip_smoke.py`` sends them, and then on one kept-alive HTTP/1.1
+connection) at 1 and at 128 trials,
 the trees in turns (A B, then B A, ...), and the median host-clock latency
 of each block is printed as one JSON line, then a summary line with every
 tree's medians per size.  Servers get SIGTERM at the end; their logs and
@@ -18,6 +19,7 @@ journals stay beside ``--out`` (in ``<out>.d/``).
 from __future__ import annotations
 
 import argparse
+import http.client
 import io
 import json
 import os
@@ -29,6 +31,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.parse
 import urllib.request
 from pathlib import Path
 
@@ -36,6 +39,8 @@ import numpy as np
 import torch
 
 SIZES = (1, 128)
+# A connection per request, then one kept-alive connection per block.
+MODES = ("connection", "keepalive")
 
 
 def _checkpoint(path: Path) -> Path:
@@ -89,14 +94,42 @@ def _post(url: str, body: bytes) -> None:
         resp.read()
 
 
-def _median_ms(url: str, body: bytes, n: int, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        _post(url, body)
-    times = []
-    for _ in range(n):
-        t0 = time.perf_counter()
-        _post(url, body)
-        times.append((time.perf_counter() - t0) * 1000.0)
+class _KeptAlive:
+    """``/predict`` on one HTTP/1.1 connection kept open across requests
+    (a client that reuses its socket, as a browser or a pooled client
+    does)."""
+
+    def __init__(self, url: str):
+        parts = urllib.parse.urlsplit(url)
+        self.conn = http.client.HTTPConnection(parts.hostname, parts.port,
+                                               timeout=60)
+
+    def __call__(self, url: str, body: bytes) -> None:
+        self.conn.request("POST", "/predict", body=body, headers={
+            "Content-Type": "application/octet-stream"})
+        resp = self.conn.getresponse()
+        resp.read()
+        if resp.status != 200:
+            raise RuntimeError(f"/predict answered {resp.status}")
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def _median_ms(url: str, body: bytes, n: int, warmup: int = 3,
+               keepalive: bool = False) -> float:
+    send = _KeptAlive(url) if keepalive else _post
+    try:
+        for _ in range(warmup):
+            send(url, body)
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            send(url, body)
+            times.append((time.perf_counter() - t0) * 1000.0)
+    finally:
+        if keepalive:
+            send.close()
     return statistics.median(times)
 
 
@@ -125,12 +158,15 @@ def main(argv=None) -> int:
                 servers[tree] = _start(tree, ckpt, work, f"t{i}")
             for r in range(args.rounds):
                 for tree in (trees if r % 2 == 0 else trees[::-1]):
-                    for n in SIZES:
-                        row = {"round": r, "tree": str(tree), "trials": n,
-                               "median_ms": _median_ms(servers[tree][1],
-                                                       bodies[n], args.n)}
-                        rows.append(row)
-                        print(json.dumps(row), flush=True)
+                    for mode in MODES:
+                        for n in SIZES:
+                            row = {"round": r, "tree": str(tree),
+                                   "mode": mode, "trials": n,
+                                   "median_ms": _median_ms(
+                                       servers[tree][1], bodies[n], args.n,
+                                       keepalive=mode == "keepalive")}
+                            rows.append(row)
+                            print(json.dumps(row), flush=True)
         finally:
             for proc, _ in servers.values():
                 proc.send_signal(signal.SIGTERM)
@@ -139,9 +175,10 @@ def main(argv=None) -> int:
                     proc.wait(timeout=120)
                 except subprocess.TimeoutExpired:
                     proc.kill()
-    summary = {str(t): {str(n): [r["median_ms"] for r in rows
-                                 if r["tree"] == str(t) and r["trials"] == n]
-                        for n in SIZES} for t in trees}
+    summary = {str(t): {f"{mode}/{n}": [
+        r["median_ms"] for r in rows if r["tree"] == str(t)
+        and r["trials"] == n and r["mode"] == mode]
+        for mode in MODES for n in SIZES} for t in trees}
     out = {"device": (torch.cuda.get_device_name(0)
                       if torch.cuda.is_available() else "cpu"),
            "n": args.n, "medians_ms": summary}

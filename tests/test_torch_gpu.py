@@ -41,7 +41,11 @@ replay's logits equal the eager forward's bit for bit at every bucket
 graph holds and a capture counts none, a retune captures while another
 thread replays and a session pushes K2s, a capture that would wait for
 the device raises, and the profiler sees ``block1_kernel`` inside the
-replays.
+replays.  Online adaptation: the shadow's bucket-1 graph replays
+bitwise the eager forward and launches K1 once per shadow eval, its
+capture drops nothing while the zoo serves and a session pushes, two card
+fine-tunes from one seed are bitwise equal, and a card fine-tune lies
+within 2e-3 of the CPU one at dropout 0.
 """
 
 import threading
@@ -934,3 +938,190 @@ def test_the_profiler_sees_block1_inside_graph_replays(cuda):
     row = profiling.engine_breakdown(engine, x, n_calls=5)
     names = [k["name"] for k in row["top_device_ms_per_call"]]
     assert any("block1_kernel" in n for n in names), names
+
+
+# --- Online adaptation: the shadow and the fine-tune on the card ----------------
+
+def _adapt_case(tmp_path, n_windows=40):
+    """A product-width base checkpoint and a replay buffer of labeled,
+    standardized cue windows (the drill's drifted stream)."""
+    from eegnetreplication_tpu_torch.adapt.buffer import ReplayBuffer
+    from eegnetreplication_tpu_torch.utils import adapt_drill
+
+    base = checkpoint.save_checkpoint(
+        tmp_path / "base.npz", _model(22, 257, 8, 2, seed=31).state_dict(),
+        metadata={"model": "eegnet", "n_channels": 22, "n_times": 257,
+                  "F1": 8, "D": 2})
+    cue = adapt_drill.CueStream(22, 257, seed=5)
+    x, y = adapt_drill.drifted_windows(cue, n_windows, n_windows // 4,
+                                       device="cpu")
+    buf = ReplayBuffer()
+    for k in range(n_windows):
+        buf.observe("a", "s", k, x[k])
+        buf.label("a", "s", k, int(y[k]))
+    return base, buf, x
+
+
+def _card_zoo(cuda, tmp_path, base, n=9):
+    from eegnetreplication_tpu_torch.serve.registry import ModelZoo
+
+    zoo_dir = tmp_path / "zoo"
+    zoo_dir.mkdir(exist_ok=True)
+    (zoo_dir / "a.npz").write_bytes(base.read_bytes())
+    for z in range(1, n):
+        checkpoint.save_checkpoint(
+            zoo_dir / f"t{z}.npz", _model(22, 257, 8, 2, seed=z).state_dict(),
+            metadata={"model": "eegnet", "n_channels": 22, "n_times": 257,
+                      "F1": 8, "D": 2})
+    return ModelZoo(str(zoo_dir), default="a", device=cuda)
+
+
+def _fine_tune(cuda, buf, base, out, seed=0, steps=20):
+    from eegnetreplication_tpu_torch.adapt.worker import AdaptationWorker
+
+    worker = AdaptationWorker(buf, out, steps=steps, batch_size=32,
+                              seed=seed, device=cuda)
+    return worker.fine_tune("a", base)
+
+
+def test_shadow_graph_replay_is_bitwise_the_eager_bucket1_forward(
+        cuda, tmp_path):
+    from eegnetreplication_tpu_torch.serve.engine import (
+        load_model_from_checkpoint,
+    )
+
+    base, buf, x = _adapt_case(tmp_path)
+    cand = _fine_tune(cuda, buf, base, tmp_path / "adapt")
+    zoo = _card_zoo(cuda, tmp_path, base)
+    k1 = fused.block1.launches
+    assert zoo.register_shadow("a", cand.path) == cand.digest
+    engine, _ = zoo._shadows["a"]
+    assert sorted(engine.graph_stats()) == [1]
+    assert fused.block1.launches == k1 + 1          # the eager warm run
+    for k in range(8):
+        arg = torch.from_numpy(x[k:k + 1]).to(cuda)
+        with torch.inference_mode():
+            eager = engine.forward(arg).cpu()
+        assert torch.equal(engine.graph_logits(arg).cpu(), eager)
+        np.testing.assert_array_equal(zoo.shadow_infer("a", x[k:k + 1]),
+                                      eager.argmax(-1).numpy())
+    # The candidate's logits on the card against its plain CPU forward.
+    cpu = InferenceEngine(load_model_from_checkpoint(cand.path,
+                                                     device="cpu"),
+                          (1,), device="cpu")
+    with torch.inference_mode():
+        got = engine.forward(torch.from_numpy(x).to(cuda)).cpu()
+        want = cpu.forward(torch.from_numpy(x))
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+
+
+def test_k1_launches_equal_the_shadow_evals(cuda, tmp_path):
+    from eegnetreplication_tpu_torch.adapt.shadow import ShadowEvaluator
+    from eegnetreplication_tpu_torch.serve.engine import BucketGraph
+
+    base, buf, x = _adapt_case(tmp_path)
+    cand = _fine_tune(cuda, buf, base, tmp_path / "adapt", steps=5)
+    zoo = _card_zoo(cuda, tmp_path, base)
+    zoo.register_shadow("a", cand.path)
+    k1, k1s = fused.block1.launches, fused.block1_stacked.launches
+    replays = BucketGraph.replays
+    shadow = ShadowEvaluator()
+    shadow.start("a", lambda w: zoo.shadow_infer("a", w), cand.digest)
+    for k in range(len(x)):
+        shadow.tee("a", x[k], 0, label=k % 4 if k % 2 else None)
+    assert shadow.drain(60)
+    shadow.close()
+    assert fused.block1.launches - k1 == len(x)      # one per shadow eval
+    assert BucketGraph.replays - replays == len(x)
+    assert fused.block1_stacked.launches == k1s
+
+
+def test_two_card_fine_tunes_give_equal_digests(cuda, tmp_path):
+    base, buf, _ = _adapt_case(tmp_path)
+    first = _fine_tune(cuda, buf, base, tmp_path / "one", seed=4)
+    second = _fine_tune(cuda, buf, base, tmp_path / "two", seed=4)
+    other = _fine_tune(cuda, buf, base, tmp_path / "three", seed=5)
+    assert first.digest == second.digest and first.loss == second.loss
+    assert (tmp_path / "one" / "a.candidate.npz").read_bytes() == \
+        (tmp_path / "two" / "a.candidate.npz").read_bytes()
+    assert other.digest != first.digest     # the seed reaches dropout
+
+
+def test_card_fine_tune_tracks_the_cpu_fine_tune(cuda, tmp_path,
+                                                 monkeypatch):
+    from eegnetreplication_tpu_torch.adapt.worker import AdaptationWorker
+    from eegnetreplication_tpu_torch.serve import engine as engine_lib
+
+    load = engine_lib.load_model_from_checkpoint
+
+    def at_dropout_0(path, **kw):
+        model = load(path, **kw)
+        model.dropout_rate = 0.0
+        return model
+
+    monkeypatch.setattr(engine_lib, "load_model_from_checkpoint",
+                        at_dropout_0)
+    base, buf, _ = _adapt_case(tmp_path)
+    out = {}
+    for name, dev in (("card", cuda), ("cpu", torch.device("cpu"))):
+        worker = AdaptationWorker(buf, tmp_path / name, steps=20,
+                                  batch_size=32, seed=2, device=dev)
+        cand = worker.fine_tune("a", base)
+        out[name] = (cand, checkpoint.load_checkpoint(cand.path)[0])
+    (card, card_sd), (cpu, cpu_sd) = out["card"], out["cpu"]
+    for k in cpu_sd:
+        tol = 20 * 1e-3 if k.startswith("temporal.1.") else 2e-3
+        torch.testing.assert_close(card_sd[k], cpu_sd[k], rtol=2e-3,
+                                   atol=tol, msg=k)
+    assert abs(card.loss - cpu.loss) <= 2e-3 * (1 + abs(cpu.loss))
+
+
+def test_register_shadow_during_predict_and_session_traffic_drops_nothing(
+        cuda, tmp_path):
+    """The shadow's capture runs while another thread serves mixed-tenant
+    batches through the zoo's graphs and a third pushes a K2s session:
+    nothing fails and every answer is the stack's."""
+    from eegnetreplication_tpu_torch.serve.sessions import StreamSession
+
+    base, buf, x = _adapt_case(tmp_path)
+    cand = _fine_tune(cuda, buf, base, tmp_path / "adapt", steps=5)
+    zoo = _card_zoo(cuda, tmp_path, base)
+    trials = _trials(40, 22, 257, seed=9).numpy()
+    idx = np.arange(40) % 9
+    want = zoo.infer(trials, idx)
+    stop, errors, answers = threading.Event(), [], []
+
+    def serve():
+        while not stop.is_set():
+            try:
+                answers.append(zoo.infer(trials, idx))
+            except Exception as exc:  # noqa: BLE001 — reported below
+                errors.append(exc)
+
+    def push():
+        session = StreamSession("r", n_channels=22, window=257, hop=64,
+                                device=cuda)
+        sig = _stream_signal(22, 200_000, seed=8).numpy()
+        pos = 0
+        while not stop.is_set() and pos < sig.shape[1]:
+            try:
+                session.ingest(sig[:, pos:pos + 25])
+            except Exception as exc:  # noqa: BLE001 — reported below
+                errors.append(exc)
+            pos += 25
+
+    threads = [threading.Thread(target=serve), threading.Thread(target=push)]
+    for th in threads:
+        th.start()
+    try:
+        time.sleep(0.3)
+        digest = zoo.register_shadow("a", cand.path)
+        time.sleep(0.3)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(60)
+    assert not errors, errors[:3]
+    assert digest == cand.digest and answers
+    assert all((a == want).all() for a in answers)
+    assert zoo.shadow_infer("a", x[:1]).shape == (1,)

@@ -56,7 +56,10 @@ _CHILD = textwrap.dedent("""
                  "serve.sessions.session", "serve.sessions.store",
                  "obs.stats", "obs.trace", "obs.slo", "resil.breaker",
                  "resil.heartbeat", "serve.admission", "serve.tuner",
-                 "serve.batcher", "serve.service"):
+                 "serve.batcher", "serve.service", "obs.probe", "adapt",
+                 "adapt.buffer", "adapt.gate", "adapt.shadow",
+                 "adapt.worker", "adapt.controller", "utils.adapt_drill",
+                 "utils.predict_latency"):
         assert "eegnetreplication_tpu_torch." + name in names, name
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   {chip_smoke!r})

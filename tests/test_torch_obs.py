@@ -2,7 +2,9 @@
 package's.
 
 - The port's ``EVENT_REQUIRED`` holds exactly the JAX table's rows for the
-  ten training events, the serving events and the seven session events.
+  ten training events, the serving events, the session events (with
+  ``spool_mirror``), the control plane's, ``probe`` and the adaptation
+  events.
 - A journal written by ``python -m eegnetreplication_tpu_torch.train
   --metricsDir ...`` passes the JAX ``validate_events`` with no
   ``_schema_error``; ``scripts/obs_report.py::summarize_run`` reads it with
@@ -45,15 +47,18 @@ SERVING_EVENTS = ("serve_start", "request", "model_swap", "serve_end",
                   "stack_gate")
 SESSION_EVENTS = ("session_start", "session_window", "window_expired",
                   "session_snapshot", "session_resume", "session_end",
-                  "session_label")
+                  "session_label", "spool_mirror")
 CONTROL_EVENTS = ("compile_begin", "compile_end", "compile", "ladder_retune",
                   "heartbeat", "circuit_state", "admission_change", "shed",
-                  "span", "slo_breach", "slo_recovered", "profile_window")
+                  "span", "slo_breach", "slo_recovered", "profile_window",
+                  "probe")
+ADAPT_EVENTS = ("adaptation_start", "adaptation_candidate", "shadow_eval",
+                "promotion")
 
 
 def test_event_table_equals_the_jax_rows():
     events = TRAINING_EVENTS + SERVING_EVENTS + SESSION_EVENTS \
-        + CONTROL_EVENTS
+        + CONTROL_EVENTS + ADAPT_EVENTS
     assert set(schema.EVENT_REQUIRED) == set(events)
     for name in events:
         assert schema.EVENT_REQUIRED[name] == jax_schema.EVENT_REQUIRED[name]
@@ -169,6 +174,19 @@ def test_parse_plan_refuses_unported_sites(site, tmp_path):
     path.write_text(json.dumps([{"site": site}]))
     with pytest.raises(ValueError, match="not ported"):
         inject.parse_plan(f"@{path}")
+
+
+@pytest.mark.parametrize("site", ["session.drift", "adapt.train",
+                                  "adapt.promote"])
+def test_the_adaptation_sites_parse_as_in_jax(site):
+    """The three sites the adaptation slice ported (they left
+    ``UNPORTED_SITES``): the JAX fields and defaults."""
+    plan = f"{site}:after=1:times=2"
+    (port,), (ref,) = inject.parse_plan(plan), jax_inject.parse_plan(plan)
+    got = dataclasses.asdict(port)
+    assert got == {k: getattr(ref, k) for k in got}
+    assert site in inject.SITES and site not in inject.UNPORTED_SITES
+    assert inject._DEFAULTS[site] == jax_inject._DEFAULTS[site]
 
 
 def test_parse_plan_rejects_typos():

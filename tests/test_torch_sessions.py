@@ -309,8 +309,14 @@ def test_chaos_plans_arm_the_store_sites_as_jax_does():
     assert [p.site for p in port] == [r.site for r in ref]
     for p, r in zip(port, ref):
         assert (p.after, p.times, p.action) == (r.after, r.times, r.action)
-    with pytest.raises(ValueError, match="not ported"):
-        inject.parse_plan("session.drift:times=1")
+    # session.drift is armed now too (the adaptation slice), with the JAX
+    # defaults for its magnitudes.
+    (p,), (r,) = (inject.parse_plan("session.drift:times=1"),
+                  jax_inject.parse_plan("session.drift:times=1"))
+    assert (p.site, p.times, p.action, p.scale, p.offset) == \
+        (r.site, r.times, r.action, r.scale, r.offset)
+    assert inject._DEFAULTS["session.drift"][0] == "drift" \
+        == jax_inject._DEFAULTS["session.drift"][0]
 
 
 def test_batcher_takes_priority_traffic_under_the_hard_cliff():
