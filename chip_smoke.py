@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the torch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--long]
 
 Run from the repository root on a machine with one CUDA card, the CUDA
 toolkit (``nvcc``) and PyTorch built for CUDA.  It drives the port's serving
@@ -151,6 +151,32 @@ hand-written kernel against its plain PyTorch version:
    fine-tunes bitwise equal, and the fine-tune's wall, the shadow's capture,
    the promotion's reload and ``/predict`` and window latency during the
    fine-tune against the control.
+
+16. supervised training at the reference's full length: phase 8's two
+   subjects replicated to nine, the within-subject protocol (36 folds, 500
+   epochs, a snapshot every 50), unbroken and, at once, under ``python -m
+   eegnetreplication_tpu_torch.resil.supervise --hang step=20 --graceS 5``
+   with a chaos plan file: launch 1 reads ``host.preempt`` (exit 75 at
+   epoch 100), and the file then holds ``train.hang`` for every later
+   launch (a plan re-armed in every launch counts its hits per process,
+   so one plan on the same chunk boundaries cannot preempt one launch and
+   stall the next): launch 2 stalls at epoch 350, the ``step`` beat goes
+   stale, SIGTERM cannot end the stall, SIGKILL does, and launch 3
+   completes.  The supervisor exits 0 with ``preempted, hang,
+   completed``, every relaunch carries ``--resume`` once, the nine best
+   models are bitwise the unbroken run's and the reports equal, each
+   launch's journal holds the epochs it trained and the K1-stacked
+   launches they imply, ``event_summary`` counts the restarts, and peak
+   memory of the relaunched child is the unbroken run's; ``python -m
+   eegnetreplication_tpu_torch.obs.top --json`` shows the supervisor and
+   the live child while they run and every launch after.  Then ``serve``
+   under the supervisor on a fixed port with ``serve.hang`` armed: the
+   4th dispatch stalls, ``serve_forward`` (5 s) runs out, SIGTERM then
+   SIGKILL, the relaunch answers ``/predict`` as before the hang (the
+   reply but its ``latency_ms``) from its replayed bucket graphs, and
+   SIGTERM to the supervisor ends it with the server's 75.  With
+   ``--long``: the 90-fold cross-subject protocol at 500 epochs under the
+   supervisor through one ``host.preempt``.
 
 Phases 10 and 11 print GFLOP/s and the MFU against the card's FP32 peak
 (``utils/flops.py``) beside fold-epochs/s at 8, 36 and 90 folds.
@@ -3830,6 +3856,570 @@ def phase_adapt(torch, np, dev, work: Path, env: dict) -> dict:
     return result
 
 
+# --------------------------------------------------------------------------
+# Phase 16: supervised training at full length, the console, and a
+# supervised server
+# --------------------------------------------------------------------------
+
+SUP_EPOCHS = 500          # the reference's protocol, whole
+SUP_EVERY = 50            # a run snapshot every 50 epochs: 10 chunks
+SUP_STEP_S = 20.0         # the watchdog's step budget (a healthy epoch <1 s)
+SUP_GRACE_S = 5.0         # SIGTERM -> SIGKILL
+# Launch 1 reads the preempt plan and stops at its 2nd chunk boundary
+# (epoch 100); every later launch reads the hang plan: launch 2 (resumed
+# at 100) stalls at its 5th boundary (epoch 350), and launch 3 (resumed at
+# 350) has 3 boundaries left, fewer than 5, so it completes.
+SUP_PREEMPT_AFTER = 1
+SUP_HANG_AFTER = 4
+SUP_HANG_SLEEP_S = 600.0  # outlives SIGTERM (PEP 475): SIGKILL ends it
+SUP_WAIT_S = 900.0
+SERVE_HANG_AFTER = 3      # leg c: the 4th dispatch of a server stalls
+SERVE_FORWARD_S = 5.0     # leg c's serve_forward budget
+LONG_PREEMPT_AFTER = 6    # --long: the 7th boundary (epoch 350) of launch
+LONG_WAIT_S = 1800.0      # 1; launch 2 has 3 left and completes
+
+
+def _sup_cmd(args: list, child: list) -> list:
+    return [sys.executable, "-m",
+            "eegnetreplication_tpu_torch.resil.supervise", *args, "--",
+            *child]
+
+
+def _run_dirs(path: Path) -> list:
+    return sorted(p for p in path.iterdir() if p.is_dir()) \
+        if path.exists() else []
+
+
+def _events_of(run_dir: Path, complete=False) -> list:
+    """A run's journal read by the port, a killed run's torn tail
+    skipped."""
+    from eegnetreplication_tpu_torch.obs import read_events
+
+    events = read_events(run_dir / "events.jsonl", complete=complete,
+                         lenient_tail=True)
+    bad = [e for e in events if "_schema_error" in e]
+    check(not bad, f"{run_dir}: events flagged by the schema: {bad[:2]}")
+    return events
+
+
+def _wait_for(cond, timeout: float, what: str, procs=()):
+    """Poll ``cond()`` until it is truthy; fails at the deadline or when
+    one of ``procs`` exits first."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = cond()
+        if got:
+            return got
+        for proc in procs:
+            if proc.poll() is not None:
+                raise SmokeFailure(f"waiting for {what}: a process exited "
+                                   f"{proc.returncode} first")
+        time.sleep(0.2)
+    raise SmokeFailure(f"timed out after {timeout:.0f}s waiting for {what}")
+
+
+def _write_plan(path: Path, specs: list) -> None:
+    tmp = path.with_name(path.name + ".tmp")
+    tmp.write_text(json.dumps(specs))
+    os.replace(tmp, path)
+
+
+def _top_json(root: Path, env: dict) -> dict:
+    """One ``obs.top --json`` snapshot over ``root``."""
+    out = subprocess.run(
+        [sys.executable, "-m", "eegnetreplication_tpu_torch.obs.top",
+         "--json", str(root)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=120)
+    check(out.returncode == 0, f"obs.top exited {out.returncode}:\n"
+          + out.stderr[-2000:])
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _stop_supervised(proc, sup_obs: Path) -> None:
+    """End a supervisor that is still running and every child it
+    launched: SIGTERM (forwarded to the child), then SIGKILL to all."""
+    if proc.poll() is not None:
+        return
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    from eegnetreplication_tpu_torch.obs import read_events
+
+    for run in _run_dirs(sup_obs):
+        with contextlib.suppress(Exception):
+            for ev in read_events(run / "events.jsonl", complete=False,
+                                  lenient_tail=True):
+                if ev["event"] == "supervisor_launch":
+                    with contextlib.suppress(OSError):
+                        os.kill(int(ev["pid"]), signal.SIGKILL)
+
+
+def _run_end(events) -> dict:
+    end = events[-1]
+    check(end["event"] == "run_end", f"a journal ends with {end['event']}")
+    return end
+
+
+def _chunk_wall_s(run_dir: Path) -> float:
+    """The training wall a run journaled: its chunks, each ended by a
+    synchronize (``metrics.json``'s ``chunk_wall_s``)."""
+    from eegnetreplication_tpu_torch.obs import read_metrics
+
+    series = read_metrics(run_dir / "metrics.json")["histograms"].get(
+        "chunk_wall_s", [])
+    return float(sum(s["sum"] for s in series))
+
+
+def _steps(setup: dict) -> dict:
+    from eegnetreplication_tpu_torch.config import DEFAULT_TRAINING
+
+    b = DEFAULT_TRAINING.batch_size
+    return {"train_steps": -(-setup["train_pad"] // b),
+            "val_steps": max(1, -(-setup["val_pad"] // b)),
+            "test_steps": max(1, -(-setup["test_pad"] // b))}
+
+
+def _supervised_training(torch, np, work: Path, env: dict,
+                         data_root: Path) -> dict:
+    """Legs a and b: the full within-subject protocol, unbroken and under
+    the supervisor through a preemption and a hang, at once; the console
+    over both while they run and after."""
+    from eegnetreplication_tpu_torch.obs.schema import event_summary
+
+    work.mkdir(parents=True, exist_ok=True)
+    base = [sys.executable, "-m", "eegnetreplication_tpu_torch.train",
+            "--trainingType", "Within-Subject", "--epochs", str(SUP_EPOCHS),
+            "--checkpointEvery", str(SUP_EVERY)]
+    obs_root = work / "obs"
+    children = obs_root / "children"
+    plan = work / "plan.json"
+    _write_plan(plan, [{"site": "host.preempt", "after": SUP_PREEMPT_AFTER,
+                        "times": 1}])
+    legs = {}
+    for name in ("unbroken", "supervised"):
+        paths = _replicated_tree(data_root, work / name)
+        (work / name / "tmp").mkdir()
+        legs[name] = (paths, dict(
+            env, EEGTPU_DATA_ROOT=str(paths.project_root),
+            TMPDIR=str(work / name / "tmp")))
+    cmds = {
+        "unbroken": base + ["--metricsDir", str(obs_root / "unbroken")],
+        "supervised": _sup_cmd(
+            ["--metricsDir", str(obs_root / "supervisor"), "--hang",
+             f"step={SUP_STEP_S:g}", "--graceS", f"{SUP_GRACE_S:g}",
+             "--backoffSeed", "0"],
+            base + ["--metricsDir", str(children), "--chaos", f"@{plan}"])}
+    t0 = time.perf_counter()
+    procs = {name: _spawn(cmd, legs[name][1], work / f"{name}.log")
+             for name, cmd in cmds.items()}
+    walls: dict = {}
+    try:
+        # Launch 1 parses the plan before it opens its journal: from then
+        # on a launch reads the hang plan.
+        _wait_for(lambda: any((d / "events.jsonl").exists()
+                              for d in _run_dirs(children)), 300,
+                  "the first supervised launch's journal", procs.values())
+        _write_plan(plan, [{"site": "train.hang", "after": SUP_HANG_AFTER,
+                            "times": 1, "sleep": SUP_HANG_SLEEP_S}])
+
+        def relaunched_chunk():
+            # A run's directory exists a moment before its journal does.
+            dirs = _run_dirs(children)
+            return (len(dirs) >= 2 and (dirs[1] / "events.jsonl").exists()
+                    and any(e["event"] == "epoch"
+                            for e in _events_of(dirs[1])))
+
+        _wait_for(relaunched_chunk, SUP_WAIT_S,
+                  "the relaunched child's first chunk",
+                  [procs["supervised"]])
+        live = _top_json(obs_root, env)
+        deadline = time.monotonic() + SUP_WAIT_S
+        while len(walls) < len(procs) and time.monotonic() < deadline:
+            for name, proc in procs.items():
+                if name not in walls and proc.poll() is not None:
+                    walls[name] = time.perf_counter() - t0
+            time.sleep(0.2)
+    finally:
+        if procs["unbroken"].poll() is None:
+            procs["unbroken"].kill()
+            procs["unbroken"].wait()
+        _stop_supervised(procs["supervised"], obs_root / "supervisor")
+    for name, proc in procs.items():
+        check(name in walls, f"the {name} leg did not end in "
+              f"{SUP_WAIT_S:.0f}s")
+        check(proc.returncode == 0, f"the {name} leg exited "
+              f"{proc.returncode}:\n"
+              + (work / f"{name}.log").read_text()[-4000:])
+
+    # The supervisor's journal: the exit sequence, the hang, the relaunches.
+    (sup_dir,) = _run_dirs(obs_root / "supervisor")
+    sup = _events_of(sup_dir, complete=True)
+    ends = [e for e in sup if e["event"] == "supervisor_end"]
+    check(ends and ends[-1]["status"] == "completed",
+          f"supervisor_end {ends}")
+    exits = [e for e in sup if e["event"] == "supervisor_exit"]
+    check([e["classification"] for e in exits]
+          == ["preempted", "hang", "completed"],
+          f"exit classifications {[e['classification'] for e in exits]}")
+    (hang,) = [e for e in sup if e["event"] == "supervisor_hang"]
+    check(hang["phase"] == "step" and hang["age_s"] > hang["threshold_s"]
+          and hang["attempt"] == 2 and sup.index(hang) < sup.index(exits[1]),
+          f"supervisor_hang {hang}")
+    escalations = [e for e in sup if e["event"] == "supervisor_escalate"]
+    check([e["signal"] for e in escalations] == ["SIGKILL"],
+          f"escalations {escalations}: the stall must outlive SIGTERM")
+    launches = [e for e in sup if e["event"] == "supervisor_launch"]
+    check([e["cmd"].count("--resume") for e in launches] == [0, 1, 1],
+          "every relaunch carries --resume once: "
+          f"{[e['cmd'][-3:] for e in launches]}")
+    summary = event_summary(sup)
+    check(summary["supervisor_restarts"] == len(launches) - 1 == 2
+          and summary["supervisor_status"] == "completed",
+          f"event_summary {summary}")
+
+    # The bits and the reports.
+    supervised, unbroken = legs["supervised"][0], legs["unbroken"][0]
+    _same_weights(supervised.models, unbroken.models,
+                  [f"subject_{s:02d}_best_model.npz" for s in range(1, 10)],
+                  "the supervised 500-epoch run vs the unbroken one")
+    reports = [_check_report(p.reports / "latest_within_subject_report.json",
+                             WS_REPORT_KEYS, "within-subject")
+               for p in (supervised, unbroken)]
+    for r in reports:
+        r.pop("timestamp")
+    check(reports[0] == reports[1], "the supervised run's report differs "
+          "from the unbroken run's")
+
+    # Every launch's journal: what it trained, how it ended, its launches.
+    runs = _run_dirs(children)
+    check(len(runs) == 3, f"{len(runs)} child journals, want 3")
+    first, killed, last = (_events_of(r) for r in runs)
+    check(_run_end(first)["status"] == "preempted", "launch 1 did not end "
+          "preempted")
+    check(killed[-1]["event"] != "run_end", "the SIGKILLed launch has a "
+          "run_end")
+    check(_run_end(last)["status"] == "ok", "launch 3 did not end ok")
+    stop = SUP_EVERY * (SUP_PREEMPT_AFTER + 1)
+    hang_at = stop + SUP_EVERY * (SUP_HANG_AFTER + 1)
+    trained = [_epochs_journaled(j) for j in (first, killed, last)]
+    # Launch 3 resumes from the newest whole snapshot: the one written at
+    # the stall, or the generation before it had the SIGKILL torn it.
+    resumed = trained[2][0] - 1 if trained[2] else SUP_EPOCHS
+    check(trained[:2] == [list(range(1, stop + 1)),
+                          list(range(stop + 1, hang_at + 1))]
+          and resumed % SUP_EVERY == 0 and stop < resumed <= hang_at
+          and trained[2] == list(range(resumed + 1, SUP_EPOCHS + 1)),
+          f"the launches trained epochs {[(t[0], t[-1]) for t in trained]}")
+    redone = hang_at - resumed
+    fault = next(e for e in killed if e["event"] == "fault_injected"
+                 and e["site"] == "train.hang")
+    unbroken_events = _journal(np, obs_root / "unbroken", "ok")
+    setup = next(e for e in unbroken_events if e["event"] == "train_setup")
+    steps = _steps(setup)
+    n_folds = setup["n_folds"]
+    check(n_folds == 36, f"{n_folds} folds, want 36")
+    want = {"unbroken": SUP_EPOCHS * steps["val_steps"] + steps["test_steps"],
+            "launch 1": stop * steps["val_steps"],
+            "launch 3": (SUP_EPOCHS - resumed) * steps["val_steps"]
+            + steps["test_steps"]}
+    ends = {"unbroken": _run_end(unbroken_events), "launch 1": first[-1],
+            "launch 3": last[-1]}
+    for name, end in ends.items():
+        got = end["kernel_launches"]["block1_stacked"]
+        check(got == want[name], f"{name}: {got} K1-stacked launches, want "
+              f"{want[name]} (epochs x {steps['val_steps']} validation "
+              f"batches + {steps['test_steps']} test batches)")
+    peak = {name: (end["peak_memory_bytes"] or 0) / 2 ** 30
+            for name, end in ends.items()}
+    check(0 < peak["unbroken"]
+          and abs(peak["launch 3"] - peak["unbroken"])
+          <= 0.1 * peak["unbroken"],
+          f"peak memory of the relaunched child {peak['launch 3']:.3f} GiB "
+          f"against the unbroken run's {peak['unbroken']:.3f}")
+
+    # Rates: training wall from the journaled chunks, and end to end.
+    fold_epochs = n_folds * SUP_EPOCHS
+    (unbroken_dir,) = _run_dirs(obs_root / "unbroken")
+    unbroken_rate = fold_epochs / _chunk_wall_s(unbroken_dir)
+    # The SIGKILLed launch flushed no metrics: launches 1 and 3 only.
+    sup_rate = (n_folds * (stop + SUP_EPOCHS - resumed)
+                / sum(_chunk_wall_s(r) for r in (runs[0], runs[2])))
+    row = dict(steps, fold_epochs_per_s=unbroken_rate)
+    row.update(_mfu_fields(row))
+    detect_s = hang["t"] - fault["t"]
+    relaunch_s = launches[2]["t"] - hang["t"]
+
+    # The console, live and after the end.
+    check(live["n_runs"] >= 3, f"obs.top saw {live['n_runs']} runs live")
+    live_roles = {Path(r["dir"]).name: r for r in live["runs"]}
+    sup_live = live_roles[sup_dir.name]
+    child_live = live_roles[runs[1].name]
+    check(sup_live["role"] == "supervisor" and sup_live["status"] == "live",
+          f"the live console's supervisor row {sup_live}")
+    check(child_live["role"] == "train" and child_live["status"] == "live"
+          and (child_live.get("fold_epochs_per_s") or 0) > 0,
+          f"the live console's child row {child_live}")
+    after = _top_json(obs_root, env)
+    rows = {Path(r["dir"]).name: r for r in after["runs"]}
+    check(rows[sup_dir.name]["status"] == "ok", "the console's supervisor "
+          "row after the end")
+    child_rows = [rows[r.name] for r in runs]
+    check(len(child_rows) - 1 == summary["supervisor_restarts"]
+          and [r["status"] for r in child_rows]
+          == ["preempted", "live", "ok"],
+          f"the console's child rows after the end: "
+          f"{[r['status'] for r in child_rows]}")
+    out = {"walls_s": walls, "fold_epochs": fold_epochs,
+           "unbroken_fold_epochs_per_s": unbroken_rate,
+           "supervised_train_fold_epochs_per_s": sup_rate,
+           "end_to_end_fold_epochs_per_s": {
+               name: fold_epochs / wall for name, wall in walls.items()},
+           "mfu": row["mfu"], "gflops_per_s": row["gflops_per_s"],
+           "peak_memory_gib": peak, "hang_detect_s": detect_s,
+           "hang_age_s": hang["age_s"],
+           "hang_to_relaunch_s": relaunch_s, "epochs_redone": redone,
+           "exits": [e["classification"] for e in exits],
+           "restarts": summary["supervisor_restarts"],
+           "launches_block1_stacked": sum(
+               e["kernel_launches"]["block1_stacked"] for e in ends.values()),
+           "console_live_child_fold_epochs_per_s":
+               child_live["fold_epochs_per_s"]}
+    log(f"phase 16a: {n_folds} folds x {SUP_EPOCHS} epochs, unbroken "
+        f"{walls['unbroken']:.1f}s and supervised {walls['supervised']:.1f}s "
+        f"at once ({fold_epochs / walls['unbroken']:.1f} and "
+        f"{fold_epochs / walls['supervised']:.1f} fold-epochs/s end to end; "
+        f"training {unbroken_rate:.1f} fold-epochs/s unbroken, "
+        f"{sup_rate:.1f} supervised (launches 1 and 3), "
+        f"{row['gflops_per_s']:.1f} GFLOP/s, {100 * (row['mfu'] or 0):.4f}% "
+        f"MFU); exits {out['exits']}; stall -> supervisor_hang "
+        f"{detect_s:.2f}s (the beat file's age {hang['age_s']:.2f}s, budget "
+        f"{SUP_STEP_S:g}s), supervisor_hang -> "
+        f"relaunch {relaunch_s:.2f}s (grace {SUP_GRACE_S:g}s); {redone} "
+        f"epochs trained again; peak memory "
+        + ", ".join(f"{k} {v:.3f} GiB" for k, v in peak.items())
+        + "; nine best models bitwise the unbroken run's")
+    log(f"phase 16b: obs.top live saw the supervisor and the relaunched "
+        f"child (role train, {child_live['fold_epochs_per_s']} fold-epochs/s "
+        f"over its window); after the end {len(child_rows)} child runs = "
+        f"{summary['supervisor_restarts']} restarts + 1")
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _healthy(url: str) -> bool:
+    try:
+        return _get(url + "/healthz", timeout=2.0)[0] == 200
+    except (OSError, ValueError):
+        return False
+
+
+def _supervised_server(torch, np, work: Path, env: dict) -> dict:
+    """Leg c: ``serve`` under the supervisor on a fixed port; the 4th
+    dispatch stalls (``serve.hang``), the ``serve_forward`` budget runs out,
+    SIGTERM then SIGKILL, and the relaunched server answers as before."""
+    work.mkdir(parents=True, exist_ok=True)
+    checkpoint = _save_seeded(torch, work / "serve.npz", seed=1601)
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    obs_root = work / "obs"
+    cmd = _sup_cmd(
+        ["--metricsDir", str(obs_root / "supervisor"), "--hang",
+         f"serve_forward={SERVE_FORWARD_S:g}", "--graceS", "3", "--pollS",
+         "0.2", "--backoffSeed", "0"],
+        [sys.executable, "-u", "-m", "eegnetreplication_tpu_torch.serve",
+         "--checkpoint", str(checkpoint), "--port", str(port),
+         "--metricsDir", str(obs_root / "children"), "--chaos",
+         f"serve.hang:after={SERVE_HANG_AFTER}:times=1:"
+         f"sleep={SUP_HANG_SLEEP_S:g}"])
+    body = _json_body(trials(torch, 16, 22, 257, seed=1602).numpy())
+
+    def answers():
+        out = []
+        for _ in range(SERVE_HANG_AFTER):
+            status, reply = _post(url + "/predict", body,
+                                  "application/json")
+            check(status == 200, f"/predict answered {status}: {reply}")
+            reply.pop("latency_ms")
+            out.append(json.dumps(reply, sort_keys=True))
+        return out
+
+    def launches():
+        return [e for run in _run_dirs(obs_root / "supervisor")
+                if (run / "events.jsonl").exists()
+                for e in _events_of(run)
+                if e["event"] == "supervisor_launch"]
+
+    t0 = time.perf_counter()
+    proc = _spawn(cmd, env, work / "serve_sup.log")
+    stalled: list = []
+    try:
+        _wait_for(lambda: _healthy(url), SERVE_START_TIMEOUT_S,
+                  "the supervised server", [proc])
+        start_s = time.perf_counter() - t0
+        before = answers()
+        health_before = _get(url + "/healthz")[1]
+
+        def stall():
+            try:
+                stalled.append(_post(url + "/predict", body,
+                                     "application/json", timeout=120))
+            except (OSError, ValueError) as exc:
+                stalled.append(exc)
+
+        t_stall = time.time()
+        client = threading.Thread(target=stall, daemon=True)
+        client.start()
+        _wait_for(lambda: len(launches()) >= 2, 120,
+                  "the relaunch after the hang", [proc])
+        t1 = time.perf_counter()
+        _wait_for(lambda: _healthy(url), SERVE_START_TIMEOUT_S,
+                  "the relaunched server", [proc])
+        back_s = time.perf_counter() - t1
+        after = answers()
+        health_after = _get(url + "/healthz")[1]
+        client.join(timeout=30)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        _stop_supervised(proc, obs_root / "supervisor")
+    wall = time.perf_counter() - t0
+    check(rc == 75, f"the supervisor exited {rc} after SIGTERM, want the "
+          "server's 75")
+    check(after == before, "the relaunched server answers otherwise than "
+          "before the hang")
+    check(stalled and not (isinstance(stalled[0], tuple)
+                           and stalled[0][0] == 200),
+          f"the stalled request was answered: {stalled}")
+    (sup_dir,) = _run_dirs(obs_root / "supervisor")
+    sup = _events_of(sup_dir, complete=True)
+    exits = [e["classification"] for e in sup
+             if e["event"] == "supervisor_exit"]
+    check(exits == ["hang", "preempted"], f"exit classifications {exits}")
+    check([e["cmd"].count("--resume") for e in sup
+           if e["event"] == "supervisor_launch"] == [0, 1],
+          "the relaunched server lacks --resume")
+    (hang,) = [e for e in sup if e["event"] == "supervisor_hang"]
+    check(hang["phase"] == "serve_forward"
+          and hang["age_s"] > hang["threshold_s"], f"supervisor_hang {hang}")
+    ends = [e for e in sup if e["event"] == "supervisor_end"]
+    check(ends[-1]["status"] == "stopped", f"supervisor_end {ends}")
+    k1 = {n: h["kernel_launches"]["block1"]
+          for n, h in (("before", health_before), ("after", health_after))}
+    replays = health_after["graph_replays"]
+    check(replays >= SERVE_HANG_AFTER and k1["after"] >= replays,
+          f"the relaunched server's K1 launches {k1['after']} and graph "
+          f"replays {replays}: its answers must replay the bucket graphs")
+    detect_s = hang["t"] - t_stall
+    relaunch_s = launches()[1]["t"] - hang["t"]
+    log(f"phase 16c: supervised server on port {port} up in {start_s:.1f}s; "
+        f"the 4th dispatch stalled, supervisor_hang after {detect_s:.2f}s "
+        f"(budget {SERVE_FORWARD_S:g}s), relaunch {relaunch_s:.2f}s later "
+        f"with --resume, serving again {back_s:.1f}s after it, "
+        f"{len(after)} answers equal to before the hang; K1 launches "
+        f"{k1['before']} before, {k1['after']} after ({replays} replays); "
+        f"SIGTERM -> 75 ({wall:.1f}s in all)")
+    return {"wall_s": wall, "start_s": start_s, "hang_detect_s": detect_s,
+            "hang_to_relaunch_s": relaunch_s, "back_s": back_s, "k1_launches": k1["before"] + k1["after"],
+            "graph_replays": replays, "exits": exits}
+
+
+def _long_cross_subject(torch, np, work: Path, env: dict,
+                        data_root: Path) -> dict:
+    """Leg d (``--long``): the 90-fold cross-subject protocol at 500
+    epochs under the supervisor, one ``host.preempt`` (re-armed in the
+    relaunch, which has too few chunk boundaries left to reach it)."""
+    paths = _replicated_tree(data_root, work / "tree")
+    (work / "tmp").mkdir(parents=True)
+    run_env = dict(env, EEGTPU_DATA_ROOT=str(paths.project_root),
+                   TMPDIR=str(work / "tmp"))
+    obs_root = work / "obs"
+    children = obs_root / "children"
+    cmd = _sup_cmd(
+        ["--metricsDir", str(obs_root / "supervisor"), "--hang",
+         f"step={SUP_STEP_S:g}", "--graceS", f"{SUP_GRACE_S:g}",
+         "--backoffSeed", "0"],
+        [sys.executable, "-m", "eegnetreplication_tpu_torch.train",
+         "--trainingType", "Cross-Subject", "--epochs", str(SUP_EPOCHS),
+         "--checkpointEvery", str(SUP_EVERY), "--metricsDir", str(children),
+         "--chaos", f"host.preempt:after={LONG_PREEMPT_AFTER}:times=1"])
+    t0 = time.perf_counter()
+    proc = _spawn(cmd, run_env, work / "long.log")
+    try:
+        rc = proc.wait(timeout=LONG_WAIT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        _stop_supervised(proc, obs_root / "supervisor")
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"the supervised cross-subject run exited {rc}:\n"
+          + (work / "long.log").read_text()[-4000:])
+    (sup_dir,) = _run_dirs(obs_root / "supervisor")
+    sup = _events_of(sup_dir, complete=True)
+    exits = [e["classification"] for e in sup
+             if e["event"] == "supervisor_exit"]
+    check(exits == ["preempted", "completed"], f"exits {exits}")
+    runs = _run_dirs(children)
+    journals = [_events_of(r) for r in runs]
+    check([_run_end(j)["status"] for j in journals] == ["preempted", "ok"],
+          "the launches' run_end statuses")
+    stop = SUP_EVERY * (LONG_PREEMPT_AFTER + 1)
+    check([_epochs_journaled(j) for j in journals]
+          == [list(range(1, stop + 1)), list(range(stop + 1,
+                                                   SUP_EPOCHS + 1))],
+          "the launches' epochs")
+    report = _check_report(paths.reports / "latest_cross_subject_report.json",
+                           CS_REPORT_KEYS, "cross-subject")
+    setup = next(e for e in journals[0] if e["event"] == "train_setup")
+    steps = _steps(setup)
+    n_folds = report["model_parameters"]["total_folds"]
+    check(n_folds == 90, f"{n_folds} folds")
+    fold_epochs = n_folds * SUP_EPOCHS
+    train_s = sum(_chunk_wall_s(r) for r in runs)
+    row = dict(steps, fold_epochs_per_s=fold_epochs / train_s)
+    row.update(_mfu_fields(row))
+    peak = max(j[-1]["peak_memory_bytes"] or 0 for j in journals) / 2 ** 30
+    launches = sum(j[-1]["kernel_launches"]["block1_stacked"]
+                   for j in journals)
+    log(f"phase 16d (--long): cross-subject {n_folds} folds x {SUP_EPOCHS} "
+        f"epochs under the supervisor in {wall:.1f}s (exits {exits}), "
+        f"training {row['fold_epochs_per_s']:.2f} fold-epochs/s, "
+        f"{row['gflops_per_s']:.1f} GFLOP/s, {100 * (row['mfu'] or 0):.4f}% "
+        f"MFU, peak memory {peak:.3f} GiB, average test accuracy "
+        f"{report['overall_results']['average_test_accuracy']}%")
+    return {"wall_s": wall, "fold_epochs_per_s": row["fold_epochs_per_s"],
+            "end_to_end_fold_epochs_per_s": fold_epochs / wall,
+            "mfu": row["mfu"], "gflops_per_s": row["gflops_per_s"],
+            "peak_memory_gib": peak, "exits": exits,
+            "launches_block1_stacked": launches}
+
+
+def phase_supervised(torch, np, dev, work: Path, env: dict,
+                     data_root: Path, long: bool = False) -> dict:
+    """Phase 16: supervised training at full length (a), the console on
+    it (b), a supervised server (c), and with ``--long`` the cross-subject
+    protocol at full length (d)."""
+    t0 = time.perf_counter()
+    out = {"training": _supervised_training(torch, np, work / "a", env,
+                                            data_root)}
+    out["server"] = _supervised_server(torch, np, work / "c", env)
+    if long:
+        out["long"] = _long_cross_subject(torch, np, work / "d", env,
+                                          data_root)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 16: {out['wall_s']:.1f}s")
+    return out
+
+
 def _mfu_fields(row: dict) -> dict:
     """GFLOP/s and MFU of a fold-epochs/s row at the product width, from
     the port's FLOP count (``utils/flops.py``) and the card's FP32 peak."""
@@ -3855,6 +4445,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None,
                         help="Also write every number as JSON to this file.")
+    parser.add_argument("--long", action="store_true",
+                        help="Add phase 16d: the 90-fold cross-subject "
+                             "protocol at 500 epochs under the supervisor "
+                             "(~12 minutes more).")
     args = parser.parse_args(argv)
 
     os.environ.setdefault("EEGTPU_NO_LOG_FILE", "1")
@@ -3900,6 +4494,9 @@ def main(argv=None) -> int:
                                 Path(tmp) / "cli")
             cs = phase_cross_subject(torch, np, dev, Path(tmp) / "cs", env,
                                      Path(tmp) / "cli")
+            supervised = phase_supervised(torch, np, dev, Path(tmp) / "sup",
+                                          env, Path(tmp) / "cli",
+                                          long=args.long)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
             zoo = phase_serving_zoo(torch, np, dev, Path(tmp), env)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_streams_") \
@@ -3922,12 +4519,14 @@ def main(argv=None) -> int:
         "source": "eegnetreplication_tpu_torch/ops/csrc/block1.cu",
         "replaces": "eegnetreplication_tpu/ops/fused_eegnet.py:134",
         # the serve phase's server, the int8 server of phase 12, the
-        # tuned server of phase 14 (graph replays counted per replay) and
-        # the adapting server of phase 15 (the shadow's replays, the stack
-        # gates' references)
+        # tuned server of phase 14 (graph replays counted per replay), the
+        # adapting server of phase 15 (the shadow's replays, the stack
+        # gates' references) and phase 16c's supervised server before its
+        # hang and after its relaunch (read from /healthz)
         "launches": (serve["launches"] + zoo["int8"]["k1_launches"]
                      + control["tuned"]["launches"]
-                     + adapt["launches"]["got"]["block1"]),
+                     + adapt["launches"]["got"]["block1"]
+                     + supervised["server"]["k1_launches"]),
         "max_abs_err": k1_err,
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
@@ -3940,12 +4539,17 @@ def main(argv=None) -> int:
         "source": "eegnetreplication_tpu_torch/ops/csrc/block1_stacked.cu",
         "replaces": "eegnetreplication_tpu/ops/fused_eegnet.py:134",
         # the counted runs of the training phases (10 and 11), the zoo
-        # server's counted chunks (phase 12) and the adapting server of
-        # phase 15 (its chunks, fit accuracies and restacks)
+        # server's counted chunks (phase 12), the adapting server of
+        # phase 15 (its chunks, fit accuracies and restacks), and phase
+        # 16's train CLIs, each counting in its run_end (the unbroken run
+        # and the supervised launches that ended; --long's too)
         "launches": (train["launches"] + cs["launches_one_group"]
                      + cs["launches_groups"]
                      + zoo["zoo"]["k1_stacked_launches"]
-                     + adapt["launches"]["got"]["block1_stacked"]),
+                     + adapt["launches"]["got"]["block1_stacked"]
+                     + supervised["training"]["launches_block1_stacked"]
+                     + supervised.get("long", {}).get(
+                         "launches_block1_stacked", 0)),
         "max_abs_err": k1s_err,
         # at the 90-fold cross-subject validation batch, (5760, 22, 257)
         "ms": k1s_times[5760]["ms"],
@@ -3998,7 +4602,7 @@ def main(argv=None) -> int:
         "k2_times": k2_times, "k1_stacked_max_abs_err": k1s_err,
         "k1_stacked_times": k1s_times, "train": train, "cross_subject": cs,
         "serving_zoo": zoo, "streams": streams, "control": control,
-        "adapt": adapt,
+        "adapt": adapt, "supervised": supervised,
         "wall_s": time.perf_counter() - t_start,
     }
     print(json.dumps({"timings": record}), flush=True)

@@ -4,8 +4,14 @@ The port's copy of ``eegnetreplication_tpu/data/io.py``: one ``.npz`` per
 subject/session holding already-epoched trials (``X: (n, C, T)``,
 ``y: (n,)``), the same files the JAX package writes.  Where a session has
 only its continuous ``-preprocessed.npz`` bundle, it is epoched on the fly.
-The reference's ``.fif`` files and the retry policy around reads are not
-ported.
+The reference's ``.fif`` files are not ported.
+
+Every read of a trials file probes the ``data.read`` chaos site and runs
+under :data:`READ_RETRY` (``resil/retry.py``), as in the JAX package: a
+transient ``OSError`` (a network filesystem's hiccup) is journaled as a
+``retry`` event and read again, at most three attempts in all; a missing
+or forbidden file is fatal at once, and a spent budget raises the
+original error.
 """
 
 from __future__ import annotations
@@ -19,7 +25,15 @@ from eegnetreplication_tpu_torch.data.containers import (
     BCICI2ADataset,
     concat_datasets,
 )
+from eegnetreplication_tpu_torch.resil import inject
+from eegnetreplication_tpu_torch.resil import retry as resil_retry
 from eegnetreplication_tpu_torch.utils.logging import logger
+
+# Short budget: local-disk reads fail deterministically (FileNotFoundError
+# stays fatal in the classifier); only transient IO is retried.
+READ_RETRY = resil_retry.RetryPolicy(max_attempts=3, base_delay_s=0.2,
+                                     max_delay_s=5.0,
+                                     retry_on=(resil_retry.TRANSIENT,))
 
 
 def trials_filename(subject: int, mode: str) -> str:
@@ -37,8 +51,12 @@ def save_trials(dataset: BCICI2ADataset, path: str | Path) -> Path:
 
 
 def load_trials(path: str | Path) -> BCICI2ADataset:
-    with np.load(Path(path)) as data:
-        return BCICI2ADataset(X=data["X"], y=data["y"])
+    def read() -> BCICI2ADataset:
+        inject.fire("data.read", path=path)
+        with np.load(Path(path)) as data:
+            return BCICI2ADataset(X=data["X"], y=data["y"])
+
+    return resil_retry.call(read, policy=READ_RETRY, site="data.read")
 
 
 def load_subject_dataset(subject: int | str = "all", mode: str = "Train",

@@ -17,13 +17,16 @@ and serving paths:
 - :mod:`~eegnetreplication_tpu_torch.obs.slo`, sliding-window SLO
   verdicts over the live registry;
 - :mod:`~eegnetreplication_tpu_torch.obs.stats`, the shared percentile;
-- :mod:`~eegnetreplication_tpu_torch.obs.probe`, the black-box prober.
+- :mod:`~eegnetreplication_tpu_torch.obs.probe`, the black-box prober;
+- :mod:`~eegnetreplication_tpu_torch.obs.agg`, live tailing and folding of
+  many run journals, and :mod:`~eegnetreplication_tpu_torch.obs.top`, the
+  console over it (``python -m eegnetreplication_tpu_torch.obs.top``).
 
 The registry also renders the Prometheus text of ``GET /metrics``.
 Entry points open a run with :func:`journal.run`; library code reaches the
 active journal through :func:`journal.current` (a no-op outside a run).
-Aggregation, the trace reader and the ``BENCH_*.json`` writer are
-not ported (ROADMAP.md queue A.5).
+The trace reader and the ``BENCH_*.json`` writer are not ported
+(ROADMAP.md queue A.5).
 """
 
 from eegnetreplication_tpu_torch.obs import (

@@ -2,7 +2,9 @@
 on SIGTERM with drain hooks, fault injection at the training and serving
 paths' named sites, the device-fault classifier, the serving circuit
 breaker and liveness heartbeats (the ported part of the JAX package's
-``resil`` exports)."""
+``resil`` exports).  The out-of-process supervisor is
+:mod:`eegnetreplication_tpu_torch.resil.supervise`, an entry point
+(``python -m``) this package does not import."""
 
 from eegnetreplication_tpu_torch.resil import (  # noqa: F401
     breaker,

@@ -13,6 +13,9 @@ Every firing is journaled as a ``fault_injected`` event.
 =========================  =========  =====================================
 site                       action     effect
 =========================  =========  =====================================
+``data.read``              raise      ``OSError`` on a read of a trials
+                                      file (transient: ``READ_RETRY``
+                                      retries it)
 ``train.step``             raise      ``torch.cuda.OutOfMemoryError``, once
                                       per chunk of a fold group before its
                                       first epoch (``if_folds_over=N``:
@@ -66,8 +69,8 @@ colon-separated options, or ``@plan.json`` holding a list of spec objects::
 
     --chaos "train.step:if_folds_over=4,checkpoint.write:after=1"
 
-The JAX package's other sites (fetch, data reads, ``replica.network``,
-fleets, cells, the HA front) instrument code the port does not have yet; a
+The JAX package's other sites (fetch, ``replica.network``, fleets,
+cells, the HA front) instrument code the port does not have yet; a
 plan that names one is refused.
 """
 
@@ -86,14 +89,15 @@ import torch
 from eegnetreplication_tpu_torch.obs import journal as obs_journal
 from eegnetreplication_tpu_torch.utils.logging import logger
 
-SITES = ("train.step", "train.chunk", "train.hang", "checkpoint.write",
-         "checkpoint.write_async", "host.preempt", "session.snapshot",
-         "session.restore", "spool.mirror", "serve.forward", "serve.hang",
-         "serve.degrade", "session.drift", "adapt.train", "adapt.promote")
+SITES = ("data.read", "train.step", "train.chunk", "train.hang",
+         "checkpoint.write", "checkpoint.write_async", "host.preempt",
+         "session.snapshot", "session.restore", "spool.mirror",
+         "serve.forward", "serve.hang", "serve.degrade", "session.drift",
+         "adapt.train", "adapt.promote")
 
 # The JAX package's sites that instrument modules not ported yet.
-UNPORTED_SITES = ("fetch.download", "data.read", "replica.network",
-                  "cell.partition", "fleet.scale", "front.lease")
+UNPORTED_SITES = ("fetch.download", "replica.network", "cell.partition",
+                  "fleet.scale", "front.lease")
 
 ACTIONS = ("raise", "corrupt", "preempt", "sleep", "slow", "drift")
 
@@ -130,6 +134,8 @@ _EXC_TYPES: dict[str, type[Exception]] = {
 
 # site -> (default action, default exception name, default message).
 _DEFAULTS: dict[str, tuple[str, str | None, str]] = {
+    "data.read": ("raise", "OSError",
+                  "injected fault: data.read (hit {hit})"),
     "train.step": ("raise", "OutOfMemoryError",
                    "CUDA out of memory (injected fault: train.step, hit "
                    "{hit})"),

@@ -1,12 +1,14 @@
 """Fault classes, the shared ``retry`` journal record, and backoff.
 
-The port's subset of ``eegnetreplication_tpu/resil/retry.py``: the
+The port's copy of ``eegnetreplication_tpu/resil/retry.py``: the
 classifier that decides which training errors are worth retrying with a
 smaller fold group (``training/protocols.py::run_folds``), the ``retry``
 event every such retry journals, and the backoff loop (:class:`RetryPolicy`,
-:func:`call`) the session store's restore runs under.  The JAX package's
-fetch tier, the other user of the backoff loop, is not ported (ROADMAP.md
-queue A.5).
+:func:`call`) that processed-trial reads (``data/io.py``, the ``data.read``
+site) and the session store's restore run under, and whose seedable delay
+curve spaces the supervisor's transient relaunches
+(``resil/supervise.py``).  On a spent budget the original exception
+propagates unchanged.
 """
 
 from __future__ import annotations
@@ -71,27 +73,33 @@ def journal_retry(*, site: str, attempt: int, max_attempts: int,
 class RetryPolicy:
     """Attempt budget and backoff curve: ``delay(k)`` for attempt k = 1, 2,
     ... is ``base_delay_s * multiplier**(k-1)`` capped at ``max_delay_s``,
-    randomized by ``+-jitter`` of itself."""
+    randomized by ``+-jitter`` of itself.  ``retry_on`` names the
+    classifications worth another attempt; ``rng`` (a seeded
+    ``random.Random``) makes the jitter, and so a schedule, exact."""
 
     max_attempts: int = 3
     base_delay_s: float = 0.1
     multiplier: float = 2.0
     max_delay_s: float = 30.0
     jitter: float = 0.1
+    retry_on: tuple[str, ...] = (TRANSIENT, DEVICE_FAULT)
+    rng: random.Random | None = None
 
     def delay(self, attempt: int) -> float:
         d = min(self.base_delay_s * self.multiplier ** (attempt - 1),
                 self.max_delay_s)
-        return max(d * (1.0 + random.uniform(-self.jitter, self.jitter)),
-                   0.0)
+        if self.jitter:
+            r = self.rng if self.rng is not None else random
+            d *= 1.0 + r.uniform(-self.jitter, self.jitter)
+        return max(d, 0.0)
 
 
 def call(fn: Callable[[], Any], *, policy: RetryPolicy | None = None,
          site: str = "call") -> Any:
-    """Run ``fn()`` under ``policy`` and return its result.  Transient and
-    device faults are retried, never past ``max_attempts``; once the
-    budget is spent, or for a fatal error, the original exception
-    propagates unchanged."""
+    """Run ``fn()`` under ``policy`` and return its result.  Only the
+    classifications in ``policy.retry_on`` are retried, never past
+    ``max_attempts``; once the budget is spent, or for any other error,
+    the original exception propagates unchanged."""
     policy = policy or RetryPolicy()
     attempt = 0
     while True:
@@ -100,7 +108,7 @@ def call(fn: Callable[[], Any], *, policy: RetryPolicy | None = None,
             return fn()
         except Exception as exc:  # noqa: BLE001 — classified below
             kind = classify(exc)
-            if kind == FATAL or attempt >= policy.max_attempts:
+            if kind not in policy.retry_on or attempt >= policy.max_attempts:
                 raise
             delay = policy.delay(attempt)
             journal_retry(site=site, attempt=attempt,

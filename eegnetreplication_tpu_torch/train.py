@@ -18,7 +18,9 @@ orbax``.
 
 Every run writes a journal, as the JAX CLI does: ``events.jsonl`` and
 ``metrics.json`` under ``<metricsDir>/<run_id>/`` (default
-``reports/obs``), which ``scripts/obs_report.py`` reads.  ``--chaos``
+``reports/obs``), which ``scripts/obs_report.py`` reads; its ``run_end``
+also holds the process's K1 and K1-stacked launches (``kernel_launches``)
+and its peak device memory (``peak_memory_bytes``).  ``--chaos``
 arms the port's fault-injection sites (``resil/inject.py``) for the run;
 a plan naming a site the port lacks is refused here.  ``--profileDir``
 writes a ``torch.profiler`` Chrome trace of the whole training call there
@@ -36,6 +38,13 @@ the backward pass is caught only once it reaches a checked tensor.  It
 waits for the device at every backward node and every step: at 8 folds on
 an NVIDIA H100 80GB HBM3 at 700 W it trained 10.2 fold-epochs/s against
 70.5 unchecked (``chip_smoke.py``, ``PERF.md``).
+
+When a supervisor sets ``EEGTPU_HEARTBEAT_FILE`` (``python -m
+eegnetreplication_tpu_torch.resil.supervise -- python -m
+eegnetreplication_tpu_torch.train ...``), the run beats that file: phase
+``compile`` before a fold group's first epoch, ``step`` after every epoch
+and at every chunk boundary (``training/loop.py``), so the supervisor's
+watchdog sees a hung run.  Without the variable the beats stay in memory.
 
 SIGTERM or SIGINT stop the run at the next epoch or chunk boundary, once
 the last submitted run snapshot is on disk, with exit code 75 and
@@ -133,8 +142,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--chaos", type=str, default=None,
                         help="Fault injection plan: comma-separated "
                              "site[:key=value...] specs or @plan.json. "
-                             "Sites: train.step (if_folds_over=N), "
-                             "train.chunk, train.hang (sleep=S), "
+                             "Sites: data.read, train.step "
+                             "(if_folds_over=N), train.chunk, train.hang "
+                             "(sleep=S), "
                              "checkpoint.write, checkpoint.write_async, "
                              "host.preempt (see resil/inject.py). Every "
                              "firing is journaled as a fault_injected "
@@ -159,6 +169,24 @@ def unported_flags(args: argparse.Namespace) -> list[str]:
                        "format, which needs JAX, and the card's machine "
                        "has none; the .npz holds the same variables)")
     return refused
+
+
+def _card_record() -> dict:
+    """What this process ran on the card, for ``run_end``: its launches of
+    the hand kernels (0 on the CPU, where the plain versions run) and the
+    peak device memory it allocated (``None`` on the CPU)."""
+    import torch
+
+    from eegnetreplication_tpu_torch.ops.fused_eegnet import (
+        block1,
+        block1_stacked,
+    )
+
+    peak = (int(torch.cuda.max_memory_allocated())
+            if torch.cuda.is_initialized() else None)
+    return {"kernel_launches": {"block1": block1.launches,
+                                "block1_stacked": block1_stacked.launches},
+            "peak_memory_bytes": peak}
 
 
 def main(argv=None) -> int:
@@ -252,7 +280,8 @@ def main(argv=None) -> int:
             # Raised at a safe point; the snapshot writer committed the
             # last submitted snapshot on the way out.  run_end is once
             # only, so the journal's own exit leaves it preempted.
-            journal.run_end(status="preempted", error=str(exc))
+            journal.run_end(status="preempted", error=str(exc),
+                            **_card_record())
             logger.warning("Preempted: %s", exc)
             return preempt.EX_PREEMPTED
         logger.info("Epoch throughput: %.1f fold-epochs/s",
@@ -274,6 +303,7 @@ def main(argv=None) -> int:
                                    epochs=args.epochs,
                                    subjects=result.subjects, config=config,
                                    paths=paths)
+        journal.run_end(status="ok", **_card_record())
     return 0
 
 

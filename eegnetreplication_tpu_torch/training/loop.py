@@ -30,6 +30,19 @@ validation or test batch, is one pass for all G folds (``training/steps.py``).
   finite, or the step raises ``FloatingPointError`` naming the epoch, the
   step, the fold and the tensor.  It waits for the device once per step
   (and anomaly mode once per backward node), so it is a debugging mode.
+- Each epoch beats the liveness heartbeat (``resil/heartbeat.py``, the
+  process-default emitter, which writes ``EEGTPU_HEARTBEAT_FILE`` when a
+  supervisor sets it): a trainer's first epoch beats ``compile`` before it
+  starts (on the card it pays cuDNN's and cuBLAS's handles, lazy module
+  loading and the first use's ``nvcc`` build of the kernels, as the JAX
+  package's first dispatch of a program pays its compile) and every epoch
+  beats ``step`` when its work is queued.  A beat reads the host's clock
+  only, never the device, so it measures the host's progress: the host
+  runs ahead of the card, and a wedged kernel stops the beats only once
+  the launch queue fills or something waits for the device (an
+  allocation, the chunk boundary's synchronize).  A watchdog therefore
+  sees a stalled host, or a stalled card within about one chunk, never a
+  single slow kernel.
 - :meth:`FoldTrainer.carry` is everything a run needs to continue (the
   current and best states, best accuracy, minimum validation loss, the
   per-epoch history and the dropout generator's state), by name;
@@ -51,7 +64,7 @@ import torch
 
 from eegnetreplication_tpu_torch.models.eegnet import EEGNet
 from eegnetreplication_tpu_torch.ops.fused_eegnet import fold_index
-from eegnetreplication_tpu_torch.resil import preempt
+from eegnetreplication_tpu_torch.resil import heartbeat, preempt
 from eegnetreplication_tpu_torch.training import steps as steps_lib
 from eegnetreplication_tpu_torch.training.steps import TrainState
 
@@ -268,6 +281,7 @@ class FoldTrainer:
         self.best_acc = torch.zeros(g, device=device)
         self.min_val_loss = torch.full((g,), math.inf, device=device)
         self.history: list[tuple[torch.Tensor, ...]] = []
+        self._beaten = False   # the first epoch beats "compile"
 
     def _batch(self, gather: torch.Tensor, weights: torch.Tensor, step: int):
         b = self.batch_size
@@ -278,6 +292,11 @@ class FoldTrainer:
     def run_epoch(self) -> None:
         """Train every fold one epoch, validate, keep the best state."""
         preempt.raise_if_requested(what="epoch", epoch=len(self.history))
+        n_folds = self.spec.n_folds
+        if not self._beaten:
+            heartbeat.beat("compile", epochs_done=len(self.history),
+                           n_folds=n_folds)
+            self._beaten = True
         gather, weights = self.slot_source(len(self.history))
         device = self.pool_x.device
         gather = gather.to(device, torch.int64)
@@ -316,6 +335,8 @@ class FoldTrainer:
         self.best_acc = torch.maximum(self.best_acc, val_acc)
         self.min_val_loss = torch.minimum(self.min_val_loss, val_loss)
         self.history.append((train_loss, val_loss, val_acc, grad_norm))
+        heartbeat.beat("step", epochs_done=len(self.history),
+                       n_folds=n_folds)
 
     def _checked_step(self, step: int, x, y, w):
         """One train step under :func:`debug_nans`."""

@@ -58,8 +58,10 @@ history each chunk already copies to the host), and the metrics
 ``fold_epochs_total``, ``chunk_wall_s``, ``device_fault_retries`` and
 ``fault_retry_wall_s``.  It probes the chaos sites ``train.step``,
 ``train.chunk``, ``train.hang`` and ``host.preempt``
-(``resil/inject.py``).  The device mesh is not ported (ROADMAP.md queue
-A).
+(``resil/inject.py``), and beats the liveness heartbeat ``step`` at each
+chunk boundary, right after the stop check, beside the trainer's beat per
+epoch (``training/loop.py``).  The device mesh is not ported (ROADMAP.md
+queue A).
 """
 
 from __future__ import annotations
@@ -90,7 +92,7 @@ from eegnetreplication_tpu_torch.data.splits import (
 )
 from eegnetreplication_tpu_torch.models import EEGNet, get_model
 from eegnetreplication_tpu_torch.obs import journal as obs_journal
-from eegnetreplication_tpu_torch.resil import inject, preempt
+from eegnetreplication_tpu_torch.resil import heartbeat, inject, preempt
 from eegnetreplication_tpu_torch.resil import retry as resil_retry
 from eegnetreplication_tpu_torch.training import checkpoint as ckpt_lib
 from eegnetreplication_tpu_torch.training.async_ckpt import SnapshotWriter
@@ -567,6 +569,9 @@ def _train_group(setup: FoldSetup, lo: int, hi: int, *, epochs: int,
                 # submitted, and the writer commits it before a Preempted
                 # leaves this function.
                 preempt.check(chunk=chunk_no, epochs_done=e1, n_folds=n)
+                # The chunk boundary's liveness beat: a run that stops
+                # reaching boundaries goes silent here.
+                heartbeat.beat("step", epochs_done=e1, n_folds=n)
                 inject.fire("train.chunk", chunk=chunk_no, n_folds=n)
                 inject.fire("train.hang", chunk=chunk_no, n_folds=n)
     except BaseException:

@@ -530,6 +530,44 @@ def test_two_card_runs_are_bitwise_equal(cuda, tmp_path):
                            getattr(b.folds.best_state, field)), field
 
 
+def test_card_run_beats_compile_then_step_and_keeps_its_bits(
+        cuda, tmp_path, monkeypatch):
+    """A supervised card run's heartbeats: ``compile`` before the first
+    epoch, ``step`` after each epoch and at each chunk boundary, the file
+    written; the weights equal a run with no heartbeat file bit for bit."""
+    from eegnetreplication_tpu_torch.resil import heartbeat
+
+    monkeypatch.delenv(heartbeat.HEARTBEAT_FILE_ENV, raising=False)
+    heartbeat.reset_default()
+    plain = _ws_on_card(cuda, tmp_path, "plain", checkpoint_every=1)
+    beat_file = tmp_path / "hb" / "beat.json"
+    monkeypatch.setenv(heartbeat.HEARTBEAT_FILE_ENV, str(beat_file))
+    heartbeat.reset_default()
+    beats = []
+    real_beat = heartbeat.beat
+
+    def spy(phase="step", **ctx):
+        beats.append((phase, ctx))
+        return real_beat(phase, **ctx)
+
+    monkeypatch.setattr(heartbeat, "beat", spy)
+    try:
+        beaten = _ws_on_card(cuda, tmp_path, "beaten", checkpoint_every=1)
+    finally:
+        heartbeat.reset_default()
+    assert [p for p, _ in beats] == ["compile"] + ["step"] * 4
+    assert [ctx["epochs_done"] for _, ctx in beats] == [0, 1, 1, 2, 2]
+    assert {ctx["n_folds"] for _, ctx in beats} == {8}
+    got = heartbeat.read(beat_file)
+    assert got is not None and got.phase == "step"
+    for field in ("train_losses", "val_losses", "test_accuracy"):
+        assert torch.equal(getattr(plain.folds, field),
+                           getattr(beaten.folds, field)), field
+    for field in ("params", "stats"):
+        assert torch.equal(getattr(plain.folds.best_state, field),
+                           getattr(beaten.folds.best_state, field)), field
+
+
 def test_determinism_raises_on_no_path(cuda, tmp_path, monkeypatch):
     """Deterministic mode refuses ops it has no deterministic kernel for;
     none sits on the serving, dataset or training paths."""

@@ -59,7 +59,8 @@ _CHILD = textwrap.dedent("""
                  "serve.batcher", "serve.service", "obs.probe", "adapt",
                  "adapt.buffer", "adapt.gate", "adapt.shadow",
                  "adapt.worker", "adapt.controller", "utils.adapt_drill",
-                 "utils.predict_latency"):
+                 "utils.predict_latency", "resil.supervise", "obs.agg",
+                 "obs.top"):
         assert "eegnetreplication_tpu_torch." + name in names, name
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   {chip_smoke!r})

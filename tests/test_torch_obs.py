@@ -3,8 +3,8 @@ package's.
 
 - The port's ``EVENT_REQUIRED`` holds exactly the JAX table's rows for the
   ten training events, the serving events, the session events (with
-  ``spool_mirror``), the control plane's, ``probe`` and the adaptation
-  events.
+  ``spool_mirror``), the control plane's, ``probe``, the adaptation
+  events, the eight ``supervisor_*`` events and ``agg_snapshot``.
 - A journal written by ``python -m eegnetreplication_tpu_torch.train
   --metricsDir ...`` passes the JAX ``validate_events`` with no
   ``_schema_error``; ``scripts/obs_report.py::summarize_run`` reads it with
@@ -54,11 +54,15 @@ CONTROL_EVENTS = ("compile_begin", "compile_end", "compile", "ladder_retune",
                   "probe")
 ADAPT_EVENTS = ("adaptation_start", "adaptation_candidate", "shadow_eval",
                 "promotion")
+SUPERVISION_EVENTS = ("supervisor_start", "supervisor_launch",
+                      "supervisor_exit", "supervisor_hang",
+                      "supervisor_escalate", "supervisor_restart",
+                      "supervisor_giveup", "supervisor_end", "agg_snapshot")
 
 
 def test_event_table_equals_the_jax_rows():
     events = TRAINING_EVENTS + SERVING_EVENTS + SESSION_EVENTS \
-        + CONTROL_EVENTS + ADAPT_EVENTS
+        + CONTROL_EVENTS + ADAPT_EVENTS + SUPERVISION_EVENTS
     assert set(schema.EVENT_REQUIRED) == set(events)
     for name in events:
         assert schema.EVENT_REQUIRED[name] == jax_schema.EVENT_REQUIRED[name]
