@@ -178,6 +178,29 @@ hand-written kernel against its plain PyTorch version:
    ``--long``: the 90-fold cross-subject protocol at 500 epochs under the
    supervisor through one ``host.preempt``.
 
+17. the model layer, run last, in phase 8's tree: (a) ``train --model
+   shallow_convnet`` and ``--model deep_convnet`` (8 folds, at once):
+   the JAX report's keys, ``.npz`` checkpoints with the JAX metadata and
+   no ``.pth``, clean journals, no K1 and no K1-stacked launch; in
+   process, the card against the CPU at dropout 0 on the separable pool
+   (TRAIN_ATOL/RTOL; on phase 8's label-free tree, where the fit memorizes
+   noise, the card-vs-CPU gap is reported beside the CPU's own gap under
+   a 1e-7 scaling of the trials), the separable pool above chance, two
+   runs bitwise equal, fold-epochs/s,
+   GFLOP/s and MFU at 8 and 36 folds; (b) ``serve`` and ``predict`` on
+   each trained ``.npz`` (byte-equal predictions), the card's logits
+   against the CPU's (atol 1e-5 / rtol 1e-4), every bucket's graph replay
+   bitwise its eager forward, int8 and a two-tenant zoo behind their
+   gates; (c) EEGNet's banded schedule: the stacked forward's logits,
+   statistics and gradients against ``"lax"`` at T = 257 and 1125 (1e-5
+   / 1e-4), the tiled depthwise op; the A/B of fold-epochs/s at 36 and 90
+   folds in turns banded, lax, lax, banded, one epoch of each under the
+   profiler and its peak memory; K1-stacked launches under both; two
+   banded runs bitwise equal; (d) the permutation test (8 permutations
+   at 22 x 257 on the separable pool, twice, bitwise), CSP+LDA and the
+   tangent-space classifier on the card against the CPU (equal
+   predictions, features within 1e-4).
+
 Phases 10 and 11 print GFLOP/s and the MFU against the card's FP32 peak
 (``utils/flops.py``) beside fold-epochs/s at 8, 36 and 90 folds.
 
@@ -4420,6 +4443,626 @@ def phase_supervised(torch, np, dev, work: Path, env: dict,
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 17: the model layer
+# --------------------------------------------------------------------------
+
+BASELINES = ("shallow_convnet", "deep_convnet")
+ML_EPOCHS = 3             # the baselines' CLI runs
+ML_CPU_FOLDS = 1          # folds of the card-vs-CPU check (CPU_EPOCHS each)
+# The input scaling of the CPU-against-itself run on the label-free tree:
+# one f32 rounding step of the trials, the size of the card's own
+# rounding differences.
+ML_SCALE = 1e-7
+ML_LEARN_EPOCHS = 8       # the separable pool
+ML_TIME_EPOCHS = 3        # timed epochs at 8 and 36 folds
+# The banded-vs-lax A/B: timed epochs per turn (banded, lax, lax, banded),
+# after one warm-up epoch each.
+AB_EPOCHS = {36: 3, 90: 2}
+AB_LAUNCH_EPOCHS = 2      # the K1-stacked count and the bitwise repeat
+BANDED_FWD_TOL, BANDED_GRAD_TOL = 1e-5, 1e-4
+PERM_N, PERM_EPOCHS = 8, 10
+# CSP features go through two eigh calls in f32; the tangent features
+# through eleven (the Karcher loop) and a matrix log.
+CSP_FEATURE_TOL, TANGENT_FEATURE_TOL = 1e-4, 1e-4
+
+
+def _ml_trainer(name, dev, loader, subjects, config, seed, lo=0, hi=None,
+                cross=False):
+    """The protocol's fold trainer of model ``name`` over ``subjects``
+    (folds ``lo..hi-1``), as the protocols build it; ``(trainer,
+    setup)``."""
+    from eegnetreplication_tpu_torch.training import protocols as pr
+
+    if cross:
+        setup, _ = pr.cross_subject_setup(loader, subjects, config=config,
+                                          seed=seed, device=dev,
+                                          model_name=name)
+    else:
+        pool_x, pool_y, offsets = pr.build_pool(
+            [loader(s, "Train").concat(loader(s, "Eval")) for s in subjects])
+        model = pr._protocol_model(name, pool_x,
+                                   config.dropout_within_subject, config)
+        setup = pr.FoldSetup.build(model, pr.within_subject_folds(
+            offsets, config), pool_x, pool_y, config=config, seed=seed,
+            device=dev)
+    return setup.trainer(lo, hi or setup.n_folds), setup
+
+
+def _ml_rate(torch, trainer, epochs) -> float:
+    """fold-epochs/s of ``trainer`` over ``epochs`` epochs after one
+    warm-up epoch (host clock, ended by a synchronize)."""
+    trainer.run_epoch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        trainer.run_epoch()
+    torch.cuda.synchronize()
+    return trainer.spec.n_folds * epochs / (time.perf_counter() - t0)
+
+
+def _ml_mfu(torch, trainer, rate) -> dict:
+    """GFLOP/s and MFU of ``rate`` fold-epochs/s of ``trainer``'s model
+    (``utils/flops.py``: the minimal convolution whatever the schedule)."""
+    from eegnetreplication_tpu_torch.utils import flops
+
+    per_fe = flops.fold_epoch_flops(
+        trainer.model, batch_size=trainer.batch_size,
+        train_pad=trainer.spec.train_idx.shape[1],
+        val_pad=trainer.spec.val_idx.shape[1])
+    peak, label = flops.assumed_peak_flops(torch.cuda.get_device_name(0))
+    return {"fold_epochs_per_s": rate, "fold_epoch_gflop": per_fe / 1e9,
+            "gflops_per_s": rate * per_fe / 1e9,
+            "mfu": None if peak is None else rate * per_fe / peak,
+            "peak": label}
+
+
+def _ml_history(torch, name, where, loader, config, scale=0.0):
+    """Per-epoch ``(train_losses, val_losses)`` of fold 0..ML_CPU_FOLDS-1
+    after CPU_EPOCHS epochs on ``where`` from seed 0, the trials scaled by
+    ``1 + scale``."""
+    from eegnetreplication_tpu_torch.data.containers import BCICI2ADataset
+
+    def scaled(s, mode):
+        ds = loader(s, mode)
+        if not scale:
+            return ds
+        return BCICI2ADataset(X=(ds.X * (1 + scale)).astype(ds.X.dtype),
+                              y=ds.y)
+
+    trainer, _ = _ml_trainer(name, where, scaled, (1, 2), config, 0, 0,
+                             ML_CPU_FOLDS)
+    for _ in range(CPU_EPOCHS):
+        trainer.run_epoch()
+    return [t.cpu() for t in trainer.history_tensors()[:2]]
+
+
+def _max_abs(a, b) -> float:
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def _same_state(a, b) -> bool:
+    """Two fold states' parameters and statistics equal bit for bit."""
+    return bool((a.params == b.params).all()) \
+        and bool((a.stats == b.stats).all())
+
+
+def _ml_baseline_training(torch, np, dev, work: Path, env: dict,
+                          data_root: Path) -> dict:
+    """17a: both baselines through the train CLI (8 folds, in phase 8's
+    tree), then in process: the card against the CPU at dropout 0, the
+    separable pool, a bitwise repeat, and fold-epochs/s at 8 and 36
+    folds; no K1 and no K1-stacked launch anywhere."""
+    from eegnetreplication_tpu_torch.config import DEFAULT_TRAINING, Paths
+    from eegnetreplication_tpu_torch.data.io import load_subject_dataset
+    from eegnetreplication_tpu_torch.ops.fused_eegnet import (
+        block1,
+        block1_stacked,
+    )
+    from eegnetreplication_tpu_torch.training import checkpoint as ckpt_lib
+    from eegnetreplication_tpu_torch.training.protocols import (
+        within_subject_training,
+    )
+
+    out: dict = {}
+    procs, logs, roots = {}, {}, {}
+    t0 = time.perf_counter()
+    for name in BASELINES:
+        roots[name] = _replicated_tree(data_root, work / name, (1, 2))
+        logs[name] = work / f"train_{name}.stderr.log"
+        procs[name] = _spawn(
+            [sys.executable, "-m", "eegnetreplication_tpu_torch.train",
+             "--model", name, "--epochs", str(ML_EPOCHS), "--subjects",
+             "1,2", "--metricsDir", str(work / f"obs_{name}")],
+            dict(env, EEGTPU_DATA_ROOT=str(work / name)), logs[name])
+    done = _wait_all(procs, logs, 900)
+    cli_s = time.perf_counter() - t0
+    for name in BASELINES:
+        rc, err = done[name]
+        check(rc == 0, f"train --model {name} exited {rc}:\n{err[-4000:]}")
+        paths = roots[name]
+        _check_report(paths.reports / "latest_within_subject_report.json",
+                      WS_REPORT_KEYS, f"train --model {name}")
+        files = sorted(p.name for p in paths.models.iterdir())
+        check(files == ["subject_01_best_model.npz",
+                        "subject_02_best_model.npz"],
+              f"train --model {name} wrote {files}; want the two .npz and "
+              "no .pth")
+        for f in files:
+            _, meta = ckpt_lib.load_checkpoint(paths.models / f)
+            check(meta == {"model": name, "n_channels": 22,
+                           "n_times": 257}, f"{f} metadata {meta}")
+        events = _journal(np, work / f"obs_{name}", "ok")
+        check(_epochs_journaled(events) == list(range(1, ML_EPOCHS + 1)),
+              f"train --model {name}: the journal lacks an epoch event per "
+              "epoch")
+        launches = events[-1]["kernel_launches"]
+        check(launches == {"block1": 0, "block1_stacked": 0},
+              f"train --model {name} launched {launches}; a baseline runs "
+              "no K1 and no K1-stacked")
+        out[name] = {"checkpoints": [str(paths.models / f) for f in files],
+                     "cli_kernel_launches": launches}
+    log(f"train --model {', '.join(BASELINES)}: {ML_EPOCHS} epochs of 8 "
+        f"folds each, at once, in {cli_s:.1f}s; JAX report keys, .npz with "
+        "the JAX metadata and no .pth, clean journals, 0 K1 and 0 "
+        "K1-stacked launches")
+    out["cli_s"] = cli_s
+
+    def loader(s, mode):
+        return load_subject_dataset(s, mode, roots[BASELINES[0]])
+
+    def sep_loader(s, mode):
+        return separable_subject(np, (s - 1) % 2 + 1, mode)
+
+    p0 = DEFAULT_TRAINING.replace(dropout_within_subject=0.0)
+    block1.launches = block1_stacked.launches = 0
+    cpu = torch.device("cpu")
+    for name in BASELINES:
+        row = out[name]
+        # The card against the CPU at dropout 0 from one seed, on the
+        # separable pool, where the fit is well conditioned.  On phase 8's
+        # label-free tree the baselines memorize noise within two epochs,
+        # and there the CPU against itself with its trials scaled by one
+        # rounding step moves as far: that pair is reported, not gated.
+        hist = [_ml_history(torch, name, where, sep_loader, p0)
+                for where in (dev, cpu)]
+        deltas = {}
+        for i, series in enumerate(("train_losses", "val_losses")):
+            a, b = hist[0][i], hist[1][i]
+            check(bool(torch.isfinite(a).all()), f"{name}: card {series}")
+            deltas[series] = float((a - b).abs().max())
+            check(torch.allclose(a, b, atol=TRAIN_ATOL, rtol=TRAIN_RTOL),
+                  f"{name}: card vs CPU {series} differ by "
+                  f"{deltas[series]:.3e} (atol {TRAIN_ATOL}, rtol "
+                  f"{TRAIN_RTOL})")
+        row["card_vs_cpu_max_abs"] = deltas
+        noise = [_ml_history(torch, name, where, loader, p0, scale)
+                 for where, scale in ((dev, 0.0), (cpu, 0.0),
+                                      (cpu, ML_SCALE))]
+        row["label_free"] = {
+            "card_vs_cpu_max_abs": _max_abs(noise[0], noise[1]),
+            "cpu_vs_scaled_cpu_max_abs": _max_abs(noise[1], noise[2]),
+            "train_losses": noise[1][0].tolist()}
+        # the separable pool, and two card runs bitwise equal
+        learn = within_subject_training(
+            ML_LEARN_EPOCHS, loader=sep_loader, subjects=(1, 2), seed=1,
+            save_models=False, model_name=name, device=dev,
+            paths=Paths.from_root(work / f"learn_{name}"))
+        check(learn.avg_test_acc > 50.0,
+              f"{name}: separable pool test accuracy {learn.avg_test_acc:.2f}"
+              f"% after {ML_LEARN_EPOCHS} epochs (chance 25%)")
+        row["learn_test_acc"] = learn.avg_test_acc
+        runs = [within_subject_training(
+            2, loader=loader, subjects=(1, 2), seed=2, save_models=False,
+            model_name=name, device=dev,
+            paths=Paths.from_root(work / f"rep_{name}")) for _ in range(2)]
+        check(_same_state(runs[0].folds.best_state, runs[1].folds.best_state)
+              and bool((runs[0].folds.train_losses
+                        == runs[1].folds.train_losses).all()),
+              f"{name}: two card runs differ; they must repeat bit for bit")
+        # fold-epochs/s, GFLOP/s and MFU at 8 and 36 folds
+        row["times_by_folds"] = {}
+        for n_folds, subjects in ((8, (1, 2)), (36, tuple(range(1, 10)))):
+            trainer, _ = _ml_trainer(name, dev, sep_loader, subjects,
+                                     DEFAULT_TRAINING, 3)
+            check(trainer.spec.n_folds == n_folds, f"{trainer.spec.n_folds}")
+            rate = _ml_rate(torch, trainer, ML_TIME_EPOCHS)
+            row["times_by_folds"][n_folds] = _ml_mfu(torch, trainer, rate)
+            del trainer
+        t8, t36 = row["times_by_folds"][8], row["times_by_folds"][36]
+        lf = row["label_free"]
+        log(f"{name}: card vs CPU ({ML_CPU_FOLDS} fold x {CPU_EPOCHS} "
+            f"epochs, dropout 0, separable pool) train "
+            f"{deltas['train_losses']:.2e}, val {deltas['val_losses']:.2e}; "
+            f"on phase 8's label-free tree (not gated) card vs CPU "
+            f"{lf['card_vs_cpu_max_abs']:.2e}, CPU vs the CPU on trials "
+            f"scaled by 1 + {ML_SCALE:g} {lf['cpu_vs_scaled_cpu_max_abs']:.2e}"
+            f" (train losses {lf['train_losses']}); separable pool "
+            f"{learn.avg_test_acc:.2f}% after {ML_LEARN_EPOCHS} epochs; two "
+            f"runs bitwise equal; 8 folds {t8['fold_epochs_per_s']:.2f} "
+            f"fold-epochs/s = {t8['gflops_per_s']:.1f} GFLOP/s = "
+            f"{100 * (t8['mfu'] or 0):.3f}% MFU; 36 folds "
+            f"{t36['fold_epochs_per_s']:.2f} fold-epochs/s = "
+            f"{t36['gflops_per_s']:.1f} GFLOP/s = "
+            f"{100 * (t36['mfu'] or 0):.3f}% MFU ({t36['peak']})")
+    check(block1.launches == 0 and block1_stacked.launches == 0,
+          f"the baselines' in-process runs launched K1 {block1.launches} "
+          f"and K1-stacked {block1_stacked.launches} times; want 0")
+    return out
+
+
+def _ml_baseline_serving(torch, np, dev, work: Path, env: dict,
+                         trained: dict) -> dict:
+    """17b: each trained baseline through ``serve`` and ``predict`` (both
+    baselines' servers and CLIs at once, started before the in-process
+    checks), the card's logits against the CPU's, every bucket's graph
+    replay against its eager forward, and int8 and the zoo as the JAX
+    package serves a baseline: behind their gates."""
+    from eegnetreplication_tpu_torch.data.containers import BCICI2ADataset
+    from eegnetreplication_tpu_torch.data.io import save_trials
+    from eegnetreplication_tpu_torch.predict import predict_trials
+    from eegnetreplication_tpu_torch.serve.engine import (
+        InferenceEngine,
+        build_gated_engine,
+        load_model_from_checkpoint,
+    )
+    from eegnetreplication_tpu_torch.serve.zoo import build_stacked_engine
+
+    x = trials(torch, 45, 22, 257, 70).numpy()
+    y = np.random.RandomState(71).randint(0, 4, size=45).astype(np.int64)
+    trials_path = save_trials(BCICI2ADataset(X=x, y=y),
+                              work / "A01E-trials.npz")
+    out: dict = {name: {} for name in BASELINES}
+    servers: dict = {}
+    starters = {name: threading.Thread(
+        target=lambda name=name: servers.__setitem__(name, _start_server(
+            ["--checkpoint", trained[name]["checkpoints"][0]], work, env,
+            name=f"serve_{name}")), daemon=True) for name in BASELINES}
+    clis = {name: _spawn_predict(
+        ["--checkpoint", trained[name]["checkpoints"][0], "--input",
+         str(trials_path)], env, work, f"predict_{name}")
+        for name in BASELINES}
+    for th in starters.values():
+        th.start()
+    try:
+        refs = {}
+        for name in BASELINES:
+            ckpts, row = trained[name]["checkpoints"], out[name]
+            model = load_model_from_checkpoint(ckpts[0], device=dev)
+            cpu_model = load_model_from_checkpoint(ckpts[0], device="cpu")
+            with torch.inference_mode():
+                got = model(torch.from_numpy(x).to(dev)).cpu()
+                want = cpu_model(torch.from_numpy(x))
+            row["logits_max_abs_err"] = float((got - want).abs().max())
+            check(torch.allclose(got, want, atol=LOGITS_ATOL,
+                                 rtol=LOGITS_RTOL),
+                  f"{name}: card logits differ from the CPU's by "
+                  f"{row['logits_max_abs_err']:.3e}")
+            engine = InferenceEngine(model, device=dev)
+            engine.warmup()
+            for b in engine.buckets:
+                xb = trials(torch, b, 22, 257, 72 + b).to(dev)
+                with torch.inference_mode():
+                    eager = engine.forward(xb).cpu()
+                check(torch.equal(engine.graph_logits(xb).cpu(), eager),
+                      f"{name}: bucket {b}'s graph replay differs from its "
+                      "eager forward")
+                check(engine.graph_stats()[b]["kernels"] == {},
+                      f"{name}: bucket {b}'s graph holds hand kernels")
+            refs[name] = predict_trials(model, x, device=dev)
+            # int8: served when the gate passes, fp32 kept when it refuses
+            int8, gate = build_gated_engine(model, precision="int8",
+                                            device=dev)
+            check(int8.precision == ("int8" if gate.passed else "fp32"),
+                  f"{name}: gate {gate.outcome} but {int8.precision} "
+                  "serves")
+            # the zoo: both subjects' models stacked behind the stack gate
+            members = [(f"s{i + 1}", load_model_from_checkpoint(
+                p, device=dev)) for i, p in enumerate(ckpts)]
+            stacked, zgate = build_stacked_engine(members, device=dev)
+            check(zgate.passed and stacked is not None,
+                  f"{name}: stack gate {zgate.outcome} ({zgate.per_tenant})")
+            for z, (mid, m) in enumerate(members):
+                check((stacked.infer(x, z) == predict_trials(
+                    m, x, device=dev)).all(),
+                      f"{name}: tenant {mid} answers otherwise stacked")
+            row.update(int8_gate=gate.outcome, int8_agreement=gate.agreement,
+                       int8_serves=int8.precision, zoo_gate=zgate.outcome)
+        for name in BASELINES:
+            starters[name].join(SERVE_START_TIMEOUT_S + 30)
+            check(name in servers, f"the {name} server did not start")
+            proc, url = servers[name][:2]
+            status, reply = _post(url + "/predict", _npz_body(np, x),
+                                  "application/octet-stream")
+            check(status == 200, f"{name}: /predict answered {status}")
+            served = np.asarray(reply["predictions"], np.int64)
+            check(served.tobytes() == refs[name].tobytes(),
+                  f"{name}: served predictions differ from predict's")
+            status, health = _get(url + "/healthz")
+            k = health["kernel_launches"]
+            check(k["block1"] == 0 and k["block1_stacked"] == 0,
+                  f"{name}: the server launched {k}")
+            check(health["graph_replays"] == health["batches"] > 0,
+                  f"{name}: {health['graph_replays']} replays for "
+                  f"{health['batches']} forwards")
+            out[name]["predict_line"] = _check_predict_cli(
+                np, clis[name], work, f"predict_{name}", served, y,
+                f"predict on {name}")
+            proc.send_signal(signal.SIGTERM)
+            check(proc.wait(timeout=120) == 75, f"{name}: server exit")
+    finally:
+        for th in starters.values():
+            th.join(SERVE_START_TIMEOUT_S + 30)
+        for proc in [srv[0] for srv in servers.values()] + list(
+                clis.values()):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for srv in servers.values():
+            srv[2].close()
+    for name in BASELINES:
+        row = out[name]
+        log(f"{name}: card logits within {row['logits_max_abs_err']:.2e} "
+            "of the CPU's; every bucket's graph replay bitwise its eager "
+            "forward, no hand kernel; serve == predict byte for byte, "
+            f"{row['predict_line']!r}; int8 gate {row['int8_gate']} "
+            f"(agreement {row['int8_agreement']:.4f}) -> "
+            f"{row['int8_serves']} serves; zoo of 2 stacked, gate "
+            f"{row['zoo_gate']}")
+    return out
+
+
+def _banded_ops_on_card(torch, np, dev) -> dict:
+    """Each banded op, forward and gradients, against the grouped-conv
+    path on the card at T = 257 and T = 1125 (the stacked forward holds
+    every op, the temporal conv tiled at 1125), and the depthwise op tiled
+    past 512 outputs against the grouped convolution."""
+    import torch.nn.functional as F
+
+    from eegnetreplication_tpu_torch.models import EEGNet
+    from eegnetreplication_tpu_torch.models.eegnet import stacked_forward
+    from eegnetreplication_tpu_torch.ops import banded
+    from eegnetreplication_tpu_torch.training.loop import init_fold_states
+
+    errs = {}
+    for t in (257, 1125):
+        init = init_fold_states(EEGNet(22, t, device="cpu"), 8,
+                                torch.Generator().manual_seed(80)).to(dev)
+        x = trials(torch, 8 * 16, 22, t, 81).reshape(8, 16, 22, t).to(dev)
+        res = {}
+        for impl in ("lax", "banded"):
+            params = {k: v.clone().requires_grad_(True)
+                      for k, v in init.param_views().items()}
+            logits, new = stacked_forward(params, init.stat_views(), x,
+                                          train=True, conv_impl=impl)
+            grads = torch.autograd.grad(logits.square().sum(),
+                                        list(params.values()))
+            res[impl] = (logits.detach(), new, grads)
+        fwd = float((res["banded"][0] - res["lax"][0]).abs().max())
+        check(torch.allclose(res["banded"][0], res["lax"][0],
+                             atol=BANDED_FWD_TOL, rtol=BANDED_FWD_TOL),
+              f"banded vs lax logits at T={t} differ by {fwd:.3e}")
+        for k in res["lax"][1]:
+            check(torch.allclose(res["banded"][1][k], res["lax"][1][k],
+                                 atol=BANDED_FWD_TOL, rtol=BANDED_FWD_TOL),
+                  f"banded vs lax {k} at T={t}")
+        grad = 0.0
+        for a, b in zip(res["banded"][2], res["lax"][2]):
+            grad = max(grad, float((a - b).abs().max()))
+            check(torch.allclose(a, b, atol=BANDED_GRAD_TOL,
+                                 rtol=BANDED_GRAD_TOL),
+                  f"banded vs lax gradients at T={t} differ by {grad:.3e}")
+        errs[t] = {"logits": fwd, "grads": grad}
+    # the tiled depthwise conv (T' past 512) against the grouped conv
+    h = trials(torch, 16 * 600, 16, 1, 82).reshape(4, 4, 600, 16).to(dev)
+    w = (0.25 * trials(torch, 4 * 16, 16, 1, 83)).reshape(4, 16, 1, 1, 16
+                                                          ).to(dev)
+    hb, wb = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    hl, wl = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    band = banded.depthwise_conv_banded(hb, wb)
+    lax = torch.stack([F.conv2d(F.pad(hl[g].permute(0, 2, 1)[:, :, None],
+                                      (7, 8)), wl[g], groups=16)[:, :, 0]
+                       .transpose(1, 2) for g in range(4)])
+    check(torch.allclose(band, lax, atol=BANDED_FWD_TOL,
+                         rtol=BANDED_FWD_TOL), "tiled depthwise forward")
+    cot = trials(torch, 16 * 600, 16, 1, 84).reshape(band.shape).to(dev)
+    for a, b in zip(torch.autograd.grad(band, (hb, wb), cot),
+                    torch.autograd.grad(lax, (hl, wl), cot)):
+        check(torch.allclose(a, b, atol=BANDED_GRAD_TOL,
+                             rtol=BANDED_GRAD_TOL), "tiled depthwise grads")
+    errs["tiled_depthwise"] = float((band - lax).detach().abs().max())
+    log(f"banded vs lax on the card: T=257 logits {errs[257]['logits']:.2e}"
+        f" grads {errs[257]['grads']:.2e}; T=1125 (tiled) logits "
+        f"{errs[1125]['logits']:.2e} grads {errs[1125]['grads']:.2e}; tiled "
+        f"depthwise {errs['tiled_depthwise']:.2e}")
+    return errs
+
+
+def _conv_ab(torch, np, dev, work: Path) -> dict:
+    """17c: fold-epochs/s of the two schedules at 36 and 90 folds in turns
+    banded, lax, lax, banded; one epoch of each under the profiler; the
+    peak memory of each; K1-stacked launches under both; two banded runs
+    bitwise equal."""
+    from eegnetreplication_tpu_torch.config import DEFAULT_TRAINING, Paths
+    from eegnetreplication_tpu_torch.ops.fused_eegnet import block1_stacked
+    from eegnetreplication_tpu_torch.training.loop import n_steps
+    from eegnetreplication_tpu_torch.training.protocols import (
+        within_subject_training,
+    )
+    from eegnetreplication_tpu_torch.utils.profiling import breakdown
+
+    def sep_loader(s, mode):
+        return separable_subject(np, (s - 1) % 2 + 1, mode)
+
+    def with_impl(impl, fn):
+        old = os.environ.get("EEGTPU_CONV_IMPL")
+        os.environ["EEGTPU_CONV_IMPL"] = impl
+        try:
+            return fn()
+        finally:
+            if old is None:
+                os.environ.pop("EEGTPU_CONV_IMPL")
+            else:
+                os.environ["EEGTPU_CONV_IMPL"] = old
+
+    subjects = tuple(range(1, 10))
+    out: dict = {}
+    for n_folds, cross in ((36, False), (90, True)):
+        trainers = {impl: with_impl(impl, lambda: _ml_trainer(
+            "eegnet", dev, sep_loader, subjects, DEFAULT_TRAINING, 4,
+            cross=cross)[0]) for impl in ("banded", "lax")}
+        for impl, tr in trainers.items():
+            check(tr.model.conv_impl == impl, f"{impl} trainer runs "
+                  f"{tr.model.conv_impl}")
+            check(tr.spec.n_folds == n_folds, f"{tr.spec.n_folds} folds")
+        rates = {"banded": [], "lax": []}
+        for impl in ("banded", "lax", "lax", "banded"):
+            rates[impl].append(_ml_rate(torch, trainers[impl],
+                                        AB_EPOCHS[n_folds]))
+        row = {}
+        for impl, tr in trainers.items():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            tr.run_epoch()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            prof = breakdown(tr.run_epoch, n_calls=1, top=6)
+            mean = statistics.mean(rates[impl])
+            row[impl] = {"rates": rates[impl], **_ml_mfu(torch, tr, mean),
+                         "peak_memory_gib": peak, "epoch_profile": prof}
+        row["banded_over_lax"] = (row["banded"]["fold_epochs_per_s"]
+                                  / row["lax"]["fold_epochs_per_s"])
+        out[n_folds] = row
+        for impl in ("banded", "lax"):
+            r, prof = row[impl], row[impl]["epoch_profile"]
+            top = ", ".join(f"{k['name'][:40]} {k['ms']:.1f} ms"
+                            for k in prof["top_device_ms_per_call"][:3])
+            log(f"A/B {n_folds} folds, {impl}: {r['fold_epochs_per_s']:.2f} "
+                f"fold-epochs/s (turns {', '.join(f'{v:.2f}' for v in r['rates'])}"
+                f") = {100 * (r['mfu'] or 0):.3f}% MFU, peak "
+                f"{r['peak_memory_gib']:.2f} GiB; one epoch: wall "
+                f"{prof['wall_ms_per_call']:.1f} ms, idle share "
+                f"{prof['device_idle_share']}, top: {top}")
+        log(f"A/B {n_folds} folds: banded/lax = {row['banded_over_lax']:.3f}")
+        del trainers
+        torch.cuda.empty_cache()
+
+    # K1-stacked launches under both schedules, and two banded runs
+    kw = dict(loader=sep_loader, subjects=(1, 2), seed=5, save_models=False,
+              device=dev, paths=Paths.from_root(work / "ab_runs"))
+    n_sub = N_TRIALS * 2
+    val_steps = n_steps(n_sub * 3 // 4 // 5, DEFAULT_TRAINING.batch_size, 1)
+    test_steps = n_steps(n_sub // 4, DEFAULT_TRAINING.batch_size, 1)
+    want = AB_LAUNCH_EPOCHS * val_steps + test_steps
+    results = {}
+    for run, impl in (("banded_1", "banded"), ("lax", "lax"),
+                      ("banded_2", "banded")):
+        block1_stacked.launches = 0
+        results[run] = with_impl(impl, lambda: within_subject_training(
+            AB_LAUNCH_EPOCHS, **kw))
+        check(block1_stacked.launches == want,
+              f"{impl}: K1-stacked launched {block1_stacked.launches} times; "
+              f"want {AB_LAUNCH_EPOCHS} x {val_steps} + {test_steps}")
+    a, b = results["banded_1"].folds, results["banded_2"].folds
+    check(_same_state(a.best_state, b.best_state)
+          and bool((a.train_losses == b.train_losses).all()),
+          "two banded card runs differ; they must repeat bit for bit")
+    out["k1_stacked_launches_each"] = want
+    log(f"K1-stacked: {want} launches ({AB_LAUNCH_EPOCHS} x {val_steps} + "
+        f"{test_steps}) under banded and lax; two banded runs bitwise equal")
+    return out
+
+
+def _permutation_and_classical(torch, np, dev) -> dict:
+    """17d: the permutation test at the product width on the separable
+    pool, twice; CSP+LDA and the tangent-space classifier on the card
+    against the CPU."""
+    from eegnetreplication_tpu_torch.models import csp, riemann
+    from eegnetreplication_tpu_torch.training.permutation import (
+        p_value,
+        permutation_test,
+    )
+
+    ds = separable_subject(np, 1, "Train").concat(
+        separable_subject(np, 1, "Eval"))
+    t0 = time.perf_counter()
+    runs = [permutation_test(ds.X, ds.y, n_permutations=PERM_N,
+                             epochs=PERM_EPOCHS, seed=6, device=dev)
+            for _ in range(2)]
+    wall = (time.perf_counter() - t0) / 2
+    r = runs[0]
+    check(r.real_accuracy > r.mean_permuted,
+          f"permutation test: real {r.real_accuracy:.2f}% is not above the "
+          f"permuted mean {r.mean_permuted:.2f}%")
+    check(r.p_value == p_value(r.real_accuracy, r.permuted_accuracies),
+          "the p-value is not the estimator's")
+    check(r.real_accuracy == runs[1].real_accuracy
+          and np.array_equal(r.permuted_accuracies,
+                             runs[1].permuted_accuracies)
+          and bool((r.folds.train_losses
+                    == runs[1].folds.train_losses).all()),
+          "two permutation tests on the card differ")
+    log(f"permutation test ({PERM_N} permutations x {PERM_EPOCHS} epochs, "
+        f"one trainer of {PERM_N + 1} runs, {wall:.1f}s): real "
+        f"{r.real_accuracy:.2f}% vs permuted mean {r.mean_permuted:.2f}%, "
+        f"p = {r.p_value:.4f}; two runs bitwise equal")
+
+    train = separable_subject(np, 2, "Train")
+    test = separable_subject(np, 2, "Eval")
+    xs = [torch.from_numpy(a) for a in (train.X, train.y, test.X)]
+    out = {"permutation": {"real": r.real_accuracy,
+                           "permuted": r.permuted_accuracies.tolist(),
+                           "p_value": r.p_value, "wall_s": wall}}
+    for name, fit in (("csp_lda", csp.csp_lda_fit_predict),
+                      ("tangent_lda", riemann.tangent_lda_fit_predict)):
+        want = fit(*xs)
+        got = fit(*(a.to(dev) for a in xs))
+        check(got.is_cuda and torch.equal(got.cpu(), want),
+              f"{name}: card predictions differ from the CPU's")
+        out[name] = {"accuracy": float((want.numpy() == test.y).mean())}
+    filters = csp.csp_fit(xs[0], xs[1])
+    feats = csp.csp_transform(xs[0], filters)
+    feats_card = csp.csp_transform(xs[0].to(dev),
+                                   csp.csp_fit(xs[0].to(dev), xs[1].to(dev)))
+    covs = riemann.trial_covariances(xs[0])
+    tangent = riemann.tangent_features(covs, riemann.riemannian_mean(covs))
+    covs_c = riemann.trial_covariances(xs[0].to(dev))
+    tangent_card = riemann.tangent_features(covs_c,
+                                            riemann.riemannian_mean(covs_c))
+    for name, a, b, tol in (("csp_features", feats_card, feats,
+                             CSP_FEATURE_TOL),
+                            ("tangent_features", tangent_card, tangent,
+                             TANGENT_FEATURE_TOL)):
+        err = float((a.cpu() - b).abs().max())
+        check(torch.allclose(a.cpu(), b, atol=tol, rtol=tol),
+              f"{name}: card vs CPU differ by {err:.3e} (tolerance {tol})")
+        out[name + "_max_abs_err"] = err
+    log(f"CSP+LDA {100 * out['csp_lda']['accuracy']:.1f}% and tangent+LDA "
+        f"{100 * out['tangent_lda']['accuracy']:.1f}%: card predictions equal"
+        f" the CPU's; features within {out['csp_features_max_abs_err']:.2e} "
+        f"and {out['tangent_features_max_abs_err']:.2e}")
+    return out
+
+
+def phase_model_layer(torch, np, dev, work: Path, env: dict,
+                      data_root: Path) -> dict:
+    """Phase 17: the model layer (see the module docstring)."""
+    t0 = time.perf_counter()
+    work.mkdir(parents=True, exist_ok=True)
+    out = {"training": _ml_baseline_training(torch, np, dev, work, env,
+                                             data_root)}
+    out["serving"] = _ml_baseline_serving(torch, np, dev, work, env,
+                                          out["training"])
+    out["banded_ops"] = _banded_ops_on_card(torch, np, dev)
+    out["conv_ab"] = _conv_ab(torch, np, dev, work)
+    out["permutation_classical"] = _permutation_and_classical(torch, np,
+                                                              dev)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 17 (the model layer): {out['wall_s']:.1f}s")
+    return out
+
+
 def _mfu_fields(row: dict) -> dict:
     """GFLOP/s and MFU of a fold-epochs/s row at the product width, from
     the port's FLOP count (``utils/flops.py``) and the card's FP32 peak."""
@@ -4486,27 +5129,34 @@ def main(argv=None) -> int:
         times = phase_times(torch, np, dev)
         k1s_times = phase_k1_stacked_times(torch, dev)
         k2_err, k2_vs_methods = phase_k2(torch, np, dev)
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
-            dataset = phase_dataset(torch, np, dev, Path(tmp), env)
+        # Phase 8's tree lives until phase 17, which runs last so that it
+        # leaves nothing behind for an earlier path.
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as data:
+            dataset = phase_dataset(torch, np, dev, Path(data), env)
             k2_times = phase_k2_times(torch, np, dev,
-                                      Path(dataset["raw_session"]), Path(tmp))
-            train = phase_train(torch, np, dev, Path(tmp) / "train", env,
-                                Path(tmp) / "cli")
-            cs = phase_cross_subject(torch, np, dev, Path(tmp) / "cs", env,
-                                     Path(tmp) / "cli")
-            supervised = phase_supervised(torch, np, dev, Path(tmp) / "sup",
-                                          env, Path(tmp) / "cli",
+                                      Path(dataset["raw_session"]),
+                                      Path(data))
+            train = phase_train(torch, np, dev, Path(data) / "train", env,
+                                Path(data) / "cli")
+            cs = phase_cross_subject(torch, np, dev, Path(data) / "cs", env,
+                                     Path(data) / "cli")
+            supervised = phase_supervised(torch, np, dev, Path(data) / "sup",
+                                          env, Path(data) / "cli",
                                           long=args.long)
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
-            zoo = phase_serving_zoo(torch, np, dev, Path(tmp), env)
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_streams_") \
-                as tmp:
-            streams = phase_streams(torch, np, dev, Path(tmp), env)
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_control_") \
-                as tmp:
-            control = phase_control(torch, np, dev, Path(tmp), env)
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_adapt_") as tmp:
-            adapt = phase_adapt(torch, np, dev, Path(tmp), env)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
+                zoo = phase_serving_zoo(torch, np, dev, Path(tmp), env)
+            with tempfile.TemporaryDirectory(
+                    prefix="chip_smoke_streams_") as tmp:
+                streams = phase_streams(torch, np, dev, Path(tmp), env)
+            with tempfile.TemporaryDirectory(
+                    prefix="chip_smoke_control_") as tmp:
+                control = phase_control(torch, np, dev, Path(tmp), env)
+            with tempfile.TemporaryDirectory(
+                    prefix="chip_smoke_adapt_") as tmp:
+                adapt = phase_adapt(torch, np, dev, Path(tmp), env)
+            model_layer = phase_model_layer(torch, np, dev,
+                                            Path(data) / "models", env,
+                                            Path(data) / "cli")
     except Exception:  # noqa: BLE001 — every failure ends the run
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -4542,14 +5192,16 @@ def main(argv=None) -> int:
         # server's counted chunks (phase 12), the adapting server of
         # phase 15 (its chunks, fit accuracies and restacks), and phase
         # 16's train CLIs, each counting in its run_end (the unbroken run
-        # and the supervised launches that ended; --long's too)
+        # and the supervised launches that ended; --long's too), and phase
+        # 17's three counted EEGNet runs (banded, lax, banded)
         "launches": (train["launches"] + cs["launches_one_group"]
                      + cs["launches_groups"]
                      + zoo["zoo"]["k1_stacked_launches"]
                      + adapt["launches"]["got"]["block1_stacked"]
                      + supervised["training"]["launches_block1_stacked"]
                      + supervised.get("long", {}).get(
-                         "launches_block1_stacked", 0)),
+                         "launches_block1_stacked", 0)
+                     + 3 * model_layer["conv_ab"]["k1_stacked_launches_each"]),
         "max_abs_err": k1s_err,
         # at the 90-fold cross-subject validation batch, (5760, 22, 257)
         "ms": k1s_times[5760]["ms"],
@@ -4603,6 +5255,7 @@ def main(argv=None) -> int:
         "k1_stacked_times": k1s_times, "train": train, "cross_subject": cs,
         "serving_zoo": zoo, "streams": streams, "control": control,
         "adapt": adapt, "supervised": supervised,
+        "model_layer": model_layer,
         "wall_s": time.perf_counter() - t_start,
     }
     print(json.dumps({"timings": record}), flush=True)

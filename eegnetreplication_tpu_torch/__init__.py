@@ -19,6 +19,9 @@ folds of a group per step, chunked runs with run snapshots and
 ``--resume``; every validation and test batch runs block 1 of all folds in
 one launch of K1's stacked form.  A training run writes the JAX package's
 run journal (``obs/``) and takes its chaos plans (``resil/inject.py``).
+Every model of the JAX registry trains and serves (EEGNet with either of
+its conv schedules, ShallowConvNet, DeepConvNet; ``models/``), beside the
+permutation test and the CSP+LDA and tangent-space baselines.
 Each kernel is the counterpart of one of the JAX package's Pallas kernels.
 
 Like the JAX package init, this re-exports the shared ``logger``.

@@ -23,12 +23,21 @@ along a leading axis (:func:`stacked_forward`): the training loop advances
 every fold of a protocol in one pass, as the JAX package's fold ``vmap``
 does, and a single module's training forward is the case G = 1.  The
 stacked parameters are the ``state_dict`` tensors with a leading G axis,
-under the same names.
+under the same names.  It runs either of the JAX model's conv schedules
+(``conv_impl``): grouped convolutions (``"lax"``) or ``ops/banded.py``'s
+batched matmuls (``"banded"``, what ``"auto"`` resolves to), with the same
+parameters and the same results to f32 rounding.
+
+The registry (``models/registry.py``) also holds ShallowConvNet and
+DeepConvNet (``models/convnets.py``), which share this module's
+functional pieces (BatchNorm over G sets, dropout, the classifier) and its
+``stacked``/``fresh``/``metadata`` interface with the fold trainer.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Callable, Mapping
 
 import torch
@@ -40,6 +49,7 @@ from eegnetreplication_tpu_torch.models.norm import (
     batch_norm_eval,
     batch_norm_train,
 )
+from eegnetreplication_tpu_torch.ops import banded
 from eegnetreplication_tpu_torch.utils.device import resolve_device
 
 TEMPORAL_K = 32
@@ -52,6 +62,29 @@ MAXNORM_LIMITS = {"spatial.weight": 1.0, "classifier.weight": 0.25}
 # The running statistics of the three BatchNorms, by state_dict name.
 BN_PREFIXES = ("temporal.1", "aggregation.0", "block_2.2")
 
+CONV_IMPLS = ("banded", "lax")
+# What conv_impl="auto" resolves to on this port: "banded", as in the JAX
+# package, because on the card it is not slower.  chip_smoke.py phase 17c,
+# NVIDIA H100 80GB HBM3 at 700 W, fold-epochs/s of the protocols' trainer
+# in turns banded, lax, lax, banded: 376.8 against 241.1 at 36 folds and
+# 109.8 against 65.5 at 90 (PERF.md section 5).
+AUTO_CONV_IMPL = "banded"
+
+
+def resolve_conv_impl(conv_impl: str) -> str:
+    """The schedule ``conv_impl`` names, with the JAX package's rules:
+    ``EEGTPU_CONV_IMPL`` overrides ``"auto"`` only (its own ``"auto"`` or
+    an empty value is the default), an explicit value wins, and anything
+    else raises."""
+    if conv_impl == "auto":
+        impl = os.environ.get("EEGTPU_CONV_IMPL") or AUTO_CONV_IMPL
+        conv_impl = AUTO_CONV_IMPL if impl == "auto" else impl
+    if conv_impl not in CONV_IMPLS:
+        raise ValueError(
+            f"conv_impl must be 'auto', 'banded', or 'lax'; "
+            f"got {conv_impl!r}")
+    return conv_impl
+
 
 class EEGNet(nn.Module):
     """EEGNet for ``(B, C, T)`` EEG trials; returns ``(B, n_classes)`` logits.
@@ -61,7 +94,10 @@ class EEGNet(nn.Module):
     conv/linear init (U(+-1/sqrt(fan_in)), the JAX model's init too) from
     ``generator`` when given.  The module starts in eval mode;
     ``.train()`` selects the training forward (``bn_mode`` BatchNorm,
-    momentum 0.9 in flax's convention).
+    momentum 0.9 in flax's convention).  ``conv_impl`` is the schedule of
+    the training forward and of the fold-stacked eval block 2 (``"lax"``:
+    grouped convolutions; ``"banded"``: ``ops/banded.py``'s matmuls;
+    ``"auto"``: :func:`resolve_conv_impl`, once, here).
     """
 
     MAXNORM_LIMITS = MAXNORM_LIMITS
@@ -70,9 +106,11 @@ class EEGNet(nn.Module):
                  n_classes: int = 4, F1: int = 8, D: int = 2,
                  dropout_rate: float = 0.5, bn_epsilon: float = 1e-5, *,
                  bn_mode: str = "flax", momentum: float = 0.9,
+                 conv_impl: str = "auto",
                  device: torch.device | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
+        self.conv_impl = resolve_conv_impl(conv_impl)
         if bn_mode not in BN_MODES:
             raise ValueError(
                 f"bn_mode must be 'flax' or 'torch'; got {bn_mode!r}")
@@ -119,6 +157,27 @@ class EEGNet(nn.Module):
         ``F2 * t_prime``."""
         return self.n_times // 32
 
+    def metadata(self) -> dict:
+        """The geometry a checkpoint records for this model."""
+        return {"n_channels": self.n_channels, "n_times": self.n_times,
+                "F1": self.F1, "D": self.D}
+
+    def fresh(self, generator: torch.Generator) -> "EEGNet":
+        """A new EEGNet of this geometry and schedule on the CPU, drawn from
+        ``generator``."""
+        return EEGNet(self.n_channels, self.n_times, self.n_classes,
+                      self.F1, self.D, conv_impl=self.conv_impl,
+                      device="cpu", generator=generator)
+
+    def stacked(self, params, stats, x, *, train: bool,
+                sample_weights=None, generator=None):
+        """:func:`stacked_forward` with this model's hyperparameters."""
+        return stacked_forward(
+            params, stats, x, train=train, sample_weights=sample_weights,
+            bn_mode=self.bn_mode, dropout_rate=self.dropout_rate,
+            generator=generator, momentum=self.momentum,
+            eps=self.bn_epsilon, conv_impl=self.conv_impl)
+
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None
                          ) -> None:
@@ -156,7 +215,7 @@ class EEGNet(nn.Module):
                 f"got {tuple(x.shape)}")
         x = x.to(torch.float32)
         if self.training:
-            return self._train_forward(x, sample_weights)
+            return train_forward(self, x, sample_weights)
         x = x.unsqueeze(1)                          # (B, 1, C, T)
         x = self.temporal(x)
         x = self.spatial(x)
@@ -164,28 +223,39 @@ class EEGNet(nn.Module):
         x = self.block_2(x)
         return self.classifier(x)
 
-    def _train_forward(self, x, sample_weights):
-        params = {k: v.unsqueeze(0) for k, v in self.named_parameters()}
-        stats = {k: v.unsqueeze(0) for k, v in self.named_buffers()
-                 if not k.endswith("num_batches_tracked")}
-        w = None if sample_weights is None else sample_weights[None]
-        logits, new_stats = stacked_forward(
-            params, stats, x[None], train=True, sample_weights=w,
-            bn_mode=self.bn_mode, dropout_rate=self.dropout_rate,
-            momentum=self.momentum, eps=self.bn_epsilon)
-        buffers = dict(self.named_buffers())
-        with torch.no_grad():
-            for name, value in new_stats.items():
-                buffers[name].copy_(value[0])
-        return logits[0]
+
+def stacked_state(model: nn.Module) -> tuple[dict, dict]:
+    """A module's parameters and running statistics as G = 1 stacks
+    (``num_batches_tracked`` left out)."""
+    params = {k: v.unsqueeze(0) for k, v in model.named_parameters()}
+    stats = {k: v.unsqueeze(0) for k, v in model.named_buffers()
+             if not k.endswith("num_batches_tracked")}
+    return params, stats
 
 
-def _elu(x: torch.Tensor) -> torch.Tensor:
+def train_forward(model: nn.Module, x: torch.Tensor,
+                  sample_weights: torch.Tensor | None) -> torch.Tensor:
+    """A single model's training forward: its ``stacked`` forward at G = 1,
+    the new running statistics written into its buffers; dropout draws
+    from torch's global generator."""
+    params, stats = stacked_state(model)
+    w = None if sample_weights is None else sample_weights[None]
+    logits, new_stats = model.stacked(params, stats, x[None], train=True,
+                                      sample_weights=w)
+    buffers = dict(model.named_buffers())
+    with torch.no_grad():
+        for name, value in new_stats.items():
+            buffers[name].copy_(value[0])
+    return logits[0]
+
+
+def elu(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x > 0, x, torch.expm1(x))
 
 
-def _dropout(h: torch.Tensor, rate: float,
-             generator: torch.Generator | None) -> torch.Tensor:
+
+def dropout(h: torch.Tensor, rate: float,
+            generator: torch.Generator | None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale
     the kept values by ``1 / (1 - rate)``; rate 0 is the identity."""
     if rate == 0.0:
@@ -198,14 +268,13 @@ def _dropout(h: torch.Tensor, rate: float,
 Norm = Callable[[torch.Tensor, str], torch.Tensor]
 
 
-def _stacked_norm(params, stats, g: int, *, train: bool, sample_weights,
-                  bn_mode: str, momentum: float, eps: float,
-                  new_stats: dict) -> Norm:
-    """BatchNorm over a grouped activation ``(B, G*F, H, W)``: features
-    ``g*F .. g*F+F-1`` belong to weight set ``g``.  In training mode the
-    new running statistics land in ``new_stats``."""
-    def norm(h: torch.Tensor, prefix: str) -> torch.Tensor:
-        hv = h.reshape(h.shape[0], g, h.shape[1] // g, *h.shape[2:])
+def stacked_norm(params, stats, *, train: bool, sample_weights,
+                 bn_mode: str, momentum: float, eps: float,
+                 new_stats: dict) -> Norm:
+    """BatchNorm of G weight sets over an activation laid out ``(B, G, F,
+    *spatial)`` (any strides): statistics per set and feature.  In
+    training mode the new running statistics land in ``new_stats``."""
+    def norm(hv: torch.Tensor, prefix: str) -> torch.Tensor:
         scale, bias = params[f"{prefix}.weight"], params[f"{prefix}.bias"]
         mean = stats[f"{prefix}.running_mean"]
         var = stats[f"{prefix}.running_var"]
@@ -214,16 +283,33 @@ def _stacked_norm(params, stats, g: int, *, train: bool, sample_weights,
                 new_stats[f"{prefix}.running_var"] = batch_norm_train(
                     hv, scale, bias, mean, var, sample_weights,
                     mode=bn_mode, momentum=momentum, eps=eps)
-        else:
-            y = batch_norm_eval(hv, scale, bias, mean, var, eps)
-        return y.reshape(h.shape)
+            return y
+        return batch_norm_eval(hv, scale, bias, mean, var, eps)
 
     return norm
 
 
+def grouped_norm(norm: Norm, g: int) -> Norm:
+    """``norm`` over the grouped layout ``(B, G*F, H, W)`` of the grouped
+    convolutions: features ``g*F .. g*F+F-1`` belong to weight set ``g``."""
+    def f(h: torch.Tensor, prefix: str) -> torch.Tensor:
+        hv = h.reshape(h.shape[0], g, h.shape[1] // g, *h.shape[2:])
+        return norm(hv, prefix).reshape(h.shape)
+
+    return f
+
+
+def classify(h: torch.Tensor, params: Mapping[str, torch.Tensor]
+             ) -> torch.Tensor:
+    """The classifier of G sets on their flattened features ``(G, B,
+    fan_in)`` -> ``(G, B, n_classes)``."""
+    return torch.baddbmm(params["classifier.bias"][:, None, :], h,
+                         params["classifier.weight"].transpose(1, 2))
+
+
 def _block2_classifier(h: torch.Tensor, params: Mapping[str, torch.Tensor],
                        g: int, norm: Norm, drop) -> torch.Tensor:
-    """Block 2 and the classifier of G stacked EEGNets.
+    """Block 2 and the classifier of G stacked EEGNets, ``"lax"`` schedule.
 
     ``h`` is block 1's output in the grouped layout ``(B, G*F2, 1, T')``;
     returns ``(G, B, n_classes)``.  The separable convolution runs as two
@@ -231,15 +317,41 @@ def _block2_classifier(h: torch.Tensor, params: Mapping[str, torch.Tensor],
     """
     b, gf2 = h.shape[:2]
     f2 = gf2 // g
+    norm = grouped_norm(norm, g)
     h = F.conv2d(F.pad(h, (SEPARABLE_K // 2 - 1, SEPARABLE_K // 2)),
                  params["block_2.0.weight"].reshape(gf2, 1, 1, SEPARABLE_K),
                  groups=gf2)
     h = F.conv2d(h, params["block_2.1.weight"].reshape(gf2, f2, 1, 1),
                  groups=g)
-    h = drop(F.avg_pool2d(_elu(norm(h, "block_2.2")), (1, 8)))
-    h = h.reshape(b, g, -1).transpose(0, 1)          # (G, B, F2 * T'')
-    return torch.baddbmm(params["classifier.bias"][:, None, :], h,
-                         params["classifier.weight"].transpose(1, 2))
+    h = drop(F.avg_pool2d(elu(norm(h, "block_2.2")), (1, 8)))
+    return classify(h.reshape(b, g, -1).transpose(0, 1), params)
+
+
+def _block2_classifier_banded(h: torch.Tensor,
+                              params: Mapping[str, torch.Tensor],
+                              norm: Norm, drop) -> torch.Tensor:
+    """Block 2 and the classifier of G stacked EEGNets, ``"banded"``
+    schedule: ``h`` ``(G, B, T', F2)`` -> ``(G, B, n_classes)``."""
+    g, b = h.shape[:2]
+    h = banded.depthwise_conv_banded(h, params["block_2.0.weight"])
+    h = banded.pointwise_conv_banded(h, params["block_2.1.weight"])
+    h = norm(h.permute(1, 0, 3, 2), "block_2.2").permute(1, 0, 3, 2)
+    h = drop(banded.avg_pool_width(elu(h), 8))       # (G, B, T'', F2)
+    # torch's NCHW flatten: feature-major
+    return classify(h.transpose(2, 3).reshape(g, b, -1), params)
+
+
+def _stacked_forward_banded(params, x, norm: Norm, drop) -> torch.Tensor:
+    """The ``"banded"`` schedule of :func:`stacked_forward`: every
+    convolution a matmul of ``ops/banded.py``, activations laid out set
+    first and features last, the BatchNorms on permuted views."""
+    h = banded.temporal_conv_banded(x, params["temporal.0.weight"])
+    # (G, B, C, T, F1) -> the norm's (B, G, F1, C, T) and back
+    h = norm(h.permute(1, 0, 4, 2, 3), "temporal.1").permute(1, 0, 3, 4, 2)
+    h = banded.spatial_conv_banded(h, params["spatial.weight"])
+    h = norm(h.permute(1, 0, 3, 2), "aggregation.0").permute(1, 0, 3, 2)
+    h = drop(banded.avg_pool_width(elu(h), 4))       # (G, B, T', F2)
+    return _block2_classifier_banded(h, params, norm, drop)
 
 
 def stacked_forward(params: Mapping[str, torch.Tensor],
@@ -248,7 +360,8 @@ def stacked_forward(params: Mapping[str, torch.Tensor],
                     sample_weights: torch.Tensor | None = None,
                     bn_mode: str = "flax", dropout_rate: float = 0.0,
                     generator: torch.Generator | None = None,
-                    momentum: float = 0.9, eps: float = 1e-5
+                    momentum: float = 0.9, eps: float = 1e-5,
+                    conv_impl: str = "lax"
                     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """G EEGNets on G batches at once: ``x`` ``(G, B, C, T)`` -> logits
     ``(G, B, n_classes)`` and the new running statistics (``{}`` in eval
@@ -256,46 +369,58 @@ def stacked_forward(params: Mapping[str, torch.Tensor],
 
     ``params`` and ``stats`` are the ``state_dict`` tensors (parameters;
     BatchNorm running means and variances) with a leading G axis.  Each
-    set's output equals the single model's on its batch: the convolutions
-    run grouped over the sets (cuDNN on the card), the BatchNorm statistics
-    are per set.  ``sample_weights`` ``(G, B)`` feeds ``bn_mode="torch"``;
-    dropout masks come from ``generator`` (on ``x``'s device).
+    set's output equals the single model's on its batch: under ``"lax"``
+    the convolutions run grouped over the sets (cuDNN on the card), under
+    ``"banded"`` as batched matmuls (``ops/banded.py``); the BatchNorm
+    statistics are per set.  ``sample_weights`` ``(G, B)`` feeds
+    ``bn_mode="torch"``; dropout masks come from ``generator`` (on ``x``'s
+    device), so the two schedules draw different masks at p > 0.
     """
     g, b, c, t = x.shape
     if sample_weights is not None and tuple(sample_weights.shape) != (g, b):
         raise ValueError(f"sample_weights must be ({g}, {b}) for a batch "
                          f"{tuple(x.shape)}, got {tuple(sample_weights.shape)}")
-    w_t = params["temporal.0.weight"]                 # (G, F1, 1, 1, K)
-    w_s = params["spatial.weight"]                    # (G, F2, 1, C, 1)
-    f1, f2 = w_t.shape[1], w_s.shape[1]
+    if conv_impl not in CONV_IMPLS:
+        raise ValueError(f"conv_impl must be 'banded' or 'lax'; got "
+                         f"{conv_impl!r}")
     new_stats: dict[str, torch.Tensor] = {}
-    norm = _stacked_norm(params, stats, g, train=train,
-                         sample_weights=sample_weights, bn_mode=bn_mode,
-                         momentum=momentum, eps=eps, new_stats=new_stats)
+    norm = stacked_norm(params, stats, train=train,
+                        sample_weights=sample_weights, bn_mode=bn_mode,
+                        momentum=momentum, eps=eps, new_stats=new_stats)
     rate = dropout_rate if train else 0.0
 
     def drop(h):
-        return _dropout(h, rate, generator)
+        return dropout(h, rate, generator)
 
+    if conv_impl == "banded":
+        return _stacked_forward_banded(params, x, norm, drop), new_stats
+    w_t = params["temporal.0.weight"]                 # (G, F1, 1, 1, K)
+    w_s = params["spatial.weight"]                    # (G, F2, 1, C, 1)
+    f1, f2 = w_t.shape[1], w_s.shape[1]
+    gnorm = grouped_norm(norm, g)
     h = x.transpose(0, 1)                             # (B, G, C, T)
     h = F.conv2d(F.pad(h, (TEMPORAL_K // 2 - 1, TEMPORAL_K // 2)),
                  w_t.reshape(g * f1, 1, 1, TEMPORAL_K), groups=g)
-    h = norm(h, "temporal.1")                         # (B, G*F1, C, T)
+    h = gnorm(h, "temporal.1")                        # (B, G*F1, C, T)
     h = F.conv2d(h, w_s.reshape(g * f2, 1, c, 1), groups=g * f1)
-    h = drop(F.avg_pool2d(_elu(norm(h, "aggregation.0")), (1, 4)))
+    h = drop(F.avg_pool2d(elu(gnorm(h, "aggregation.0")), (1, 4)))
     return _block2_classifier(h, params, g, norm, drop), new_stats
 
 
 def stacked_block2_classifier(h: torch.Tensor,
                               params: Mapping[str, torch.Tensor],
                               stats: Mapping[str, torch.Tensor],
-                              eps: float = 1e-5) -> torch.Tensor:
+                              eps: float = 1e-5,
+                              conv_impl: str = "lax") -> torch.Tensor:
     """Eval-mode block 2 and classifier of G stacked EEGNets on block 1's
     output ``(G, B, F2, T')``; returns ``(G, B, n_classes)``."""
     g, b, f2, tq = h.shape
+    norm = stacked_norm(params, stats, train=False, sample_weights=None,
+                        bn_mode="flax", momentum=0.0, eps=eps, new_stats={})
+    if conv_impl == "banded":
+        return _block2_classifier_banded(h.transpose(2, 3), params, norm,
+                                         lambda v: v)
     h = h.transpose(0, 1).reshape(b, g * f2, 1, tq)
-    norm = _stacked_norm(params, stats, g, train=False, sample_weights=None,
-                         bn_mode="flax", momentum=0.0, eps=eps, new_stats={})
     return _block2_classifier(h, params, g, norm, lambda v: v)
 
 
@@ -304,19 +429,3 @@ def eegnet_wide(n_channels: int = 22, n_times: int = 257,
     """EEGNet-wide (F1=16, D=4, F2=64)."""
     return EEGNet(n_channels=n_channels, n_times=n_times, F1=16, D=4,
                   dropout_rate=dropout_rate, **kw)
-
-
-MODEL_REGISTRY = {"eegnet": EEGNet, "eegnet_wide": eegnet_wide}
-
-
-def get_model(name: str, **kwargs) -> EEGNet:
-    """Construct a model by registry name (``eegnet``, ``eegnet_wide``)."""
-    try:
-        ctor = MODEL_REGISTRY[name]
-    except KeyError:
-        raise ValueError(
-            f"Unknown model {name!r} for the torch port; available: "
-            f"{sorted(MODEL_REGISTRY)}.  ShallowConvNet, DeepConvNet and "
-            "the other baselines are not ported yet (ROADMAP.md queue A, "
-            "item 6)") from None
-    return ctor(**kwargs)

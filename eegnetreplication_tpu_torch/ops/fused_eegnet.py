@@ -406,14 +406,15 @@ def fold_index(n_sets: int, per_set: int, device) -> torch.Tensor:
 def fused_eval_forward_stacked(params: Mapping[str, torch.Tensor],
                                stats: Mapping[str, torch.Tensor],
                                x: torch.Tensor, idx: torch.Tensor,
-                               eps: float = 1e-5) -> torch.Tensor:
+                               eps: float = 1e-5,
+                               conv_impl: str = "lax") -> torch.Tensor:
     """Eval-mode logits of G EEGNets at once, block 1 in one launch.
 
     ``params``/``stats`` hold the ``state_dict`` tensors with a leading G
     axis; ``x`` is ``(G, B, C, T)``, batch ``g`` for set ``g``, and ``idx``
     its flattened set index (:func:`fold_index`).  Returns ``(G, B,
     n_classes)``, equal to each set's :func:`fused_eval_forward` on its
-    batch.
+    batch.  ``conv_impl`` is block 2's schedule (``models/eegnet.py``).
     """
     from eegnetreplication_tpu_torch.models.eegnet import (
         stacked_block2_classifier,
@@ -423,4 +424,4 @@ def fused_eval_forward_stacked(params: Mapping[str, torch.Tensor],
     S, W, A, B = fold_block1_params({**params, **stats}, eps)
     h = block1_stacked(x.reshape(g * b, c, t), S, W, A, B, idx)
     return stacked_block2_classifier(h.reshape(g, b, *h.shape[1:]), params,
-                                     stats, eps=eps)
+                                     stats, eps=eps, conv_impl=conv_impl)

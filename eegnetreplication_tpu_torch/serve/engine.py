@@ -33,13 +33,20 @@ at least :data:`QUANT_AGREEMENT_FLOOR` of every subject's trials;
 :func:`build_gated_engine` is the one way the server and the ``predict``
 CLI get an engine, so they reach the same verdict.
 
+Any registered model serves.  Only EEGNet has the fused block 1: a
+ShallowConvNet or DeepConvNet engine runs the model's plain eval forward
+(at int8, on its kernels dequantized once at build, the JAX package's
+generic dequantize-then-apply path), each bucket still one captured graph
+on the card, and launches no hand kernel.
+
 Padding rows repeat the last real trial and are dropped after the argmax:
-eval-mode EEGNet is row-independent, so padding never changes a real
+an eval-mode model is row-independent, so padding never changes a real
 trial's prediction.  ``infer`` is thread-safe: a lock serializes dispatch.
 """
 
 from __future__ import annotations
 
+import copy
 import threading
 import time
 from dataclasses import dataclass, field
@@ -48,8 +55,9 @@ from typing import Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
-from eegnetreplication_tpu_torch.models import EEGNet
+from eegnetreplication_tpu_torch.models import EEGNet, get_model
 from eegnetreplication_tpu_torch.obs import journal as obs_journal
 from eegnetreplication_tpu_torch.obs import trace
 from eegnetreplication_tpu_torch.ops import quant
@@ -61,6 +69,7 @@ from eegnetreplication_tpu_torch.ops.fused_eegnet import (
 )
 from eegnetreplication_tpu_torch.resil import integrity
 from eegnetreplication_tpu_torch.training import checkpoint as ckpt_lib
+from eegnetreplication_tpu_torch.training.steps import supports_fused_eval
 from eegnetreplication_tpu_torch.utils.device import resolve_device
 from eegnetreplication_tpu_torch.utils.flops import eval_forward_flops
 from eegnetreplication_tpu_torch.utils.logging import logger
@@ -93,31 +102,34 @@ def bucket_ladder(max_batch: int,
 
 def load_model_from_checkpoint(path: str | Path, *,
                                device: torch.device | str | None = None
-                               ) -> EEGNet:
-    """An eval-mode EEGNet on ``device`` from a native ``.npz`` or a
-    reference ``.pth``.  Native content integrity is verified by the
-    loader."""
+                               ) -> nn.Module:
+    """An eval-mode model on ``device`` from a native ``.npz`` or a
+    reference ``.pth``: the registry's model for the checkpoint's
+    ``meta["model"]`` (EEGNet when absent, as in the JAX package).  Native
+    content integrity is verified by the loader."""
     path = Path(path)
     if path.suffix == ".pth":
         state_dict, meta = ckpt_lib.load_pth_auto(path)
     elif path.is_dir():
         raise ValueError(
             f"{path}: Orbax checkpoint directories are not ported to the "
-            "torch package (ROADMAP.md queue A.1.iv: Orbax's "
+            "torch package (ROADMAP.md, \"Not queued\": Orbax's "
             "StandardCheckpointer writes tensorstore's format, which needs "
             "JAX, and the card's machine has none); export a native .npz "
             "or a .pth")
     else:
         state_dict, meta = ckpt_lib.load_checkpoint(path)
-    if meta.get("model", "eegnet") != "eegnet":
-        raise ValueError(
-            f"{path}: a {meta['model']!r} checkpoint; the torch port serves "
-            "EEGNet only")
     kwargs = {k: meta[k] for k in ("n_channels", "n_times", "F1", "D")
               if k in meta}
-    model = EEGNet(**kwargs, device=device)
+    name = meta.get("model", "eegnet")
+    if name != "eegnet":
+        model = get_model(name, device=device, **{
+            k: v for k, v in kwargs.items() if k in ("n_channels",
+                                                     "n_times")})
+    else:
+        model = EEGNet(**kwargs, device=device)
     model.load_state_dict(state_dict)
-    return model
+    return model.eval()
 
 
 def variables_digest(params: Mapping, batch_stats: Mapping) -> str:
@@ -129,7 +141,7 @@ def variables_digest(params: Mapping, batch_stats: Mapping) -> str:
         ckpt_lib.flatten_variables(params, batch_stats))
 
 
-def model_digest(model: EEGNet) -> str:
+def model_digest(model: nn.Module) -> str:
     """:func:`variables_digest` of a model's weights."""
     return variables_digest(*ckpt_lib.to_jax_variables(model.state_dict()))
 
@@ -197,7 +209,7 @@ class InferenceEngine:
     # The JAX engine's program names: serve_forward[_int8]_b{bucket}.
     WHAT_PREFIX = "serve_forward"
 
-    def __init__(self, model: EEGNet,
+    def __init__(self, model: nn.Module,
                  buckets: tuple[int, ...] = DEFAULT_BUCKETS, *,
                  device: torch.device | str | None = None,
                  precision: str = "fp32", digest: str | None = None,
@@ -216,14 +228,20 @@ class InferenceEngine:
         # of the same weights, named apart by quantized_digest.
         self.digest = digest or variables_digest(params, batch_stats)
         self.quantized_digest: str | None = None
+        self._fused = supports_fused_eval(self.model)
+        self._plain = self.model
         with torch.inference_mode():
             if precision == "int8":
                 self.qparams = quant.quantize_params(params)
                 self.quantized_digest = quant.qparams_digest(self.qparams)
-                self._qpack = quant.fold_quantized_eegnet(
-                    self.qparams, batch_stats, self.model.bn_epsilon,
-                    device=self.device)
-            else:
+                if self._fused:
+                    self._qpack = quant.fold_quantized_eegnet(
+                        self.qparams, batch_stats, self.model.bn_epsilon,
+                        device=self.device)
+                else:
+                    self._plain = dequantized_model(self.model, self.qparams,
+                                                    batch_stats)
+            elif self._fused:
                 self._block1 = fold_block1_params(self.model.state_dict(),
                                                   self.model.bn_epsilon)
         self._journal = journal if journal is not None \
@@ -262,6 +280,8 @@ class InferenceEngine:
         """Logits of one ``(n, C, T)`` batch already on the engine's device
         (no padding, no lock)."""
         with torch.inference_mode():
+            if not self._fused:
+                return self._plain(x)
             if self.precision == "int8":
                 return quant.quantized_eval_forward(self._qpack, x)
             return fused_eval_forward(self.model, x, self._block1)
@@ -418,6 +438,16 @@ class InferenceEngine:
         return out
 
 
+def dequantized_model(model: nn.Module, qparams: Mapping,
+                      batch_stats: Mapping) -> nn.Module:
+    """A copy of ``model`` holding its int8 kernels dequantized (the JAX
+    package's int8 path for a model without a specialized schedule)."""
+    plain = copy.deepcopy(model)
+    plain.load_state_dict(ckpt_lib.from_jax_variables(
+        quant.dequantize_params(qparams), batch_stats))
+    return plain.eval()
+
+
 def _check_buckets(buckets) -> None:
     if not buckets or list(buckets) != sorted(set(buckets)) \
             or buckets[0] < 1:
@@ -523,7 +553,7 @@ def run_quant_gate(reference: InferenceEngine, candidate: InferenceEngine,
     return result
 
 
-def build_gated_engine(model: EEGNet,
+def build_gated_engine(model: nn.Module,
                        buckets: tuple[int, ...] = DEFAULT_BUCKETS, *,
                        precision: str = "fp32",
                        floor: float = QUANT_AGREEMENT_FLOOR,

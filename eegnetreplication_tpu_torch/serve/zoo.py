@@ -13,6 +13,11 @@ beside the static trials; the graph launches K1-stacked without its
 device-side range check (``idx_checked``), since :meth:`StackedEngine.
 infer` checks the tenant range on the host first.
 
+A stack of baselines (ShallowConvNet, DeepConvNet) has no fused block 1:
+each trial runs the model's plain stacked eval forward on its tenant's
+gathered weights (one weight set per trial, the counterpart of the JAX
+package's ``vmap`` over trials), int8 on kernels dequantized once.
+
 A stacked engine serves only after :func:`run_stack_gate` found, for
 every tenant, its argmax equal to that tenant's own fp32 engine on the
 gate set: all of them at fp32 (:data:`STACK_FLOOR_FP32`), the quant floor
@@ -47,6 +52,7 @@ from eegnetreplication_tpu_torch.serve.engine import (
     variables_digest,
 )
 from eegnetreplication_tpu_torch.training import checkpoint as ckpt_lib
+from eegnetreplication_tpu_torch.training.steps import supports_fused_eval
 from eegnetreplication_tpu_torch.utils.device import resolve_device
 from eegnetreplication_tpu_torch.utils.logging import logger
 
@@ -130,12 +136,14 @@ class StackedEngine(InferenceEngine):
     """N congruent models behind one bucketed forward:
     ``infer(trials, tenant_idx)``.
 
-    ``members`` are ``(model_id, EEGNet)`` pairs; their ``state_dict``s
-    stack along a tenant axis (:class:`~eegnetreplication_tpu_torch.ops.
-    stacked.IncongruentTrees` if they cannot, before anything launches).
-    Each bucket chunk is one ``block1_stacked`` launch and block 2 on
-    per-trial gathered weights; at int8 the stack is quantized per tenant
-    and channel.
+    ``members`` are ``(model_id, model)`` pairs of one architecture;
+    their ``state_dict``s stack along a tenant axis
+    (:class:`~eegnetreplication_tpu_torch.ops.stacked.IncongruentTrees` if
+    they cannot, before anything launches).  For EEGNets each bucket chunk
+    is one ``block1_stacked`` launch and block 2 on per-trial gathered
+    weights; a baseline's chunk is its stacked eval forward on per-trial
+    gathered weights.  At int8 the stack is quantized per tenant and
+    channel.
     """
 
     WHAT_PREFIX = "zoo_forward"
@@ -174,16 +182,27 @@ class StackedEngine(InferenceEngine):
         self.digest = variables_digest(stacked_params, stacked_stats)
         self.quantized_digest = None
         eps = self.model.bn_epsilon
+        self._fused = supports_fused_eval(self.model)
         with torch.inference_mode():
             if precision == "int8":
                 self.qparams = quant.quantize_params(stacked_params,
                                                      stacked=True)
                 self.quantized_digest = quant.qparams_digest(self.qparams)
-                self._pack = quant.fold_quantized_eegnet(
-                    self.qparams, stacked_stats, eps, device=self.device)
-            else:
+                if self._fused:
+                    self._pack = quant.fold_quantized_eegnet(
+                        self.qparams, stacked_stats, eps, device=self.device)
+                else:
+                    stacked_state = {
+                        k: v.to(self.device)
+                        for k, v in ckpt_lib.from_jax_variables_stacked(
+                            quant.dequantize_params(self.qparams),
+                            stacked_stats).items()}
+            elif self._fused:
                 self._pack = ops_stacked.fold_stacked_eegnet(stacked_state,
                                                              eps)
+            if not self._fused:
+                self._pack = {k: v for k, v in stacked_state.items()
+                              if not k.endswith("num_batches_tracked")}
         self._journal = journal if journal is not None \
             else obs_journal.current()
         self._lock = threading.Lock()
@@ -205,6 +224,12 @@ class StackedEngine(InferenceEngine):
             tenant_idx = torch.zeros(len(x), dtype=torch.int32,
                                      device=x.device)
         with torch.inference_mode():
+            if not self._fused:
+                # one weight set per trial: G = n sets of a batch of one
+                per_trial = ops_stacked.gather_tree(self._pack,
+                                                    tenant_idx.long())
+                return self.model.stacked(per_trial, per_trial, x[:, None],
+                                          train=False)[0][:, 0]
             if self.precision == "int8":
                 return ops_stacked.stacked_quantized_eval_forward(
                     self._pack, x, tenant_idx, idx_checked=idx_checked)
@@ -316,7 +341,7 @@ def build_stacked_engine(members: list[tuple[str, object]],
                          journal=None,
                          device: torch.device | str | None = None
                          ) -> tuple[StackedEngine | None, StackGateResult]:
-    """Stack ``members`` (``(model_id, EEGNet)`` pairs), gate the stack
+    """Stack ``members`` (``(model_id, model)`` pairs), gate the stack
     per tenant against each tenant's own fp32 engine, warm it on a pass.
     Returns ``(engine, gate)``, ``engine`` ``None`` on a refusal.  Trees
     that cannot stack raise ``IncongruentTrees``; any other error

@@ -6,7 +6,8 @@ package's extensions), on the card unless ``EEGTPU_PLATFORM=cpu``.
 
 Ported: ``--trainingType`` (``Within-Subject``, ``Cross-Subject``),
 ``--epochs``, ``--generateReport`` (``False`` means false, quirk Q5),
-``--model`` (``eegnet``, ``eegnet_wide``), ``--seed``, ``--maxnormMode``,
+``--model`` (``eegnet``, ``eegnet_wide``, ``shallow_convnet``,
+``deep_convnet``), ``--seed``, ``--maxnormMode``,
 ``--bnMode``, ``--subjects``, ``--maxFoldsPerProgram`` (fold groups),
 ``--checkpointEvery`` and ``--resume`` (chunked runs with run snapshots),
 ``--metricsDir``, ``--chaos``, ``--profileDir`` and ``--debugNans``, with
@@ -53,6 +54,11 @@ the last submitted run snapshot is on disk, with exit code 75 and
     EEGTPU_DATA_ROOT=<tree> python -m eegnetreplication_tpu_torch.train --epochs 500
     EEGTPU_DATA_ROOT=<tree> python -m eegnetreplication_tpu_torch.train \
         --trainingType Cross-Subject --epochs 500 --resume
+    EEGTPU_DATA_ROOT=<tree> python -m eegnetreplication_tpu_torch.train \
+        --model shallow_convnet --epochs 500
+
+EEGNet's conv schedule is ``EEGTPU_CONV_IMPL`` (``banded`` or ``lax``;
+``models/eegnet.py::resolve_conv_impl``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -83,7 +89,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--generateReport", type=str2bool, default=True,
                         help="Generate report after training.")
     parser.add_argument("--model", type=str, default="eegnet",
-                        help="Model registry name (eegnet, eegnet_wide).")
+                        help="Model registry name (eegnet, eegnet_wide, "
+                             "shallow_convnet, deep_convnet).")
     parser.add_argument("--seed", type=int, default=0, help="Seed.")
     parser.add_argument("--meshFold", type=int, default=None,
                         help="Fold-axis size of the device mesh (only 1: "
@@ -157,14 +164,14 @@ def unported_flags(args: argparse.Namespace) -> list[str]:
     refused = []
     if args.meshFold not in (None, 1) or args.meshData != 1:
         refused.append("--meshFold/--meshData above 1 (a device mesh over "
-                       "several cards: ROADMAP.md queue A.5; one card runs "
+                       "several cards: ROADMAP.md queue A.7; one card runs "
                        "the 1 x 1 mesh)")
     if args.precision != "highest":
         refused.append(f"--precision {args.precision} (TPU matmul modes; the "
                        "port computes in full f32)")
     if args.ckptFormat != "npz":
-        refused.append("--ckptFormat orbax (ROADMAP.md queue A.1.iv: the "
-                       "JAX package writes it through Orbax's "
+        refused.append("--ckptFormat orbax (ROADMAP.md, \"Not queued\": "
+                       "the JAX package writes it through Orbax's "
                        "StandardCheckpointer in tensorstore's on-disk "
                        "format, which needs JAX, and the card's machine "
                        "has none; the .npz holds the same variables)")

@@ -11,12 +11,15 @@ files either package can read:
   :class:`~eegnetreplication_tpu_torch.resil.integrity.IntegrityError`
   raised, as in the JAX package.
 - The ``.pth`` is the reference's bare NCHW ``state_dict``, which is the
-  port's :class:`~eegnetreplication_tpu_torch.models.EEGNet` layout as is.
+  port's :class:`~eegnetreplication_tpu_torch.models.EEGNet` layout as is
+  (EEGNet only: the reference has no other model, and the protocols write
+  no ``.pth`` for the baselines, as in the JAX package).
 
 :func:`from_jax_variables` carries the JAX package's parameter tree (numpy
-arrays in flax names and layouts) into the port's ``state_dict`` — the
+arrays in flax names and layouts) of any registered model (EEGNet,
+ShallowConvNet, DeepConvNet) into the port's ``state_dict`` — the
 counterpart of ``to_torch_state_dict``, classifier permutation included:
-flax flattens NHWC ``(1, T', F2)``, torch NCHW ``(F2, 1, T')``.
+flax flattens NHWC ``(1, T', F)``, torch NCHW ``(F, 1, T')``.
 :func:`to_jax_variables` is its inverse, and
 :func:`from_jax_variables_stacked` carries a fold-stacked tree (every leaf
 with a leading fold axis, what the JAX protocols' ``init_fold_states``
@@ -61,16 +64,53 @@ CARRY_PREFIX = "carry" + SEP
 # fallback survives any single corrupt write.
 DEFAULT_SNAPSHOT_KEEP = 2
 
-# Flax module name -> (torch prefix, is_bn): the reference's layer names.
-_LAYER_MAP = [
-    ("temporal_conv", "temporal.0", False),
-    ("temporal_bn", "temporal.1", True),
-    ("spatial_conv", "spatial", False),
-    ("spatial_bn", "aggregation.0", True),
-    ("separable_depthwise", "block_2.0", False),
-    ("separable_pointwise", "block_2.1", False),
-    ("block2_bn", "block_2.2", True),
+# EEGNet's flax module name -> (torch prefix, kind): the reference's layer
+# names.  kind is "conv", "bn" or "dense".
+_EEGNET_LAYERS = [
+    ("temporal_conv", "temporal.0", "conv"),
+    ("temporal_bn", "temporal.1", "bn"),
+    ("spatial_conv", "spatial", "conv"),
+    ("spatial_bn", "aggregation.0", "bn"),
+    ("separable_depthwise", "block_2.0", "conv"),
+    ("separable_pointwise", "block_2.1", "conv"),
+    ("block2_bn", "block_2.2", "bn"),
+    ("classifier", "classifier", "dense"),
 ]
+
+
+def _layers(names) -> list[tuple[str, str, str]]:
+    """The ``(flax name, torch prefix, kind)`` list of the architecture
+    whose layers are ``names`` (flax module names or torch prefixes).
+    EEGNet keeps the reference's torch names; ShallowConvNet (``bn``) and
+    DeepConvNet (``bn_0``, ``conv_1``, ...) use the flax names in torch
+    too (``models/convnets.py``)."""
+    names = set(names)
+    if "temporal_bn" in names or "temporal.1" in names:
+        return _EEGNET_LAYERS
+    if "bn" in names:
+        inner = [("bn", "bn", "bn")]
+    elif "bn_0" in names:
+        inner = [("bn_0", "bn_0", "bn")]
+        i = 1
+        while f"conv_{i}" in names:
+            inner += [(f"conv_{i}", f"conv_{i}", "conv"),
+                      (f"bn_{i}", f"bn_{i}", "bn")]
+            i += 1
+    else:
+        raise ValueError(
+            f"Unrecognized model variables: layers {sorted(names)} are none "
+            "of EEGNet, ShallowConvNet or DeepConvNet")
+    return ([("temporal_conv", "temporal_conv", "conv"),
+             ("spatial_conv", "spatial_conv", "conv")] + inner
+            + [("classifier", "classifier", "dense")])
+
+
+def _classifier_features(layers, widths: Mapping[str, int]) -> int:
+    """F, the feature width the classifier's fan-in is flattened over: the
+    width of the last BatchNorm (EEGNet's F2, ShallowConvNet's spatial
+    filters, DeepConvNet's last block)."""
+    last_bn = [f for f, _, kind in layers if kind == "bn"][-1]
+    return int(widths[last_bn])
 
 
 def _classifier_nhwc_to_nchw(kernel: np.ndarray, f2: int,
@@ -110,18 +150,23 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 
 def from_jax_variables(params: Mapping, batch_stats: Mapping
                        ) -> dict[str, torch.Tensor]:
-    """The JAX package's EEGNet variables as the port's ``state_dict``.
+    """The JAX package's model variables as the port's ``state_dict``.
 
     ``params``/``batch_stats`` are nested dicts of arrays in flax names and
-    layouts (what ``model.init`` or ``load_checkpoint`` give, as numpy).
-    F2 and T' come from the shapes.  Returns CPU tensors, BatchNorm
-    ``num_batches_tracked`` included, ready for ``load_state_dict``.
+    layouts (what ``model.init`` or ``load_checkpoint`` give, as numpy), of
+    an EEGNet, a ShallowConvNet or a DeepConvNet (told apart by their layer
+    names).  The classifier's feature width and T' come from the shapes.
+    Returns CPU tensors, BatchNorm ``num_batches_tracked`` included, ready
+    for ``load_state_dict``.
     """
-    f2 = int(np.shape(params["spatial_conv"]["kernel"])[-1])
+    layers = _layers(params)
+    widths = {f: np.shape(params[f]["scale"])[0]
+              for f, _, kind in layers if kind == "bn"}
+    f2 = _classifier_features(layers, widths)
     t_prime = int(np.shape(params["classifier"]["kernel"])[0]) // f2
     sd: dict[str, torch.Tensor] = {}
-    for flax_name, prefix, is_bn in _LAYER_MAP:
-        if is_bn:
+    for flax_name, prefix, kind in layers:
+        if kind == "bn":
             sd[f"{prefix}.weight"] = _tensor(_numpy(params[flax_name]["scale"]))
             sd[f"{prefix}.bias"] = _tensor(_numpy(params[flax_name]["bias"]))
             sd[f"{prefix}.running_mean"] = _tensor(
@@ -129,18 +174,19 @@ def from_jax_variables(params: Mapping, batch_stats: Mapping
             sd[f"{prefix}.running_var"] = _tensor(
                 _numpy(batch_stats[flax_name]["var"]))
             sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
-        else:
+        elif kind == "conv":
             sd[f"{prefix}.weight"] = _tensor(_conv_nhwc_to_nchw(
                 _numpy(params[flax_name]["kernel"])))
-    sd["classifier.weight"] = _tensor(_classifier_nhwc_to_nchw(
-        _numpy(params["classifier"]["kernel"]), f2, t_prime))
-    sd["classifier.bias"] = _tensor(_numpy(params["classifier"]["bias"]))
+        else:
+            sd[f"{prefix}.weight"] = _tensor(_classifier_nhwc_to_nchw(
+                _numpy(params[flax_name]["kernel"]), f2, t_prime))
+            sd[f"{prefix}.bias"] = _tensor(_numpy(params[flax_name]["bias"]))
     return sd
 
 
 def from_jax_variables_stacked(params: Mapping, batch_stats: Mapping
                                ) -> dict[str, torch.Tensor]:
-    """A fold-stacked JAX EEGNet tree as a stacked ``state_dict``: every
+    """A fold-stacked JAX model tree as a stacked ``state_dict``: every
     leaf's leading axis is the fold, and each fold is carried across as
     :func:`from_jax_variables` does."""
     def fold(tree, g):
@@ -154,29 +200,33 @@ def from_jax_variables_stacked(params: Mapping, batch_stats: Mapping
 
 
 def to_jax_variables(state_dict: Mapping) -> tuple[dict, dict]:
-    """The port's ``state_dict`` as JAX ``(params, batch_stats)``: nested
-    dicts of contiguous numpy arrays in flax names and layouts."""
+    """The port's ``state_dict`` (any registered architecture) as JAX
+    ``(params, batch_stats)``: nested dicts of contiguous numpy arrays in
+    flax names and layouts."""
     def arr(key):
         return _numpy(state_dict[key])
 
-    f2 = arr("spatial.weight").shape[0]
-    t_prime = arr("classifier.weight").shape[1] // f2
+    layers = _layers({k.rsplit(".", 1)[0] for k in state_dict})
+    widths = {f: arr(f"{t}.weight").shape[0]
+              for f, t, kind in layers if kind == "bn"}
+    f2 = _classifier_features(layers, widths)
     params: dict = {}
     batch_stats: dict = {}
-    for flax_name, prefix, is_bn in _LAYER_MAP:
-        if is_bn:
+    for flax_name, prefix, kind in layers:
+        if kind == "bn":
             params[flax_name] = {"scale": arr(f"{prefix}.weight"),
                                  "bias": arr(f"{prefix}.bias")}
             batch_stats[flax_name] = {"mean": arr(f"{prefix}.running_mean"),
                                       "var": arr(f"{prefix}.running_var")}
-        else:
+        elif kind == "conv":
             params[flax_name] = {"kernel": np.ascontiguousarray(
                 _conv_nchw_to_nhwc(arr(f"{prefix}.weight")))}
-    params["classifier"] = {
-        "kernel": np.ascontiguousarray(_classifier_nchw_to_nhwc(
-            arr("classifier.weight"), f2, t_prime)),
-        "bias": arr("classifier.bias"),
-    }
+        else:
+            weight = arr(f"{prefix}.weight")
+            params[flax_name] = {
+                "kernel": np.ascontiguousarray(_classifier_nchw_to_nhwc(
+                    weight, f2, weight.shape[1] // f2)),
+                "bias": arr(f"{prefix}.bias")}
     return params, batch_stats
 
 
@@ -261,7 +311,7 @@ def _read_verified(path: Path) -> dict[str, np.ndarray]:
 
 def save_checkpoint(path: str | Path, state_dict: Mapping,
                     metadata: dict | None = None) -> Path:
-    """Save EEGNet weights as a native ``.npz`` the JAX package loads.
+    """Save a model's weights as a native ``.npz`` the JAX package loads.
 
     Written atomically (same-directory temp file, then rename), stamped
     with the sha256 content digest.

@@ -62,7 +62,8 @@ from typing import Callable, Iterable, Mapping
 import numpy as np
 import torch
 
-from eegnetreplication_tpu_torch.models.eegnet import EEGNet
+from torch import nn
+
 from eegnetreplication_tpu_torch.ops.fused_eegnet import fold_index
 from eegnetreplication_tpu_torch.resil import heartbeat, preempt
 from eegnetreplication_tpu_torch.training import steps as steps_lib
@@ -220,13 +221,16 @@ def n_steps(pad: int, batch_size: int, at_least: int = 0) -> int:
 class FoldTrainer:
     """G folds trained together over one pool on one device.
 
-    ``model`` is a template giving the geometry and the training
-    hyperparameters (``bn_mode``, ``dropout_rate``).  Per epoch
-    (:meth:`run_epoch`): ``ceil(train_pad / B)`` train steps, then
-    ``max(1, ceil(val_pad / B))`` validation batches, each one launch of
-    the stacked K1 kernel for all folds; then the best-by-validation
-    update.  :meth:`test` evaluates the best state in ``max(1,
-    ceil(test_pad / B))`` batches.
+    ``model`` is a template of any registered architecture giving the
+    geometry and the training hyperparameters (``bn_mode``,
+    ``dropout_rate``).  Per epoch (:meth:`run_epoch`): ``ceil(train_pad /
+    B)`` train steps, then ``max(1, ceil(val_pad / B))`` validation
+    batches, each (for an EEGNet) one launch of the stacked K1 kernel for
+    all folds; then the best-by-validation update.  :meth:`test` evaluates
+    the best state in ``max(1, ceil(test_pad / B))`` batches.
+
+    ``pool_y`` is ``(N_pool,)``, or ``(G, N_pool)`` for a label pool per
+    fold (the permutation test's runs share the trials, not the labels).
 
     ``shuffle_seed`` and ``fold_ids`` (the folds' global indices in the
     protocol, default ``0..G-1``) key the default shuffles
@@ -234,7 +238,7 @@ class FoldTrainer:
     pool's device seeded 0) draws the dropout masks.
     """
 
-    def __init__(self, model: EEGNet, pool_x: torch.Tensor,
+    def __init__(self, model: nn.Module, pool_x: torch.Tensor,
                  pool_y: torch.Tensor, spec: FoldSpec,
                  init_state: TrainState, *, batch_size: int,
                  learning_rate: float, adam_eps: float,
@@ -286,7 +290,7 @@ class FoldTrainer:
     def _batch(self, gather: torch.Tensor, weights: torch.Tensor, step: int):
         b = self.batch_size
         idx = gather[:, step * b:(step + 1) * b]
-        return (self.pool_x[idx], self.pool_y[idx],
+        return (self.pool_x[idx], fold_labels(self.pool_y, idx),
                 weights[:, step * b:(step + 1) * b])
 
     def run_epoch(self) -> None:
@@ -457,7 +461,15 @@ class FoldTrainer:
         self.dropout_generator.set_state(got["rng/dropout"].cpu())
 
 
-def evaluate_pool(model: EEGNet, state: TrainState, pool_x: torch.Tensor,
+def fold_labels(pool_y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The labels of ``(G, B)`` pool indices: from one shared label pool
+    ``(N,)`` or from each fold's own row of ``(G, N)``."""
+    if pool_y.ndim == 1:
+        return pool_y[idx]
+    return torch.gather(pool_y, 1, idx)
+
+
+def evaluate_pool(model: nn.Module, state: TrainState, pool_x: torch.Tensor,
                   pool_y: torch.Tensor, idx: torch.Tensor, n: torch.Tensor,
                   batch_size: int, fold_idx: torch.Tensor | None = None
                   ) -> torch.Tensor:
@@ -473,25 +485,21 @@ def evaluate_pool(model: EEGNet, state: TrainState, pool_x: torch.Tensor,
             sl = slice(step * batch_size, (step + 1) * batch_size)
             bi = gather[:, sl]
             _, hits = steps_lib.eval_step(model, state, pool_x[bi],
-                                          pool_y[bi].long(), weights[:, sl],
-                                          fold_idx)
+                                          fold_labels(pool_y, bi).long(),
+                                          weights[:, sl], fold_idx)
             correct = correct + hits
     return 100.0 * correct / torch.clamp(n, min=1)
 
 
-def init_fold_states(model: EEGNet, n_folds: int,
+def init_fold_states(model: nn.Module, n_folds: int,
                      generator: torch.Generator) -> TrainState:
     """``n_folds`` independent initial states, stacked.
 
-    Each fold draws a fresh EEGNet of ``model``'s geometry from
-    ``generator`` (a CPU generator, so one seed gives the same weights on
-    any device), like the reference's fresh ``EEGNet()`` per fold
-    (``train.py:92``).
+    Each fold draws a fresh model of ``model``'s architecture and geometry
+    (``model.fresh``) from ``generator`` (a CPU generator, so one seed
+    gives the same weights on any device), like the reference's fresh
+    ``EEGNet()`` per fold (``train.py:92``).
     """
-    dicts = []
-    for _ in range(n_folds):
-        fresh = EEGNet(model.n_channels, model.n_times, model.n_classes,
-                       model.F1, model.D, device="cpu", generator=generator)
-        dicts.append(fresh.state_dict())
+    dicts = [model.fresh(generator).state_dict() for _ in range(n_folds)]
     stacked = {k: torch.stack([d[k] for d in dicts]) for k in dicts[0]}
     return TrainState.create(steps_lib.StateLayout.of(model), stacked)

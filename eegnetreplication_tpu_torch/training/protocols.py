@@ -11,7 +11,8 @@ that lives on the device, and the folds of a group train together
   in the reference's fold order; dropout 0.5; per subject, the mean test
   accuracy of its folds and the best fold by ``argmax`` of the best
   validation accuracy (the first maximum, ``train.py:126-128``), saved as
-  ``subject_XX_best_model.pth`` and ``.npz``.
+  ``subject_XX_best_model.pth`` and ``.npz`` (a baseline, the ``.npz``
+  only, as in the JAX package).
 - Cross-subject: per fold, ``RandomState(42 + fold_count)`` permutes the
   non-test subjects into 5 train and the rest validation
   (``train.py:199-202``); training and validation read the *Train session*
@@ -19,6 +20,10 @@ that lives on the device, and the folds of a group train together
   (``train.py:188, 258``); dropout 0.25; the global best fold by ``argmin``
   of the minimum validation loss (the first minimum, ``train.py:269-271``),
   saved as ``cross_subject_best_model.pth`` and ``.npz``.
+
+Any registered model trains (``models/registry.py``: EEGNet, EEGNet-wide,
+ShallowConvNet, DeepConvNet); only EEGNet's validation and test passes
+launch K1-stacked.
 
 :func:`run_folds` is the machinery both share, with the JAX package's
 semantics (``_run_folds``):
@@ -90,6 +95,8 @@ from eegnetreplication_tpu_torch.data.splits import (
     inner_train_val_split,
     kfold_indices,
 )
+from torch import nn
+
 from eegnetreplication_tpu_torch.models import EEGNet, get_model
 from eegnetreplication_tpu_torch.obs import journal as obs_journal
 from eegnetreplication_tpu_torch.resil import heartbeat, inject, preempt
@@ -241,15 +248,16 @@ def cross_subject_summary(fold_test: np.ndarray, min_val_loss: np.ndarray,
     return per_subject, avg_all, std_err, int(np.argmin(min_val_loss))
 
 
-def save_model(state_dict: dict, model: EEGNet, model_name: str,
+def save_model(state_dict: dict, model: nn.Module, model_name: str,
                path: Path) -> None:
-    """The reference's ``.pth`` at ``path`` and the native ``.npz`` beside
-    it, with the geometry the loaders read."""
-    ckpt_lib.save_pth(path, state_dict)
+    """The native ``.npz`` beside ``path`` with the geometry the loaders
+    read, and for an EEGNet the reference's ``.pth`` at ``path`` (the JAX
+    ``_save_model``: the reference has no baseline to load a ``.pth``)."""
+    if isinstance(model, EEGNet):
+        ckpt_lib.save_pth(path, state_dict)
     ckpt_lib.save_checkpoint(
         path.with_suffix(".npz"), state_dict,
-        metadata={"model": model_name, "n_channels": model.n_channels,
-                  "n_times": model.n_times, "F1": model.F1, "D": model.D})
+        metadata={"model": model_name, **model.metadata()})
 
 
 # --------------------------------------------------------------------------
@@ -262,7 +270,7 @@ class FoldSetup:
     pool on the device, every fold's spec (padded to the protocol's largest
     fold) and initial state on the CPU, and the pool's content digest."""
 
-    model: EEGNet
+    model: nn.Module
     pool_x: torch.Tensor
     pool_y: torch.Tensor
     spec: FoldSpec
@@ -272,7 +280,7 @@ class FoldSetup:
     pool_sha1: str
 
     @classmethod
-    def build(cls, model: EEGNet, folds, pool_x: np.ndarray,
+    def build(cls, model: nn.Module, folds, pool_x: np.ndarray,
               pool_y: np.ndarray, *, config: TrainingConfig, seed: int,
               device: torch.device) -> "FoldSetup":
         spec = make_fold_spec(
@@ -756,14 +764,19 @@ def run_folds(setup: FoldSetup, *, epochs: int,
 # --------------------------------------------------------------------------
 
 def _protocol_model(model_name: str, pool_x: np.ndarray, dropout: float,
-                    config: TrainingConfig) -> EEGNet:
+                    config: TrainingConfig) -> nn.Module:
+    """The registry's model for a protocol.  ``bn_mode`` "torch" goes to
+    the constructor, which only EEGNet's takes (a baseline's raises
+    ``TypeError``, as the JAX package's does); "flax" is every model's
+    default."""
     if config.precision != "highest":
         raise ValueError(
             f"precision={config.precision!r}: the torch port computes in "
             "full f32 only ('highest'); the TPU matmul modes are not ported")
+    bn = {} if config.bn_mode == "flax" else {"bn_mode": config.bn_mode}
     return get_model(model_name, n_channels=pool_x.shape[1],
                      n_times=pool_x.shape[2], dropout_rate=dropout,
-                     bn_mode=config.bn_mode, device="cpu")
+                     device="cpu", **bn)
 
 
 def within_subject_trainer(pool_x: np.ndarray, pool_y: np.ndarray,
@@ -772,7 +785,7 @@ def within_subject_trainer(pool_x: np.ndarray, pool_y: np.ndarray,
                            seed: int = 0,
                            device: torch.device | str | None = None,
                            model_name: str = "eegnet"
-                           ) -> tuple[FoldTrainer, EEGNet, list]:
+                           ) -> tuple[FoldTrainer, nn.Module, list]:
     """One :class:`FoldTrainer` of every within-subject fold over a pool
     (:func:`build_pool`) on ``device``; returns ``(trainer, model
     template, folds)``."""

@@ -8,9 +8,11 @@ its folds.
 
 A fold's state lives in flat ``(G, P)`` and ``(G, Q)`` tensors (parameters;
 BatchNorm running statistics) described by a :class:`StateLayout`, whose
-views under the ``state_dict`` names feed ``models/eegnet.py``'s
-:func:`~eegnetreplication_tpu_torch.models.eegnet.stacked_forward`.  So
-the gradient of the summed loss is each fold's gradient side by side (the
+views under the ``state_dict`` names feed the model's ``stacked`` forward
+(any registered model: EEGNet's
+:func:`~eegnetreplication_tpu_torch.models.eegnet.stacked_forward`, or
+ShallowConvNet's and DeepConvNet's, ``models/convnets.py``).  So the
+gradient of the summed loss is each fold's gradient side by side (the
 folds share nothing), and Adam is a handful of operations on one tensor.
 
 - Adam is written out (b1 0.9, b2 0.999, eps 1e-7, ``m_hat / (sqrt(v_hat)
@@ -19,11 +21,14 @@ folds share nothing), and Adam is a handful of operations on one tensor.
   count, moments, parameters and statistics unchanged.
 - "Max-norm" is selectable (quirk Q1): ``"reference"`` clamps the
   *gradients* of ``spatial.weight`` (+-1.0) and ``classifier.weight``
-  (+-0.25); ``"paper"`` projects the updated weights' L2 norms.
+  (+-0.25); ``"paper"`` projects the updated weights' L2 norms.  The limits
+  are the model's ``MAXNORM_LIMITS`` (none for the baselines).
 - :func:`weighted_cross_entropy` is the mean over slots with weight > 0,
   ``sum(ce * w) / max(sum(w), 1)``.
-- :func:`eval_step` runs block 1 of every fold in one launch of the stacked
-  K1 kernel (``ops/fused_eegnet.py::block1_stacked``).
+- :func:`eval_step` runs an EEGNet's block 1 of every fold in one launch
+  of the stacked K1 kernel (``ops/fused_eegnet.py::block1_stacked``); a
+  baseline runs its plain stacked eval forward, as the JAX package has no
+  fused eval for it.
 """
 
 from __future__ import annotations
@@ -32,12 +37,9 @@ from dataclasses import dataclass
 from typing import Mapping
 
 import torch
+from torch import nn
 
-from eegnetreplication_tpu_torch.models.eegnet import (
-    MAXNORM_LIMITS,
-    EEGNet,
-    stacked_forward,
-)
+from eegnetreplication_tpu_torch.models.eegnet import MAXNORM_LIMITS, EEGNet
 from eegnetreplication_tpu_torch.ops.fused_eegnet import (
     fused_eval_forward_stacked,
 )
@@ -79,14 +81,14 @@ def _numel(shape) -> int:
 
 @dataclass(frozen=True)
 class StateLayout:
-    """The parameter and running-statistics layouts of one EEGNet
+    """The parameter and running-statistics layouts of one model
     geometry, in ``state_dict`` names and order."""
 
     params: FlatLayout
     stats: FlatLayout
 
     @classmethod
-    def of(cls, model: EEGNet) -> "StateLayout":
+    def of(cls, model: nn.Module) -> "StateLayout":
         named = list(model.named_parameters())
         stats = [(k, v) for k, v in model.named_buffers()
                  if not k.endswith("num_batches_tracked")]
@@ -225,7 +227,7 @@ def adam_update(state: TrainState, grads: torch.Tensor, learning_rate: float,
     return TrainState(state.layout, params, state.stats, mu, nu, count)
 
 
-def train_step(model: EEGNet, state: TrainState, x: torch.Tensor,
+def train_step(model: nn.Module, state: TrainState, x: torch.Tensor,
                y: torch.Tensor, w: torch.Tensor, *, learning_rate: float,
                adam_eps: float, maxnorm_mode: str = "reference",
                generator: torch.Generator | None = None
@@ -233,9 +235,10 @@ def train_step(model: EEGNet, state: TrainState, x: torch.Tensor,
     """One optimization step of every fold on its own padded batch.
 
     ``x`` ``(G, B, C, T)``, ``y`` ``(G, B)``, ``w`` ``(G, B)`` loss weights
-    (0 marks a wrap-around padding slot).  ``model`` gives the geometry and
-    the training hyperparameters (``bn_mode``, ``dropout_rate``, momentum,
-    eps); dropout masks come from ``generator``.  Returns ``(new_state,
+    (0 marks a wrap-around padding slot).  ``model`` gives the geometry,
+    the forward (its ``stacked``) and the training hyperparameters
+    (``bn_mode``, ``dropout_rate``, momentum, eps, the conv schedule);
+    dropout masks come from ``generator``.  Returns ``(new_state,
     loss, grad_norm)``, the last two ``(G,)``: each fold's batch loss and
     the global norm of its raw (pre-clamp) gradient.  A fold whose batch
     holds no real sample keeps its parameters, statistics, moments and step
@@ -247,11 +250,9 @@ def train_step(model: EEGNet, state: TrainState, x: torch.Tensor,
     layout = state.layout
     params = state.params.detach().requires_grad_(True)
     with torch.enable_grad():
-        logits, new_stats = stacked_forward(
+        logits, new_stats = model.stacked(
             layout.params.views(params), state.stat_views(), x, train=True,
-            sample_weights=w, bn_mode=model.bn_mode,
-            dropout_rate=model.dropout_rate, generator=generator,
-            momentum=model.momentum, eps=model.bn_epsilon)
+            sample_weights=w, generator=generator)
         loss = weighted_cross_entropy(logits, y, w)
         (grads,) = torch.autograd.grad(loss.sum(), params)
     with torch.no_grad():
@@ -271,16 +272,27 @@ def train_step(model: EEGNet, state: TrainState, x: torch.Tensor,
                 torch.where(has_real, grad_norm, zero))
 
 
-def eval_forward(model: EEGNet, state: TrainState, x: torch.Tensor,
+def supports_fused_eval(model: nn.Module) -> bool:
+    """Whether ``model``'s eval forward has the fused block 1 (K1): EEGNet
+    only, as in the JAX package."""
+    return isinstance(model, EEGNet)
+
+
+def eval_forward(model: nn.Module, state: TrainState, x: torch.Tensor,
                  idx: torch.Tensor) -> torch.Tensor:
     """Eval-mode logits ``(G, B, n_classes)`` of every fold on its batch of
-    ``x`` ``(G, B, C, T)``, block 1 in one stacked K1 launch (``idx`` is
-    :func:`~eegnetreplication_tpu_torch.ops.fused_eegnet.fold_index`)."""
+    ``x`` ``(G, B, C, T)``: an EEGNet's block 1 in one stacked K1 launch
+    (``idx`` is :func:`~eegnetreplication_tpu_torch.ops.fused_eegnet.
+    fold_index`), any other model's plain stacked eval forward."""
+    if not supports_fused_eval(model):
+        return model.stacked(state.param_views(), state.stat_views(), x,
+                             train=False)[0]
     return fused_eval_forward_stacked(state.param_views(), state.stat_views(),
-                                      x, idx, model.bn_epsilon)
+                                      x, idx, model.bn_epsilon,
+                                      conv_impl=model.conv_impl)
 
 
-def eval_step(model: EEGNet, state: TrainState, x: torch.Tensor,
+def eval_step(model: nn.Module, state: TrainState, x: torch.Tensor,
               y: torch.Tensor, w: torch.Tensor, idx: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Eval-mode ``(loss, weighted correct count)`` per fold, ``(G,)``

@@ -2,8 +2,9 @@
 
 The counterpart of ``eegnetreplication_tpu/utils/flops.py``.  The JAX
 package lowers its real step functions and reads XLA's HLO cost model; the
-port has no such model, so it counts EEGNet's work in closed form from the
-shapes, under the same conventions:
+port has no such model, so it counts each registered model's work (EEGNet,
+ShallowConvNet, DeepConvNet) in closed form from the shapes, under the
+same conventions:
 
 - a convolution or matmul costs 2 FLOPs per multiply-accumulate, and only
   the taps that land inside the input count (a SAME convolution's padding
@@ -26,7 +27,13 @@ shapes, under the same conventions:
 
 The eval step runs block 1 in the fused algebra (a ``(F2, C)`` mix, then
 32 taps on F2 rows), as the JAX ``eval_step`` does, which is why it costs
-less than the unfused forward.
+less than the unfused forward.  The baselines have no fused eval: their
+eval step is the forward and the loss.
+
+The count is the minimal convolution's whatever EEGNet's ``conv_impl``:
+the banded schedule multiplies ~T/K times the MACs on purpose, and the
+JAX package counts the ``"lax"`` schedule for that reason
+(``_canonical_schedule``), so MFU is not flattered by the inflation.
 
 The MFU denominator, :func:`assumed_peak_flops`, keys on the card's name.
 ``utils/device.py`` turns TF32 off, so the port runs its f32 work on the
@@ -99,9 +106,105 @@ def _n_params(g: dict[str, int]) -> int:
             + 2 * (g["f1"] + 2 * g["f2"]))
 
 
+# --- The baselines (models/convnets.py) ----------------------------------
+# Per-element op counts of their elementwise passes, read off the JAX
+# step's HLO as EEGNet's are: jax.nn.elu is 4 ops; the training passes are
+# per element of the tensor that enters the pool (Shallow: square,
+# AvgPool(35, 7) and log, forward and backward; Deep: ELU and MaxPool(2),
+# forward and backward), and the dropouts per element they mask.
+CONVNET_ELU = 4
+SHALLOW_ACT_TRAIN = 46
+DEEP_ACT_TRAIN = 27
+
+
+def _baseline_kind(model) -> str | None:
+    if hasattr(model, "n_filters_time"):
+        return "shallow"
+    if hasattr(model, "filters"):
+        return "deep"
+    return None
+
+
+def _shallow_dims(model) -> dict:
+    c, t = int(model.n_channels), int(model.n_times)
+    ft, fs = int(model.n_filters_time), int(model.n_filters_spat)
+    t1 = t - int(model.filter_time_length) + 1
+    window, stride = int(model.pool_time_length), int(model.pool_time_stride)
+    t2 = (t1 - window) // stride + 1
+    k = int(getattr(model, "n_classes", 4))
+    macs = {"temporal": ft * c * t1 * int(model.filter_time_length),
+            "spatial": fs * ft * c * t1, "classifier": fs * t2 * k}
+    n_params = (ft * int(model.filter_time_length) + fs * ft * c + 2 * fs
+                + fs * t2 * k + k)
+    return dict(c=c, k=k, n1=fs * t1, n2=fs * t2, window=window,
+                macs=macs, n_params=n_params)
+
+
+def _deep_dims(model) -> dict:
+    c, t = int(model.n_channels), int(model.n_times)
+    kl, pool = int(model.kernel_length), int(model.pool_length)
+    widths = [int(f) for f in model.filters]
+    k = int(getattr(model, "n_classes", 4))
+    macs, pre_pool, pooled = {}, [], []
+    t = t - kl + 1
+    macs["temporal"] = widths[0] * c * t * kl
+    macs["spatial"] = widths[0] * widths[0] * c * t
+    pre_pool.append(widths[0] * t)
+    t //= pool
+    pooled.append(widths[0] * t)
+    for i in range(1, len(widths)):
+        t = t - kl + 1
+        macs[f"conv_{i}"] = widths[i] * widths[i - 1] * kl * t
+        pre_pool.append(widths[i] * t)
+        t //= pool
+        pooled.append(widths[i] * t)
+    macs["classifier"] = widths[-1] * t * k
+    n_params = (widths[0] * kl + widths[0] * widths[0] * c
+                + sum(widths[i] * widths[i - 1] * kl
+                      for i in range(1, len(widths)))
+                + 2 * sum(widths) + widths[-1] * t * k + k)
+    return dict(c=c, k=k, pre_pool=pre_pool, pooled=pooled, pool=pool,
+                macs=macs, n_params=n_params)
+
+
+def _baseline_forward(model) -> tuple[float, dict]:
+    """One trial's eval forward FLOPs and the baseline's dims."""
+    if _baseline_kind(model) == "shallow":
+        g = _shallow_dims(model)
+        return (2 * sum(g["macs"].values()) + g["k"]
+                + (BN_EVAL + 1) * g["n1"]             # BN, square
+                + g["window"] * g["n2"]               # pool sums, divide
+                + g["n2"], g)                         # the log's clamp
+    g = _deep_dims(model)
+    n = sum(g["pre_pool"])
+    return (2 * sum(g["macs"].values()) + g["k"]
+            + (BN_EVAL + CONVNET_ELU) * n
+            + (g["pool"] - 1) * sum(g["pooled"]), g)
+
+
+def _baseline_train(model) -> tuple[float, float]:
+    """(per-trial FLOPs of one train step, per-step Adam FLOPs)."""
+    fwd, g = _baseline_forward(model)
+    macs = g["macs"]
+    # every layer but the first gets an input gradient
+    bwd = 2 * macs["temporal"] + 4 * sum(
+        v for name, v in macs.items() if name != "temporal") + g["k"]
+    fwd = 2 * sum(macs.values()) + g["k"]
+    if _baseline_kind(model) == "shallow":
+        elementwise = ((BN_TRAIN + SHALLOW_ACT_TRAIN) * g["n1"]
+                       + DROPOUT_TRAIN * g["n2"])
+    else:
+        elementwise = ((BN_TRAIN + DEEP_ACT_TRAIN) * sum(g["pre_pool"])
+                       + DROPOUT_TRAIN * sum(g["pooled"][:-1]))
+    return (fwd + bwd + elementwise + CE_PER_CLASS * g["k"],
+            PARAM_UPDATE * g["n_params"])
+
+
 def eval_forward_flops(model, batch_size: int) -> float:
     """FLOPs of one unfused inference forward of ``batch_size`` trials (the
     JAX ``model.apply`` in eval mode)."""
+    if _baseline_kind(model):
+        return float(batch_size * _baseline_forward(model)[0])
     g = _dims(model)
     macs = sum(_conv_macs(g).values())
     per_trial = (2 * macs + g["k"]
@@ -114,7 +217,11 @@ def eval_forward_flops(model, batch_size: int) -> float:
 
 def eval_step_flops(model, batch_size: int) -> float:
     """FLOPs of one validation batch: block 1 in the fused algebra, block 2,
-    the classifier and the weighted loss."""
+    the classifier and the weighted loss (a baseline: its forward and the
+    loss)."""
+    if _baseline_kind(model):
+        fwd, g = _baseline_forward(model)
+        return float(batch_size * (fwd + CE_PER_CLASS * g["k"]))
     g = _dims(model)
     macs = _conv_macs(g)
     block1 = (2 * g["f2"] * g["c"] * g["t"]                 # the mix
@@ -131,6 +238,9 @@ def train_step_flops(model, batch_size: int) -> float:
     """FLOPs of ONE optimizer step of one model at ``batch_size``: the
     training forward, the backward (no input gradient at the first layer),
     the loss, Adam and the max-norm clamp."""
+    if _baseline_kind(model):
+        per_trial, update = _baseline_train(model)
+        return float(batch_size * per_trial + update)
     g = _dims(model)
     macs = _conv_macs(g)
     fwd = 2 * sum(macs.values()) + g["k"]

@@ -162,13 +162,31 @@ def test_truncated_npz_raises_and_stays(tmp_path):
 
 
 def test_non_eegnet_and_orbax_checkpoints_are_refused(tmp_path):
+    """A checkpoint's ``model`` picks the registry's architecture: EEGNet
+    weights labelled ``shallow_convnet`` do not load into one, while a
+    ShallowConvNet the JAX package wrote does; Orbax stays refused."""
     c, t, f1, d = PRODUCT
     params, bs = jax_variables(c, t, f1, d)
     path = jax_ckpt.save_checkpoint(
-        tmp_path / "shallow.npz", params, bs,
+        tmp_path / "mislabelled.npz", params, bs,
         metadata=dict(_meta(c, t, f1, d), model="shallow_convnet"))
-    with pytest.raises(ValueError, match="EEGNet only"):
+    with pytest.raises(RuntimeError, match="ShallowConvNet"):
         engine.load_model_from_checkpoint(path, device="cpu")
+    import jax
+    import jax.numpy as jnp
+
+    from eegnetreplication_tpu.models import get_model as jax_get_model
+
+    shallow = jax_get_model("shallow_convnet", n_channels=6, n_times=64)
+    variables = shallow.init(jax.random.PRNGKey(0), jnp.zeros((1, 6, 64)))
+    path = jax_ckpt.save_checkpoint(
+        tmp_path / "shallow.npz", variables["params"],
+        variables["batch_stats"],
+        metadata={"model": "shallow_convnet", "n_channels": 6,
+                  "n_times": 64})
+    model = engine.load_model_from_checkpoint(path, device="cpu")
+    assert type(model).__name__ == "ShallowConvNet"
+    assert (model.n_channels, model.n_times) == (6, 64)
     (tmp_path / "orbax_dir").mkdir()
     with pytest.raises(ValueError, match="Orbax"):
         engine.load_model_from_checkpoint(tmp_path / "orbax_dir",

@@ -45,7 +45,13 @@ replays.  Online adaptation: the shadow's bucket-1 graph replays
 bitwise the eager forward and launches K1 once per shadow eval, its
 capture drops nothing while the zoo serves and a session pushes, two card
 fine-tunes from one seed are bitwise equal, and a card fine-tune lies
-within 2e-3 of the CPU one at dropout 0.
+within 2e-3 of the CPU one at dropout 0.  The model layer: ShallowConvNet
+and DeepConvNet on the card against the CPU (logits at atol 1e-5 / rtol
+1e-4, a stacked train step at 2e-3) with no K1 or K1-stacked launch, their
+bucket graphs bitwise the eager forward; EEGNet's banded schedule against
+the grouped convolutions on the card at T = 257 and 1125 (1e-5 forward,
+1e-4 gradients) and bitwise across two runs; CSP+LDA and the
+tangent-space classifier predicting on the card as on the CPU.
 """
 
 import threading
@@ -1163,3 +1169,127 @@ def test_register_shadow_during_predict_and_session_traffic_drops_nothing(
     assert digest == cand.digest and answers
     assert all((a == want).all() for a in answers)
     assert zoo.shadow_infer("a", x[:1]).shape == (1,)
+
+
+# --- The model layer: the baselines, the banded schedule, CSP and Riemann ---
+
+BASELINE_NAMES = ("shallow_convnet", "deep_convnet")
+
+
+def _baseline(name, seed=0):
+    from eegnetreplication_tpu_torch.models import get_model
+
+    return get_model(name, n_channels=22, n_times=257, device="cpu",
+                     generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize("name", BASELINE_NAMES)
+def test_baseline_forward_on_the_card_matches_the_cpu(cuda, name):
+    """Eval logits at atol 1e-5 / rtol 1e-4; a training step of 8 folds at
+    dropout 0 within 2e-3 of the CPU's; neither launches K1 nor
+    K1-stacked."""
+    model = _baseline(name)
+    x = torch.randn(64, 22, 257, generator=torch.Generator().manual_seed(1))
+    want = model(x)
+    fused.block1.launches = fused.block1_stacked.launches = 0
+    got = model.to(cuda)(x.to(cuda)).cpu()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+    model = _baseline(name).to("cpu")
+    model.dropout_rate = 0.0
+    init = loop.init_fold_states(model, 8, torch.Generator().manual_seed(2))
+    xs = torch.randn(8, 16, 22, 257,
+                     generator=torch.Generator().manual_seed(3))
+    y = torch.randint(0, 4, (8, 16), generator=torch.Generator().manual_seed(4))
+    w = torch.ones(8, 16)
+    kw = dict(learning_rate=1e-3, adam_eps=1e-7)
+    _, want_loss, _ = steps.train_step(model, init, xs, y, w, **kw)
+    _, got_loss, _ = steps.train_step(model, init.to(cuda), xs.to(cuda),
+                                      y.to(cuda), w.to(cuda), **kw)
+    torch.testing.assert_close(got_loss.cpu(), want_loss, atol=2e-3,
+                               rtol=2e-3)
+    assert fused.block1.launches == fused.block1_stacked.launches == 0
+
+
+@pytest.mark.parametrize("name", BASELINE_NAMES)
+def test_baseline_graph_replay_is_bitwise_the_eager_forward(cuda, name):
+    engine = InferenceEngine(_baseline(name, seed=5), device=cuda)
+    engine.warmup()
+    assert sorted(engine.graph_stats()) == [1, 8, 32, 128]
+    for b in engine.buckets:
+        x = torch.randn(b, 22, 257, generator=torch.Generator().manual_seed(
+            60 + b)).to(cuda)
+        with torch.inference_mode():
+            eager = engine.forward(x).cpu()
+        assert torch.equal(engine.graph_logits(x).cpu(), eager), (name, b)
+        assert engine.graph_stats()[b]["kernels"] == {}
+
+
+@pytest.mark.parametrize("t", [257, 1125])
+def test_banded_stacked_forward_on_the_card_matches_lax(cuda, t):
+    """Logits, statistics and gradients of 8 stacked EEGNets under both
+    schedules on the card (1e-5 forward, 1e-4 gradients)."""
+    from eegnetreplication_tpu_torch.models.eegnet import stacked_forward
+
+    model = EEGNet(22, t, device="cpu")
+    init = loop.init_fold_states(model, 8, torch.Generator().manual_seed(7))
+    x = torch.randn(8, 16, 22, t,
+                    generator=torch.Generator().manual_seed(8)).to(cuda)
+    out = {}
+    for impl in ("lax", "banded"):
+        state = init.to(cuda)
+        params = {k: v.clone().requires_grad_(True)
+                  for k, v in state.param_views().items()}
+        logits, new = stacked_forward(params, state.stat_views(), x,
+                                      train=True, conv_impl=impl)
+        grads = torch.autograd.grad(logits.square().sum(),
+                                    list(params.values()))
+        out[impl] = (logits.detach(), new, grads)
+    torch.testing.assert_close(out["banded"][0], out["lax"][0], atol=1e-5,
+                               rtol=1e-5)
+    for k in out["lax"][1]:
+        torch.testing.assert_close(out["banded"][1][k], out["lax"][1][k],
+                                   atol=1e-5, rtol=1e-5)
+    for a, b in zip(out["banded"][2], out["lax"][2]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_two_banded_card_runs_are_bitwise_equal(cuda):
+    model = EEGNet(22, 257, conv_impl="banded", device="cpu")
+    init = loop.init_fold_states(model, 4, torch.Generator().manual_seed(9))
+    xs = torch.randn(4, 32, 22, 257,
+                     generator=torch.Generator().manual_seed(10)).to(cuda)
+    y = torch.randint(0, 4, (4, 32),
+                      generator=torch.Generator().manual_seed(11)).to(cuda)
+    w = torch.ones(4, 32, device=cuda)
+    runs = []
+    for _ in range(2):
+        state = init.to(cuda)
+        gen = torch.Generator(device=cuda).manual_seed(12)
+        for _ in range(3):
+            state, _, _ = steps.train_step(model, state, xs, y, w,
+                                           learning_rate=1e-3,
+                                           adam_eps=1e-7, generator=gen)
+        runs.append(state.params.cpu())
+    assert torch.equal(runs[0], runs[1])
+
+
+def test_csp_and_riemann_on_the_card_match_the_cpu(cuda):
+    from eegnetreplication_tpu_torch.models import csp, riemann
+
+    rng = np.random.RandomState(13)
+    y = rng.randint(0, 4, 200)
+    x = rng.randn(200, 22, 257).astype(np.float32)
+    patterns = rng.randn(4, 22)
+    for k in range(4):
+        wave = np.sin(np.arange(257) * (0.2 + 0.1 * k))
+        x[y == k] += (0.8 * patterns[k][:, None] * wave).astype(np.float32)
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    for fit in (csp.csp_lda_fit_predict, riemann.tangent_lda_fit_predict):
+        want = fit(xt[:150], yt[:150], xt[150:])
+        got = fit(xt[:150].to(cuda), yt[:150].to(cuda), xt[150:].to(cuda))
+        assert got.is_cuda
+        assert torch.equal(got.cpu(), want), fit.__name__
+    want = csp.csp_transform(xt, csp.csp_fit(xt, yt))
+    got = csp.csp_transform(xt.to(cuda), csp.csp_fit(xt.to(cuda),
+                                                     yt.to(cuda)))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)

@@ -60,7 +60,9 @@ _CHILD = textwrap.dedent("""
                  "adapt.buffer", "adapt.gate", "adapt.shadow",
                  "adapt.worker", "adapt.controller", "utils.adapt_drill",
                  "utils.predict_latency", "resil.supervise", "obs.agg",
-                 "obs.top"):
+                 "obs.top", "ops.banded", "models.convnets",
+                 "models.registry", "models.csp", "models.riemann",
+                 "training.permutation"):
         assert "eegnetreplication_tpu_torch." + name in names, name
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   {chip_smoke!r})

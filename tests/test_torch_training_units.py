@@ -238,9 +238,15 @@ def test_adam_matches_optax():
 
 
 def test_get_model_names_the_roadmap_for_unported_models():
+    """Every name of the JAX registry builds; an unknown name gets the JAX
+    message, which lists the four."""
     assert get_model("eegnet_wide", device="cpu").F2 == 64
-    with pytest.raises(ValueError, match="ROADMAP"):
-        get_model("shallow_convnet")
+    assert type(get_model("shallow_convnet", device="cpu")).__name__ \
+        == "ShallowConvNet"
+    with pytest.raises(ValueError, match=r"Unknown model 'resnet'; "
+                       r"available: \['deep_convnet', 'eegnet', "
+                       r"'eegnet_wide', 'shallow_convnet'\]"):
+        get_model("resnet")
 
 
 # --- training-mode forward ------------------------------------------------

@@ -19,6 +19,7 @@ this module on the card's machine, which has no JAX.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -105,6 +106,70 @@ def trials(n, c, t, seed=1) -> np.ndarray:
     return np.random.RandomState(seed).randn(n, c, t).astype(np.float32)
 
 
+# --- The model layer: ShallowConvNet and DeepConvNet ------------------------
+
+# name -> (C, T) of the small parity sizes: Shallow needs T >= 47, Deep's
+# four blocks need T >= ~80.
+BASELINES = {"shallow_convnet": (6, 60), "deep_convnet": (6, 96)}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_baseline_init(name, c, t, dropout_rate):
+    """A JAX baseline and its jitted ``init`` (one compile per geometry)."""
+    import jax
+
+    from eegnetreplication_tpu.models import get_model as jax_get_model
+
+    model = jax_get_model(name, n_channels=c, n_times=t,
+                          dropout_rate=dropout_rate)
+    return model, jax.jit(model.init)
+
+
+def jax_baseline(name, c, t, *, seed=0, dropout_rate=0.0, perturb_bn=True):
+    """``(model, params, batch_stats)`` of a JAX baseline, its variables
+    from ``model.init`` as numpy, BatchNorm moved off the identity with
+    ``perturb_bn``."""
+    import jax
+    import jax.numpy as jnp
+
+    model, init = _jax_baseline_init(name, c, t, dropout_rate)
+    variables = init(jax.random.PRNGKey(seed), jnp.zeros((1, c, t)))
+    params = jax.tree_util.tree_map(np.asarray, variables["params"])
+    stats = jax.tree_util.tree_map(np.asarray, variables["batch_stats"])
+    if perturb_bn:
+        rng = np.random.RandomState(seed + 100)
+        for layer, bn in stats.items():
+            n = bn["mean"].shape[0]
+            params[layer] = {
+                "scale": (0.8 + 0.4 * rng.rand(n)).astype(np.float32),
+                "bias": (0.2 * rng.randn(n)).astype(np.float32)}
+            stats[layer] = {"mean": (0.3 * rng.randn(n)).astype(np.float32),
+                            "var": (0.5 + rng.rand(n)).astype(np.float32)}
+    return model, params, stats
+
+
+def port_baseline(name, params, batch_stats, c, t, **kw):
+    """The port's model of registry ``name`` on the CPU with the JAX
+    weights."""
+    from eegnetreplication_tpu_torch.models import get_model
+
+    model = get_model(name, n_channels=c, n_times=t, device="cpu", **kw)
+    model.load_state_dict(from_jax_variables(params, batch_stats))
+    return model
+
+
+def labelled_pool(n, c, t, seed=0):
+    """A pool of ``n`` trials in which each of the 4 classes adds its own
+    rhythm: ``(x, y)``."""
+    rng = np.random.RandomState(seed)
+    y = rng.randint(0, N_CLASSES, n)
+    x = (0.7 * rng.randn(n, c, t)).astype(np.float32)
+    tt = np.arange(t) / 64.0
+    for k in range(N_CLASSES):
+        x[y == k] += np.sin(2 * np.pi * (4 + 4 * k) * tt).astype(np.float32)
+    return x, y
+
+
 # --- Preprocessing slice ---------------------------------------------------
 
 # EMS inputs of tests/test_ems.py: name -> (shape, kwargs, seed, constant).
@@ -185,11 +250,13 @@ def recording_with_nan(c=25, t=5000, seed=5) -> tuple[np.ndarray, np.ndarray,
     return sig, pos, typ
 
 
-def write_processed_tree(root, subjects=(1, 2), n_trials=24, nan_in=None):
+def write_processed_tree(root, subjects=(1, 2), n_trials=24, nan_in=None,
+                         n_channels=4, n_times=64):
     """``-trials.npz`` files of ``tests/synthetic.py``'s separable subjects
-    (C=4, T=64) under ``<root>/data/processed/{Train,Eval}``, what the train
-    CLI reads with ``EEGTPU_DATA_ROOT=<root>``; ``nan_in=s`` puts a NaN in
-    four of subject ``s``'s Train trials (from the middle on)."""
+    (C=4, T=64 by default) under ``<root>/data/processed/{Train,Eval}``,
+    what the train CLI reads with ``EEGTPU_DATA_ROOT=<root>``; ``nan_in=s``
+    puts a NaN in four of subject ``s``'s Train trials (from the middle
+    on)."""
     from pathlib import Path
 
     from synthetic import make_loader
@@ -200,8 +267,8 @@ def write_processed_tree(root, subjects=(1, 2), n_trials=24, nan_in=None):
         trials_filename,
     )
 
-    loader = make_loader(n_trials=n_trials, n_channels=4, n_times=64,
-                         class_sep=1.5)
+    loader = make_loader(n_trials=n_trials, n_channels=n_channels,
+                         n_times=n_times, class_sep=1.5)
     for s in subjects:
         for mode in ("Train", "Eval"):
             ds = loader(s, mode)
