@@ -13,7 +13,7 @@ and serving paths:
   readers apply;
 
 - :mod:`~eegnetreplication_tpu_torch.obs.trace`, request-scoped trace
-  spans (the runtime half; the JAX package's reader stitches them);
+  spans and the reader that stitches a fleet's journals into trees;
 - :mod:`~eegnetreplication_tpu_torch.obs.slo`, sliding-window SLO
   verdicts over the live registry;
 - :mod:`~eegnetreplication_tpu_torch.obs.stats`, the shared percentile;
@@ -25,8 +25,7 @@ and serving paths:
 The registry also renders the Prometheus text of ``GET /metrics``.
 Entry points open a run with :func:`journal.run`; library code reaches the
 active journal through :func:`journal.current` (a no-op outside a run).
-The trace reader and the ``BENCH_*.json`` writer are not ported
-(ROADMAP.md queue A.5).
+The ``BENCH_*.json`` writer is not ported (ROADMAP.md queue A.5).
 """
 
 from eegnetreplication_tpu_torch.obs import (

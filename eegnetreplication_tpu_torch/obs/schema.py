@@ -1,7 +1,7 @@
 """Telemetry schemas: what a run journal and its metrics file must hold.
 
-The port's copy of the training, serving, supervision and aggregation
-parts (the serving control plane's events included) of
+The port's copy of the training, serving, supervision, fleet and
+aggregation parts (the serving control plane's events included) of
 ``eegnetreplication_tpu/obs/schema.py``, so either package's readers
 (``scripts/obs_report.py``, ``obs/agg.py``, ``obs/top.py``) read a run of
 either package:
@@ -33,8 +33,8 @@ SCHEMA_VERSION = 1
 EVENT_BASE_REQUIRED = ("event", "t", "run_id")
 
 # The events' required keys beyond the base: the rows of the JAX
-# package's table for the events a training or serving run of the port
-# emits (streaming sessions included).
+# package's table for the events a training, serving or fleet run of the
+# port emits (streaming sessions included).
 EVENT_REQUIRED: dict[str, tuple[str, ...]] = {
     "run_start": ("schema_version", "git_sha", "platform", "device_kind",
                   "n_devices", "config"),
@@ -119,6 +119,25 @@ EVENT_REQUIRED: dict[str, tuple[str, ...]] = {
     "supervisor_restart": ("attempt", "reason", "delay_s", "resume"),
     "supervisor_giveup": ("restarts", "window_s"),
     "supervisor_end": ("status",),
+    # The replica fleet (serve/fleet/): the router's lifecycle, every
+    # membership transition, dispatch failover, canary step, shadow
+    # compare and rolling reload, and every autoscaler decision (action
+    # resync, up, up_failed, down, down_aborted, drained or forced: a
+    # down, then drained, then the member's out, in journal order, is
+    # the drain-safety proof).
+    "fleet_start": ("replicas", "checkpoint"),
+    "fleet_member": ("replica", "state", "previous", "reason"),
+    "fleet_retry": ("replica", "reason"),
+    "fleet_canary": ("phase",),
+    "fleet_shadow": ("replica", "reference", "n_trials", "agree"),
+    "fleet_reload": ("status", "checkpoint"),
+    "fleet_scale": ("action", "target", "n_live", "reason"),
+    "fleet_end": ("n_requests", "wall_s"),
+    # Gray failures: latency-outlier ejection and half-open re-admission
+    # of a degraded replica, and every hedged dispatch.
+    "replica_ejected": ("replica", "p95_ms", "fleet_p50_ms"),
+    "replica_readmitted": ("replica",),
+    "hedge": ("primary", "winner"),
     # Journal aggregation (obs/agg.py): one rolling snapshot over every
     # discovered run journal a poll.
     "agg_snapshot": ("n_runs", "n_members", "window_s"),

@@ -18,9 +18,14 @@ ends in an anomaly (an error, an expired deadline, a circuit refusal):
 
 The batcher's coalesced forward gets one span, under the first sampled
 request's trace, whose ``link_traces`` names every other trace it
-carried.  The reader half (``TraceTree``, ``read_spans``,
-``build_traces``, ``chrome_trace_events``) is not ported: the JAX
-package's ``scripts/trace_report.py`` reads the port's journals.
+carried.
+
+The reader half stitches the per-process journals of a fleet run back
+into per-trace trees: :func:`read_spans` collects every ``span`` event
+under journal files or run directories, :func:`build_traces` links them
+parent to child across processes (the router's ``router.dispatch`` parents
+the replica's ``replica.request``) into :class:`TraceTree` objects, and
+:func:`chrome_trace_events` renders them for Perfetto.
 """
 
 
@@ -32,6 +37,8 @@ import os
 import random
 import threading
 import time
+from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any, Iterator
 
 from eegnetreplication_tpu_torch.obs import journal as obs_journal
@@ -288,3 +295,146 @@ def flush_if_anomalous(status: str, journal=None) -> int:
     if status in ANOMALY_STATUSES:
         return flush(journal=journal)
     return 0
+
+
+# ---------------------------------------------------------------------------
+# Stitching: per-process journals -> per-trace trees.
+# ---------------------------------------------------------------------------
+
+@dataclass
+class TraceTree:
+    """One stitched trace: every span seen for a trace id, tree-linked."""
+
+    trace_id: str
+    spans: list[dict]                       # all spans, start-ordered
+    children: dict[str, list[dict]]         # span_id -> child spans
+    roots: list[dict]                       # spans whose parent is absent
+    linked: list[dict] = field(default_factory=list)  # cross-trace links
+
+    @property
+    def processes(self) -> list[str]:
+        return sorted({s.get("run_id", "?") for s in self.spans})
+
+    @property
+    def span_names(self) -> set[str]:
+        return {s["name"] for s in self.spans}
+
+    @property
+    def duration_ms(self) -> float:
+        if not self.spans:
+            return 0.0
+        t0 = min(s["start"] for s in self.spans)
+        t1 = max(s["start"] + s["dur_ms"] / 1000.0 for s in self.spans)
+        return (t1 - t0) * 1000.0
+
+    def cross_process_complete(self) -> bool:
+        """True when the tree links at least two processes parent→child:
+        some span's parent lives in a DIFFERENT process's journal — the
+        property the trace-stitch rehearsal stage asserts."""
+        by_id = {s["span_id"]: s for s in self.spans}
+        for s in self.spans:
+            parent = by_id.get(s.get("parent_span_id") or "")
+            if parent is not None and \
+                    parent.get("run_id") != s.get("run_id"):
+                return True
+        return False
+
+
+def read_spans(paths: list[str | Path]) -> list[dict]:
+    """Every ``span`` event under the given journal files/run dirs/roots
+    (each span annotated with its journal's ``run_id`` — already a field
+    of every event).  Unreadable/incomplete journals are skipped, not
+    raised: stitching a fleet run must survive a SIGKILLed member's
+    truncated stream."""
+    from eegnetreplication_tpu_torch.obs import schema
+
+    files: list[Path] = []
+    for p in paths:
+        p = Path(p)
+        if p.is_file():
+            files.append(p)
+        elif (p / "events.jsonl").exists():
+            files.append(p / "events.jsonl")
+        elif p.is_dir():
+            files.extend(sorted(p.glob("**/events.jsonl")))
+    spans: list[dict] = []
+    for f in files:
+        try:
+            events = schema.read_events(f, complete=False, lenient_tail=True)
+        except (OSError, schema.SchemaError):
+            continue
+        spans.extend(e for e in events if e.get("event") == "span"
+                     and "_schema_error" not in e)
+    return spans
+
+
+def build_traces(spans: list[dict]) -> dict[str, TraceTree]:
+    """Group spans by trace id and link parent→child (an orphan whose
+    parent never landed — unflushed sibling process, lost line — becomes
+    a root, so partial traces still render)."""
+    by_trace: dict[str, list[dict]] = {}
+    for s in spans:
+        by_trace.setdefault(s["trace_id"], []).append(s)
+    trees: dict[str, TraceTree] = {}
+    for trace_id, group in by_trace.items():
+        group.sort(key=lambda s: (s.get("start", 0.0), s["span_id"]))
+        ids = {s["span_id"] for s in group}
+        children: dict[str, list[dict]] = {}
+        roots = []
+        for s in group:
+            parent = s.get("parent_span_id")
+            if parent and parent in ids:
+                children.setdefault(parent, []).append(s)
+            else:
+                roots.append(s)
+        trees[trace_id] = TraceTree(trace_id=trace_id, spans=group,
+                                    children=children, roots=roots)
+    # Cross-trace links: a shared batch-forward span names the traces of
+    # the OTHER requests it served; attach it to their trees as linked.
+    by_id_global = {s["span_id"]: s for s in spans}
+    for s in spans:
+        for linked_trace in (s.get("link_traces") or []):
+            tree = trees.get(linked_trace)
+            if tree is not None and s["trace_id"] != linked_trace:
+                tree.linked.append(s)
+    # A span can also point AT another trace's span (link_span): surface
+    # the target in this trace's linked list for the waterfall.
+    for tree in trees.values():
+        for s in tree.spans:
+            target = by_id_global.get(s.get("link_span") or "")
+            if target is not None and target["trace_id"] != tree.trace_id \
+                    and target not in tree.linked:
+                tree.linked.append(target)
+    return trees
+
+
+def chrome_trace_events(trees: dict[str, TraceTree]) -> list[dict]:
+    """Chrome trace-event JSON (``"X"`` complete events, microsecond
+    timestamps) loadable in Perfetto/chrome://tracing: one "process" per
+    journal run id, one "thread" per trace."""
+    events: list[dict] = []
+    pids: dict[str, int] = {}
+    tids: dict[str, int] = {}
+    seen_threads: set[tuple[int, int]] = set()
+    for trace_id, tree in sorted(trees.items()):
+        tid = tids.setdefault(trace_id, len(tids) + 1)
+        for s in tree.spans:
+            run = s.get("run_id", "?")
+            pid = pids.setdefault(run, len(pids) + 1)
+            seen_threads.add((pid, tid))
+            args = {k: v for k, v in s.items()
+                    if k not in ("event", "t", "run_id", "name", "start",
+                                 "dur_ms")}
+            events.append({"name": s["name"], "cat": "span", "ph": "X",
+                           "ts": round(s["start"] * 1e6, 1),
+                           "dur": round(s["dur_ms"] * 1000.0, 1),
+                           "pid": pid, "tid": tid, "args": args})
+    for run, pid in pids.items():
+        events.append({"name": "process_name", "ph": "M", "pid": pid,
+                       "args": {"name": run}})
+    tid_names = {tid: trace_id for trace_id, tid in tids.items()}
+    for pid, tid in sorted(seen_threads):
+        events.append({"name": "thread_name", "ph": "M", "pid": pid,
+                       "tid": tid,
+                       "args": {"name": f"trace {tid_names[tid]}"}})
+    return events

@@ -1,8 +1,9 @@
 """Deterministic fault injection at named sites of the training path, the
-serving forward, the session store and online adaptation.
+serving forward, the session store, online adaptation and the replica
+fleet.
 
-The port's copy of the training, serving, session-store and adaptation
-part of ``eegnetreplication_tpu/resil/inject.py``.  Instrumented code
+The port's copy of the training, serving, session-store, adaptation and
+fleet part of ``eegnetreplication_tpu/resil/inject.py``.  Instrumented code
 calls :func:`fire` at a named site; the call is a no-op (one dict lookup)
 unless a test or a ``--chaos`` plan has
 :func:`arm`-ed that site.  Arming counts hits, so a chaos run repeats
@@ -62,6 +63,21 @@ site                       action     effect
                                       aborts the fine-tune instead
 ``adapt.promote``          raise      ``RuntimeError`` inside a promotion's
                                       swap; the prior model keeps serving
+``replica.network``        truncate   a serve reply is cut off mid-body
+                                      (half the bytes under the full
+                                      Content-Length) and the connection
+                                      closed; the fleet router must treat
+                                      it as a transport failure and fail
+                                      over (``if_tag=`` matches
+                                      ``--chaosTag``)
+``fleet.scale``            raise      ``RuntimeError`` in the autoscaler's
+                                      action: ``tag="spawn"`` before a
+                                      scale-up launches a replica,
+                                      ``tag="drain"`` in the scale-down
+                                      quiesce wait (``action=sleep`` there
+                                      is a hang during the drain, which
+                                      times out into a journaled forced
+                                      retirement)
 =========================  =========  =====================================
 
 A plan (the ``--chaos`` flag) is comma-separated site specs with
@@ -69,9 +85,8 @@ colon-separated options, or ``@plan.json`` holding a list of spec objects::
 
     --chaos "train.step:if_folds_over=4,checkpoint.write:after=1"
 
-The JAX package's other sites (fetch, ``replica.network``, fleets,
-cells, the HA front) instrument code the port does not have yet; a
-plan that names one is refused.
+The JAX package's other sites (fetch, cells, the HA front) instrument
+code the port does not have yet; a plan that names one is refused.
 """
 
 from __future__ import annotations
@@ -93,13 +108,13 @@ SITES = ("data.read", "train.step", "train.chunk", "train.hang",
          "checkpoint.write", "checkpoint.write_async", "host.preempt",
          "session.snapshot", "session.restore", "spool.mirror",
          "serve.forward", "serve.hang", "serve.degrade", "session.drift",
-         "adapt.train", "adapt.promote")
+         "adapt.train", "adapt.promote", "replica.network", "fleet.scale")
 
 # The JAX package's sites that instrument modules not ported yet.
-UNPORTED_SITES = ("fetch.download", "replica.network", "cell.partition",
-                  "fleet.scale", "front.lease")
+UNPORTED_SITES = ("fetch.download", "cell.partition", "front.lease")
 
-ACTIONS = ("raise", "corrupt", "preempt", "sleep", "slow", "drift")
+ACTIONS = ("raise", "corrupt", "preempt", "sleep", "slow", "truncate",
+           "drift")
 
 # action="sleep" without sleep=: long enough that a watchdog fires first,
 # short enough that an unwatched plan eventually lets the process go.
@@ -110,6 +125,12 @@ DEFAULT_SLOW_S = 0.25
 # drift visibly misclassifies, and the numbers stay tame.
 DEFAULT_DRIFT_SCALE = 3.0
 DEFAULT_DRIFT_OFFSET = 2.0
+
+
+class ResponseTruncated(Exception):
+    """Raised by ``action="truncate"``: the instrumented reply path catches
+    it and sends a cut-off body over a closed connection instead of the
+    real response."""
 
 
 class DriftInjected(Exception):
@@ -168,6 +189,10 @@ _DEFAULTS: dict[str, tuple[str, str | None, str]] = {
                     "injected fault: adapt.train (hit {hit})"),
     "adapt.promote": ("raise", "RuntimeError",
                       "injected fault: adapt.promote (hit {hit})"),
+    "replica.network": ("truncate", None,
+                        "injected truncation: replica.network (hit {hit})"),
+    "fleet.scale": ("raise", "RuntimeError",
+                    "injected fault: fleet.scale (hit {hit})"),
 }
 
 
@@ -404,6 +429,8 @@ def fire(site: str, **ctx) -> None:
         seconds = getattr(spec, action)
         time.sleep(default if seconds is None else seconds)
         return
+    if action == "truncate":
+        raise ResponseTruncated(message)
     if action == "drift":
         raise DriftInjected(
             message,

@@ -31,9 +31,12 @@ ends there: nothing falls back quietly.  Every decision is a
 reads from one stream (``obs/schema.py::event_summary``).
 
 SIGTERM or SIGINT to the supervisor is forwarded to the child and ends
-supervision once the child exits (no relaunch).  The JAX package's
-``MultiSupervisor`` (one supervisor for a fleet's replicas) is not ported:
-it has no consumer until ``serve/fleet/`` is (ROADMAP.md queue A.6).
+supervision once the child exits (no relaunch).
+
+:class:`MultiSupervisor` is the JAX package's supervisor of N children at
+once (a replica fleet's): the same policy per child, every wait a
+deadline polled beside the siblings, ``add_child``/``retire_child`` for
+the autoscaler, and ``child=<name>`` on every journaled decision.
 
     python -m eegnetreplication_tpu_torch.resil.supervise --hang step=60 \\
         -- python -m eegnetreplication_tpu_torch.train \\
@@ -47,6 +50,7 @@ import os
 import random
 import subprocess
 import sys
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -282,6 +286,423 @@ class Supervisor:
                 kind, delay, ", --resume appended" if resume else "")
             if delay > 0:
                 self._sleep(delay)
+
+
+@dataclass
+class ChildSpec:
+    """One child of a :class:`MultiSupervisor`: a name (journaled on every
+    decision about it), the command, its own heartbeat file, and optional
+    per-child environment overrides (the fleet uses these to give each
+    replica its own port/heartbeat without N command templates)."""
+
+    name: str
+    cmd: list[str]
+    heartbeat_file: str | Path | None = None
+    env: dict | None = None
+
+
+# _Child terminal/active states (MultiSupervisor bookkeeping).
+_RUNNING = "running"
+_BACKOFF = "backoff"        # waiting for relaunch_at
+_DONE = "done"
+_FATAL = "fatal"
+_CRASH_LOOP = "crash_loop"
+
+
+class _Child:
+    """Runtime state for one supervised child (internal to
+    :class:`MultiSupervisor`; exposed read-only through ``children``)."""
+
+    def __init__(self, spec: ChildSpec):
+        self.spec = spec
+        self.proc: subprocess.Popen | None = None
+        self.state = _BACKOFF
+        self.relaunch_at = 0.0          # monotonic instant for _BACKOFF
+        self.launched_t = 0.0           # time.time() of the last launch
+        self.attempt = 0
+        self.resume = False
+        self.transient_attempts = 0
+        self.restarts: deque[float] = deque()
+        self.hang_killed = False
+        self.term_deadline: float | None = None  # SIGTERM->SIGKILL window
+        self.last_exit: int | None = None
+        self.retiring = False           # retire_child asked for teardown
+
+    @property
+    def pid(self) -> int | None:
+        return self.proc.pid if self.proc is not None else None
+
+    @property
+    def terminal(self) -> bool:
+        return self.state in (_DONE, _FATAL, _CRASH_LOOP)
+
+
+class MultiSupervisor:
+    """Supervise N children concurrently under one policy, independently.
+
+    The single-child :class:`Supervisor` blocks on its one child; a
+    replica fleet needs N children where one crash restarts ONE child
+    while its siblings keep serving.  Each child gets its own heartbeat
+    watchdog (pid-gated, per-phase budgets), its own SIGTERM->SIGKILL
+    escalation window, its own transient-restart backoff (non-blocking —
+    a backing-off child never delays a sibling's supervision), and its own
+    sliding-window crash-loop breaker: a child that cannot stay up is
+    retired with a journaled ``supervisor_giveup`` while the rest of the
+    fleet keeps running.  Every event carries ``child=<name>``.
+
+    A stop request (SIGTERM/SIGINT under ``preempt.guard``, or
+    :meth:`stop` for in-process embedders like the fleet bench) forwards
+    SIGTERM to every running child, escalates stragglers after
+    ``grace_s``, and ends supervision with no relaunches.
+
+    Membership is dynamic: :meth:`add_child` joins a new child to a
+    running supervisor (launched by the loop's next poll) and
+    :meth:`retire_child` tears down exactly the named child — SIGTERM,
+    grace, SIGKILL — without disturbing siblings, then forgets its
+    crash-loop breaker state entirely, so the autoscaler can grow and
+    shrink the fleet through the same per-child machinery a static fleet
+    already trusts.  Once either has been called, ``run()`` keeps
+    supervising through all-terminal instants and exits only on a stop.
+
+    ``run()`` returns 0 when every child completed (a drain exit —
+    ``EX_PREEMPTED`` after our own stop — counts as completed),
+    ``EX_CRASH_LOOP`` when any child was retired by its breaker, else
+    ``EX_FATAL`` when any child exited fatally — including children
+    retired BEFORE a stop request arrived (``supervisor_end`` then says
+    ``status="stopped"`` but keeps the degraded code).
+
+    Deliberately a separate loop from :class:`Supervisor` rather than a
+    generalization of it: the single-child supervisor blocks through its
+    backoff sleeps and its hang-kill grace window (semantics its tests
+    pin exactly, e.g. the seeded backoff schedule), while N children
+    need every wait to be a DEADLINE polled alongside the siblings so
+    one bouncing replica never stalls another's supervision.  The shared
+    vocabulary (classify_exit, SupervisorPolicy, the journal event
+    shapes) is factored; the loops are not.
+    """
+
+    def __init__(self, specs: list[ChildSpec], *,
+                 policy: SupervisorPolicy | None = None,
+                 journal=None, env: dict | None = None,
+                 sleep=time.sleep, popen=subprocess.Popen):
+        if not specs:
+            raise ValueError("MultiSupervisor needs at least one child")
+        names = [s.name for s in specs]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate child names: {names}")
+        self.policy = policy or SupervisorPolicy()
+        self.journal = journal if journal is not None \
+            else obs_journal.current()
+        self.watchdog = hb.Watchdog(self.policy.thresholds)
+        self._env = env
+        self._sleep = sleep
+        self._popen = popen
+        self._stop = False
+        self._stop_lock = threading.Lock()
+        # Guards mutation of the children dict (add_child/retire_child run
+        # on other threads — e.g. the autoscaler — while run() polls).
+        self._children_lock = threading.Lock()
+        # Set by the first add_child/retire_child: an elastic fleet keeps
+        # supervising through transient all-terminal instants (a retire
+        # can empty the dict just before the next scale-up) and only exits
+        # on an explicit stop.
+        self._dynamic = False
+        self.children: dict[str, _Child] = {
+            s.name: _Child(s) for s in specs}
+
+    # -- external control --------------------------------------------------
+    def stop(self) -> None:
+        """Request a graceful stop (thread-safe): children get SIGTERM at
+        the next poll, stragglers SIGKILL after ``grace_s``."""
+        with self._stop_lock:
+            self._stop = True
+
+    def _stop_requested(self) -> bool:
+        with self._stop_lock:
+            if self._stop:
+                return True
+        return preempt.requested()
+
+    # -- dynamic membership (the autoscaler's seam) ------------------------
+    def add_child(self, spec: ChildSpec) -> None:
+        """Add one child to a RUNNING supervisor (thread-safe).
+
+        The child starts in backoff with an immediate relaunch deadline,
+        so the supervision loop launches it on its next poll — all
+        process operations stay on the supervising thread.  A re-added
+        name gets a brand-new :class:`_Child`: the previous incarnation's
+        crash-loop breaker window, attempt count, and resume flag are
+        deliberately forgotten (retirement is not a crash).
+        """
+        with self._children_lock:
+            if spec.name in self.children:
+                raise ValueError(f"duplicate child name: {spec.name!r}")
+            self._dynamic = True
+            self.children[spec.name] = _Child(spec)
+
+    def retire_child(self, name: str, *, wait_s: float | None = 10.0
+                     ) -> bool:
+        """Retire ONE named child: SIGTERM, ``grace_s``, SIGKILL, then
+        forget it — siblings are never touched (thread-safe).
+
+        The teardown itself happens on the supervision thread (the only
+        thread that owns child processes); this call marks the child and,
+        with ``wait_s``, blocks until the loop has reaped it.  Returns
+        True once the child is gone (an unknown name counts — retiring
+        twice must be idempotent), False on a wait timeout.
+        """
+        with self._children_lock:
+            self._dynamic = True
+            child = self.children.get(name)
+            if child is None:
+                return True
+            child.retiring = True
+        if wait_s is None:
+            return False
+        deadline = time.monotonic() + wait_s
+        while time.monotonic() < deadline:
+            with self._children_lock:
+                if name not in self.children:
+                    return True
+            time.sleep(min(self.policy.poll_s, 0.05))
+        with self._children_lock:
+            return name not in self.children
+
+    def _reap_retiring(self, child: _Child) -> None:
+        """Tear down one retiring child without blocking the loop:
+        SIGTERM now, SIGKILL at the grace deadline, and once the process
+        is gone drop the child from the dict entirely (its breaker
+        history dies with it)."""
+        proc = child.proc
+        if proc is not None and proc.poll() is None:
+            if child.term_deadline is None:
+                logger.info("MultiSupervisor: retiring %s (pid %d) — "
+                            "SIGTERM", child.spec.name, proc.pid)
+                proc.terminate()
+                child.term_deadline = time.monotonic() + self.policy.grace_s
+            self._escalate_if_due(child)
+            if proc.poll() is None:
+                return  # still draining; reap on a later poll
+        code = proc.wait() if proc is not None else None
+        child.last_exit = code
+        child.state = _DONE
+        self.journal.event("supervisor_exit", child=child.spec.name,
+                           attempt=child.attempt, exit_code=code,
+                           classification="retired")
+        logger.info("MultiSupervisor: child %s retired (exit %s)",
+                    child.spec.name, code)
+        with self._children_lock:
+            self.children.pop(child.spec.name, None)
+
+    # -- per-child lifecycle ----------------------------------------------
+    def _launch(self, child: _Child) -> None:
+        spec = child.spec
+        cmd = list(spec.cmd)
+        if child.resume and self.policy.resume_arg \
+                and self.policy.resume_arg not in cmd:
+            cmd.append(self.policy.resume_arg)
+        env = dict(self._env if self._env is not None else os.environ)
+        if spec.env:
+            env.update({k: str(v) for k, v in spec.env.items()})
+        if spec.heartbeat_file is not None:
+            Path(spec.heartbeat_file).unlink(missing_ok=True)
+            env[hb.HEARTBEAT_FILE_ENV] = str(spec.heartbeat_file)
+        child.attempt += 1
+        child.hang_killed = False
+        child.term_deadline = None
+        child.launched_t = time.time()
+        child.proc = self._popen(cmd, env=env)
+        child.state = _RUNNING
+        self.journal.event("supervisor_launch", child=spec.name,
+                           attempt=child.attempt, cmd=cmd,
+                           pid=child.proc.pid, resume=child.resume)
+        logger.info("MultiSupervisor launched %s attempt %d (pid %d)",
+                    spec.name, child.attempt, child.proc.pid)
+
+    def _begin_hang_kill(self, child: _Child, verdict: hb.Staleness) -> None:
+        """SIGTERM now, arm the non-blocking SIGKILL deadline — a hung
+        child's grace window must not stall its siblings' supervision."""
+        assert child.proc is not None
+        self.journal.event("supervisor_hang", child=child.spec.name,
+                           attempt=child.attempt, pid=child.proc.pid,
+                           age_s=round(verdict.age_s, 3),
+                           threshold_s=round(verdict.threshold_s, 3),
+                           phase=verdict.phase)
+        self.journal.metrics.inc("supervisor_hangs")
+        logger.warning(
+            "MultiSupervisor: child %s (pid %d) looks hung (phase %s, "
+            "last beat %.1fs ago, budget %.1fs) — SIGTERM",
+            child.spec.name, child.proc.pid, verdict.phase, verdict.age_s,
+            verdict.threshold_s)
+        child.hang_killed = True
+        child.term_deadline = time.monotonic() + self.policy.grace_s
+        child.proc.terminate()
+
+    def _escalate_if_due(self, child: _Child) -> None:
+        if child.term_deadline is None or child.proc is None:
+            return
+        if time.monotonic() < child.term_deadline:
+            return
+        self.journal.event("supervisor_escalate", child=child.spec.name,
+                           attempt=child.attempt, pid=child.proc.pid,
+                           signal="SIGKILL", grace_s=self.policy.grace_s)
+        logger.warning("MultiSupervisor: child %s survived SIGTERM for "
+                       "%.1fs — SIGKILL", child.spec.name,
+                       self.policy.grace_s)
+        child.proc.kill()
+        child.term_deadline = None
+
+    def _crash_loop_tripped(self, child: _Child, now: float) -> bool:
+        window = self.policy.restart_window_s
+        while child.restarts and now - child.restarts[0] > window:
+            child.restarts.popleft()
+        return len(child.restarts) >= self.policy.max_restarts
+
+    def _on_exit(self, child: _Child, stopping: bool) -> None:
+        """Classify one child's exit; schedule its relaunch or retire it.
+        Never blocks (backoff is a deadline, not a sleep)."""
+        assert child.proc is not None
+        code = child.proc.wait()
+        child.last_exit = code
+        kind = classify_exit(code, hang_killed=child.hang_killed,
+                             fatal_exit_codes=self.policy.fatal_exit_codes)
+        if stopping and kind == PREEMPTED:
+            # Our own stop request drained it: that is completion here.
+            kind = COMPLETED
+        self.journal.event("supervisor_exit", child=child.spec.name,
+                           attempt=child.attempt, exit_code=code,
+                           classification=kind)
+        logger.info("MultiSupervisor: child %s attempt %d exited %d (%s)",
+                    child.spec.name, child.attempt, code, kind)
+        if stopping:
+            # Under a stop, any non-fatal exit is a completed drain.
+            child.state = _FATAL if kind == FATAL else _DONE
+            return
+        if kind == COMPLETED:
+            child.state = _DONE
+            return
+        if kind == FATAL:
+            child.state = _FATAL
+            logger.error("MultiSupervisor: child %s fatal exit %d — not "
+                         "restarting", child.spec.name, code)
+            return
+        now = time.monotonic()
+        if self._crash_loop_tripped(child, now):
+            self.journal.event("supervisor_giveup", child=child.spec.name,
+                               restarts=len(child.restarts),
+                               window_s=self.policy.restart_window_s,
+                               last_exit_code=code,
+                               last_classification=kind)
+            child.state = _CRASH_LOOP
+            logger.error(
+                "MultiSupervisor: child %s crash-loop breaker tripped "
+                "(%d restarts inside %.0fs) — retiring it",
+                child.spec.name, len(child.restarts),
+                self.policy.restart_window_s)
+            return
+        child.restarts.append(now)
+        if kind == TRANSIENT:
+            child.transient_attempts += 1
+            delay = self.policy.backoff.delay(child.transient_attempts)
+        else:
+            child.transient_attempts = 0
+            delay = 0.0
+        child.resume = child.resume or self.policy.resume_arg is not None
+        child.state = _BACKOFF
+        child.relaunch_at = now + delay
+        self.journal.event("supervisor_restart", child=child.spec.name,
+                           attempt=child.attempt, reason=kind,
+                           delay_s=round(delay, 3), resume=child.resume)
+        self.journal.metrics.inc("supervisor_restarts", reason=kind)
+        logger.warning("MultiSupervisor: relaunching %s after %s exit "
+                       "(backoff %.2fs)", child.spec.name, kind, delay)
+
+    # -- the supervision loop ---------------------------------------------
+    def _poll_child(self, child: _Child, stopping: bool) -> None:
+        if child.terminal:
+            return
+        if child.retiring:
+            # Checked before _BACKOFF so a retiring child is never
+            # (re)launched — retire_child only sets the flag; every
+            # process operation happens here, on this thread.
+            self._reap_retiring(child)
+            return
+        if child.state == _BACKOFF:
+            if stopping:
+                child.state = _DONE  # never launched again under a stop
+            elif time.monotonic() >= child.relaunch_at:
+                self._launch(child)
+            return
+        assert child.proc is not None
+        if child.proc.poll() is not None:
+            self._on_exit(child, stopping)
+            return
+        if stopping:
+            if child.term_deadline is None:
+                logger.warning("MultiSupervisor: stop requested — "
+                               "forwarding SIGTERM to %s (pid %d)",
+                               child.spec.name, child.proc.pid)
+                child.proc.terminate()
+                child.term_deadline = time.monotonic() + self.policy.grace_s
+            self._escalate_if_due(child)
+            return
+        self._escalate_if_due(child)
+        if child.term_deadline is not None \
+                or child.spec.heartbeat_file is None:
+            return
+        verdict = self.watchdog.check_file(
+            child.spec.heartbeat_file, since=child.launched_t,
+            pid=child.proc.pid)
+        if verdict.stale:
+            self._begin_hang_kill(child, verdict)
+
+    def run(self) -> int:
+        """Supervise until every child is retired/complete (or a stop
+        request drains the fleet); returns the aggregate exit code."""
+        self.journal.event(
+            "supervisor_start", mode="multi",
+            cmd=[c.spec.cmd for c in self.children.values()],
+            children=list(self.children),
+            grace_s=self.policy.grace_s,
+            max_restarts=self.policy.max_restarts,
+            restart_window_s=self.policy.restart_window_s)
+        stopping = False
+        while True:
+            if not stopping and self._stop_requested():
+                stopping = True
+            with self._children_lock:
+                kids = list(self.children.values())
+            for child in kids:
+                self._poll_child(child, stopping)
+            with self._children_lock:
+                # A dynamic fleet only exits on an explicit stop: between
+                # a retire and the next scale-up, "everyone is terminal"
+                # (or the dict is momentarily empty) is a normal instant,
+                # not the end of supervision.
+                done = all(c.terminal for c in self.children.values()) \
+                    and (stopping or not self._dynamic)
+            if done:
+                break
+            self._sleep(self.policy.poll_s)
+        states = {name: c.state for name, c in self.children.items()}
+        # The exit code reports the worst child outcome even under a stop
+        # request: a child retired by its crash-loop breaker (or a fatal
+        # exit) before the operator's SIGTERM is still a degraded fleet,
+        # and scripts gating on the code must not read it as green.  Only
+        # the STATUS distinguishes "we were asked to stop" from "all
+        # children ran to completion".
+        if any(c.state == _CRASH_LOOP for c in self.children.values()):
+            status, code = "crash_loop", EX_CRASH_LOOP
+        elif any(c.state == _FATAL for c in self.children.values()):
+            status, code = FATAL, EX_FATAL
+        else:
+            status, code = COMPLETED, 0
+        if stopping:
+            status = "stopped"
+        self.journal.event("supervisor_end", status=status,
+                           exit_code=code, children=states)
+        logger.info("MultiSupervisor: done (%s): %s", status, states)
+        return code
 
 
 def _parse_thresholds(specs: list[str]) -> dict[str, float]:

@@ -89,7 +89,10 @@ it refuses).  The run writes the JAX service's journal (``serve_start``,
 ``heartbeat``, ``probe``, the session and adaptation events,
 ``serve_end``) under ``--metricsDir``.  SIGTERM/SIGINT stop the listener,
 drain the queue, snapshot the sessions and exit 75
-(``resil/preempt.py``).  ``replica.network`` is not ported.
+(``resil/preempt.py``).  Every reply probes the ``replica.network``
+chaos site: a ``truncate`` firing sends half the body under the full
+``Content-Length`` and closes the connection, the half-answered socket a
+fleet router must fail over.
 """
 
 from __future__ import annotations
@@ -187,6 +190,12 @@ PROFILE_MAX_S = 60.0
 # so seconds of silence while idle mean it is gone or wedged; a beat
 # parked in serve_forward gets a forward-plus-retry allowance.
 SERVE_WATCHDOG_THRESHOLDS = {"serve_idle": 10.0, "serve_forward": 60.0}
+
+# The client headers a routing tier (the fleet's router) carries verbatim
+# to the serving process on every dispatch and every failover retry: the
+# deadline, the admission class and the zoo tenant.  The trace headers
+# ride the trace context instead (trace.headers() per attempt).
+PASSTHROUGH_HEADERS = ("X-Model", "X-Deadline-Ms", "X-Priority")
 
 
 def make_infer_fn(registry, breaker: CircuitBreaker | None = None,
@@ -773,10 +782,12 @@ class ServeApp:
         }
 
 
-class _ServeHandler(BaseHTTPRequestHandler):
-    """One request; instances live on the ThreadingHTTPServer's threads."""
+class JsonRequestHandler(BaseHTTPRequestHandler):
+    """The HTTP plumbing the serving handlers share (one server's and the
+    fleet's router): kept-alive JSON replies with an explicit
+    Content-Length, body reads, debug-level access logging and the
+    ``/metrics`` negotiation.  Subclasses provide the routes."""
 
-    app: ServeApp = None  # bound by ServeApp.start()
     protocol_version = "HTTP/1.1"
     # TCP_NODELAY on each connection: a reply goes out as two writes
     # (headers, body), and on a kept-alive connection Nagle's algorithm
@@ -788,15 +799,10 @@ class _ServeHandler(BaseHTTPRequestHandler):
         logger.debug("serve http: " + fmt, *args)
 
     def _reply(self, code: int, payload: dict) -> None:
-        body = json.dumps(payload).encode()
-        self.send_response(code)
-        self.send_header("Content-Type", "application/json")
-        self.send_header("Content-Length", str(len(body)))
-        self.end_headers()
-        self.wfile.write(body)
+        self._reply_bytes(code, json.dumps(payload).encode())
 
     def _reply_bytes(self, code: int, body: bytes,
-                     content_type: str = "application/octet-stream") -> None:
+                     content_type: str = "application/json") -> None:
         self.send_response(code)
         self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
@@ -806,6 +812,41 @@ class _ServeHandler(BaseHTTPRequestHandler):
     def _read_body(self) -> bytes:
         length = int(self.headers.get("Content-Length", 0) or 0)
         return self.rfile.read(length) if length else b""
+
+    def _reply_metrics(self, journal) -> None:
+        """``GET /metrics``: the JSON snapshot, or the Prometheus text when
+        the Accept header names ``text/plain`` (or OpenMetrics)."""
+        snapshot = journal.metrics.snapshot(run_id=journal.run_id)
+        if wants_prometheus(self.headers.get("Accept")):
+            self._reply_bytes(200, to_prometheus_text(snapshot).encode(),
+                              content_type=PROMETHEUS_CONTENT_TYPE)
+            return
+        self._reply(200, snapshot)
+
+
+class _ServeHandler(JsonRequestHandler):
+    """One request; instances live on the ThreadingHTTPServer's threads."""
+
+    app: ServeApp = None  # bound by ServeApp.start()
+
+    def _reply_bytes(self, code: int, body: bytes,
+                     content_type: str = "application/json") -> None:
+        """Every reply probes the ``replica.network`` chaos site: a
+        ``truncate`` firing sends the first half of the body under a
+        Content-Length that claims all of it, then closes the
+        connection."""
+        try:
+            inject.fire("replica.network", status=code, n_bytes=len(body),
+                        tag=self.app.chaos_tag if self.app else None)
+        except inject.ResponseTruncated:
+            self.send_response(code)
+            self.send_header("Content-Type", content_type)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body[: len(body) // 2])
+            self.close_connection = True
+            return
+        super()._reply_bytes(code, body, content_type)
 
     def _parse_predict_body(self, body: bytes
                             ) -> tuple[np.ndarray, object, object]:
@@ -836,16 +877,6 @@ class _ServeHandler(BaseHTTPRequestHandler):
             raise ValueError(f"deadline must be a finite number of ms > 0, "
                              f"got {ms}")
         return ms
-
-    def _reply_metrics(self, journal) -> None:
-        """``GET /metrics``: the JSON snapshot, or the Prometheus text when
-        the Accept header names ``text/plain`` (or OpenMetrics)."""
-        snapshot = journal.metrics.snapshot(run_id=journal.run_id)
-        if wants_prometheus(self.headers.get("Accept")):
-            self._reply_bytes(200, to_prometheus_text(snapshot).encode(),
-                              content_type=PROMETHEUS_CONTENT_TYPE)
-            return
-        self._reply(200, snapshot)
 
     def do_GET(self):  # noqa: N802 — stdlib naming
         if self.path == "/healthz":
@@ -1333,7 +1364,7 @@ class _ServeHandler(BaseHTTPRequestHandler):
         except KeyError:
             self._reply(404, {"error": f"unknown session {sid!r}"})
             return
-        self._reply_bytes(200, data)
+        self._reply_bytes(200, data, content_type="application/octet-stream")
 
     def _session_import(self, app: ServeApp) -> None:
         """Re-materialize an exported session here: a corrupt or tampered

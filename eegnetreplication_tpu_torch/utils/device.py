@@ -50,9 +50,11 @@ def _pin_determinism() -> None:
     torch.backends.cudnn.benchmark = False
 
 
-def select_device() -> torch.device:
-    """The device ``EEGTPU_PLATFORM`` names; raises instead of falling back."""
-    _pin_f32_numerics()
+def platform_device() -> torch.device:
+    """The device ``EEGTPU_PLATFORM`` names, checked but not set up: a host
+    without CUDA raises unless the CPU was asked for.  For a process that
+    runs no model itself (the fleet's router): the numerics pins load
+    cuDNN, seconds of a start."""
     platform = os.environ.get(PLATFORM_ENV, "").strip().lower()
     if platform == "cpu":
         return torch.device("cpu")
@@ -64,8 +66,16 @@ def select_device() -> torch.device:
         raise RuntimeError(
             "CUDA is not available on this host; the torch port does not "
             f"fall back to the CPU (set {PLATFORM_ENV}=cpu to run there)")
-    _pin_determinism()
     return torch.device("cuda", 0)
+
+
+def select_device() -> torch.device:
+    """The device ``EEGTPU_PLATFORM`` names; raises instead of falling back."""
+    _pin_f32_numerics()
+    device = platform_device()
+    if device.type == "cuda":
+        _pin_determinism()
+    return device
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:

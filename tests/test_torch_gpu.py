@@ -51,7 +51,11 @@ and DeepConvNet on the card against the CPU (logits at atol 1e-5 / rtol
 bucket graphs bitwise the eager forward; EEGNet's banded schedule against
 the grouped convolutions on the card at T = 257 and 1125 (1e-5 forward,
 1e-4 gradients) and bitwise across two runs; CSP+LDA and the
-tangent-space classifier predicting on the card as on the CPU.
+tangent-space classifier predicting on the card as on the CPU.  The
+replica fleet: ``serve.fleet --replicas 2`` on the card answers
+``/predict`` byte for byte as a replica does (but ``latency_ms``), with
+``predict_trials``' predictions, every replica's K1 launches its warm runs
+plus its graph replays.
 """
 
 import threading
@@ -1293,3 +1297,85 @@ def test_csp_and_riemann_on_the_card_match_the_cpu(cuda):
     got = csp.csp_transform(xt.to(cuda), csp.csp_fit(xt.to(cuda),
                                                      yt.to(cuda)))
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_a_two_replica_fleet_answers_as_predict(cuda, tmp_path):
+    """``python -m eegnetreplication_tpu_torch.serve.fleet --replicas 2``
+    on the card: both replicas live with one digest, and ``/predict``
+    through the fleet answers byte for byte as a replica does (but its
+    ``latency_ms``), with ``predict_trials``' predictions; every replica
+    launched K1 (its warm runs plus its graph replays)."""
+    import json
+    import os
+    import re
+    import signal
+    import subprocess
+    import sys
+    import urllib.request
+    from pathlib import Path
+
+    from eegnetreplication_tpu_torch.predict import predict_trials
+    from eegnetreplication_tpu_torch.serve.engine import (
+        load_model_from_checkpoint,
+    )
+
+    repo = Path(__file__).resolve().parents[1]
+    model = _model(22, 257, 8, 2, seed=31)
+    ckpt = checkpoint.save_checkpoint(
+        tmp_path / "m.npz", model.state_dict(),
+        metadata={"model": "eegnet", "n_channels": 22, "n_times": 257,
+                  "F1": 8, "D": 2})
+    x = torch.randn(33, 22, 257,
+                    generator=torch.Generator().manual_seed(32)).numpy()
+    want = predict_trials(load_model_from_checkpoint(ckpt, device=cuda), x,
+                          device=cuda)
+    env = {k: v for k, v in os.environ.items() if k != "EEGTPU_PLATFORM"}
+    env.update(EEGTPU_NO_LOG_FILE="1", EEGTPU_DATA_ROOT=str(tmp_path),
+               PYTHONPATH=str(repo))
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "eegnetreplication_tpu_torch.serve.fleet",
+         "--checkpoint", str(ckpt), "--replicas", "2", "--port", "0",
+         "--metricsDir", str(tmp_path / "obs")],
+        cwd=repo, env=env, stdout=subprocess.PIPE, text=True,
+        start_new_session=True)
+
+    def post(url, body):
+        req = urllib.request.Request(
+            url + "/predict", data=body, method="POST",
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.read()
+
+    try:
+        url = None
+        for line in proc.stdout:
+            if line.startswith("fleet serving at "):
+                url = line.split()[3]
+                break
+        assert url is not None, "the fleet exited before serving"
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as resp:
+            health = json.loads(resp.read())
+        assert health["n_live"] == 2 and len(health["serving_digests"]) == 1
+        mask = re.compile(rb'"latency_ms": [-+0-9.eE]+')
+        for n in (1, 33):
+            body = json.dumps({"trials": x[:n].tolist()}).encode()
+            got = post(url, body)
+            direct = post(health["replicas"][0]["url"], body)
+            assert mask.sub(b"", got) == mask.sub(b"", direct)
+            assert json.loads(got)["predictions"] == want[:n].tolist()
+        for row in health["replicas"]:
+            with urllib.request.urlopen(row["url"] + "/healthz",
+                                        timeout=30) as resp:
+                h = json.loads(resp.read())
+            launches = h["kernel_launches"]["block1"]
+            assert launches > 0
+            assert launches == len(h["buckets"]) + h["graph_replays"]
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            assert proc.wait(timeout=120) == 75
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except (ProcessLookupError, PermissionError):
+                pass

@@ -62,7 +62,11 @@ _CHILD = textwrap.dedent("""
                  "utils.predict_latency", "resil.supervise", "obs.agg",
                  "obs.top", "ops.banded", "models.convnets",
                  "models.registry", "models.csp", "models.riemann",
-                 "training.permutation"):
+                 "training.permutation", "serve.fleet",
+                 "serve.fleet.membership", "serve.fleet.router",
+                 "serve.fleet.outlier", "serve.fleet.canary",
+                 "serve.fleet.autoscaler", "serve.fleet.service",
+                 "serve.fleet.__main__", "utils.startup"):
         assert "eegnetreplication_tpu_torch." + name in names, name
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   {chip_smoke!r})

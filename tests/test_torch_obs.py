@@ -58,11 +58,14 @@ SUPERVISION_EVENTS = ("supervisor_start", "supervisor_launch",
                       "supervisor_exit", "supervisor_hang",
                       "supervisor_escalate", "supervisor_restart",
                       "supervisor_giveup", "supervisor_end", "agg_snapshot")
+FLEET_EVENTS = ("fleet_start", "fleet_member", "fleet_retry", "fleet_canary",
+                "fleet_shadow", "fleet_reload", "fleet_scale", "fleet_end",
+                "replica_ejected", "replica_readmitted", "hedge")
 
 
 def test_event_table_equals_the_jax_rows():
     events = TRAINING_EVENTS + SERVING_EVENTS + SESSION_EVENTS \
-        + CONTROL_EVENTS + ADAPT_EVENTS + SUPERVISION_EVENTS
+        + CONTROL_EVENTS + ADAPT_EVENTS + SUPERVISION_EVENTS + FLEET_EVENTS
     assert set(schema.EVENT_REQUIRED) == set(events)
     for name in events:
         assert schema.EVENT_REQUIRED[name] == jax_schema.EVENT_REQUIRED[name]
@@ -181,9 +184,10 @@ def test_parse_plan_refuses_unported_sites(site, tmp_path):
 
 
 @pytest.mark.parametrize("site", ["session.drift", "adapt.train",
-                                  "adapt.promote"])
+                                  "adapt.promote", "replica.network",
+                                  "fleet.scale"])
 def test_the_adaptation_sites_parse_as_in_jax(site):
-    """The three sites the adaptation slice ported (they left
+    """The sites the adaptation and fleet slices ported (they left
     ``UNPORTED_SITES``): the JAX fields and defaults."""
     plan = f"{site}:after=1:times=2"
     (port,), (ref,) = inject.parse_plan(plan), jax_inject.parse_plan(plan)

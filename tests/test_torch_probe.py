@@ -263,6 +263,11 @@ def test_a_probed_idle_server_proposes_no_retune(checkpoint, tmp_path):
         assert tuner.tune_once() is None
         assert app.ladder_retunes == 0
         assert _get(app.url + "/healthz")["buckets"] == [1, 8]
+        # No retune while only probes arrived.  The user requests below
+        # may retune the ladder at the server's next tune tick, as they
+        # should, so the journal is read before them.
+        probed = schema.read_events(journal.events_path, complete=False)
+        assert not [e for e in probed if e["event"] == "ladder_retune"]
         # The same count of user requests would have been seen.
         body = json.dumps({"trials": np.zeros((1, C, T)).tolist()}).encode()
         for _ in range(25):
@@ -272,5 +277,4 @@ def test_a_probed_idle_server_proposes_no_retune(checkpoint, tmp_path):
             urllib.request.urlopen(req, timeout=30).read()
         assert tuner.collect().dispatches == 25
     events = schema.read_events(journal.events_path)
-    assert not [e for e in events if e["event"] == "ladder_retune"]
     assert len([e for e in events if e["event"] == "probe"]) >= 30

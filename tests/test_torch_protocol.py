@@ -170,7 +170,7 @@ UNPORTED = {
     "precision": ["--precision", "bf16"],
     "orbax": ["--ckptFormat", "orbax"],
     # a plan naming a JAX site whose module the port lacks
-    "chaos": ["--chaos", "replica.network:times=1"],
+    "chaos": ["--chaos", "cell.partition:times=1"],
 }
 
 

@@ -278,3 +278,249 @@ def write_processed_tree(root, subjects=(1, 2), n_trials=24, nan_in=None,
             save_trials(BCICI2ADataset(X=x, y=ds.y),
                         Path(root) / "data" / "processed" / mode
                         / trials_filename(s, mode))
+
+
+# ---------------------------------------------------------------------------
+# The replica fleet: a scripted replica, a fake clock, and both packages'
+# fleet modules side by side, for the twin runs of tests/test_torch_fleet.py,
+# test_torch_gray.py and test_torch_autoscale.py.
+
+
+class FakeReplica:
+    """A scriptable serving-replica double: ``/healthz``, ``/predict``,
+    ``/reload`` and the ``/session/*`` routes a fleet forwards.
+
+    A copy of ``tests/test_fleet.py``'s double (with the session routes
+    added), so the port's tests do not import a JAX test module.  Its
+    knobs are plain attributes, changed mid-test to degrade, slow, break
+    or kill (``stop()``) the replica.  It speaks HTTP/1.0 (one connection
+    per request), so a stopped double looks dead, as a SIGKILLed process
+    does.
+    """
+
+    def __init__(self, digest: str = "d-old", port: int = 0):
+        import json
+        import threading
+        import time
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.digest = digest
+        self.healthz_digest = None           # override what /healthz shows
+        self.precision = "fp32"
+        self.buckets = (1, 8, 32)
+        self.queue_depth = 0
+        self.degraded: list[str] = []        # non-empty -> healthz 503
+        self.predict_status = 200
+        self.predict_delay = 0.0             # gray knob: slow, not dead
+        self.predictions = [0, 1, 2]
+        self.reload_fn = lambda ck: (200, "d-new")
+        self.slo_breached: list[str] = []
+        self.zoo = None
+        self.log: list[tuple[str, bytes]] = []
+        self.headers_log: list[dict] = []
+        self.sessions: dict[str, int] = {}
+        fake = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.0"
+
+            def log_message(self, *a):  # noqa: A003 — quiet
+                pass
+
+            def _reply(self, code, payload):
+                body = json.dumps(payload).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):  # noqa: N802
+                if self.path == "/healthz":
+                    self._reply(503 if fake.degraded else 200, {
+                        "status": "degraded" if fake.degraded else "ok",
+                        "degraded": fake.degraded,
+                        "variables_digest": (fake.healthz_digest
+                                             or fake.digest),
+                        "precision": fake.precision,
+                        "buckets": list(fake.buckets),
+                        "slo": {"breached": list(fake.slo_breached)},
+                        "zoo": fake.zoo,
+                        "queue_depth_requests": fake.queue_depth,
+                        "queue_depth_trials": fake.queue_depth})
+                    return
+                parts = self.path.strip("/").split("/")
+                if len(parts) == 3 and parts[0] == "session":
+                    if parts[1] not in fake.sessions:
+                        self._reply(404, {"error": "unknown session"})
+                        return
+                    self._reply(200, {"session": parts[1],
+                                      "pushes": fake.sessions[parts[1]]})
+                    return
+                self._reply(404, {})
+
+            def do_POST(self):  # noqa: N802
+                n = int(self.headers.get("Content-Length", 0) or 0)
+                body = self.rfile.read(n) if n else b""
+                fake.log.append((self.path, body))
+                if self.path == "/predict":
+                    fake.headers_log.append(dict(self.headers.items()))
+                    if fake.predict_delay:
+                        time.sleep(fake.predict_delay)
+                    if fake.predict_status != 200:
+                        self._reply(fake.predict_status,
+                                    {"error": "scripted"})
+                        return
+                    self._reply(200, {"predictions": fake.predictions,
+                                      "n": len(fake.predictions),
+                                      "model_digest": fake.digest})
+                    return
+                if self.path == "/reload":
+                    ck = json.loads(body.decode()).get("checkpoint")
+                    status, result = fake.reload_fn(ck)
+                    if status == 200:
+                        fake.digest = result
+                        self._reply(200, {"status": "ok",
+                                          "model_digest": result})
+                    else:
+                        self._reply(status, {"error": result})
+                    return
+                parts = self.path.strip("/").split("/")
+                if parts[0] == "session":
+                    self._session(parts, body)
+                    return
+                self._reply(404, {})
+
+            def _session(self, parts, body):
+                if parts[1] in ("open", "import"):
+                    sid = json.loads(body.decode() or "{}").get("session")
+                    if sid in fake.sessions:
+                        self._reply(409, {"error": "session exists"})
+                        return
+                    fake.sessions[sid] = 0
+                    self._reply(200, {"session": sid})
+                    return
+                sid = parts[1]
+                if sid not in fake.sessions:
+                    self._reply(404, {"error": "unknown session"})
+                    return
+                if parts[2] in ("close", "discard"):
+                    pushes = fake.sessions.pop(sid)
+                    self._reply(200, {"session": sid, "pushes": pushes})
+                    return
+                fake.sessions[sid] += 1
+                self._reply(200, {"session": sid,
+                                  "pushes": fake.sessions[sid]})
+
+        self._httpd = ThreadingHTTPServer(("127.0.0.1", port), Handler)
+        self._httpd.daemon_threads = True
+        self.port = self._httpd.server_address[1]
+        self.url = f"http://127.0.0.1:{self.port}"
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def predict_count(self) -> int:
+        return sum(1 for path, _ in self.log if path == "/predict")
+
+    def reload_checkpoints(self) -> list[str]:
+        import json
+
+        return [json.loads(body.decode()).get("checkpoint")
+                for path, body in self.log if path == "/reload"]
+
+    def stop(self):
+        self._httpd.shutdown()
+        self._httpd.server_close()
+
+
+class FakeClock:
+    """A monotonic clock a test moves by hand (``t``, or ``sleep(s)``)."""
+
+    def __init__(self, t: float = 1000.0):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+    def sleep(self, seconds: float) -> None:
+        self.t += seconds
+
+
+def fleet_packages() -> dict:
+    """``{"jax": ns, "port": ns}``: each package's fleet modules and the
+    obs, resilience and serve modules they stand on, under the same names,
+    so one scenario runs unchanged against either package."""
+    import importlib
+    from types import SimpleNamespace
+
+    names = {
+        "journal": "obs.journal", "schema": "obs.schema",
+        "trace": "obs.trace", "inject": "resil.inject",
+        "breaker": "resil.breaker", "supervise": "resil.supervise",
+        "admission": "serve.admission", "service": "serve.service",
+        "ms": "serve.fleet.membership", "router": "serve.fleet.router",
+        "outlier": "serve.fleet.outlier", "canary": "serve.fleet.canary",
+        "autoscaler": "serve.fleet.autoscaler",
+        "fleet": "serve.fleet.service",
+    }
+    out = {}
+    for key, root in (("jax", "eegnetreplication_tpu"),
+                      ("port", "eegnetreplication_tpu_torch")):
+        out[key] = SimpleNamespace(name=key, **{
+            attr: importlib.import_module(f"{root}.{mod}")
+            for attr, mod in names.items()})
+    return out
+
+
+# Fields of a journal event that vary from run to run (clocks, process
+# ids, ports, ids drawn at random): a twin run compares everything else.
+VOLATILE_FIELDS = frozenset({
+    "t", "run_id", "wall_s", "latency_ms", "delay_ms", "hedge_wait_ms",
+    "pid", "url", "host", "port", "waited_s", "joining_s", "age_s",
+    "dur_ms", "start", "span_id", "trace_id", "parent_span_id", "p95_ms",
+    "fleet_p50_ms", "threshold_ms", "elapsed_s", "cmd", "replicas",
+    "git_sha", "config", "platform", "device_kind", "n_devices",
+    "schema_version", "mesh_shape",
+})
+
+
+def journal_sequence(events: list[dict], kinds: tuple[str, ...] | None
+                     = None) -> list[tuple]:
+    """A journal as ``(event, sorted keys, stable fields)`` tuples: the
+    event names in order, each event's key set, and the values of the
+    fields that do not vary between runs (``VOLATILE_FIELDS`` excluded).
+    ``kinds`` keeps only those events.  A duration printed into a reason
+    (``heartbeat_stale:serve_idle:3600.0s``) reads as ``<s>``."""
+    import re
+
+    out = []
+    for e in events:
+        if kinds is not None and e["event"] not in kinds:
+            continue
+        stable = tuple(sorted(
+            (k, re.sub(r"\d+\.\d+s\b", "<s>", v) if k == "reason"
+             and isinstance(v, str) else repr(v))
+            for k, v in e.items() if k not in VOLATILE_FIELDS))
+        out.append((e["event"], tuple(sorted(e)), stable))
+    return out
+
+
+def journal_views(sequence: list[tuple]) -> dict:
+    """The order-stable views of a :func:`journal_sequence`: one replica's
+    events in order (a membership poll asks every replica at once, so the
+    events of two replicas in one poll interleave by chance), the other
+    events in order, and the whole sequence as a multiset."""
+    from collections import Counter
+
+    per_member: dict[str, list[tuple]] = {}
+    rest = []
+    for item in sequence:
+        fields = dict(item[2])
+        member = fields.get("replica") or fields.get("child")
+        if member is None:
+            rest.append(item)
+        else:
+            per_member.setdefault(member, []).append(item)
+    return {"members": per_member, "rest": rest,
+            "all": Counter(sequence)}
