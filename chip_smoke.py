@@ -152,15 +152,16 @@ hand-written kernel against its plain PyTorch version:
    the promotion's reload and ``/predict`` and window latency during the
    fine-tune against the control.
 
-16. supervised training at the reference's full length: phase 8's two
-   subjects replicated to nine, the within-subject protocol (36 folds, 500
-   epochs, a snapshot every 50), unbroken and, at once, under ``python -m
+16. supervised training: phase 8's two subjects replicated to nine, the
+   within-subject protocol (36 folds) at 100 of the reference's 500
+   epochs (since phase 19, for the time limit; 500 until then), a
+   snapshot every 10, unbroken and, at once, under ``python -m
    eegnetreplication_tpu_torch.resil.supervise --hang step=20 --graceS 5``
    with a chaos plan file: launch 1 reads ``host.preempt`` (exit 75 at
-   epoch 100), and the file then holds ``train.hang`` for every later
+   epoch 20), and the file then holds ``train.hang`` for every later
    launch (a plan re-armed in every launch counts its hits per process,
    so one plan on the same chunk boundaries cannot preempt one launch and
-   stall the next): launch 2 stalls at epoch 350, the ``step`` beat goes
+   stall the next): launch 2 stalls at epoch 70, the ``step`` beat goes
    stale, SIGTERM cannot end the stall, SIGKILL does, and launch 3
    completes.  The supervisor exits 0 with ``preempted, hang,
    completed``, every relaunch carries ``--resume`` once, the nine best
@@ -194,7 +195,7 @@ hand-written kernel against its plain PyTorch version:
    gates; (c) EEGNet's banded schedule: the stacked forward's logits,
    statistics and gradients against ``"lax"`` at T = 257 and 1125 (1e-5
    / 1e-4), the tiled depthwise op; the A/B of fold-epochs/s at 36
-   folds in turns banded, lax, lax, banded, one epoch of each under the
+   folds in two turns (banded, then lax), one epoch of each under the
    profiler and its peak memory; K1-stacked launches under both; two
    banded runs bitwise equal; (d) the permutation test (8 permutations
    at 22 x 257 on the separable pool, twice, bitwise), CSP+LDA and the
@@ -231,6 +232,40 @@ hand-written kernel against its plain PyTorch version:
    2``: a load step scales up and the new replica joins, the load off
    gives ``down``, ``drained``, the member's ``out`` in that order, and
    the retired process leaves the card.
+19. the cell tier, run alone after phase 18: ``python -m
+   eegnetreplication_tpu_torch.serve.cells --cells 2 --ha D --haOwner f0
+   --haTtlS 3`` (checkpoint A, the phase-18 model) goes active, and a
+   second front attached to its cells (``--attachCells``, booting beside
+   19a-c) stands by: (a) both cells live on one digest, ``/predict`` at
+   1 and 128 trials through the front a cell's reply byte for byte but
+   its ``latency_ms``, equal to ``predict_trials`` and the ``predict``
+   CLI, the argmax of card logits within atol 1e-5 / rtol 1e-4 of the
+   CPU forward, 8 clients of 1 trial through the front for 3 s (rps,
+   p50/p95/p99, none failed), every cell's K1 launches its warm runs
+   plus replays; (b) a
+   paced 250 Hz session drained off its home cell mid-stream
+   (``session_migrate``, 0 windows expired, equal to the offline
+   pipeline, its later pushes on the other cell), then undrained; (c)
+   SIGKILL of the cell holding a second session under 8 bulk clients:
+   ``cell_member(failed)`` before ``session_failover``, the client's 409
+   ``{"resume": true}`` and replay from its acked cursor to a stream
+   equal to the offline one, no bulk request failed, the supervisor's
+   ``--resume`` relaunch on the cell's port rejoins and the front's
+   breaker for it closes (its cooldown outlasts the relaunch); (d) ``POST
+   /cells/upgrade`` to checkpoint B (A with every classifier bias + 1:
+   another digest, the same argmax) under a live session and 8 clients:
+   per cell, one at a time, ``cell_upgrade`` drain, relaunch, live,
+   shadow (agreement at least 0.8), undrain; no failure, no expired
+   window, both cells on B; (e) SIGKILL of the active front: the standby
+   journals ``affinity_replay`` (f0's table) and ``front_lease(takeover)``
+   within TTL + 2 s and before the first request it serves, every bulk
+   request completes with at most one leader switch, the session equals
+   the offline pipeline; (f) every cell process's K1 launches equal its
+   warm runs plus replays and its K2s launches the pushes it ran (named
+   by their trace ids in its journal), added to the kernels line; no
+   front fenced itself; f1 exits 75 on SIGTERM, the orphaned cells are
+   killed by the pids in f0's journal, and the card lists no process of
+   the phase.
 
 Phases 10 and 11 print GFLOP/s and the MFU against the card's FP32 peak
 (``utils/flops.py``) beside fold-epochs/s at 8, 36 and 90 folds.
@@ -3937,18 +3972,23 @@ def phase_adapt(torch, np, dev, work: Path, env: dict) -> dict:
 
 
 # --------------------------------------------------------------------------
-# Phase 16: supervised training at full length, the console, and a
+# Phase 16: supervised training, the console, and a
 # supervised server
 # --------------------------------------------------------------------------
 
-SUP_EPOCHS = 500          # the reference's protocol, whole
-SUP_EVERY = 50            # a run snapshot every 50 epochs: 10 chunks
+# 16a-b run 100 of the reference's 500 epochs since phase 19 joined the
+# smoke (its 1200 s limit); the chunks, the preemption and the hang keep
+# their boundaries.  --long runs its 500.
+SUP_EPOCHS = 100
+SUP_EVERY = 10            # a run snapshot every 10 epochs: 10 chunks
+LONG_EPOCHS = 500         # --long: the reference's cross-subject protocol
+LONG_EVERY = 50
 SUP_STEP_S = 20.0         # the watchdog's step budget (a healthy epoch <1 s)
 SUP_GRACE_S = 5.0         # SIGTERM -> SIGKILL
 # Launch 1 reads the preempt plan and stops at its 2nd chunk boundary
-# (epoch 100); every later launch reads the hang plan: launch 2 (resumed
-# at 100) stalls at its 5th boundary (epoch 350), and launch 3 (resumed at
-# 350) has 3 boundaries left, fewer than 5, so it completes.
+# (epoch 20); every later launch reads the hang plan: launch 2 (resumed
+# at 20) stalls at its 5th boundary (epoch 70), and launch 3 (resumed at
+# 70) has 3 boundaries left, fewer than 5, so it completes.
 SUP_PREEMPT_AFTER = 1
 SUP_HANG_AFTER = 4
 SUP_HANG_SLEEP_S = 600.0  # outlives SIGTERM (PEP 475): SIGKILL ends it
@@ -4064,7 +4104,7 @@ def _steps(setup: dict) -> dict:
 
 def _supervised_training(torch, np, work: Path, env: dict,
                          data_root: Path) -> dict:
-    """Legs a and b: the full within-subject protocol, unbroken and under
+    """Legs a and b: the within-subject protocol, unbroken and under
     the supervisor through a preemption and a hang, at once; the console
     over both while they run and after."""
     from eegnetreplication_tpu_torch.obs.schema import event_summary
@@ -4164,7 +4204,8 @@ def _supervised_training(torch, np, work: Path, env: dict,
     supervised, unbroken = legs["supervised"][0], legs["unbroken"][0]
     _same_weights(supervised.models, unbroken.models,
                   [f"subject_{s:02d}_best_model.npz" for s in range(1, 10)],
-                  "the supervised 500-epoch run vs the unbroken one")
+                  f"the supervised {SUP_EPOCHS}-epoch run vs the unbroken "
+                  "one")
     reports = [_check_report(p.reports / "latest_within_subject_report.json",
                              WS_REPORT_KEYS, "within-subject")
                for p in (supervised, unbroken)]
@@ -4429,8 +4470,8 @@ def _long_cross_subject(torch, np, work: Path, env: dict,
          f"step={SUP_STEP_S:g}", "--graceS", f"{SUP_GRACE_S:g}",
          "--backoffSeed", "0"],
         [sys.executable, "-m", "eegnetreplication_tpu_torch.train",
-         "--trainingType", "Cross-Subject", "--epochs", str(SUP_EPOCHS),
-         "--checkpointEvery", str(SUP_EVERY), "--metricsDir", str(children),
+         "--trainingType", "Cross-Subject", "--epochs", str(LONG_EPOCHS),
+         "--checkpointEvery", str(LONG_EVERY), "--metricsDir", str(children),
          "--chaos", f"host.preempt:after={LONG_PREEMPT_AFTER}:times=1"])
     t0 = time.perf_counter()
     proc = _spawn(cmd, run_env, work / "long.log")
@@ -4452,10 +4493,10 @@ def _long_cross_subject(torch, np, work: Path, env: dict,
     journals = [_events_of(r) for r in runs]
     check([_run_end(j)["status"] for j in journals] == ["preempted", "ok"],
           "the launches' run_end statuses")
-    stop = SUP_EVERY * (LONG_PREEMPT_AFTER + 1)
+    stop = LONG_EVERY * (LONG_PREEMPT_AFTER + 1)
     check([_epochs_journaled(j) for j in journals]
           == [list(range(1, stop + 1)), list(range(stop + 1,
-                                                   SUP_EPOCHS + 1))],
+                                                   LONG_EPOCHS + 1))],
           "the launches' epochs")
     report = _check_report(paths.reports / "latest_cross_subject_report.json",
                            CS_REPORT_KEYS, "cross-subject")
@@ -4463,14 +4504,14 @@ def _long_cross_subject(torch, np, work: Path, env: dict,
     steps = _steps(setup)
     n_folds = report["model_parameters"]["total_folds"]
     check(n_folds == 90, f"{n_folds} folds")
-    fold_epochs = n_folds * SUP_EPOCHS
+    fold_epochs = n_folds * LONG_EPOCHS
     train_s = sum(_chunk_wall_s(r) for r in runs)
     row = dict(steps, fold_epochs_per_s=fold_epochs / train_s)
     row.update(_mfu_fields(row))
     peak = max(j[-1]["peak_memory_bytes"] or 0 for j in journals) / 2 ** 30
     launches = sum(j[-1]["kernel_launches"]["block1_stacked"]
                    for j in journals)
-    log(f"phase 16d (--long): cross-subject {n_folds} folds x {SUP_EPOCHS} "
+    log(f"phase 16d (--long): cross-subject {n_folds} folds x {LONG_EPOCHS} "
         f"epochs under the supervisor in {wall:.1f}s (exits {exits}), "
         f"training {row['fold_epochs_per_s']:.2f} fold-epochs/s, "
         f"{row['gflops_per_s']:.1f} GFLOP/s, {100 * (row['mfu'] or 0):.4f}% "
@@ -4485,7 +4526,7 @@ def _long_cross_subject(torch, np, work: Path, env: dict,
 
 def phase_supervised(torch, np, dev, work: Path, env: dict,
                      data_root: Path, long: bool = False) -> dict:
-    """Phase 16: supervised training at full length (a), the console on
+    """Phase 16: supervised training (a), the console on
     it (b), a supervised server (c), and with ``--long`` the cross-subject
     protocol at full length (d).  The server's leg runs beside the
     training legs: neither waits on the other, and the smoke's time limit
@@ -4522,12 +4563,14 @@ ML_CPU_FOLDS = 1          # folds of the card-vs-CPU check (CPU_EPOCHS each)
 ML_SCALE = 1e-7
 ML_LEARN_EPOCHS = 8       # the separable pool
 ML_TIME_EPOCHS = 3        # timed epochs at 8 and 36 folds
-# The banded-vs-lax A/B: timed epochs per turn (banded, lax, lax, banded),
-# after one warm-up epoch each, by fold count.  The 90-fold A/B ({90: 2})
-# is left out to keep the smoke inside its time limit since phase 18; its
-# result stands in PERF.md, and phase 11 times the 90 folds under the
-# default schedule on every run.
+# The banded-vs-lax A/B: timed epochs per turn, after one warm-up epoch
+# each, by fold count.  The 90-fold A/B ({90: 2}) is left out to keep the
+# smoke inside its time limit since phase 18; its result stands in
+# PERF.md, and phase 11 times the 90 folds under the default schedule on
+# every run.  Two turns (banded, lax) since phase 19: "auto" was decided
+# on four (banded, lax, lax, banded).
 AB_EPOCHS = {36: 3}
+AB_TURNS = ("banded", "lax")
 AB_LAUNCH_EPOCHS = 2      # the K1-stacked count and the bitwise repeat
 BANDED_FWD_TOL, BANDED_GRAD_TOL = 1e-5, 1e-4
 PERM_N, PERM_EPOCHS = 8, 10
@@ -4948,8 +4991,8 @@ def _banded_ops_on_card(torch, np, dev) -> dict:
 
 
 def _conv_ab(torch, np, dev, work: Path) -> dict:
-    """17c: fold-epochs/s of the two schedules at AB_EPOCHS' folds in turns
-    banded, lax, lax, banded; one epoch of each under the profiler; the
+    """17c: fold-epochs/s of the two schedules at AB_EPOCHS' folds in
+    AB_TURNS; one epoch of each under the profiler; the
     peak memory of each; K1-stacked launches under both; two banded runs
     bitwise equal."""
     from eegnetreplication_tpu_torch.config import DEFAULT_TRAINING, Paths
@@ -4986,7 +5029,7 @@ def _conv_ab(torch, np, dev, work: Path) -> dict:
                   f"{tr.model.conv_impl}")
             check(tr.spec.n_folds == n_folds, f"{tr.spec.n_folds} folds")
         rates = {"banded": [], "lax": []}
-        for impl in ("banded", "lax", "lax", "banded"):
+        for impl in AB_TURNS:
             rates[impl].append(_ml_rate(torch, trainers[impl],
                                         AB_EPOCHS[n_folds]))
         row = {}
@@ -5407,16 +5450,18 @@ def _router_load(np, router, bodies: list, submitters: int,
             "latency_ms": _pcts(np, lat)}
 
 
-def _replica_healths(fleet_url: str) -> dict:
-    """``{replica id: its own /healthz}`` for every member the fleet's
-    ``/healthz`` lists."""
+def _replica_healths(fleet_url: str, members: str = "replicas",
+                     key: str = "replica") -> dict:
+    """``{member id: its own /healthz}`` (with its ``url`` and ``state``)
+    for every member the fleet's ``/healthz`` lists (a cell front's:
+    ``members="cells", key="cell"``)."""
     status, health = _get(fleet_url + "/healthz")
-    check(status == 200, f"fleet /healthz answered {status}: {health}")
+    check(status == 200, f"{fleet_url}/healthz answered {status}: {health}")
     out = {}
-    for row in health["replicas"]:
+    for row in health[members]:
         s, h = _get(row["url"] + "/healthz")
-        check(s == 200, f"replica {row['replica']} /healthz answered {s}")
-        out[row["replica"]] = dict(h, url=row["url"], state=row["state"])
+        check(s == 200, f"{row[key]} /healthz answered {s}")
+        out[row[key]] = dict(h, url=row["url"], state=row["state"])
     return out
 
 
@@ -6032,6 +6077,897 @@ def phase_fleet(torch, np, dev, work: Path, env: dict) -> dict:
     return result
 
 
+# Phase 19: the cell tier.  Two cells (each one port serve process on the
+# card) behind an HA pair of fronts; a paced 250 Hz session and bulk
+# clients through every leg.
+CELLS = 2
+CELLS_TTL_S = 3.0         # the fencing lease; the active renews every 1 s
+CELLS_CLIENTS = 8         # bulk clients under the kill, upgrade, failover
+CELLS_SESSION_S = 8       # 19b's and 19c's sessions, paced at 250 Hz
+CELLS_ACT_AT = 50         # the push (of 25 samples) at which 19b drains
+                          # and 19c kills: 1250 samples, past the seed
+CELLS_LONG_S = 150        # 19d-e's session: room to outlast both legs
+CELLS_AFTER_PROMOTION_S = 3.0
+CELLS_STEADY_S = 3.0      # 19a's load through the front, both cells live
+CELLS_SNAPSHOT_EVERY = 8  # windows between a cell's spool snapshots
+CELLS_START_TIMEOUT_S = 240.0
+CELLS_LIVE_TIMEOUT_S = 240.0
+CELLS_BIAS_SHIFT = 1.0    # checkpoint B: A with every classifier bias + 1
+CELLS_AGREE_FLOOR = 0.8   # the upgrader's shadow floor (not lowered)
+
+
+def _save_shifted(torch, path: Path, seed: int, shift: float) -> Path:
+    """:func:`_save_seeded`'s model with ``shift`` added to all four
+    classifier biases: another digest, the same argmax."""
+    from eegnetreplication_tpu_torch.training import checkpoint as ckpt_lib
+
+    model = seeded_model(torch, 22, 257, 8, 2, seed, "cpu")
+    with torch.no_grad():
+        model.classifier.bias.add_(shift)
+    return ckpt_lib.save_checkpoint(
+        path, model.state_dict(),
+        metadata={"model": "eegnet", "n_channels": 22, "n_times": 257,
+                  "F1": 8, "D": 2})
+
+
+def _reply(url, method="GET", body=None, ctype="application/json",
+           headers=None, timeout=30.0) -> tuple[int, dict]:
+    """``(status, JSON reply)`` of any answer; a transport error raises
+    (``OSError``)."""
+    req = urllib.request.Request(url, data=body, method=method, headers={
+        "Content-Type": ctype, **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            data = resp.read()
+            status = resp.status
+    except urllib.error.HTTPError as exc:
+        data, status = exc.read(), exc.code
+    try:
+        return status, json.loads(data.decode() or "{}")
+    except ValueError:
+        return status, {}
+
+
+def _active_front(fronts: list, current: str | None = None) -> str | None:
+    """The front of the pair whose ``/healthz`` reports the active role
+    (``current`` asked first)."""
+    for url in ([current] if current else []) + [
+            f for f in fronts if f != current]:
+        try:
+            status, health = _reply(url + "/healthz", timeout=2.0)
+        except OSError:
+            continue
+        if status == 200 and health.get("role") == "active":
+            return url
+    return None
+
+
+class _CellSession:
+    """One paced 250 Hz session through the cell fronts, the phase-13d
+    client grown for the cell tier: every push attempt carries its own
+    sampled trace id (``X-Trace-Id: <sid>-<k>``) so each cell's journal
+    names the pushes it ran; a 409 ``{"resume": true}``, a dead front or a
+    lost session is answered by reading the acked cursor and replaying from
+    it (unpaced up to where the stream had been); a 503 from the front for
+    a dead cell retries the push; a standby's 503 or a dead front is
+    followed to the pair's active front.  Decisions delivered twice must
+    agree (a conflict otherwise)."""
+
+    def __init__(self, np, fronts: list, sid: str, x, on_push=None,
+                 stop: threading.Event | None = None):
+        self.np, self.fronts, self.sid, self.x = np, list(fronts), sid, x
+        self.base = fronts[0]
+        self.on_push, self.stop = on_push, stop
+        self.open_body = json.dumps(dict(STREAM_OPEN, session=sid)).encode()
+        self.attempts: dict[str, tuple[int, int]] = {}
+        self.by_window: dict[int, dict] = {}
+        self.conflicts: list = []
+        self.codes: dict[str, int] = {}
+        self.switches = 0
+        self.pos = self.high = self.pushes = 0
+        self._t0 = self._sent0 = None
+        self.home = None
+        self.error: BaseException | None = None
+
+    def _count(self, key) -> None:
+        self.codes[str(key)] = self.codes.get(str(key), 0) + 1
+
+    def _follow_leader(self, deadline: float) -> None:
+        while time.monotonic() < deadline:
+            url = _active_front(self.fronts, self.base)
+            if url is not None:
+                if url != self.base:
+                    self.base = url
+                    self.switches += 1
+                return
+            time.sleep(0.1)
+        raise SmokeFailure(f"session {self.sid}: no active front")
+
+    def _resync(self, deadline: float) -> int:
+        """The acked cursor (a state read, which also ends a failed-over
+        session's resync latch), re-opening a session the cells lost."""
+        while time.monotonic() < deadline:
+            try:
+                status, state = _reply(
+                    f"{self.base}/session/{self.sid}/state")
+                if status == 404:
+                    status, state = _reply(self.base + "/session/open",
+                                           "POST", self.open_body)
+            except OSError:
+                self._follow_leader(deadline)
+                continue
+            if status == 200:
+                self._count(f"resync_{status}")
+                self._t0 = None     # pacing restarts where new samples do
+                return int(state["acked"])
+            if "role" in state:
+                self._follow_leader(deadline)
+            else:
+                time.sleep(0.1)
+        raise SmokeFailure(f"session {self.sid}: no acked cursor")
+
+    def open(self) -> "_CellSession":
+        status, opened = _reply(self.base + "/session/open", "POST",
+                                self.open_body)
+        check(status == 200 and opened["acked"] == 0,
+              f"/session/open {self.sid} through the front: {status} "
+              f"{opened}")
+        self.home = opened["cell"]
+        return self
+
+    def _add(self, decisions) -> None:
+        for d in decisions:
+            prev = self.by_window.get(d["window"])
+            if prev is not None and prev["status"] == d["status"] == "ok" \
+                    and prev["pred"] != d["pred"]:
+                self.conflicts.append((d["window"], prev, d))
+            self.by_window[d["window"]] = d
+
+    def run(self) -> "_CellSession":
+        np, x = self.np, self.x
+        while self.pos < x.shape[1] and not (
+                self.stop is not None and self.stop.is_set()):
+            piece = np.ascontiguousarray(x[:, self.pos:self.pos
+                                           + STREAM_CHUNK]).astype("<f4")
+            if self.pos >= self.high:       # pace new samples, not replays
+                if self._t0 is None:
+                    self._t0, self._sent0 = time.perf_counter(), self.pos
+                delay = (self._t0 + (self.pos + piece.shape[1]
+                                     - self._sent0) / STREAM_HZ
+                         - time.perf_counter())
+                if delay > 0:
+                    time.sleep(delay)
+            tid = f"{self.sid}-{len(self.attempts):06d}"
+            self.attempts[tid] = (self.pos, piece.shape[1])
+            deadline = time.monotonic() + 120.0
+            try:
+                status, reply = _reply(
+                    f"{self.base}/session/{self.sid}/samples", "POST",
+                    piece.tobytes(), "application/octet-stream",
+                    headers={"X-Trace-Id": tid, "X-Trace-Sampled": "1"})
+            except OSError:
+                self._count("transport")
+                self._follow_leader(deadline)
+                self.pos = self._resync(deadline)
+                continue
+            self._count(status)
+            if status == 200:
+                self._add(reply["decisions"])
+                self.pos += piece.shape[1]
+                self.high = max(self.high, self.pos)
+                self.pushes += 1
+                if self.on_push is not None:
+                    self.on_push(self)
+            elif status == 409 and reply.get("resume"):
+                self.pos = self._resync(deadline)
+            elif status == 503 and "role" in reply:
+                self._follow_leader(deadline)
+                self.pos = self._resync(deadline)
+            elif status == 503:
+                time.sleep(0.1)              # the front fails the cell over
+            elif status == 404:
+                self.pos = self._resync(deadline)
+            else:
+                raise SmokeFailure(f"session {self.sid} push at {self.pos}:"
+                                   f" {status} {reply}")
+        return self
+
+    def run_in_thread(self) -> threading.Thread:
+        def target():
+            try:
+                self.run()
+            except Exception as exc:  # noqa: BLE001 — raised by close()
+                self.error = exc
+
+        th = threading.Thread(target=target, daemon=True)
+        th.start()
+        return th
+
+    def close(self, torch, engine, dev) -> dict:
+        """Close through the active front; the stream against the offline
+        pipeline over what was pushed."""
+        if self.error is not None:
+            raise self.error
+        deadline = time.monotonic() + 120.0
+        while True:
+            try:
+                status, closed = _reply(
+                    f"{self.base}/session/{self.sid}/close", "POST", b"{}")
+            except OSError:
+                self._follow_leader(deadline)
+                continue
+            if status == 503 and time.monotonic() < deadline:
+                if "role" in closed:
+                    self._follow_leader(deadline)
+                else:
+                    time.sleep(0.1)
+                continue
+            break
+        check(status == 200, f"close of {self.sid}: {status} {closed}")
+        preds, _, _ = _offline(torch, self.np, engine, self.x[:, :self.pos],
+                               dev)
+        n = len(preds)
+        got = [self.by_window.get(w, {"pred": None})["pred"]
+               for w in range(n)]
+        expired = sum(1 for d in self.by_window.values()
+                      if d["status"] == "expired")
+        check(not self.conflicts, f"{self.sid}: {len(self.conflicts)} "
+              f"re-delivered decisions conflict: {self.conflicts[:2]}")
+        check(expired == 0, f"{self.sid}: {expired} windows expired")
+        check(got == preds.tolist() and closed["preds"] == preds.tolist(),
+              f"{self.sid}: the decision stream differs from the offline "
+              "pipeline")
+        return {"pushes": self.pushes, "attempts": len(self.attempts),
+                "samples": self.pos, "windows": n, "codes": self.codes,
+                "leader_switches": self.switches, "expired": expired}
+
+    def seeded(self, tid: str) -> bool:
+        """Whether attempt ``tid`` ran the EMS carry (K2s) on its cell: a
+        push launches it once the session has seen the seed block."""
+        pos, n = self.attempts[tid]
+        return n > 0 and pos + n >= STREAM_BLOCK
+
+
+class _LeaderLoad(_HttpLoad):
+    """:class:`_HttpLoad` across an HA pair: a request that meets a dead
+    front, a standby's 503 or any other 503 or 429 is sent again to the
+    active front within 60 s (each attempt given 15 s); the most leader
+    switches one request needed is ``max_switches``."""
+
+    def __init__(self, fronts: list, bodies: list, clients: int):
+        super().__init__(fronts[0], bodies, clients)
+        self.fronts = list(fronts)
+        self.current = fronts[0]
+        self.max_switches = 0
+        self.switches = 0
+
+    def _client(self, i: int) -> None:
+        k = i
+        while not self.stop_evt.is_set():
+            body = self.bodies[k % len(self.bodies)]
+            k += 1
+            t0 = time.perf_counter()
+            deadline = time.monotonic() + 60.0
+            mine, switched, ok, last = self.current, 0, False, None
+            while time.monotonic() < deadline:
+                url = self.current
+                if url != mine:
+                    mine, switched = url, switched + 1
+                t_try = time.perf_counter()
+                try:
+                    status, _ = _post_raw(url + "/predict", body, self.ctype,
+                                          timeout=15.0)
+                except OSError as exc:
+                    status = None
+                    last = (f"{type(exc).__name__} after "
+                            f"{time.perf_counter() - t_try:.1f}s")
+                if status == 200:
+                    ok = True
+                    break
+                if status not in (None, 429, 503):
+                    break
+                leader = _active_front(self.fronts, url)
+                with self.lock:
+                    if leader is not None and leader != self.current:
+                        self.current = leader
+                        self.switches += 1
+                time.sleep(0.05)
+            dt = (time.perf_counter() - t0) * 1000.0
+            with self.lock:
+                self.max_switches = max(self.max_switches, switched)
+                if ok:
+                    self.latencies.append(dt)
+                else:
+                    self.failures.append(f"{status} ({last}) after "
+                                         f"{switched} switches")
+
+    def stop(self, np) -> dict:
+        return dict(super().stop(np), leader_switches=self.switches,
+                    max_switches=self.max_switches)
+
+
+def _cells_healthz(front: str) -> dict:
+    return _replica_healths(front, members="cells", key="cell")
+
+
+def _cell_processes(run_dir: Path) -> dict:
+    """``{cell id: [its launches' run directories, oldest first]}`` under
+    the front's run directory (each cell journals under
+    ``<cell>_obs/<run>``)."""
+    out = {}
+    for i in range(CELLS):
+        runs = _run_dirs(run_dir / f"c{i}_obs")
+        out[f"c{i}"] = sorted(runs, key=lambda d: _events_of(d)[0]["t"])
+    return out
+
+
+def _pushes_ran(events, sessions: list) -> tuple[int, int]:
+    """(pushes, K2s-running pushes) a cell process journaled: its
+    ``session.samples`` spans, each named by the trace id of the push
+    attempt that sent it."""
+    by_tid = {}
+    for s in sessions:
+        for tid in s.attempts:
+            by_tid[tid] = s
+    n = seeded = 0
+    for e in events:
+        if e["event"] == "span" and e.get("name") == "session.samples":
+            s = by_tid.get(e["trace_id"])
+            check(s is not None, f"a session.samples span of an unknown "
+                  f"push {e['trace_id']}")
+            n += 1
+            seeded += s.seeded(e["trace_id"])
+    return n, seeded
+
+
+def _cells_boot(torch, np, dev, work: Path, env: dict, ckpt: Path, x128,
+                y128, trials_path: Path, boot: dict) -> None:
+    """19a: f0 over two cells and the HA directory, active; f1 attached as
+    the standby; answers byte for byte a cell's, equal to the predict CLI
+    and the plain CPU forward's argmax; every cell's K1 count."""
+    from eegnetreplication_tpu_torch.predict import predict_trials
+    from eegnetreplication_tpu_torch.serve.engine import (
+        InferenceEngine,
+        load_model_from_checkpoint,
+    )
+
+    t0 = time.perf_counter()
+    predict_cli = _spawn_predict(["--checkpoint", str(ckpt), "--input",
+                                  str(trials_path)], env, work,
+                                 "cells_predict")
+    ha_dir = work / "ha"
+    f0 = _spawn_cli("eegnetreplication_tpu_torch.serve.cells", [
+        "--checkpoint", str(ckpt), "--cells", str(CELLS), "--ha",
+        str(ha_dir), "--haOwner", "f0", "--haTtlS", str(CELLS_TTL_S),
+        "--cellsDir", str(work / "cells"), "--metricsDir",
+        str(work / "f0_obs"), "--traceSample", "0",
+        "--sessionSnapshotEvery", str(CELLS_SNAPSHOT_EVERY),
+        "--startupTimeoutS", str(CELLS_START_TIMEOUT_S)], work, env, "f0",
+        new_session=True)
+    boot["f0"] = f0
+    try:
+        url0 = _await_url(f0, "cells serving at ", CELLS_START_TIMEOUT_S
+                          + 60)
+        boot_s = time.perf_counter() - t0
+        status, health = _get(url0 + "/healthz")
+        engine = InferenceEngine.from_checkpoint(ckpt, device=dev)
+        check(status == 200 and health["role"] == "active"
+              and health["n_live"] == CELLS
+              and {c["digest"] for c in health["cells"]} == {engine.digest},
+              f"f0 /healthz after boot: {health}")
+        attach = ",".join(f"{c['cell']}|{c['url']}|{c['spool']}"
+                          for c in health["cells"])
+        f1 = _spawn_cli("eegnetreplication_tpu_torch.serve.cells", [
+            "--attachCells", attach, "--ha", str(ha_dir), "--haOwner", "f1",
+            "--haTtlS", str(CELLS_TTL_S), "--metricsDir",
+            str(work / "f1_obs"), "--traceSample", "0"], work, env, "f1")
+        boot["f1"] = f1
+        log(f"phase 19a: f0 at {url0} active over {CELLS} cells in "
+            f"{boot_s:.1f}s, one digest; f1 starting beside it")
+
+        ref = predict_trials(load_model_from_checkpoint(ckpt, device=dev),
+                             x128, device=dev)
+        cells = _cells_healthz(url0)
+        cell_url = cells["c0"]["url"]
+        answers = {}
+        for n in (1, 128):
+            body = _npz_body(np, x128[:n])
+            s_front, b_front = _post_raw(url0 + "/predict", body,
+                                         "application/octet-stream")
+            s_cell, b_cell = _post_raw(cell_url + "/predict", body,
+                                       "application/octet-stream")
+            check(s_front == s_cell == 200, f"/predict {n}: {s_front} "
+                  f"{s_cell}")
+            check(LATENCY_MASK.sub(b"", b_front)
+                  == LATENCY_MASK.sub(b"", b_cell), f"/predict at {n} "
+                  "trials: the front's bytes differ from a cell's beyond "
+                  "latency_ms")
+            reply = json.loads(b_front)
+            check(reply["predictions"] == ref[:n].tolist()
+                  and reply["model_digest"] == engine.digest,
+                  f"/predict at {n} trials differs from predict_trials")
+            answers[n] = reply["predictions"]
+        cli_line = _check_predict_cli(np, predict_cli, work, "cells_predict",
+                                      answers[128], y128,
+                                      "predict CLI beside the cells")
+        model = load_model_from_checkpoint(ckpt, device="cpu")
+        with torch.no_grad():
+            want = model.eval()(torch.from_numpy(x128)).numpy()
+        with torch.inference_mode():
+            got = engine.forward(torch.from_numpy(x128).to(dev)).cpu()
+        got = got.numpy()
+        err = float(np.max(np.abs(got - want)))
+        check(np.allclose(got, want, atol=LOGITS_ATOL, rtol=LOGITS_RTOL)
+              and (want.argmax(-1) == np.asarray(answers[128])).all(),
+              f"card logits vs the CPU forward: max abs err {err:.3e}")
+        # The front's steady rate over two live cells, before any fault.
+        load = _HttpLoad(url0, [_npz_body(np, x128[i:i + 1])
+                                for i in range(16)], CELLS_CLIENTS).start()
+        time.sleep(CELLS_STEADY_S)
+        steady = load.stop(np)
+        check(steady["failed"] == 0, f"{steady['failed']} requests failed "
+              f"through the front: {steady['failure_samples']}")
+        k1 = {}
+        for cid, h in _cells_healthz(url0).items():
+            launches = h["kernel_launches"]["block1"]
+            want_k1 = len(h["buckets"]) + h["graph_replays"]
+            check(launches > 0 and launches == want_k1, f"{cid}: K1 "
+                  f"launches {launches} != {len(h['buckets'])} warm + "
+                  f"{h['graph_replays']} replays")
+            k1[cid] = launches
+        log(f"phase 19a: /predict at 1 and 128 trials through f0 byte-equal"
+            f" to a cell's (but latency_ms), equal to predict_trials and "
+            f"the predict CLI ({cli_line}); card logits vs CPU max abs err "
+            f"{err:.3e}; {CELLS_CLIENTS} clients of 1 trial through f0 over "
+            f"both cells {steady['rps']:.1f} req/s (p50/p95/p99 "
+            + "/".join(f"{steady['latency_ms'][q]:.2f}"
+                       for q in ("p50", "p95", "p99"))
+            + f" ms); K1 launches per cell {k1} = warm runs + replays")
+        boot.update(url0=url0, engine=engine,
+                    result={"boot_s": boot_s, "logits_max_abs_err": err,
+                            "steady": steady, "k1_launches": k1})
+    finally:
+        if predict_cli.poll() is None:
+            predict_cli.kill()
+            predict_cli.wait()
+
+
+def _cells_standby(boot: dict) -> None:
+    """f1, started in 19a, parks as the standby behind f0 (it boots while
+    19a-c run: nothing before 19d needs it)."""
+    url1 = _await_url(boot["f1"], "cells serving at ", 120)
+    status, h1 = _get(url1 + "/healthz")
+    check(status == 200 and h1["role"] == "standby"
+          and h1["leader"] == boot["url0"], f"f1 /healthz: {h1}")
+    boot["url1"] = url1
+    log(f"phase 19a: f1 at {url1} standing by behind f0")
+
+
+def _cells_migration(torch, np, dev, boot: dict, sessions: list) -> dict:
+    """19b: a paced session drained off its home mid-stream."""
+    url0, engine = boot["url0"], boot["engine"]
+    x = stream_recording(np, 1901, n=CELLS_SESSION_S * STREAM_HZ)
+    marks = {}
+
+    def on_push(s):
+        if s.pushes == CELLS_ACT_AT:
+            marks["tid"] = len(s.attempts)
+            t0 = time.perf_counter()
+            status, result = _post(f"{url0}/cell/{s.home}/drain", b"{}",
+                                   "application/json", timeout=120)
+            marks["drain_ms"] = (time.perf_counter() - t0) * 1000.0
+            check(status == 200 and result["migrated"] == [s.sid],
+                  f"drain of {s.home}: {status} {result}")
+
+    s = _CellSession(np, [url0], "s1", x, on_push=on_push).open()
+    sessions.append(s)
+    s.run()
+    row = s.close(torch, engine, dev)
+    home = s.home
+    other = next(f"c{i}" for i in range(CELLS) if f"c{i}" != home)
+    run_dir = _fleet_run_dir(boot["work"] / "f0_obs")
+    events = _events_of(run_dir)
+    migrated = [e for e in events if e["event"] == "session_migrate"
+                and e["session"] == "s1"]
+    check(len(migrated) == 1 and migrated[0]["from_cell"] == home
+          and migrated[0]["to_cell"] == other,
+          f"session_migrate of s1: {migrated}")
+    after = {f"s1-{k:06d}" for k in range(marks["tid"], len(s.attempts))}
+    runs = _cell_processes(run_dir)
+    on_home = {e["trace_id"] for e in _events_of(runs[home][-1])
+               if e["event"] == "span" and e.get("name") == "session.samples"}
+    on_other = {e["trace_id"] for e in _events_of(runs[other][-1])
+                if e["event"] == "span"
+                and e.get("name") == "session.samples"}
+    check(after <= on_other and not after & on_home,
+          "the pushes after the drain did not all run on the other cell")
+    status, undrained = _post(f"{url0}/cell/{home}/undrain", b"{}",
+                              "application/json")
+    check(status == 200, f"undrain of {home}: {status} {undrained}")
+    _wait_for(lambda: _get(url0 + "/healthz")[1]["n_live"] == CELLS, 60,
+              f"{home} live again after the undrain")
+    row.update(home=home, to=other, drain_ms=marks["drain_ms"],
+               pushes_after_drain=len(after))
+    log(f"phase 19b: s1 ({row['windows']} windows, paced 250 Hz) drained "
+        f"{home} -> {other} at push {CELLS_ACT_AT} in "
+        f"{marks['drain_ms']:.1f} ms; session_migrate journaled; 0 "
+        f"windows expired; equal to the offline pipeline; the "
+        f"{len(after)} later pushes ran on {other}; {home} undrained")
+    return row
+
+
+def _cells_kill(torch, np, dev, boot: dict, sessions: list, bodies,
+                kills: dict) -> dict:
+    """19c: SIGKILL the cell holding a session under bulk load; failover
+    through the spool, 409, replay; the supervisor's relaunch rejoins."""
+    url0, engine, work = boot["url0"], boot["engine"], boot["work"]
+    run_dir = _fleet_run_dir(work / "f0_obs")
+    x = stream_recording(np, 1902, n=CELLS_SESSION_S * STREAM_HZ)
+    mark = {}
+
+    def on_push(s):
+        if s.pushes == CELLS_ACT_AT:
+            victim = s.home
+            pid = _launched_pids(_events_of(run_dir), victim)[-1]
+            cell_url = _cells_healthz(url0)[victim]["url"]
+            for _ in range(50):
+                # Under the bulk load a replay can land between the two
+                # counters of one /healthz: read until they agree.
+                status, health = _get(cell_url + "/healthz")
+                if health["kernel_launches"]["block1"] == len(
+                        health["buckets"]) + health["graph_replays"]:
+                    break
+            check(status == 200, f"{victim} /healthz before the kill")
+            kills[victim] = {"health": health,
+                             "run_dir": _cell_processes(run_dir)[victim][-1]}
+            mark.update(victim=victim, pid=pid, t_kill=time.time())
+            os.kill(pid, signal.SIGKILL)
+
+    load = _HttpLoad(url0, bodies, CELLS_CLIENTS).start()
+    try:
+        s = _CellSession(np, [url0], "s2", x, on_push=on_push).open()
+        sessions.append(s)
+        s.run()
+        row = s.close(torch, engine, dev)
+        victim, t_kill = mark["victim"], mark["t_kill"]
+
+        def rejoined():
+            return any(e["event"] == "cell_member" and e["cell"] == victim
+                       and e["reason"] == "rejoined" and e["t"] > t_kill
+                       for e in _events_of(run_dir))
+
+        _wait_for(rejoined, 240, f"{victim} to rejoin after SIGKILL")
+        t_rejoined = time.time()
+
+        def dispatchable():
+            # The front's breaker for the victim opened on the kill's
+            # transport failures and stays open for its cooldown after
+            # the rejoin; an upgrade that drained the sibling then would
+            # leave no dispatchable cell.  The load's next request probes
+            # it closed once the cooldown has run.
+            status, health = _get(url0 + "/healthz")
+            return any(c["cell"] == victim and c["circuit"] == "closed"
+                       and c["state"] == "live" for c in health["cells"])
+
+        _wait_for(dispatchable, 120, f"{victim}'s circuit to close")
+        t_closed = time.time()
+    finally:
+        bulk = load.stop(np)
+    check(bulk["failed"] == 0, f"{bulk['failed']} bulk requests failed "
+          f"across the cell kill: {bulk['failure_samples']}")
+    check(row["codes"].get("409", 0) >= 1, f"s2 never got the 409 resume "
+          f"handshake: {row['codes']}")
+    events = _events_of(run_dir)
+
+    def first(pred):
+        return next(i for i, e in enumerate(events) if pred(e))
+
+    i_failed = first(lambda e: e["event"] == "cell_member"
+                     and e["cell"] == victim and e["state"] == "failed"
+                     and e["t"] >= t_kill)
+    i_failover = first(lambda e: e["event"] == "session_failover"
+                       and e["session"] == "s2")
+    i_launch = first(lambda e: e["event"] == "supervisor_launch"
+                     and e.get("child") == victim and e["attempt"] == 2)
+    i_live = first(lambda e: e["event"] == "cell_member"
+                   and e["cell"] == victim and e["reason"] == "rejoined"
+                   and e["t"] >= t_kill)
+    failover = events[i_failover]
+    check(i_failed < i_failover, "the journal has session_failover before "
+          "cell_member(failed)")
+    check(failover["from_cell"] == victim and failover["restored"],
+          f"session_failover: {failover}")
+    cmd = events[i_launch]["cmd"]
+    port = urllib.parse.urlsplit(
+        _cells_healthz(url0)[victim]["url"]).port
+    check("--resume" in cmd and cmd[cmd.index("--port") + 1] == str(port),
+          f"the relaunch of {victim} is not on its port with --resume")
+    row.update(victim=victim, bulk=bulk,
+               kill_to_failed_s=events[i_failed]["t"] - t_kill,
+               kill_to_failover_s=failover["t"] - t_kill,
+               restored_acked=failover.get("acked"),
+               kill_to_relaunch_s=events[i_launch]["t"] - t_kill,
+               relaunch_to_live_s=events[i_live]["t"]
+               - events[i_launch]["t"],
+               rejoined_to_circuit_closed_s=t_closed - t_rejoined)
+    log(f"phase 19c: SIGKILL {victim} (pid {mark['pid']}) holding s2 under "
+        f"{CELLS_CLIENTS} clients: {bulk['ok']} answered, 0 failed "
+        f"({bulk['rps']:.1f} req/s, p95 {bulk['latency_ms']['p95']:.2f} "
+        f"ms); failed after {row['kill_to_failed_s']:.2f}s, "
+        f"session_failover (spool, acked {failover.get('acked')}) after "
+        f"{row['kill_to_failover_s']:.2f}s; s2 saw {row['codes']} and "
+        "replayed to a stream equal to the offline one; relaunched with "
+        f"--resume after {row['kill_to_relaunch_s']:.2f}s, live "
+        f"{row['relaunch_to_live_s']:.2f}s later, its circuit closed "
+        f"{row['rejoined_to_circuit_closed_s']:.2f}s after that")
+    return row
+
+
+def _cells_upgrade_and_failover(torch, np, dev, boot: dict, sessions: list,
+                                bodies, ckpt_b: Path) -> dict:
+    """19d-e: under one live session and bulk clients, the rolling upgrade
+    to checkpoint B, then SIGKILL of the active front f0."""
+    from eegnetreplication_tpu_torch.serve.engine import InferenceEngine
+
+    url0, url1, engine = boot["url0"], boot["url1"], boot["engine"]
+    work = boot["work"]
+    digest_b = InferenceEngine.from_checkpoint(ckpt_b, (1,),
+                                               device=dev).digest
+    run_dir = _fleet_run_dir(work / "f0_obs")
+    x = stream_recording(np, 1903, n=CELLS_LONG_S * STREAM_HZ)
+    stop = threading.Event()
+    s = _CellSession(np, [url0, url1], "s3", x, stop=stop).open()
+    sessions.append(s)
+    th = s.run_in_thread()
+    row: dict = {}
+    try:
+        # 19d: the rolling upgrade.
+        load = _HttpLoad(url0, bodies, CELLS_CLIENTS).start()
+        try:
+            time.sleep(1.0)
+            t0 = time.perf_counter()
+            status, result = _post(url0 + "/cells/upgrade", json.dumps(
+                {"checkpoint": str(ckpt_b),
+                 "liveTimeoutS": CELLS_LIVE_TIMEOUT_S}).encode(),
+                "application/json", timeout=2 * CELLS * CELLS_LIVE_TIMEOUT_S)
+            upgrade_s = time.perf_counter() - t0
+        finally:
+            bulk = load.stop(np)
+        check(status == 200 and result["status"] == "ok"
+              and result["upgraded"] == [f"c{i}" for i in range(CELLS)],
+              f"/cells/upgrade answered {status}: {result}")
+        check(bulk["failed"] == 0, f"{bulk['failed']} bulk requests failed "
+              f"across the upgrade: {bulk['failure_samples']}")
+        events = _events_of(run_dir)
+        steps: dict = {}
+        for i, e in enumerate(events):
+            if e["event"] == "cell_upgrade":
+                steps.setdefault(e["cell"], []).append((i, e))
+        spans, per_cell = [], {}
+        for cid in sorted(steps):
+            acts = [e["action"] for _, e in steps[cid]]
+            check(acts == ["drain", "relaunch", "live", "shadow",
+                           "undrain"], f"{cid}'s cell_upgrade steps: {acts}")
+            shadow = next(e for _, e in steps[cid]
+                          if e["action"] == "shadow")
+            check(shadow["agree"] >= CELLS_AGREE_FLOOR
+                  and shadow["floor"] == CELLS_AGREE_FLOOR,
+                  f"{cid}'s shadow compare: {shadow}")
+            spans.append((steps[cid][0][0], steps[cid][-1][0]))
+            per_cell[cid] = {
+                "wall_s": steps[cid][-1][1]["t"] - steps[cid][0][1]["t"],
+                "agree": shadow["agree"]}
+        check(len(spans) == CELLS and all(
+            b[0] > a[1] for a, b in zip(sorted(spans), sorted(spans)[1:])),
+            "the cells' upgrades interleave")
+        digests = {cid: h["variables_digest"]
+                   for cid, h in _cells_healthz(url0).items()}
+        check(set(digests.values()) == {digest_b}, f"digests after the "
+              f"upgrade: {digests}")
+        row["upgrade"] = {"wall_s": upgrade_s, "per_cell": per_cell,
+                          "bulk": bulk}
+        log(f"phase 19d: /cells/upgrade to {digest_b[:12]} under s3 and "
+            f"{CELLS_CLIENTS} clients in {upgrade_s:.1f}s, strictly one "
+            f"cell at a time (drain, relaunch, live, shadow, undrain): "
+            + ", ".join(f"{c} {v['wall_s']:.1f}s agree {v['agree']}"
+                        for c, v in per_cell.items())
+            + f"; {bulk['ok']} bulk answered, 0 failed; both cells on B")
+
+        # 19e: SIGKILL the active front.
+        status, health = _get(url0 + "/healthz")
+        table = health["sessions"]
+        load = _LeaderLoad([url0, url1], bodies, CELLS_CLIENTS).start()
+        try:
+            time.sleep(1.5)
+            t_kill = time.time()
+            os.kill(boot["f0"][0].pid, signal.SIGKILL)
+            boot["f0"][0].wait(timeout=60)
+            _wait_for(lambda: _active_front([url1]), 60,
+                      "f1 to take over")
+            promote_s = time.time() - t_kill
+            time.sleep(CELLS_AFTER_PROMOTION_S)
+        finally:
+            stop.set()
+            th.join(120)
+            bulk = load.stop(np)
+        row["session"] = s.close(torch, engine, dev)
+        check(bulk["failed"] == 0 and bulk["max_switches"] <= 1,
+              f"bulk across the front kill: {bulk['failed']} failed, at "
+              f"most {bulk['max_switches']} leader switches a request: "
+              f"{bulk['failure_samples']}")
+        ev1 = _events_of(_fleet_run_dir(work / "f1_obs"))
+        i_replay = next(i for i, e in enumerate(ev1)
+                        if e["event"] == "affinity_replay")
+        i_take = next(i for i, e in enumerate(ev1)
+                      if e["event"] == "front_lease"
+                      and e["action"] == "takeover")
+        served = [i for i, e in enumerate(ev1) if e["event"] in (
+            "request", "session_failover", "session_migrate", "span")]
+        check(i_replay < i_take and served and i_take < served[0],
+              "f1's journal: affinity_replay, then front_lease(takeover), "
+              "then the first request it serves")
+        check(ev1[i_replay]["n_sessions"] == table, f"affinity_replay "
+              f"rebuilt {ev1[i_replay]['n_sessions']} sessions, f0 held "
+              f"{table}")
+        takeover_s = ev1[i_take]["t"] - t_kill
+        check(takeover_s <= CELLS_TTL_S + 2.0, f"f1 took over "
+              f"{takeover_s:.2f}s after the kill, more than TTL + 2 s")
+        row["failover"] = {"takeover_s": takeover_s,
+                           "active_seen_s": promote_s,
+                           "replayed_sessions": table, "bulk": bulk}
+        log(f"phase 19e: SIGKILL f0 under s3 and {CELLS_CLIENTS} clients: "
+            f"f1 replayed the affinity WAL ({table} session(s)) and took "
+            f"the lease {takeover_s:.2f}s after the kill (TTL "
+            f"{CELLS_TTL_S:.0f}s) before serving; {bulk['ok']} bulk "
+            f"answered, 0 failed, at most {bulk['max_switches']} leader "
+            f"switch a request ({bulk['rps']:.1f} req/s, p95 "
+            f"{bulk['latency_ms']['p95']:.2f} ms); s3 "
+            f"({row['session']['windows']} windows) equal to the offline "
+            "pipeline, 0 expired")
+        return row
+    finally:
+        stop.set()
+        th.join(120)
+
+
+def _cells_counts(np, boot: dict, sessions: list, kills: dict) -> dict:
+    """19f: every cell process's K1 launches against its warm runs and
+    replays, its K2s launches against the pushes it ran."""
+    run_dir = _fleet_run_dir(boot["work"] / "f0_obs")
+    alive = _cells_healthz(boot["url1"])
+    k1_total = k2s_total = 0
+    rows = []
+    for cid, runs in _cell_processes(run_dir).items():
+        for k, rd in enumerate(runs):
+            ev = _events_of(rd)
+            if k == len(runs) - 1:
+                h = alive[cid]
+                counts = (h["kernel_launches"], len(h["buckets"]),
+                          h["graph_replays"], "healthz")
+            elif rd == kills.get(cid, {}).get("run_dir"):
+                h = kills[cid]["health"]
+                counts = (h["kernel_launches"], len(h["buckets"]),
+                          h["graph_replays"], "healthz before SIGKILL")
+            else:
+                start = next(e for e in ev if e["event"] == "serve_start")
+                end = [e for e in ev if e["event"] == "serve_end"]
+                check(len(end) == 1, f"{rd.name}: no serve_end")
+                counts = (end[0]["kernel_launches"], len(start["buckets"]),
+                          end[0]["graph_replays"], "serve_end")
+            launches, warm, replays, source = counts
+            pushes, seeded = _pushes_ran(ev, sessions)
+            check(launches["block1"] == warm + replays, f"{cid} launch {k}:"
+                  f" K1 {launches['block1']} != {warm} warm + {replays} "
+                  "replays")
+            check(launches["ems_stream"] == seeded, f"{cid} launch {k}: "
+                  f"K2s {launches['ems_stream']} != {seeded} pushes that "
+                  f"ran the carry ({pushes} pushes)")
+            k1_total += launches["block1"]
+            k2s_total += launches["ems_stream"]
+            rows.append({"cell": cid, "launch": k, "source": source,
+                         "block1": launches["block1"], "warm": warm,
+                         "replays": replays, "ems_stream":
+                         launches["ems_stream"], "pushes": pushes})
+    log(f"phase 19f: {len(rows)} cell processes, each K1 = warm + "
+        f"replays, each K2s = its pushes from the seed on: {rows}")
+    return {"processes": rows, "k1_launches": k1_total,
+            "ems_stream_launches": k2s_total}
+
+
+def _stop_cells(boot: dict) -> dict:
+    """SIGTERM f1 (75), then every cell f0 launched by the pids in its
+    journal, and f0's process group; nothing of phase 19 left."""
+    out = {}
+    f1 = boot.get("f1")
+    if f1 is not None:
+        proc = f1[0]
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            with contextlib.suppress(subprocess.TimeoutExpired):
+                proc.wait(timeout=90)
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out["f1_rc"] = proc.returncode
+        f1[2].close()
+    f0 = boot["f0"]
+    pids = []
+    metrics = boot["work"] / "f0_obs"
+    for rd in _run_dirs(metrics):
+        with contextlib.suppress(Exception):
+            pids += _launched_pids(_events_of(rd))
+    for pid in pids:
+        if _pid_alive(pid):
+            os.kill(pid, signal.SIGKILL)
+    with contextlib.suppress(ProcessLookupError, PermissionError):
+        os.killpg(f0[0].pid, signal.SIGKILL)
+    if f0[0].poll() is None:
+        f0[0].kill()
+        f0[0].wait()
+    f0[2].close()
+    deadline = time.monotonic() + 30
+    while any(_pid_alive(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    out["left"] = [p for p in pids if _pid_alive(p)]
+    return out
+
+
+def phase_cells(torch, np, dev, work: Path, env: dict) -> dict:
+    """Phase 19: the cell tier on the card (see the module docstring)."""
+    from eegnetreplication_tpu_torch.data.containers import BCICI2ADataset
+    from eegnetreplication_tpu_torch.data.io import save_trials
+
+    t_phase = time.perf_counter()
+    env = dict(env, EEGTPU_DATA_ROOT=str(work / "root"))
+    ckpt_a = _save_seeded(torch, work / "cells_a.npz", seed=1811)
+    ckpt_b = _save_shifted(torch, work / "cells_b.npz", 1811,
+                           CELLS_BIAS_SHIFT)
+    x128 = trials(torch, 128, 22, 257, 1813).numpy()
+    y128 = np.random.RandomState(1814).randint(0, 4, size=128).astype(
+        np.int64)
+    trials_path = save_trials(BCICI2ADataset(X=x128, y=y128),
+                              work / "A01E-trials.npz")
+    bodies = [_npz_body(np, x128[i:i + 1]) for i in range(16)]
+    torch.zeros(1, device=dev)   # this process's own context, counted
+    rows_base = len(_gpu_apps())
+    result: dict = {}
+    sessions: list = []
+    kills: dict = {}
+    boot = {"work": work, "f0": None, "f1": None}
+    try:
+        _cells_boot(torch, np, dev, work, env, ckpt_a, x128, y128,
+                    trials_path, boot)
+        result["boot"] = boot["result"]
+        result["migration"] = _cells_migration(torch, np, dev, boot,
+                                               sessions)
+        result["kill"] = _cells_kill(torch, np, dev, boot, sessions, bodies,
+                                     kills)
+        _cells_standby(boot)
+        result.update(_cells_upgrade_and_failover(torch, np, dev, boot,
+                                                  sessions, bodies, ckpt_b))
+        result["counts"] = _cells_counts(np, boot, sessions, kills)
+        for name in ("f0_obs", "f1_obs"):
+            events = _events_of(_fleet_run_dir(work / name))
+            fenced = [e for e in events if e["event"] == "front_lease"
+                      and e["action"] == "fenced"]
+            check(not fenced, f"{name}: a front fenced itself: {fenced}")
+            result.setdefault("lease_actions", {})[name] = [
+                e["action"] for e in events if e["event"] == "front_lease"]
+    finally:
+        if boot["f0"] is not None:
+            result["stop"] = _stop_cells(boot)
+    check(result["stop"]["f1_rc"] == 75, f"f1 exited "
+          f"{result['stop']['f1_rc']} after SIGTERM, want 75")
+    check(not result["stop"]["left"], f"cell processes left: "
+          f"{result['stop']['left']}")
+    _wait_for(lambda: len(_gpu_apps()) <= rows_base, 60,
+              "the card to list no process of phase 19")
+    result["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 19 in {result['wall_s']:.1f} s: front_lease actions "
+        f"{result['lease_actions']}; f1 -> 75; no cell left on the card")
+    return result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None,
@@ -6108,6 +7044,9 @@ def main(argv=None) -> int:
         # The fleet runs alone, after every other server has ended.
         with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
             fleet = phase_fleet(torch, np, dev, Path(tmp), env)
+        # The cell tier runs alone, after the fleet has ended.
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_cells_") as tmp:
+            cells = phase_cells(torch, np, dev, Path(tmp), env)
     except Exception:  # noqa: BLE001 — every failure ends the run
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -6123,13 +7062,15 @@ def main(argv=None) -> int:
         # tuned server of phase 14 (graph replays counted per replay), the
         # adapting server of phase 15 (the shadow's replays, the stack
         # gates' references), phase 16c's supervised server before its
-        # hang and after its relaunch and phase 18a's three fleet
-        # replicas (each read from its /healthz)
+        # hang and after its relaunch, phase 18a's three fleet replicas
+        # (each read from its /healthz) and every cell process of phase
+        # 19 (its /healthz, or its serve_end once retired)
         "launches": (serve["launches"] + zoo["int8"]["k1_launches"]
                      + control["tuned"]["launches"]
                      + adapt["launches"]["got"]["block1"]
                      + supervised["server"]["k1_launches"]
-                     + sum(fleet["boot"]["k1_launches"].values())),
+                     + sum(fleet["boot"]["k1_launches"].values())
+                     + cells["counts"]["k1_launches"]),
         "max_abs_err": k1_err,
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
@@ -6185,10 +7126,12 @@ def main(argv=None) -> int:
         "replaces": ("eegnetreplication_tpu/ops/ems.py:244 (_stream_chunk, "
                      "lax.scan, not Pallas)"),
         # the three session servers of phase 13, the drifting session
-        # of phase 15 and phase 18a's session through the fleet
+        # of phase 15, phase 18a's session through the fleet and phase
+        # 19's sessions on every cell process
         "launches": (streams["launches"]
                      + adapt["launches"]["got"]["ems_stream"]
-                     + fleet["boot"]["session"]["ems_stream_launches"]),
+                     + fleet["boot"]["session"]["ems_stream_launches"]
+                     + cells["counts"]["ems_stream_launches"]),
         "max_abs_err": streams["k2s"]["max_abs_err"],
         # at a push of 25 samples, (22, 25)
         **{k: streams["times"]["by_n"][STREAM_CHUNK][k] for k in (
@@ -6209,7 +7152,7 @@ def main(argv=None) -> int:
         "k1_stacked_times": k1s_times, "train": train, "cross_subject": cs,
         "serving_zoo": zoo, "streams": streams, "control": control,
         "adapt": adapt, "supervised": supervised,
-        "model_layer": model_layer, "fleet": fleet,
+        "model_layer": model_layer, "fleet": fleet, "cells": cells,
         "wall_s": time.perf_counter() - t_start,
     }
     print(json.dumps({"timings": record}), flush=True)

@@ -26,6 +26,7 @@ class Paths:
     data_processed: Path
     models: Path
     reports: Path
+    checkpoints: Path
 
     @staticmethod
     def from_here() -> "Paths":
@@ -43,7 +44,8 @@ class Paths:
                      data_raw=root / "data" / "raw",
                      data_processed=root / "data" / "processed",
                      models=root / "models",
-                     reports=root / "reports")
+                     reports=root / "reports",
+                     checkpoints=root / "checkpoints")
 
 
 # BCI Competition IV 2a (the reference's dataset.py:89-96, 114, 223-224).

@@ -133,6 +133,24 @@ EVENT_REQUIRED: dict[str, tuple[str, ...]] = {
     "fleet_reload": ("status", "checkpoint"),
     "fleet_scale": ("action", "target", "n_live", "reason"),
     "fleet_end": ("n_requests", "wall_s"),
+    # Multi-cell serving (serve/cells/): the front's lifecycle, every cell
+    # membership transition (a cell marked "failed" is journaled before
+    # its sessions' failover events), every planned session migration
+    # (drain) and every unplanned cross-cell session failover.
+    "cell_front_start": ("cells",),
+    "cell_member": ("cell", "state", "previous", "reason"),
+    "session_migrate": ("session", "from_cell", "to_cell"),
+    "session_failover": ("session", "from_cell", "to_cell"),
+    "cell_front_end": ("n_requests", "wall_s"),
+    # The HA front pair and rolling cell upgrades (serve/cells/ha.py):
+    # fencing-lease transitions (acquire, standby, takeover, fenced,
+    # release: a takeover is journaled before the first request the new
+    # active serves), the standby's WAL replay at promotion, and every
+    # rolling-upgrade step (drain, relaunch, live, shadow, undrain,
+    # timeout, abort, rollback; strictly serialized per cell).
+    "front_lease": ("action", "owner", "token"),
+    "affinity_replay": ("n_records", "n_sessions"),
+    "cell_upgrade": ("cell", "action"),
     # Gray failures: latency-outlier ejection and half-open re-admission
     # of a degraded replica, and every hedged dispatch.
     "replica_ejected": ("replica", "p95_ms", "fleet_p50_ms"),

@@ -1,9 +1,9 @@
 """Deterministic fault injection at named sites of the training path, the
-serving forward, the session store, online adaptation and the replica
-fleet.
+serving forward, the session store, online adaptation, the replica fleet
+and the cell tier.
 
-The port's copy of the training, serving, session-store, adaptation and
-fleet part of ``eegnetreplication_tpu/resil/inject.py``.  Instrumented code
+The port's copy of ``eegnetreplication_tpu/resil/inject.py`` but for its
+dataset-download site.  Instrumented code
 calls :func:`fire` at a named site; the call is a no-op (one dict lookup)
 unless a test or a ``--chaos`` plan has
 :func:`arm`-ed that site.  Arming counts hits, so a chaos run repeats
@@ -78,6 +78,18 @@ site                       action     effect
                                       is a hang during the drain, which
                                       times out into a journaled forced
                                       retirement)
+``cell.partition``         refuse     ``ConnectionRefusedError`` at the
+                                      cell front's client seam: every
+                                      request and health poll to the cell
+                                      is refused, what a cell crash or a
+                                      network partition looks like from
+                                      the front (``if_tag=`` confines it
+                                      to one cell id)
+``front.lease``            raise      ``OSError`` at the HA front's
+                                      fencing-lease write: renews fail and
+                                      the active front fences itself (left
+                                      armed, the standby cannot acquire
+                                      either: no split brain)
 =========================  =========  =====================================
 
 A plan (the ``--chaos`` flag) is comma-separated site specs with
@@ -85,8 +97,8 @@ colon-separated options, or ``@plan.json`` holding a list of spec objects::
 
     --chaos "train.step:if_folds_over=4,checkpoint.write:after=1"
 
-The JAX package's other sites (fetch, cells, the HA front) instrument
-code the port does not have yet; a plan that names one is refused.
+The JAX package's dataset-download site instruments code the port does
+not have; a plan that names it is refused.
 """
 
 from __future__ import annotations
@@ -108,13 +120,14 @@ SITES = ("data.read", "train.step", "train.chunk", "train.hang",
          "checkpoint.write", "checkpoint.write_async", "host.preempt",
          "session.snapshot", "session.restore", "spool.mirror",
          "serve.forward", "serve.hang", "serve.degrade", "session.drift",
-         "adapt.train", "adapt.promote", "replica.network", "fleet.scale")
+         "adapt.train", "adapt.promote", "replica.network", "fleet.scale",
+         "cell.partition", "front.lease")
 
 # The JAX package's sites that instrument modules not ported yet.
-UNPORTED_SITES = ("fetch.download", "cell.partition", "front.lease")
+UNPORTED_SITES = ("fetch.download",)
 
 ACTIONS = ("raise", "corrupt", "preempt", "sleep", "slow", "truncate",
-           "drift")
+           "drift", "refuse")
 
 # action="sleep" without sleep=: long enough that a watchdog fires first,
 # short enough that an unwatched plan eventually lets the process go.
@@ -193,6 +206,10 @@ _DEFAULTS: dict[str, tuple[str, str | None, str]] = {
                         "injected truncation: replica.network (hit {hit})"),
     "fleet.scale": ("raise", "RuntimeError",
                     "injected fault: fleet.scale (hit {hit})"),
+    "cell.partition": ("refuse", None,
+                       "injected partition: cell.partition (hit {hit})"),
+    "front.lease": ("raise", "OSError",
+                    "injected fault: front.lease (hit {hit})"),
 }
 
 
@@ -230,6 +247,7 @@ class FaultSpec:
     if_tag: str | None = None   # only hits whose ctx tag= matches
     scale: float | None = None  # action="drift": multiplicative magnitude
     offset: float | None = None  # action="drift": additive magnitude
+    refuse: int | None = None   # refuse=1 selects action="refuse"
 
     def __post_init__(self):
         _check_site(self.site)
@@ -282,6 +300,18 @@ class FaultSpec:
             raise ValueError(
                 f"scale must be > 0 (a drift multiplies the signal), "
                 f"got {self.scale}")
+        # refuse= selects an action, it counts nothing: anything but 1 is
+        # a plan typo (refuse=0 would arm a fault that does nothing).
+        if self.refuse is not None:
+            if self.refuse != 1:
+                raise ValueError(
+                    f"refuse must be 1 (it selects the connection-refused "
+                    f"action; omit it otherwise), got {self.refuse!r}")
+            if self.action is None:
+                self.action = "refuse"
+            elif self.action != "refuse":
+                raise ValueError(
+                    f"refuse=1 conflicts with action={self.action!r}")
 
 
 class ArmedFault:
@@ -437,6 +467,11 @@ def fire(site: str, **ctx) -> None:
             spec.scale if spec.scale is not None else DEFAULT_DRIFT_SCALE,
             spec.offset if spec.offset is not None
             else DEFAULT_DRIFT_OFFSET)
+    if action == "refuse":
+        # What a dead or partitioned process shows a client: an OSError
+        # subtype, so the fleet and cell dispatch paths take it for a dead
+        # connection (pull and fail over), not an application error.
+        raise ConnectionRefusedError(message)
     raise _EXC_TYPES[spec.exc or d_exc or "RuntimeError"](message)
 
 

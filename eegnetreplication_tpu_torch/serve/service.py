@@ -1682,7 +1682,7 @@ def main(argv=None) -> int:
     metrics_dir = (Path(args.metricsDir) if args.metricsDir
                    else paths.reports / "obs")
     sessions_dir = (Path(args.sessionsDir) if args.sessionsDir
-                    else paths.project_root / "checkpoints" / "serve_sessions")
+                    else paths.checkpoints / "serve_sessions")
     with obs_journal.run(metrics_dir, config=vars(args)) as journal, \
             preempt.guard(), inject.scoped(*chaos_specs):
         app = ServeApp(args.checkpoint, host=args.host, port=args.port,

@@ -55,7 +55,11 @@ tangent-space classifier predicting on the card as on the CPU.  The
 replica fleet: ``serve.fleet --replicas 2`` on the card answers
 ``/predict`` byte for byte as a replica does (but ``latency_ms``), with
 ``predict_trials``' predictions, every replica's K1 launches its warm runs
-plus its graph replays.
+plus its graph replays.  The cell tier: two cells on ``cuda:0`` behind an
+in-process ``CellFront`` answer ``/predict`` byte for byte as one cell
+does; a session drained across the cells mid-stream, and one failed over
+from its partitioned home's spool (``cell.partition``) with the 409
+replay, both end on the one-shot scan's K2s carry bit for bit.
 """
 
 import threading
@@ -1379,3 +1383,225 @@ def test_a_two_replica_fleet_answers_as_predict(cuda, tmp_path):
                 os.killpg(proc.pid, signal.SIGKILL)
             except (ProcessLookupError, PermissionError):
                 pass
+
+
+@pytest.fixture(scope="module")
+def cell_pair(tmp_path_factory):
+    """Two cells (each ``python -m eegnetreplication_tpu_torch.serve`` on
+    ``cuda:0``) under a ``MultiSupervisor``, behind an in-process
+    ``CellFront``: ``(front, members)``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the cells serve on it")
+    import os
+    from pathlib import Path
+
+    from eegnetreplication_tpu_torch.obs import journal as obs_journal
+    from eegnetreplication_tpu_torch.serve.cells import CellFront
+    from eegnetreplication_tpu_torch.serve.cells.service import spawn_cells
+
+    repo = Path(__file__).resolve().parents[1]
+    tmp = tmp_path_factory.mktemp("cells")
+    ckpt = checkpoint.save_checkpoint(
+        tmp / "m.npz", _model(22, 257, 8, 2, seed=41).state_dict(),
+        metadata={"model": "eegnet", "n_channels": 22, "n_times": 257,
+                  "F1": 8, "D": 2})
+    saved = dict(os.environ)
+    # The supervised cells inherit this process's environment.
+    os.environ.pop("EEGTPU_PLATFORM", None)
+    os.environ.update(EEGTPU_NO_LOG_FILE="1", EEGTPU_DATA_ROOT=str(tmp),
+                      PYTHONPATH=str(repo))
+    try:
+        with obs_journal.run(tmp / "obs", config={}) as jr:
+            sup, members, _ = spawn_cells(
+                str(ckpt), 2, run_dir=Path(jr.dir), cells_dir=tmp / "cells",
+                serve_args=["--traceSample", "0"], session_snapshot_every=4,
+                journal=jr)
+            runner = threading.Thread(target=sup.run, daemon=True)
+            runner.start()
+            front = CellFront(members, port=0, poll_s=0.2, journal=jr)
+            front.start()
+            try:
+                assert front.membership.wait_live(2, timeout_s=300)
+                yield front, members, ckpt
+            finally:
+                front.stop()
+                sup.stop()
+                runner.join(120)
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+
+
+def _http_json(url, body=None, ctype="application/json"):
+    import json
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, headers={
+        "Content-Type": ctype}, method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read()
+
+
+def _cell_health(cell):
+    import json
+
+    status, data = _http_json(cell.url + "/healthz")
+    assert status == 200
+    return json.loads(data)
+
+
+def _stream_through(front, sid, x, act_at=None, act=None):
+    """Push ``x`` through the front in chunks of 25, replaying from the
+    acked cursor on a 409; ``act()`` runs after push ``act_at``.  The
+    seeded pushes each cell ran: ``{cell id: n}``."""
+    import json
+
+    status, opened = _http_json(front.url + "/session/open", json.dumps(
+        {"session": sid, "window": 257, "hop": 64,
+         "ems_init_block_size": 1000}).encode())
+    assert status == 200
+    ran, pos, pushes = {}, 0, 0
+    while pos < x.shape[1]:
+        cell = front.cell_of(sid).cell_id
+        status, data = _http_json(
+            f"{front.url}/session/{sid}/samples",
+            np.ascontiguousarray(x[:, pos:pos + 25]).astype("<f4").tobytes(),
+            "application/octet-stream")
+        if status == 200:
+            pos += 25
+            pushes += 1
+            if json.loads(data)["seeded"]:
+                ran[cell] = ran.get(cell, 0) + 1
+            if pushes == act_at:
+                act(json.loads(opened)["cell"])
+        elif status == 409:
+            status, data = _http_json(f"{front.url}/session/{sid}/state")
+            assert status == 200
+            pos = json.loads(data)["acked"]
+        else:
+            assert status == 503, (status, data)
+            time.sleep(0.1)
+    return json.loads(opened)["cell"], ran
+
+
+def _carry_after(front, sid):
+    from eegnetreplication_tpu_torch.serve.sessions.store import (
+        unpack_session,
+    )
+
+    status, data = _http_json(f"{front.cell_of(sid).url}/session/{sid}"
+                              "/export")
+    assert status == 200
+    got, state = unpack_session(data)
+    assert got == sid
+    return np.asarray(state["ems/m"]), np.asarray(state["ems/v"])
+
+
+def _one_shot_carry(cuda, x):
+    from eegnetreplication_tpu_torch.ops.ems import scan_with_carry
+
+    _, m, v = scan_with_carry(torch.from_numpy(x).to(cuda),
+                              init_block_size=1000)
+    return m.cpu().numpy(), v.cpu().numpy()
+
+
+def test_two_cells_answer_predict_as_one_cell(cuda, cell_pair):
+    """Two cells behind an in-process ``CellFront`` answer ``/predict``
+    byte for byte as one cell does (but ``latency_ms``), with
+    ``predict_trials``' predictions; each cell's K1 launches are its warm
+    runs plus its graph replays."""
+    import json
+    import re
+
+    from eegnetreplication_tpu_torch.predict import predict_trials
+    from eegnetreplication_tpu_torch.serve.engine import (
+        load_model_from_checkpoint,
+    )
+
+    front, members, ckpt = cell_pair
+    x = torch.randn(33, 22, 257,
+                    generator=torch.Generator().manual_seed(42)).numpy()
+    want = predict_trials(load_model_from_checkpoint(ckpt, device=cuda), x,
+                          device=cuda)
+    mask = re.compile(rb'"latency_ms": [-+0-9.eE]+')
+    for n in (1, 33):
+        body = json.dumps({"trials": x[:n].tolist()}).encode()
+        s_front, got = _http_json(front.url + "/predict", body)
+        s_cell, direct = _http_json(members[0].url + "/predict", body)
+        assert s_front == s_cell == 200
+        assert mask.sub(b"", got) == mask.sub(b"", direct)
+        assert json.loads(got)["predictions"] == want[:n].tolist()
+    for cell in members:
+        h = _cell_health(cell)
+        launches = h["kernel_launches"]["block1"]
+        assert launches > 0
+        assert launches == len(h["buckets"]) + h["graph_replays"]
+
+
+def test_a_drain_continues_the_carry_bitwise(cuda, cell_pair):
+    """A live session drained across cells mid-stream: its exported K2s
+    carry at the end equals the one-shot scan's bit for bit, and each
+    cell's K2s launches are the pushes it ran from the seed on."""
+    import json
+
+    front, members, _ = cell_pair
+    x = _stream_signal(22, 3000, seed=43).numpy()
+    before = {c.cell_id: _cell_health(c)["kernel_launches"]["ems_stream"]
+              for c in members}
+
+    def drain(home):
+        status, data = _http_json(f"{front.url}/cell/{home}/drain", b"{}")
+        assert status == 200 and json.loads(data)["migrated"] == ["d1"]
+
+    home, ran = _stream_through(front, "d1", x, act_at=60, act=drain)
+    assert front.cell_of("d1").cell_id != home and len(ran) == 2
+    m, v = _carry_after(front, "d1")
+    want_m, want_v = _one_shot_carry(cuda, x)
+    assert np.array_equal(m, want_m) and np.array_equal(v, want_v)
+    for c in members:
+        launched = _cell_health(c)["kernel_launches"]["ems_stream"]
+        assert launched - before[c.cell_id] == ran[c.cell_id]
+    assert _http_json(f"{front.url}/session/d1/close", b"{}")[0] == 200
+    assert _http_json(f"{front.url}/cell/{home}/undrain", b"{}")[0] == 200
+    deadline = time.monotonic() + 30
+    while front.membership.by_id(home).state != "live":
+        assert time.monotonic() < deadline
+        time.sleep(0.1)
+
+
+def test_a_partitioned_cell_fails_its_session_over_from_the_spool(
+        cuda, cell_pair):
+    """``cell.partition`` armed for the session's home: the front marks
+    it failed, restores the session on the other cell from the home's
+    spool, answers 409, and the replay from the acked cursor ends on the
+    one-shot scan's carry bit for bit."""
+    from eegnetreplication_tpu_torch.resil import inject
+
+    front, members, _ = cell_pair
+    x = _stream_signal(22, 3000, seed=44).numpy()
+    armed = []
+
+    def partition(home):
+        armed.append(inject.arm("cell.partition", if_tag=home, times=0))
+
+    try:
+        home, ran = _stream_through(front, "p1", x, act_at=60,
+                                    act=partition)
+        assert front.membership.by_id(home).state == "failed"
+        assert front.cell_of("p1").cell_id != home
+        assert front.sessions_failed_over >= 1
+        m, v = _carry_after(front, "p1")
+    finally:
+        for handle in armed:
+            inject.disarm(handle)
+    want_m, want_v = _one_shot_carry(cuda, x)
+    assert np.array_equal(m, want_m) and np.array_equal(v, want_v)
+    assert _http_json(f"{front.url}/session/p1/close", b"{}")[0] == 200
+    deadline = time.monotonic() + 30
+    while front.membership.by_id(home).state != "live":
+        assert time.monotonic() < deadline
+        time.sleep(0.1)

@@ -66,7 +66,10 @@ _CHILD = textwrap.dedent("""
                  "serve.fleet.membership", "serve.fleet.router",
                  "serve.fleet.outlier", "serve.fleet.canary",
                  "serve.fleet.autoscaler", "serve.fleet.service",
-                 "serve.fleet.__main__", "utils.startup"):
+                 "serve.fleet.__main__", "utils.startup", "serve.cells",
+                 "serve.cells.membership", "serve.cells.front",
+                 "serve.cells.ha", "serve.cells.service",
+                 "serve.cells.__main__"):
         assert "eegnetreplication_tpu_torch." + name in names, name
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   {chip_smoke!r})

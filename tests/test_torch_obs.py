@@ -4,7 +4,8 @@ package's.
 - The port's ``EVENT_REQUIRED`` holds exactly the JAX table's rows for the
   ten training events, the serving events, the session events (with
   ``spool_mirror``), the control plane's, ``probe``, the adaptation
-  events, the eight ``supervisor_*`` events and ``agg_snapshot``.
+  events, the eight ``supervisor_*`` events and ``agg_snapshot``, the
+  fleet's and the cell tier's.
 - A journal written by ``python -m eegnetreplication_tpu_torch.train
   --metricsDir ...`` passes the JAX ``validate_events`` with no
   ``_schema_error``; ``scripts/obs_report.py::summarize_run`` reads it with
@@ -61,11 +62,15 @@ SUPERVISION_EVENTS = ("supervisor_start", "supervisor_launch",
 FLEET_EVENTS = ("fleet_start", "fleet_member", "fleet_retry", "fleet_canary",
                 "fleet_shadow", "fleet_reload", "fleet_scale", "fleet_end",
                 "replica_ejected", "replica_readmitted", "hedge")
+CELL_EVENTS = ("cell_front_start", "cell_member", "session_migrate",
+               "session_failover", "cell_front_end", "front_lease",
+               "affinity_replay", "cell_upgrade")
 
 
 def test_event_table_equals_the_jax_rows():
     events = TRAINING_EVENTS + SERVING_EVENTS + SESSION_EVENTS \
-        + CONTROL_EVENTS + ADAPT_EVENTS + SUPERVISION_EVENTS + FLEET_EVENTS
+        + CONTROL_EVENTS + ADAPT_EVENTS + SUPERVISION_EVENTS + FLEET_EVENTS \
+        + CELL_EVENTS
     assert set(schema.EVENT_REQUIRED) == set(events)
     for name in events:
         assert schema.EVENT_REQUIRED[name] == jax_schema.EVENT_REQUIRED[name]
@@ -185,9 +190,10 @@ def test_parse_plan_refuses_unported_sites(site, tmp_path):
 
 @pytest.mark.parametrize("site", ["session.drift", "adapt.train",
                                   "adapt.promote", "replica.network",
-                                  "fleet.scale"])
+                                  "fleet.scale", "cell.partition",
+                                  "front.lease"])
 def test_the_adaptation_sites_parse_as_in_jax(site):
-    """The sites the adaptation and fleet slices ported (they left
+    """The sites the adaptation, fleet and cell slices ported (they left
     ``UNPORTED_SITES``): the JAX fields and defaults."""
     plan = f"{site}:after=1:times=2"
     (port,), (ref,) = inject.parse_plan(plan), jax_inject.parse_plan(plan)

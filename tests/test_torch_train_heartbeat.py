@@ -220,8 +220,7 @@ def test_read_retry_policy_and_site_equal_jax():
         == {f: getattr(jax_io.READ_RETRY, f) for f in fields}
     assert "data.read" in inject.SITES
     assert "data.read" not in inject.UNPORTED_SITES
-    assert set(inject.UNPORTED_SITES) == {
-        "fetch.download", "cell.partition", "front.lease"}
+    assert set(inject.UNPORTED_SITES) == {"fetch.download"}
     assert inject._DEFAULTS["data.read"] == jax_inject._DEFAULTS["data.read"]
     (port,), (ref,) = (inject.parse_plan("data.read:after=1:times=2"),
                        jax_inject.parse_plan("data.read:after=1:times=2"))

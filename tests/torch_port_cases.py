@@ -486,10 +486,10 @@ VOLATILE_FIELDS = frozenset({
 
 
 def journal_sequence(events: list[dict], kinds: tuple[str, ...] | None
-                     = None) -> list[tuple]:
+                     = None, volatile=VOLATILE_FIELDS) -> list[tuple]:
     """A journal as ``(event, sorted keys, stable fields)`` tuples: the
     event names in order, each event's key set, and the values of the
-    fields that do not vary between runs (``VOLATILE_FIELDS`` excluded).
+    fields that do not vary between runs (``volatile`` excluded).
     ``kinds`` keeps only those events.  A duration printed into a reason
     (``heartbeat_stale:serve_idle:3600.0s``) reads as ``<s>``."""
     import re
@@ -501,26 +501,262 @@ def journal_sequence(events: list[dict], kinds: tuple[str, ...] | None
         stable = tuple(sorted(
             (k, re.sub(r"\d+\.\d+s\b", "<s>", v) if k == "reason"
              and isinstance(v, str) else repr(v))
-            for k, v in e.items() if k not in VOLATILE_FIELDS))
+            for k, v in e.items() if k not in volatile))
         out.append((e["event"], tuple(sorted(e)), stable))
     return out
 
 
-def journal_views(sequence: list[tuple]) -> dict:
-    """The order-stable views of a :func:`journal_sequence`: one replica's
-    events in order (a membership poll asks every replica at once, so the
-    events of two replicas in one poll interleave by chance), the other
-    events in order, and the whole sequence as a multiset."""
+def journal_views(sequence: list[tuple],
+                  member_keys=("replica", "child")) -> dict:
+    """The order-stable views of a :func:`journal_sequence`: one member's
+    events in order (a membership poll asks every replica or cell at once,
+    so the events of two members in one poll interleave by chance), the
+    other events in order, and the whole sequence as a multiset.  An
+    event's member is the first of ``member_keys`` it carries."""
     from collections import Counter
 
     per_member: dict[str, list[tuple]] = {}
     rest = []
     for item in sequence:
         fields = dict(item[2])
-        member = fields.get("replica") or fields.get("child")
+        member = next((fields[k] for k in member_keys if fields.get(k)),
+                      None)
         if member is None:
             rest.append(item)
         else:
             per_member.setdefault(member, []).append(item)
     return {"members": per_member, "rest": rest,
             "all": Counter(sequence)}
+
+
+# ---------------------------------------------------------------------------
+# The cell tier: a scripted cell, a real session state, and both packages'
+# cell modules, for the twin runs of tests/test_torch_cells.py and
+# tests/test_torch_ha.py.
+
+
+def session_state(sid: str = "s1", acked: int = 160) -> dict:
+    """A small but real session state (the export wire format is built
+    from exactly this): the port's ``StreamSession`` on the CPU, 2
+    channels, fed ``acked`` seeded samples."""
+    from eegnetreplication_tpu_torch.serve.sessions.session import (
+        StreamSession,
+        WindowDecision,
+    )
+
+    session = StreamSession(sid, n_channels=2, window=16, hop=8,
+                            ems_init_block_size=8, device="cpu")
+    x = np.random.RandomState(7).randn(2, acked).astype(np.float32)
+    for idx, start, _ in session.ingest(x):
+        session.record(WindowDecision(index=idx, start=start, pred=1,
+                                      status="ok", latency_ms=1.0))
+    return session.state_arrays()
+
+
+def tamper_payload_array(payload: bytes, name: str) -> bytes:
+    """Flip one byte in the middle of ``name``'s compressed data inside a
+    packed session export (a real array entry, so the content digest must
+    refuse it)."""
+    import io
+    import struct
+    import zipfile
+
+    zi = zipfile.ZipFile(io.BytesIO(payload)).getinfo(name)
+    # Local file header: the data starts after the 30-byte fixed header,
+    # the file name and the extra field (lengths at offsets 26 and 28).
+    n, m = struct.unpack(
+        "<HH", payload[zi.header_offset + 26:zi.header_offset + 30])
+    data_off = zi.header_offset + 30 + n + m
+    bad = bytearray(payload)
+    bad[data_off + zi.compress_size // 2] ^= 0xFF
+    return bytes(bad)
+
+
+class FakeCell:
+    """A scriptable cell double: the serve protocol's ``/healthz`` and
+    ``/predict`` and the ``/session/*`` surface a cell front forwards to,
+    export and import included.
+
+    A copy of ``tests/test_cells.py``'s double, so the port's tests do not
+    import a JAX test module; sessions are packed and restored with the
+    port's session store (either package's front reads the format).  Its
+    knobs are plain attributes changed mid-test.  It speaks HTTP/1.0, so a
+    stopped double looks dead.
+    """
+
+    def __init__(self, port: int = 0, digest: str = "d0"):
+        import json
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        from eegnetreplication_tpu_torch.serve.sessions import (
+            store as session_store,
+        )
+        from eegnetreplication_tpu_torch.serve.sessions.session import (
+            StreamSession,
+        )
+
+        self.digest = digest
+        self.degraded: list[str] = []       # non-empty -> healthz 503
+        self.slo_any_breached = False
+        self.queue_depth = 0
+        self.predictions = [0, 1, 2]
+        self.predict_status = 200
+        self.sessions: dict[str, int] = {}  # sid -> acked advert
+        self.export_payload: bytes | None = None
+        self.import_status: int | None = None  # None = real behavior
+        self.imports: list[bytes] = []
+        self.log: list[tuple[str, bytes]] = []
+        self.headers_log: list[tuple[str, dict]] = []
+        fake = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.0"
+
+            def log_message(self, *a):  # noqa: A003 — quiet
+                pass
+
+            def _reply(self, code, payload):
+                body = json.dumps(payload).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _reply_octets(self, code, body):
+                self.send_response(code)
+                self.send_header("Content-Type", "application/octet-stream")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):  # noqa: N802
+                parts = self.path.strip("/").split("/")
+                if self.path == "/healthz":
+                    self._reply(503 if fake.degraded else 200, {
+                        "status": "degraded" if fake.degraded else "ok",
+                        "degraded": fake.degraded,
+                        "variables_digest": fake.digest,
+                        "queue_depth_requests": fake.queue_depth,
+                        "sessions": len(fake.sessions),
+                        "slo": {"breached": [],
+                                "any_breached": fake.slo_any_breached}})
+                    return
+                if len(parts) == 3 and parts[0] == "session":
+                    sid = parts[1]
+                    if sid not in fake.sessions:
+                        self._reply(404, {"error": "unknown session"})
+                        return
+                    if parts[2] == "state":
+                        self._reply(200, {"session": sid,
+                                          "acked": fake.sessions[sid],
+                                          "windows": 0})
+                        return
+                    if parts[2] == "export":
+                        payload = fake.export_payload
+                        if payload is None:
+                            payload = session_store.pack_session(
+                                sid, session_state(sid))
+                        self._reply_octets(200, payload)
+                        return
+                self._reply(404, {})
+
+            def do_POST(self):  # noqa: N802
+                n = int(self.headers.get("Content-Length", 0) or 0)
+                body = self.rfile.read(n) if n else b""
+                fake.log.append((self.path, body))
+                fake.headers_log.append((self.path,
+                                         dict(self.headers.items())))
+                parts = self.path.strip("/").split("/")
+                if self.path == "/predict":
+                    if fake.predict_status != 200:
+                        self._reply(fake.predict_status,
+                                    {"error": "scripted"})
+                        return
+                    self._reply(200, {"predictions": fake.predictions,
+                                      "n": len(fake.predictions),
+                                      "model_digest": fake.digest})
+                    return
+                if self.path == "/session/open":
+                    payload = json.loads(body.decode() or "{}")
+                    sid = payload.get("session") or "anon"
+                    resumed = sid in fake.sessions
+                    fake.sessions.setdefault(sid, 0)
+                    self._reply(200, {"session": sid,
+                                      "acked": fake.sessions[sid],
+                                      "windows": 0, "resumed": resumed})
+                    return
+                if self.path == "/session/import":
+                    fake.imports.append(body)
+                    if fake.import_status is not None:
+                        self._reply(fake.import_status,
+                                    {"error": "scripted"})
+                        return
+                    try:
+                        sid, state = session_store.unpack_session(body)
+                    except Exception as exc:  # noqa: BLE001
+                        self._reply(400, {"error": str(exc)})
+                        return
+                    if sid in fake.sessions:
+                        self._reply(409, {"error": "already open"})
+                        return
+                    restored = StreamSession.from_state(sid, state,
+                                                        device="cpu")
+                    fake.sessions[sid] = restored.acked
+                    self._reply(200, {"session": sid,
+                                      "acked": restored.acked,
+                                      "imported": True})
+                    return
+                if len(parts) == 3 and parts[0] == "session":
+                    sid = parts[1]
+                    if sid not in fake.sessions:
+                        self._reply(404, {"error": "unknown session"})
+                        return
+                    if parts[2] == "samples":
+                        self._reply(200, {"session": sid,
+                                          "acked": fake.sessions[sid],
+                                          "decisions": []})
+                        return
+                    if parts[2] in ("close", "discard"):
+                        fake.sessions.pop(sid, None)
+                        self._reply(200, {"session": sid, "windows": 0,
+                                          "expired": 0, "acked": 0,
+                                          "preds": []})
+                        return
+                self._reply(404, {})
+
+        self._httpd = ThreadingHTTPServer(("127.0.0.1", port), Handler)
+        self._httpd.daemon_threads = True
+        self.port = self._httpd.server_address[1]
+        self.url = f"http://127.0.0.1:{self.port}"
+        # A short poll interval: stop() returns within 50 ms, not 500.
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        args=(0.05,), daemon=True)
+        self._thread.start()
+
+    def posts(self, path_suffix: str) -> list[bytes]:
+        return [b for p, b in self.log if p.endswith(path_suffix)]
+
+    def stop(self):
+        self._httpd.shutdown()
+        self._httpd.server_close()
+
+
+def cells_packages() -> dict:
+    """:func:`fleet_packages` with each package's cell tier and session
+    modules added (``cms``, ``front``, ``ha``, ``cells``, ``store``,
+    ``session``, ``agg``)."""
+    import importlib
+
+    names = {"cms": "serve.cells.membership", "front": "serve.cells.front",
+             "ha": "serve.cells.ha", "cells": "serve.cells.service",
+             "store": "serve.sessions.store",
+             "session": "serve.sessions.session", "agg": "obs.agg"}
+    out = fleet_packages()
+    for key, root in (("jax", "eegnetreplication_tpu"),
+                      ("port", "eegnetreplication_tpu_torch")):
+        for attr, mod in names.items():
+            setattr(out[key], attr,
+                    importlib.import_module(f"{root}.{mod}"))
+    return out
