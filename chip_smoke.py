@@ -40,7 +40,13 @@ hand-written kernel against its plain PyTorch version:
    ``build_processed_tree`` (one K2 launch per session); trial shapes and
    labels, one session against the port's CPU run (plain versions) and the
    card's ``associative`` run to 1e-3, and ``predict --subject 1`` on the
-   result;
+   result.  Every session is read by the C++ GDF reader
+   (``data/gdf_native.py``, built here with ``g++`` from
+   ``native/gdf_reader.cc``): the in-process run counts one native read a
+   session, its arrays equal the numpy reader's byte for byte, and A01T
+   through the numpy reader gives that run's trials bit for bit (the
+   CLI's are held to them above); the build and both readers' times a
+   session are printed;
 9. times at (22, 345600): K2, ``ems_reference`` and ``associative`` as the
    median of CUDA-event timings with the L2 cache flushed, beside the
    bound, and the two things ``ems`` runs besides K2 (the seed statistics,
@@ -153,15 +159,15 @@ hand-written kernel against its plain PyTorch version:
    fine-tune against the control.
 
 16. supervised training: phase 8's two subjects replicated to nine, the
-   within-subject protocol (36 folds) at 100 of the reference's 500
-   epochs (since phase 19, for the time limit; 500 until then), a
-   snapshot every 10, unbroken and, at once, under ``python -m
+   within-subject protocol (36 folds) at 60 of the reference's 500
+   epochs (since phase 20, for the time limit; 100 since phase 19, 500
+   before), a snapshot every 10, unbroken and, at once, under ``python -m
    eegnetreplication_tpu_torch.resil.supervise --hang step=20 --graceS 5``
    with a chaos plan file: launch 1 reads ``host.preempt`` (exit 75 at
    epoch 20), and the file then holds ``train.hang`` for every later
    launch (a plan re-armed in every launch counts its hits per process,
    so one plan on the same chunk boundaries cannot preempt one launch and
-   stall the next): launch 2 stalls at epoch 70, the ``step`` beat goes
+   stall the next): launch 2 stalls at epoch 50, the ``step`` beat goes
    stale, SIGTERM cannot end the stall, SIGKILL does, and launch 3
    completes.  The supervisor exits 0 with ``preempted, hang,
    completed``, every relaunch carries ``--resume`` once, the nine best
@@ -250,13 +256,17 @@ hand-written kernel against its plain PyTorch version:
    ``cell_member(failed)`` before ``session_failover``, the client's 409
    ``{"resume": true}`` and replay from its acked cursor to a stream
    equal to the offline one, no bulk request failed, the supervisor's
-   ``--resume`` relaunch on the cell's port rejoins and the front's
-   breaker for it closes (its cooldown outlasts the relaunch); (d) ``POST
-   /cells/upgrade`` to checkpoint B (A with every classifier bias + 1:
-   another digest, the same argmax) under a live session and 8 clients:
-   per cell, one at a time, ``cell_upgrade`` drain, relaunch, live,
-   shadow (agreement at least 0.8), undrain; no failure, no expired
-   window, both cells on B; (e) SIGKILL of the active front: the standby
+   ``--resume`` relaunch on the cell's port rejoins (the state of the
+   front's breaker for it then is printed: open if the kill failed five
+   dispatches, and its cooldown outlasts the relaunch); (d) straight
+   after that rejoin, ``POST /cells/upgrade`` to checkpoint B (A with
+   every classifier bias + 1: another digest, the same argmax) under a
+   live session and 8 clients: per cell, one at a time, ``cell_upgrade``
+   drain, relaunch, live, shadow (agreement at least 0.8), undrain, the
+   upgrader draining a cell only while another is dispatchable (live,
+   its breaker closed) and waiting for the upgraded one to be (the time
+   it waited is printed); no failure, no expired window, both cells on
+   B; (e) SIGKILL of the active front: the standby
    journals ``affinity_replay`` (f0's table) and ``front_lease(takeover)``
    within TTL + 2 s and before the first request it serves, every bulk
    request completes with at most one leader switch, the session equals
@@ -266,6 +276,20 @@ hand-written kernel against its plain PyTorch version:
    front fenced itself; f1 exits 75 on SIGTERM, the orphaned cells are
    killed by the pids in f0's journal, and the card lists no process of
    the phase.
+20. the tooling, in this process, over what earlier phases wrote (no
+   process started): ``viz.load_model_filters`` gives equal filter sets
+   from phase 10's card-trained ``subject_0X_best_model.npz`` and
+   ``.pth``; the three figures render under Agg to PNG files where
+   matplotlib is installed, and otherwise their plotted data (the
+   topomaps' fields, the spectra) is computed and checked finite; the
+   GUI's report helpers read phase 10's report, and its evaluate command
+   names the port's ``predict`` and passes that CLI's parser; a
+   ``BENCH_ONCHIP_LAST.json`` written by ``obs.schema.write_json_artifact``
+   into the work directory (phase 10's 36-fold rate, ``platform: gpu``,
+   the card's name and power limit) is what the Performance tab renders;
+   ``obs.report --json`` summarizes phase 19's front trees and every
+   nested cell journal; ``obs.trace_report --require-cross-process``
+   stitches phase 18's journals into cross-process traces.  Budget 20 s.
 
 Phases 10 and 11 print GFLOP/s and the MFU against the card's FP32 peak
 (``utils/flops.py``) beside fold-epochs/s at 8, 36 and 90 folds.
@@ -341,7 +365,9 @@ SERVE_START_TIMEOUT_S = 300.0
 # carries the differences along.
 TRAIN_ATOL, TRAIN_RTOL = 2e-3, 2e-3
 TRAIN_EPOCHS = 5          # the CLI and the card's in-process run
-CPU_EPOCHS = 2            # the CPU half of the card-vs-CPU check
+# The CPU half of the card-vs-CPU check: one epoch since phase 20 joined
+# the smoke (two before; the 1200 s limit).
+CPU_EPOCHS = 1
 LEARN_EPOCHS = 30         # the separable pool
 TIME_EPOCHS = 10          # the throughput runs
 # (folds, batch): the 8- and 36-fold within-subject validation batches and
@@ -1189,9 +1215,11 @@ def write_raw_tree(np, raw, subjects=(1, 2), sfreq=250.0):
     return expected
 
 
-def _session_trials(np, rec_path, mode, paths, device, method):
+def _session_trials(np, rec_path, mode, paths, device, method,
+                    prefer_native=True):
     """One session through the port's chain on ``device`` with
-    ``EEGTPU_EMS_METHOD=method``: (X, y)."""
+    ``EEGTPU_EMS_METHOD=method`` (read with the numpy reader unless
+    ``prefer_native``): (X, y)."""
     from eegnetreplication_tpu_torch.data.epoching import (
         break_recording_into_epochs,
     )
@@ -1204,20 +1232,52 @@ def _session_trials(np, rec_path, mode, paths, device, method):
     saved = os.environ.get(EMS_METHOD_ENV)
     os.environ[EMS_METHOD_ENV] = method
     try:
-        rec = preprocess_recording(read_gdf(rec_path), device=device)
+        rec = preprocess_recording(
+            read_gdf(rec_path, prefer_native=prefer_native), device=device)
     finally:
         if saved is None:
             os.environ.pop(EMS_METHOD_ENV, None)
         else:
             os.environ[EMS_METHOD_ENV] = saved
-    out = paths.project_root / f"{method}-{device.type}" / (
+    reader = "native" if prefer_native else "numpy"
+    out = paths.project_root / f"{method}-{device.type}-{reader}" / (
         rec_path.stem + "-preprocessed.npz")
     rec.save(out)
     return break_recording_into_epochs(out, mode=mode, paths=paths)
 
 
+def _native_reader(np, raw: Path, stems) -> dict:
+    """The native GDF reader against the numpy one on every session of
+    the raw tree: arrays equal byte for byte; one read of each, in turns,
+    on the host clock."""
+    from eegnetreplication_tpu_torch.data import gdf, gdf_native
+
+    per_session = {}
+    for stem in stems:
+        path = raw / ("Train" if stem.endswith("T") else "Eval") \
+            / f"{stem}.gdf"
+        t0 = time.perf_counter()
+        nat = gdf_native.read_gdf(path)
+        t1 = time.perf_counter()
+        ref = gdf.read_gdf_python(path)
+        t2 = time.perf_counter()
+        for name in ("signals", "event_pos", "event_typ",
+                     "event_durations"):
+            a, b = getattr(nat, name), getattr(ref, name)
+            check(a.dtype == b.dtype and a.shape == b.shape
+                  and a.tobytes() == b.tobytes(), f"{stem}: the native "
+                  f"reader's {name} differ from the numpy reader's")
+        check(nat.labels == ref.labels and nat.sfreq == ref.sfreq,
+              f"{stem}: the native reader's labels or rate differ")
+        per_session[stem] = {"native_ms": (t1 - t0) * 1e3,
+                             "numpy_ms": (t2 - t1) * 1e3,
+                             "mb": ref.signals.nbytes / 1e6}
+    return per_session
+
+
 def phase_dataset(torch, np, dev, work: Path, env: dict):
     from eegnetreplication_tpu_torch.config import Paths
+    from eegnetreplication_tpu_torch.data import gdf_native
     from eegnetreplication_tpu_torch.data.io import (
         load_subject_dataset,
         load_trials,
@@ -1232,6 +1292,17 @@ def phase_dataset(torch, np, dev, work: Path, env: dict):
     expected = write_raw_tree(np, cli_paths.data_raw)
     log(f"raw tree: {len(expected)} sessions written in "
         f"{time.perf_counter() - t0:.1f}s")
+
+    # The C++ GDF reader, built with g++ from the checkout (the dataset
+    # CLI below reads through it).
+    cached = gdf_native.library_path().is_file()
+    t0 = time.perf_counter()
+    built = gdf_native.ensure_built()
+    native_build_s = time.perf_counter() - t0
+    check(built and gdf_native.available(), f"the native GDF reader did "
+          f"not build or load: {gdf_native.load_error()}")
+    log(f"native GDF reader: {gdf_native.library_path().name} "
+        f"{'found built' if cached else 'built'} in {native_build_s:.2f}s")
 
     # The CLI a user runs, on the card, EMS in K2.
     t0 = time.perf_counter()
@@ -1254,16 +1325,25 @@ def phase_dataset(torch, np, dev, work: Path, env: dict):
     try:
         ems.launches = 0
         block1.launches = 0
+        gdf_native.read_gdf.reads = 0
         t0 = time.perf_counter()
         build_processed_tree(paths)
         inproc_s = time.perf_counter() - t0
         launches = ems.launches
+        native_reads = gdf_native.read_gdf.reads
     finally:
         os.environ.pop("EEGTPU_EMS_METHOD", None)
     check(launches == len(expected),
           f"K2 launched {launches} times for {len(expected)} sessions")
+    check(native_reads == len(expected), f"the native GDF reader served "
+          f"{native_reads} of {len(expected)} sessions")
     log(f"build_processed_tree in process: {inproc_s:.1f}s, K2 launches "
-        f"{launches}")
+        f"{launches}, native GDF reads {native_reads}")
+    readers = _native_reader(np, cli_paths.data_raw, expected)
+    log("native vs numpy GDF reader, arrays byte-equal on every session; "
+        "host ms per session (native / numpy): " + ", ".join(
+            f"{k} {v['native_ms']:.1f} / {v['numpy_ms']:.1f} "
+            f"({v['mb']:.0f} MB)" for k, v in readers.items()))
 
     worst_repeat = 0.0
     for stem, classes in expected.items():
@@ -1296,6 +1376,18 @@ def phase_dataset(torch, np, dev, work: Path, env: dict):
     # the card's default method.
     raw = cli_paths.data_raw / "Train" / "A01T.gdf"
     card = load_trials(cli_paths.data_processed / "Train" / "A01T-trials.npz")
+    # The native reader changes no trial: A01T read by the numpy reader
+    # gives the in-process run's trials bit for bit (and the CLI's, which
+    # equal those, above).
+    native = load_trials(paths.data_processed / "Train" / "A01T-trials.npz")
+    numpy_X, numpy_y = _session_trials(np, raw, "Train", paths, dev,
+                                       "pallas", prefer_native=False)
+    check(native.X.tobytes() == numpy_X.tobytes()
+          and np.array_equal(native.y, numpy_y), "A01T's trials through the "
+          "native reader differ from the numpy reader's")
+    cli_diff = float(np.abs(card.X - numpy_X).max())
+    log(f"A01T's trials through the numpy reader equal the native reader's "
+        f"bit for bit; the CLI's differ from them by {cli_diff:.3e}")
     cpu_X, cpu_y = _session_trials(np, raw, "Train", paths,
                                    torch.device("cpu"), "pallas")
     assoc_X, assoc_y = _session_trials(np, raw, "Train", paths, dev,
@@ -1339,7 +1431,9 @@ def phase_dataset(torch, np, dev, work: Path, env: dict):
             "repeat_max_abs_diff": worst_repeat,
             "cpu_max_abs_err": cmp["cpu"],
             "associative_max_abs_err": cmp["associative"],
-            "predict_k1_launches": k1, "raw_session": str(raw)}
+            "predict_k1_launches": k1, "raw_session": str(raw),
+            "native_gdf": {"build_s": native_build_s, "cached": cached,
+                           "reads": native_reads, "sessions": readers}}
 
 
 def phase_k2_times(torch, np, dev, raw_session: Path, work: Path):
@@ -3976,21 +4070,21 @@ def phase_adapt(torch, np, dev, work: Path, env: dict) -> dict:
 # supervised server
 # --------------------------------------------------------------------------
 
-# 16a-b run 100 of the reference's 500 epochs since phase 19 joined the
-# smoke (its 1200 s limit); the chunks, the preemption and the hang keep
-# their boundaries.  --long runs its 500.
-SUP_EPOCHS = 100
-SUP_EVERY = 10            # a run snapshot every 10 epochs: 10 chunks
+# 16a-b run 60 of the reference's 500 epochs since phase 20 joined the
+# smoke (100 since phase 19, 500 before; its 1200 s limit); the chunks and
+# the preemption keep their boundaries.  --long runs its 500.
+SUP_EPOCHS = 60
+SUP_EVERY = 10            # a run snapshot every 10 epochs: 6 chunks
 LONG_EPOCHS = 500         # --long: the reference's cross-subject protocol
 LONG_EVERY = 50
 SUP_STEP_S = 20.0         # the watchdog's step budget (a healthy epoch <1 s)
 SUP_GRACE_S = 5.0         # SIGTERM -> SIGKILL
 # Launch 1 reads the preempt plan and stops at its 2nd chunk boundary
 # (epoch 20); every later launch reads the hang plan: launch 2 (resumed
-# at 20) stalls at its 5th boundary (epoch 70), and launch 3 (resumed at
-# 70) has 3 boundaries left, fewer than 5, so it completes.
+# at 20) stalls at its 3rd boundary (epoch 50), and launch 3 (resumed at
+# 50) has 1 boundary left, fewer than 3, so it completes.
 SUP_PREEMPT_AFTER = 1
-SUP_HANG_AFTER = 4
+SUP_HANG_AFTER = 2
 SUP_HANG_SLEEP_S = 600.0  # outlives SIGTERM (PEP 475): SIGKILL ends it
 SUP_WAIT_S = 900.0
 SERVE_HANG_AFTER = 3      # leg c: the 4th dispatch of a server stalls
@@ -6357,7 +6451,7 @@ class _LeaderLoad(_HttpLoad):
                 try:
                     status, _ = _post_raw(url + "/predict", body, self.ctype,
                                           timeout=15.0)
-                except OSError as exc:
+                except (OSError, http.client.HTTPException) as exc:
                     status = None
                     last = (f"{type(exc).__name__} after "
                             f"{time.perf_counter() - t_try:.1f}s")
@@ -6637,20 +6731,13 @@ def _cells_kill(torch, np, dev, boot: dict, sessions: list, bodies,
                        for e in _events_of(run_dir))
 
         _wait_for(rejoined, 240, f"{victim} to rejoin after SIGKILL")
-        t_rejoined = time.time()
-
-        def dispatchable():
-            # The front's breaker for the victim opened on the kill's
-            # transport failures and stays open for its cooldown after
-            # the rejoin; an upgrade that drained the sibling then would
-            # leave no dispatchable cell.  The load's next request probes
-            # it closed once the cooldown has run.
-            status, health = _get(url0 + "/healthz")
-            return any(c["cell"] == victim and c["circuit"] == "closed"
-                       and c["state"] == "live" for c in health["cells"])
-
-        _wait_for(dispatchable, 120, f"{victim}'s circuit to close")
-        t_closed = time.time()
+        # The front's breaker for the victim (not the cell's own): open
+        # if the kill failed enough dispatches, and then still in its
+        # cooldown, which outlasts the relaunch.  19d's upgrade starts at
+        # once; the upgrader waits for a dispatchable cell itself.
+        status, health = _get(url0 + "/healthz")
+        breaker = next(c["circuit"] for c in health["cells"]
+                       if c["cell"] == victim)
     finally:
         bulk = load.stop(np)
     check(bulk["failed"] == 0, f"{bulk['failed']} bulk requests failed "
@@ -6689,7 +6776,7 @@ def _cells_kill(torch, np, dev, boot: dict, sessions: list, bodies,
                kill_to_relaunch_s=events[i_launch]["t"] - t_kill,
                relaunch_to_live_s=events[i_live]["t"]
                - events[i_launch]["t"],
-               rejoined_to_circuit_closed_s=t_closed - t_rejoined)
+               breaker_at_rejoin=breaker)
     log(f"phase 19c: SIGKILL {victim} (pid {mark['pid']}) holding s2 under "
         f"{CELLS_CLIENTS} clients: {bulk['ok']} answered, 0 failed "
         f"({bulk['rps']:.1f} req/s, p95 {bulk['latency_ms']['p95']:.2f} "
@@ -6698,15 +6785,16 @@ def _cells_kill(torch, np, dev, boot: dict, sessions: list, bodies,
         f"{row['kill_to_failover_s']:.2f}s; s2 saw {row['codes']} and "
         "replayed to a stream equal to the offline one; relaunched with "
         f"--resume after {row['kill_to_relaunch_s']:.2f}s, live "
-        f"{row['relaunch_to_live_s']:.2f}s later, its circuit closed "
-        f"{row['rejoined_to_circuit_closed_s']:.2f}s after that")
+        f"{row['relaunch_to_live_s']:.2f}s later; the front's breaker for "
+        f"it {breaker} at the rejoin")
     return row
 
 
 def _cells_upgrade_and_failover(torch, np, dev, boot: dict, sessions: list,
-                                bodies, ckpt_b: Path) -> dict:
+                                bodies, ckpt_b: Path, breaker: str) -> dict:
     """19d-e: under one live session and bulk clients, the rolling upgrade
-    to checkpoint B, then SIGKILL of the active front f0."""
+    to checkpoint B (straight after 19c's rejoin, with the victim's
+    breaker ``breaker`` then), then SIGKILL of the active front f0."""
     from eegnetreplication_tpu_torch.serve.engine import InferenceEngine
 
     url0, url1, engine = boot["url0"], boot["url1"], boot["engine"]
@@ -6724,8 +6812,8 @@ def _cells_upgrade_and_failover(torch, np, dev, boot: dict, sessions: list,
         # 19d: the rolling upgrade.
         load = _HttpLoad(url0, bodies, CELLS_CLIENTS).start()
         try:
-            time.sleep(1.0)
             t0 = time.perf_counter()
+            t_request = time.time()
             status, result = _post(url0 + "/cells/upgrade", json.dumps(
                 {"checkpoint": str(ckpt_b),
                  "liveTimeoutS": CELLS_LIVE_TIMEOUT_S}).encode(),
@@ -6760,18 +6848,37 @@ def _cells_upgrade_and_failover(torch, np, dev, boot: dict, sessions: list,
         check(len(spans) == CELLS and all(
             b[0] > a[1] for a, b in zip(sorted(spans), sorted(spans)[1:])),
             "the cells' upgrades interleave")
+        # What the upgrader waited for a dispatchable cell: before the
+        # first drain (another cell), and from each cell's undrain to the
+        # next cell's drain (the cell just upgraded).
+        order = sorted(steps)
+        waits = {f"request->{order[0]} drain":
+                 steps[order[0]][0][1]["t"] - t_request}
+        for a, b in zip(order, order[1:]):
+            waits[f"{a} undrain->{b} drain"] = (steps[b][0][1]["t"]
+                                                - steps[a][-1][1]["t"])
+        circuits = [(e.get("site"), e["state"], e["reason"],
+                     round(e["t"] - t_request, 2)) for e in events
+                    if e["event"] == "circuit_state" and e["t"] >= t_request
+                    and e["t"] <= steps[order[-1]][-1][1]["t"]]
         digests = {cid: h["variables_digest"]
                    for cid, h in _cells_healthz(url0).items()}
         check(set(digests.values()) == {digest_b}, f"digests after the "
               f"upgrade: {digests}")
         row["upgrade"] = {"wall_s": upgrade_s, "per_cell": per_cell,
-                          "bulk": bulk}
+                          "bulk": bulk, "breaker_at_rejoin": breaker,
+                          "dispatchable_waits_s": waits,
+                          "circuit_events": len(circuits)}
         log(f"phase 19d: /cells/upgrade to {digest_b[:12]} under s3 and "
-            f"{CELLS_CLIENTS} clients in {upgrade_s:.1f}s, strictly one "
+            f"{CELLS_CLIENTS} clients in {upgrade_s:.1f}s, started at 19c's"
+            f" rejoin (the victim's breaker {breaker}), strictly one "
             f"cell at a time (drain, relaunch, live, shadow, undrain): "
             + ", ".join(f"{c} {v['wall_s']:.1f}s agree {v['agree']}"
                         for c, v in per_cell.items())
-            + f"; {bulk['ok']} bulk answered, 0 failed; both cells on B")
+            + "; waited for a dispatchable cell "
+            + ", ".join(f"{k} {v:.2f}s" for k, v in waits.items())
+            + f"; front circuit transitions meanwhile {circuits}; "
+            f"{bulk['ok']} bulk answered, 0 failed; both cells on B")
 
         # 19e: SIGKILL the active front.
         status, health = _get(url0 + "/healthz")
@@ -6943,8 +7050,9 @@ def phase_cells(torch, np, dev, work: Path, env: dict) -> dict:
         result["kill"] = _cells_kill(torch, np, dev, boot, sessions, bodies,
                                      kills)
         _cells_standby(boot)
-        result.update(_cells_upgrade_and_failover(torch, np, dev, boot,
-                                                  sessions, bodies, ckpt_b))
+        result.update(_cells_upgrade_and_failover(
+            torch, np, dev, boot, sessions, bodies, ckpt_b,
+            result["kill"]["breaker_at_rejoin"]))
         result["counts"] = _cells_counts(np, boot, sessions, kills)
         for name in ("f0_obs", "f1_obs"):
             events = _events_of(_fleet_run_dir(work / name))
@@ -6966,6 +7074,143 @@ def phase_cells(torch, np, dev, work: Path, env: dict) -> dict:
     log(f"phase 19 in {result['wall_s']:.1f} s: front_lease actions "
         f"{result['lease_actions']}; f1 -> 75; no cell left on the card")
     return result
+
+
+TOOLING_BUDGET_S = 20.0
+
+
+def _keep_training_artifacts(data_root: Path, keep: Path) -> None:
+    """Copy phase 10's models and report out of phase 8's tree (later
+    phases write models there) for phase 20."""
+    import shutil
+
+    for sub, pattern in (("models", "subject_0[12]_best_model.*"),
+                         ("reports", "latest_within_subject_report.json")):
+        (keep / sub).mkdir(parents=True, exist_ok=True)
+        for f in sorted((data_root / sub).glob(pattern)):
+            shutil.copy2(f, keep / sub / f.name)
+
+
+def phase_tooling(np, keep: Path, fleet_dir: Path, cells_dir: Path,
+                  card: str, train: dict) -> dict:
+    """Phase 20: viz, the GUI's helpers, the BENCH envelope and the report
+    CLIs over what phases 10, 18 and 19 wrote, in this process; its own
+    files go to ``keep``, the smoke's work directory."""
+    from eegnetreplication_tpu_torch import predict, ui, viz
+    from eegnetreplication_tpu_torch.config import Paths
+    from eegnetreplication_tpu_torch.obs import report, schema, trace_report
+
+    t_phase = time.perf_counter()
+    paths = Paths.from_root(keep)
+    out: dict = {}
+
+    # viz: the filters of the card-trained checkpoints, both formats.
+    sets = {}
+    for s in (1, 2):
+        stem = paths.models / f"subject_{s:02d}_best_model"
+        a = viz.load_model_filters(stem.with_suffix(".npz"))
+        b = viz.load_model_filters(stem.with_suffix(".pth"))
+        check(a.temporal.tobytes() == b.temporal.tobytes()
+              and a.spatial.tobytes() == b.spatial.tobytes()
+              and a.temporal.shape == (8, 32) and a.spatial.shape == (16, 22),
+              f"subject {s}: the .npz and .pth filter sets differ")
+        sets[s] = a
+    try:
+        import matplotlib
+    except ImportError:
+        matplotlib = None
+    figures = {}
+    if matplotlib is not None:
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        for name in ("plot_temporal_filters", "plot_spatial_filters",
+                     "plot_power_spectra_of_temporal_filters"):
+            png = keep / f"{name}.png"
+            plt.close(getattr(viz, name)(sets[1], show=False,
+                                         save_path=png))
+            check(png.stat().st_size > 0, f"{name} wrote no PNG")
+            figures[name] = png.stat().st_size
+        how = "rendered under Agg to PNG: " + ", ".join(
+            f"{k} {v} B" for k, v in figures.items())
+    else:
+        # No matplotlib on this machine: the data the figures plot.
+        grids = [viz.topomap_grid(row) for row in sets[1].spatial]
+        spectra = [viz.PS(row, sets[1].sfreq)[1] for row in sets[1].temporal]
+        inside = [g[~np.isnan(g)] for g in grids]
+        check(all(v.size and np.isfinite(v).all() for v in inside)
+              and all(np.isfinite(x).all() for x in spectra),
+              "a topomap field or a spectrum is not finite")
+        how = (f"matplotlib is not installed here: plotted data only "
+               f"({len(grids)} topomap fields of {grids[0].shape}, "
+               f"{len(spectra)} spectra)")
+    out["figures"] = figures or "data only"
+
+    # The GUI's helpers over phase 10's report and models.
+    ws_report = ui.get_report(paths)["within_subject"]
+    lines = ui.report_overview_lines(ws_report)
+    rows = ui.report_table_rows(ws_report, "subject_id")
+    check(lines[0].startswith("Average Test Accuracy: ") and len(lines) == 4
+          and [r[0] for r in rows] == ["Subject 1", "Subject 2"],
+          f"the report tab reads {lines} {rows}")
+    model = ui.get_model_path("Within-Subject", "1", paths)
+    cmd = ui.build_predict_cmd(str(model), 1)
+    check(model.suffix == ".npz" and cmd[1:3] == [
+        "-m", "eegnetreplication_tpu_torch.predict"],
+        f"the evaluate command: {cmd}")
+    args = predict.build_parser().parse_args(cmd[3:])
+    check(args.checkpoint == str(model) and args.subject == 1,
+          f"predict's parser read {args}")
+
+    # The BENCH envelope, and the Performance tab over it.
+    name, limit = card.rsplit(", ", 1)
+    rate = train["times_by_folds"][36]["fold_epochs_per_s"]
+    bench = schema.write_json_artifact(keep / "BENCH_ONCHIP_LAST.json", {
+        "value": round(rate, 2), "unit": "fold-epochs/s", "folds": 36,
+        "platform": "gpu", "device": name, "power_limit": limit})
+    schema.validate_bench(json.loads(bench.read_text()))
+    perf = ui.performance_overview_lines(keep)
+    check(len(perf) == 1 and str(round(rate, 2)) in perf[0]
+          and card in perf[0], f"the Performance tab shows {perf}")
+
+    # obs.report over phase 19's fronts and every nested cell journal.
+    fronts = [cells_dir / "f0_obs", cells_dir / "f1_obs"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = report.main([str(f) for f in fronts] + ["--json"])
+    summaries = [json.loads(line) for line in buf.getvalue().splitlines()]
+    got = {Path(r["dir"]) for r in summaries}
+    want = {rd for runs in _cell_processes(
+        _fleet_run_dir(fronts[0])).values() for rd in runs}
+    check(rc == 0 and want and want <= got
+          and not any(r.get("error") for r in summaries),
+          f"obs.report exited {rc} over phase 19's tree: {len(got)} runs, "
+          f"{len(want - got)} cell journals missing")
+
+    # obs.trace_report over phase 18's traced fleet.
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = trace_report.main([str(fleet_dir / "gray_obs"), "--json",
+                                "--require-cross-process"])
+    traces = [json.loads(line) for line in buf.getvalue().splitlines()
+              if line.startswith("{")]
+    crossed = sum(t["cross_process"] for t in traces)
+    check(rc == 0 and crossed >= 1, f"trace_report exited {rc}: "
+          f"{crossed} cross-process traces of {len(traces)}")
+
+    wall = time.perf_counter() - t_phase
+    out.update(wall_s=wall, perf_line=perf[0], report_runs=len(summaries),
+               cell_journals=len(want), traces=len(traces),
+               cross_process_traces=crossed)
+    log(f"phase 20: filters of phase 10's models equal from .npz and .pth;"
+        f" figures {how}; the report tab {lines[0]!r}, {len(rows)} rows; "
+        f"evaluate -> {' '.join(cmd[1:3])}, parsed; Performance tab "
+        f"{perf[0]!r}; obs.report: {len(summaries)} runs of phase 19 "
+        f"({len(want)} cell journals); obs.trace_report: {crossed} "
+        f"cross-process traces of {len(traces)}")
+    log(f"phase 20 in {wall:.1f} s (budget {TOOLING_BUDGET_S:.0f} s)")
+    check(wall <= TOOLING_BUDGET_S, f"phase 20 took {wall:.1f}s")
+    return out
 
 
 def main(argv=None) -> int:
@@ -7000,7 +7245,11 @@ def main(argv=None) -> int:
     from eegnetreplication_tpu_torch.utils.device import select_device
 
     t_start = time.perf_counter()
+    stack = contextlib.ExitStack()
     try:
+        # Phase 10's models and report, kept for phase 20.
+        keep = Path(stack.enter_context(tempfile.TemporaryDirectory(
+            prefix="chip_smoke_keep_")))
         card = phase_device(torch)
         dev = select_device()
         build_s = phase_build()
@@ -7022,6 +7271,7 @@ def main(argv=None) -> int:
                                       Path(data))
             train = phase_train(torch, np, dev, Path(data) / "train", env,
                                 Path(data) / "cli")
+            _keep_training_artifacts(Path(data) / "cli", keep)
             cs = phase_cross_subject(torch, np, dev, Path(data) / "cs", env,
                                      Path(data) / "cli")
             supervised = phase_supervised(torch, np, dev, Path(data) / "sup",
@@ -7041,16 +7291,22 @@ def main(argv=None) -> int:
             model_layer = phase_model_layer(torch, np, dev,
                                             Path(data) / "models", env,
                                             Path(data) / "cli")
-        # The fleet runs alone, after every other server has ended.
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
-            fleet = phase_fleet(torch, np, dev, Path(tmp), env)
+        # The fleet runs alone, after every other server has ended; its
+        # journals stay for phase 20.
+        fleet_dir = Path(stack.enter_context(tempfile.TemporaryDirectory(
+            prefix="chip_smoke_fleet_")))
+        fleet = phase_fleet(torch, np, dev, fleet_dir, env)
         # The cell tier runs alone, after the fleet has ended.
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_cells_") as tmp:
-            cells = phase_cells(torch, np, dev, Path(tmp), env)
+        cells_dir = Path(stack.enter_context(tempfile.TemporaryDirectory(
+            prefix="chip_smoke_cells_")))
+        cells = phase_cells(torch, np, dev, cells_dir, env)
+        tooling = phase_tooling(np, keep, fleet_dir, cells_dir, card, train)
     except Exception:  # noqa: BLE001 — every failure ends the run
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
         return 1
+    finally:
+        stack.close()
 
     top = times[BUCKETS[-1]]
     kernels = {"kernels": [{
@@ -7153,8 +7409,9 @@ def main(argv=None) -> int:
         "serving_zoo": zoo, "streams": streams, "control": control,
         "adapt": adapt, "supervised": supervised,
         "model_layer": model_layer, "fleet": fleet, "cells": cells,
-        "wall_s": time.perf_counter() - t_start,
+        "tooling": tooling, "wall_s": time.perf_counter() - t_start,
     }
+    log(f"chip_smoke total {record['wall_s']:.1f} s")
     print(json.dumps({"timings": record}), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -3,9 +3,9 @@
 The port's copy of ``eegnetreplication_tpu/data/gdf.py``.  The reference
 reads the BCI-IV-2a ``.gdf`` recordings through MNE
 (``src/eegnet_repl/dataset.py:86``); this reader needs only numpy, so the
-pipeline has no MNE dependency.  The JAX package's C++ reader
-(``data/gdf_native.py``) is not ported yet: :func:`read_gdf` is the numpy
-reader.
+pipeline has no MNE dependency.  :func:`read_gdf` prefers the C++ reader
+(:mod:`~eegnetreplication_tpu_torch.data.gdf_native`, built at first use)
+and falls back to this one when it cannot be built or loaded.
 
 Supports GDF v1.x and v2.x per the GDF specification (Schloegl 2006 and the
 BioSig reference implementation):
@@ -83,8 +83,14 @@ def _decode(raw: bytes) -> str:
     return raw.split(b"\x00")[0].decode("ascii", errors="replace").strip()
 
 
-def read_gdf(path: str | Path) -> GDFRecording:
-    """Read a GDF file (the numpy reader; the C++ one is not ported)."""
+def read_gdf(path: str | Path, prefer_native: bool = True) -> GDFRecording:
+    """Read a GDF file; uses the C++ reader when built, else pure numpy."""
+    path = Path(path)
+    if prefer_native:
+        from eegnetreplication_tpu_torch.data import gdf_native
+
+        if gdf_native.available():
+            return gdf_native.read_gdf(path)
     return read_gdf_python(path)
 
 

@@ -9,9 +9,9 @@ and serving paths:
   histograms flushed to ``metrics.json``, with an optional TensorBoard
   scalar mirror;
 - :mod:`~eegnetreplication_tpu_torch.obs.schema`, the required keys of the
-  training and serving events and the validation the JAX package's
-  readers apply;
-
+  training and serving events, the validation the JAX package's readers
+  apply, and the atomic artifact writer (``BENCH_*.json`` and
+  ``metrics.json``);
 - :mod:`~eegnetreplication_tpu_torch.obs.trace`, request-scoped trace
   spans and the reader that stitches a fleet's journals into trees;
 - :mod:`~eegnetreplication_tpu_torch.obs.slo`, sliding-window SLO
@@ -20,12 +20,15 @@ and serving paths:
 - :mod:`~eegnetreplication_tpu_torch.obs.probe`, the black-box prober;
 - :mod:`~eegnetreplication_tpu_torch.obs.agg`, live tailing and folding of
   many run journals, and :mod:`~eegnetreplication_tpu_torch.obs.top`, the
-  console over it (``python -m eegnetreplication_tpu_torch.obs.top``).
+  console over it (``python -m eegnetreplication_tpu_torch.obs.top``);
+- :mod:`~eegnetreplication_tpu_torch.obs.report` and
+  :mod:`~eegnetreplication_tpu_torch.obs.trace_report`, the readers of
+  finished runs: a summary row a run, and traces stitched across
+  processes (each ``python -m`` the module).
 
 The registry also renders the Prometheus text of ``GET /metrics``.
 Entry points open a run with :func:`journal.run`; library code reaches the
 active journal through :func:`journal.current` (a no-op outside a run).
-The ``BENCH_*.json`` writer is not ported (ROADMAP.md queue A.5).
 """
 
 from eegnetreplication_tpu_torch.obs import (
@@ -50,9 +53,11 @@ from eegnetreplication_tpu_torch.obs.schema import (
     SchemaError,
     read_events,
     read_metrics,
+    validate_bench,
     validate_event,
     validate_events,
     validate_metrics,
+    write_json_artifact,
 )
 
 __all__ = [
@@ -61,5 +66,6 @@ __all__ = [
     "bound", "current", "run", "new_run_id",
     "SCHEMA_VERSION", "SchemaError",
     "read_events", "read_metrics",
-    "validate_event", "validate_events", "validate_metrics",
+    "validate_bench", "validate_event", "validate_events",
+    "validate_metrics", "write_json_artifact",
 ]

@@ -27,7 +27,6 @@ observations.  :class:`TensorBoardMirror` mirrors scalars through
 from __future__ import annotations
 
 import bisect
-import json
 import os
 import re
 import threading
@@ -199,15 +198,9 @@ class MetricsRegistry:
                 "utc": schema.utc_now(), **values, "histograms": histograms}
 
     def flush(self, path: str | Path, run_id: str = "standalone") -> Path:
-        """Write the validated ``metrics.json`` atomically (a same-directory
-        temp file, then a rename)."""
-        record = schema.validate_metrics(self.snapshot(run_id))
-        path = Path(path)
-        path.parent.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        tmp.write_text(json.dumps(record, indent=1))
-        tmp.replace(path)
-        return path
+        """Write the validated ``metrics.json`` summary atomically."""
+        return schema.write_json_artifact(path, self.snapshot(run_id),
+                                          kind="metrics", indent=1)
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,9 @@ either package:
   each event's required keys, equal to the JAX table's rows);
 - **metrics.json**, the metrics registry's flushed summary
   (:func:`validate_metrics`);
+- **BENCH_*.json**, a measurement's envelope (:data:`BENCH_REQUIRED`,
+  :func:`validate_bench`), written with :func:`write_json_artifact`, the
+  atomic writer ``metrics.json`` goes through too;
 - :func:`event_summary`, the JAX package's condensed reading of one
   run's stream (a supervisor's ``supervisor_restarts`` and
   ``supervisor_status`` among its fields), a pure function over event
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 import json
 import numbers
+import os
 import time
 from pathlib import Path
 from typing import Any, Iterable
@@ -165,6 +169,11 @@ EVENT_REQUIRED: dict[str, tuple[str, ...]] = {
 METRIC_SECTIONS = ("counters", "gauges", "histograms")
 _HISTOGRAM_KEYS = ("count", "sum", "min", "max", "mean")
 
+# Minimal envelope for measurement artifacts (BENCH_*.json).  Existing
+# committed artifacts predate the envelope; the writer stamps it on the
+# way out, and the validator is only applied to newly written records.
+BENCH_REQUIRED = ("schema_version", "utc", "platform")
+
 
 class SchemaError(ValueError):
     """An artifact does not satisfy the telemetry schema."""
@@ -294,8 +303,42 @@ def read_metrics(path: str | Path) -> dict:
         return validate_metrics(json.load(fh))
 
 
+def validate_bench(record: dict) -> dict:
+    """Validate a measurement artifact's envelope; returns it on success."""
+    if not isinstance(record, dict):
+        raise SchemaError("bench record must be a dict")
+    _require(record, BENCH_REQUIRED, "bench record")
+    return record
+
+
 def utc_now() -> str:
     return time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
+
+
+def write_json_artifact(path: str | Path, record: dict,
+                        kind: str = "bench", indent: int | None = None) -> Path:
+    """Validate and atomically write a measurement artifact.
+
+    Stamps ``schema_version`` and ``utc`` when the caller did not, then
+    validates per ``kind`` (``"bench"`` or ``"metrics"``) and writes via a
+    same-directory temp file + rename so a crash mid-write can never leave
+    a truncated artifact where a valid one stood.
+    """
+    record = dict(record)
+    record.setdefault("schema_version", SCHEMA_VERSION)
+    record.setdefault("utc", utc_now())
+    if kind == "metrics":
+        validate_metrics(record)
+    elif kind == "bench":
+        validate_bench(record)
+    else:
+        raise ValueError(f"unknown artifact kind {kind!r}")
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    tmp.write_text(json.dumps(record, indent=indent))
+    tmp.replace(path)
+    return path
 
 
 def event_summary(events: list[dict]) -> dict[str, Any]:

@@ -49,8 +49,8 @@ def predict_trials(model, X: np.ndarray, batch_size: int = 256, *,
     return engine.infer(np.asarray(X, np.float32))
 
 
-def main(argv=None) -> int:
-    device = select_device()
+def build_parser() -> argparse.ArgumentParser:
+    """The CLI's flags (the GUI's evaluate command is held to them)."""
     parser = argparse.ArgumentParser(
         description="Classify EEG trials with a trained checkpoint.")
     parser.add_argument("--checkpoint", default=None,
@@ -77,6 +77,12 @@ def main(argv=None) -> int:
                         help="Engine weight precision; int8 is gated by "
                              "the fp32-argmax equivalence check (falls "
                              "back to fp32 on refusal), as in the server.")
+    return parser
+
+
+def main(argv=None) -> int:
+    device = select_device()
+    parser = build_parser()
     args = parser.parse_args(argv)
 
     if bool(args.checkpoint) == bool(args.zoo):

@@ -49,6 +49,17 @@ relaunch the cell's supervised children with the new args/checkpoint ->
 health-gate the rejoin (reusing the canary shadow-compare when the
 model digest changed) -> undrain — with abort-and-rollback when the
 upgraded cell never comes back, every step a ``cell_upgrade`` event.
+
+The upgrader never drains the last cell the front would dispatch to: a
+cell is drained only once another cell is dispatchable, it is retired
+only once the requests in flight on it have answered, and an undrained
+cell counts as back only once it is dispatchable again.  Dispatchable means ``live`` with
+the front router's breaker for it ``closed``: a cell killed earlier can
+rejoin ``live`` while its breaker still serves its cooldown (longer than
+a relaunch), and the router skips an open breaker.  The upgrader waits
+the cooldown out, claims the half-open probe slot as the router does
+and probes the cell's ``/healthz``, so the circuit closes on evidence.
+The JAX package's upgrader waits for ``live`` only.
 """
 
 from __future__ import annotations
@@ -60,6 +71,7 @@ import time
 from pathlib import Path
 
 from eegnetreplication_tpu_torch.obs import journal as obs_journal
+from eegnetreplication_tpu_torch.resil import breaker as cb
 from eegnetreplication_tpu_torch.resil import inject
 from eegnetreplication_tpu_torch.serve.cells import membership as cms
 from eegnetreplication_tpu_torch.utils.logging import logger
@@ -579,6 +591,12 @@ class RollingUpgrade:
         old = dict(self._current.get(cell_id)
                    or {"checkpoint": None, "serve_args": None})
         old_digest = cell.digest
+        others = [c for c in self.front.cells if c is not cell]
+        if others and not self._wait_dispatchable(others, live_timeout_s):
+            self._event(cell_id, "abort",
+                        reason="no other cell dispatchable within "
+                               f"{live_timeout_s:g}s")
+            return "aborted"
         self._event(cell_id, "drain",
                     n_sessions=len(self.front._sessions_on(cell_id)))
         try:
@@ -594,6 +612,7 @@ class RollingUpgrade:
                                "session(s) stuck")
             self.front.undrain_cell(cell)
             return "aborted"
+        self._wait_idle(cell, self.drain_timeout_s)
         self._event(cell_id, "relaunch",
                     checkpoint=str(checkpoint) if checkpoint else None)
         self._relaunch(cell_id, checkpoint or old.get("checkpoint"),
@@ -617,6 +636,10 @@ class RollingUpgrade:
                                                            3))
             return self._rollback(cell, cell_id, old)
         self._event(cell_id, "undrain", digest=cell.digest)
+        if not self._wait_dispatchable([cell], live_timeout_s):
+            self._event(cell_id, "timeout", waited_s=round(live_timeout_s,
+                                                           3))
+            return self._rollback(cell, cell_id, old)
         self._current[cell_id] = {
             "checkpoint": checkpoint or old.get("checkpoint"),
             "serve_args": (serve_args if serve_args is not None
@@ -637,7 +660,8 @@ class RollingUpgrade:
         back = self._wait_healthy(cell, self.live_timeout_s)
         if back:
             self.front.undrain_cell(cell)
-            self._wait_state(cell, cms.LIVE, self.live_timeout_s)
+            if self._wait_state(cell, cms.LIVE, self.live_timeout_s):
+                self._wait_dispatchable([cell], self.live_timeout_s)
         self._event(cell_id, "rollback", recovered=back,
                     digest=cell.digest)
         self._journal.metrics.inc("cell_upgrade_rollbacks")
@@ -679,6 +703,50 @@ class RollingUpgrade:
                 return True
             time.sleep(self.poll_s)
         return False
+
+    def _wait_dispatchable(self, cells, timeout_s: float) -> bool:
+        """Wait until the front would dispatch to one of ``cells``: live
+        with a closed breaker.  A half-open breaker that no request is
+        probing is probed here (its slot claimed with ``allow()``, as the
+        router claims it); an open one is waited out."""
+        deadline = time.monotonic() + timeout_s
+        while True:
+            for cell in cells:
+                if cell.state != cms.LIVE:
+                    continue
+                state = cell.breaker.state
+                if state == cb.HALF_OPEN and cell.breaker.allow():
+                    self._probe(cell)
+                    state = cell.breaker.state
+                if state == cb.CLOSED:
+                    return True
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(self.poll_s)
+
+    def _wait_idle(self, cell, timeout_s: float) -> bool:
+        """Wait until the drained cell has no request in flight.  The
+        router picked it for them before the drain; a retire under them
+        would leave their failover only the cells they did not try, and
+        a request that found a sibling's half-open slot taken has tried
+        it."""
+        deadline = time.monotonic() + timeout_s
+        while cell.inflight and time.monotonic() < deadline:
+            time.sleep(min(self.poll_s, 0.01))
+        return not cell.inflight
+
+    def _probe(self, cell) -> None:
+        """One ``/healthz`` through the front's client, its outcome
+        recorded on the cell's breaker (a 200 closes a half-open one)."""
+        try:
+            status, _ = cell.client.request("GET", "/healthz",
+                                            timeout_s=5.0)
+        except Exception:  # noqa: BLE001 — any transport failure counts
+            status = None
+        if status == 200:
+            cell.breaker.record_success()
+        else:
+            cell.breaker.record_failure()
 
     def _shadow_compare(self, canary_cell) -> float | None:
         """Canary-style shadow compare over recent bulk bodies: the

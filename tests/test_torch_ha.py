@@ -13,11 +13,21 @@ package's, on the CPU.
   driving the active to ``fenced`` (its routes answer 503 with the leader
   hint, and the standby cannot acquire); a rolling upgrade over scripted
   cells that converges, and one rolled back below the shadow floor.
+- C.6, where the port departs from the reference on purpose: with the
+  front's breaker for a cell still open when the upgrade starts (a cell
+  killed earlier, rejoined inside its cooldown) and bulk load through the
+  front, the port's upgrade fails no request, while the JAX upgrader
+  drains the sibling as soon as the first cell is ``live`` and answers
+  503 (pinned as the reference's defect).  The port's upgrader probes a
+  half-open breaker it finds idle, gives up on a cell whose probe
+  fails, and retires a drained cell only once its requests in flight
+  have answered.
 - ``obs.agg`` and ``event_summary`` fold the HA events of a cells run tree
   as the JAX package's do.
 """
 
 import json
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -445,6 +455,162 @@ def test_the_jax_upgrader_skips_its_shadow_gate(tmp_path):
         with pkg.journal.run(tmp_path / key, config={}) as jr:
             got[key] = _upgrade(pkg, jr, "bad.npz")[1]["status"]
     assert got == {"jax": "ok", "port": "rolled_back"}
+
+
+# -- C.6: the upgrade waits for a dispatchable cell -------------------------------
+
+C6_COOLDOWN_S = 3.0       # outlasts c0's upgrade, not the whole run
+C6_RELAUNCH_S = 1.5       # c1's relaunch: the window the reference drops
+
+
+class SlowRelaunch(FakeSupervisor):
+    """One cell's relaunch takes ``C6_RELAUNCH_S``: its old process is gone
+    and the new one not yet up, so only its sibling can answer
+    meanwhile."""
+
+    def __init__(self, fakes: dict, slow: str):
+        super().__init__(fakes)
+        self.slow = slow
+
+    def add_child(self, spec):
+        if spec[0] == self.slow:
+            time.sleep(C6_RELAUNCH_S)
+        super().add_child(spec)
+
+
+def _upgrade_after_a_kill(pkg, jr, open_cell: str):
+    """Upgrade both cells under bulk load with the front's breaker for
+    ``open_cell`` open, as after a kill whose relaunch beat the cooldown;
+    the other cell relaunches slowly."""
+    fakes = {"c0": FakeCell(digest="d-old.npz"),
+             "c1": FakeCell(digest="d-old.npz")}
+    sup = SlowRelaunch(fakes, slow="c1" if open_cell == "c0" else "c0")
+    front = pkg.front.CellFront(
+        [pkg.cms.CellMember(cid, f.url, journal=jr)
+         for cid, f in fakes.items()], port=0, poll_s=0.05, journal=jr)
+    front.membership.poll_once()
+    front.start()
+    codes: dict = {}
+    lock = threading.Lock()
+    stop = threading.Event()
+
+    def load():
+        while not stop.is_set():
+            status, _ = _post(front.url + "/predict", json.dumps(
+                {"trials": []}).encode())
+            with lock:
+                codes[status] = codes.get(status, 0) + 1
+            time.sleep(0.01)    # steady load, not a busy loop
+
+    workers = [threading.Thread(target=load) for _ in range(4)]
+    try:
+        victim = next(c for c in front.cells if c.cell_id == open_cell)
+        victim.breaker.reset_after_s = C6_COOLDOWN_S
+        for _ in range(victim.breaker.failure_threshold):
+            victim.breaker.record_failure()
+        assert victim.breaker.state == "open"
+        front.upgrader = pkg.ha.RollingUpgrade(
+            front, sup, lambda cid, ckpt, args: (cid, ckpt), journal=jr,
+            live_timeout_s=10.0, poll_s=0.05)
+        for cid in fakes:
+            front.upgrader.set_current(cid, "old.npz", [])
+        for w in workers:
+            w.start()
+        t_request = time.time()
+        status, result = _post(front.url + "/cells/upgrade", json.dumps(
+            {"checkpoint": "new.npz"}).encode())
+        time.sleep(0.3)
+    finally:
+        stop.set()
+        for w in workers:
+            w.join(30)
+        front.stop()
+        for f in fakes.values():
+            f.stop()
+    return status, result, codes, victim.breaker.state, t_request
+
+
+@pytest.mark.parametrize("open_cell", ["c0", "c1"],
+                         ids=["after_its_undrain", "before_the_first_drain"])
+def test_the_upgrade_never_drains_the_last_dispatchable_cell(tmp_path,
+                                                             open_cell):
+    """c0 open: c0 comes back from its upgrade still in its cooldown, and
+    the wait falls between its ``undrain`` and c1's ``drain``.  c1 open:
+    draining c0 would leave no dispatchable cell, and the wait falls
+    before c0's ``drain``; the requests in flight on c0 then answer
+    before it is retired (some skipped c1 while its half-open slot was
+    taken, so their failover could not reach it)."""
+    got, gaps = {}, {}
+    for key, pkg in PKGS.items():
+        with pkg.journal.run(tmp_path / key, config={}) as jr:
+            got[key] = _upgrade_after_a_kill(pkg, jr, open_cell)
+        events = pkg.schema.read_events(jr.events_path, complete=False)
+        t = {(e["cell"], e["action"]): e["t"] for e in events
+             if e["event"] == "cell_upgrade"}
+        gaps[key] = (t[("c1", "drain")] - t[("c0", "undrain")]
+                     if open_cell == "c0"
+                     else t[("c0", "drain")] - got[key][4])
+    for key in PKGS:
+        status, result, codes, _, _ = got[key]
+        assert status == 200 and result["status"] == "ok", (key, result)
+        assert result["upgraded"] == ["c0", "c1"]
+        assert sum(codes.values()) > 50 and codes.get(200, 0), (key, codes)
+    # The port: no request failed, the circuit closed on a probe, and the
+    # drain waited for it (the rest of the cooldown).
+    status, result, codes, state, _ = got["port"]
+    assert set(codes) == {200}, codes
+    assert state == "closed"
+    assert gaps["port"] > 1.0, gaps
+    # The reference drains while the breaker is open: 503 "no live
+    # cells" until the slow relaunch is back.
+    assert got["jax"][2].get(503, 0) > 0, got["jax"][2]
+    assert gaps["jax"] < 0.5, gaps
+
+
+@pytest.mark.parametrize("healthy", [True, False],
+                         ids=["probe_closes", "probe_fails"])
+def test_the_upgrader_probes_an_idle_half_open_breaker(tmp_path, healthy):
+    """No request probes the half-open breaker, so the upgrader claims
+    its slot and asks ``/healthz``: a 200 closes the circuit, a 503
+    reopens it and the wait runs out."""
+    pkg = PKGS["port"]
+    fake = FakeCell()
+    fake.degraded = [] if healthy else ["slo"]
+    with pkg.journal.run(tmp_path / "obs", config={}) as jr:
+        cell = pkg.cms.CellMember("c0", fake.url, journal=jr)
+        cell.state = "live"
+        cell.breaker.reset_after_s = 0.05
+        for _ in range(cell.breaker.failure_threshold):
+            cell.breaker.record_failure()
+        time.sleep(0.1)
+        assert cell.breaker.state == "half_open"
+        upgrader = pkg.ha.RollingUpgrade(None, None, None, journal=jr,
+                                         poll_s=0.01)
+        cell.breaker.reset_after_s = 60.0   # a failed probe stays open
+        try:
+            ok = upgrader._wait_dispatchable([cell], 0.5)
+        finally:
+            fake.stop()
+    assert ok is healthy
+    assert cell.breaker.state == ("closed" if healthy else "open")
+
+
+def test_the_upgrader_retires_a_drained_cell_once_idle(tmp_path):
+    """A drained cell with a request in flight is retired only once it
+    has answered (or the drain timeout runs out)."""
+    pkg = PKGS["port"]
+    with pkg.journal.run(tmp_path / "obs", config={}) as jr:
+        cell = pkg.cms.CellMember("c0", "http://127.0.0.1:9", journal=jr)
+        upgrader = pkg.ha.RollingUpgrade(None, None, None, journal=jr,
+                                         poll_s=0.01)
+        cell.begin()
+        assert upgrader._wait_idle(cell, 0.2) is False
+        timer = threading.Timer(0.2, cell.done)
+        timer.start()
+        t0 = time.monotonic()
+        assert upgrader._wait_idle(cell, 5.0) is True
+        assert 0.15 < time.monotonic() - t0 < 4.0
+        timer.join()
 
 
 # -- the observability fold ------------------------------------------------------------

@@ -4,7 +4,8 @@ Every module of ``eegnetreplication_tpu_torch`` (and ``chip_smoke.py``)
 must import in a process where ``jax``, ``flax``, ``optax`` and
 ``eegnetreplication_tpu`` cannot be imported, and the port's entry points
 must refuse a host without CUDA unless ``EEGTPU_PLATFORM=cpu`` asks for the
-CPU.
+CPU.  ``ui`` and ``viz`` also import with ``tkinter`` and ``matplotlib``
+blocked and no display, as on the card's machine.
 """
 
 import ast
@@ -69,7 +70,8 @@ _CHILD = textwrap.dedent("""
                  "serve.fleet.__main__", "utils.startup", "serve.cells",
                  "serve.cells.membership", "serve.cells.front",
                  "serve.cells.ha", "serve.cells.service",
-                 "serve.cells.__main__"):
+                 "serve.cells.__main__", "obs.report", "obs.trace_report",
+                 "viz", "ui", "data.gdf_native"):
         assert "eegnetreplication_tpu_torch." + name in names, name
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   {chip_smoke!r})
@@ -107,6 +109,49 @@ def test_port_imports_without_jax_and_refuses_a_host_without_cuda():
     n_modules = int(out.stdout.split("imported ", 1)[1].split()[0])
     assert n_modules >= 22
     assert "engine refused: CUDA is not available" in out.stdout
+
+
+_NO_TK_CHILD = textwrap.dedent("""
+    import os, sys
+
+    BLOCKED = {blocked!r} + ("tkinter", "_tkinter", "matplotlib")
+
+    class Blocker:
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"blocked import of {{name}}")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+    os.environ.pop("DISPLAY", None)
+    from eegnetreplication_tpu_torch import ui, viz
+    assert ui.tk is None
+    print(ui.build_predict_cmd("m.npz", 1)[2])
+    print(ui.report_table_rows({{"per_subject_results": [
+        {{"subject_id": 1, "test_accuracy": 70.0, "performance_rank": 1}}]}},
+        "subject_id"))
+    print(ui.performance_overview_lines()[0][:28])
+    print(viz.topomap_grid([0.0] * 22).shape)
+    try:
+        ui.App()
+    except RuntimeError as exc:
+        print("app refused:", exc)
+""")
+
+
+def test_ui_imports_without_tk_or_matplotlib_or_a_display():
+    """The card's machine has neither tkinter nor matplotlib: the GUI's
+    headless helpers and the topomap's field work there, and only the
+    App refuses."""
+    code = _NO_TK_CHILD.format(blocked=BLOCKED)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.splitlines()
+    assert lines[:4] == ["eegnetreplication_tpu_torch.predict",
+                         "[('Subject 1', '70.0%', 1)]",
+                         "No benchmark artifacts of th", "(64, 64)"]
+    assert lines[4].startswith("app refused: the GUI needs tkinter")
 
 
 def _port_sources():

@@ -6,17 +6,20 @@ never imports the code it lints.  This test configures it for
 come from the port's ``obs/schema.py``, ``resil/inject.py`` and
 ``serve/service.py``, an ``inject`` call counts when it resolves to the
 port's ``resil.inject``, and the spawn seams name the port's entry
-points.  Four passes run: journal-events, inject-sites, spawn-args and
-lock-discipline.
+points.  Five passes run: journal-events, inject-sites, spawn-args,
+lock-discipline and single-source (the header set a fleet or a front
+forwards is spelled once, as ``serve/service.py``'s
+``PASSTHROUGH_HEADERS``).  ``jit-purity`` checks JAX code only.
 
 - With an empty baseline the port's tree has no finding, but for the
   events its ``event_summary`` leaves out: the port's ``event_summary`` is
   the JAX one, and those are exactly the JAX baseline's justified
   ``journal-event-unsummarized`` entries.
-- The gate guards what the cell tier adds: a mutated copy of the tree
+- The gate guards what the serving tiers add: a mutated copy of the tree
   with an unregistered ``inject.fire`` site, an unregistered journal
-  event, an unknown flag on a spawned cell's command line, or a declared
-  site that nothing fires any more, fails it.
+  event, an unknown flag on a spawned cell's command line, a declared
+  site that nothing fires any more, or a fleet that forwards a
+  hand-spelled header set, fails it.
 """
 
 import json
@@ -37,7 +40,8 @@ from eegnetreplication_tpu.analysis.runner import run_all
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = "eegnetreplication_tpu_torch"
-PASSES = ("journal-events", "inject-sites", "spawn-args", "lock-discipline")
+PASSES = ("journal-events", "inject-sites", "spawn-args", "lock-discipline",
+          "single-source")
 UNSUMMARIZED = "journal-event-unsummarized"
 
 
@@ -65,7 +69,8 @@ def port_lint(monkeypatch):
         contracts.inject_rel = core.INJECT_REL
         contracts.service_rel = core.SERVICE_REL
         assert contracts.event_required and contracts.sites
-        assert contracts.passthrough_headers
+        assert set(contracts.passthrough_headers) == {
+            "X-Model", "X-Deadline-Ms", "X-Priority"}
         return run_all(root, passes=PASSES, project=project,
                        contracts=contracts)
 
@@ -109,24 +114,33 @@ def test_the_cell_tier_fires_and_journals_registered_names(port_lint):
     assert findings == []
 
 
-# (file under serve/cells/, text replaced, replacement, the findings)
+# (file under serve/, text replaced, replacement, the findings)
 MUTATIONS = {
     "unknown_site": (
-        "membership.py", 'inject.fire("cell.partition"',
+        "cells/membership.py", 'inject.fire("cell.partition"',
         'inject.fire("cell.partitoin"',
         [("inject-site-unknown", "cell.partitoin"),
          ("inject-site-unprobed", "cell.partition")]),
     "unknown_event": (
-        "front.py", '"session_migrate", session=sid',
+        "cells/front.py", '"session_migrate", session=sid',
         '"session_moved", session=sid',
         [("journal-event-unemitted", "session_migrate"),
          ("journal-event-unknown", "session_moved")]),
     "unknown_flag": (
-        "service.py", '"--sessionsMirror"', '"--sessionsMirrror"',
+        "cells/service.py", '"--sessionsMirror"', '"--sessionsMirrror"',
         [("spawn-arg-unknown", "--sessionsMirrror")]),
     "unprobed_site": (
-        "ha.py", 'inject.fire("front.lease", owner=self.owner, token=token)',
+        "cells/ha.py",
+        'inject.fire("front.lease", owner=self.owner, token=token)',
         "pass", [("inject-site-unprobed", "front.lease")]),
+    # The fleet forwards a copy of the header set that lacks X-Model, the
+    # reference's dropped-tenant fault.
+    "hand_spelled_headers": (
+        "fleet/service.py",
+        "passthrough = {h: self.headers[h] for h in PASSTHROUGH_HEADERS",
+        'passthrough = {h: self.headers[h] for h in ("X-Deadline-Ms", '
+        '"X-Priority")',
+        [("header-set-hand-spelled", "X-Deadline-Ms,X-Priority")]),
 }
 
 
@@ -138,7 +152,7 @@ def test_the_gate_catches_a_broken_cell_tier(name, port_lint, tmp_path):
                                                   "csrc"))
     # The journal-events pass reads the event docs beside the tree.
     shutil.copy(REPO / "BENCH_NOTES.md", tmp_path / "BENCH_NOTES.md")
-    path = tmp_path / PORT / "serve" / "cells" / rel
+    path = tmp_path / PORT / "serve" / rel
     text = path.read_text()
     assert text.count(old) == 1, (rel, old)
     path.write_text(text.replace(old, new))
