@@ -162,7 +162,7 @@ hand-written kernel against its plain PyTorch version:
    within-subject protocol (36 folds) at 60 of the reference's 500
    epochs (since phase 20, for the time limit; 100 since phase 19, 500
    before), a snapshot every 10, unbroken and, at once, under ``python -m
-   eegnetreplication_tpu_torch.resil.supervise --hang step=20 --graceS 5``
+   eegnetreplication_tpu_torch.resil.supervise --hang step=10 --graceS 2``
    with a chaos plan file: launch 1 reads ``host.preempt`` (exit 75 at
    epoch 20), and the file then holds ``train.hang`` for every later
    launch (a plan re-armed in every launch counts its hits per process,
@@ -290,6 +290,33 @@ hand-written kernel against its plain PyTorch version:
    ``obs.report --json`` summarizes phase 19's front trees and every
    nested cell journal; ``obs.trace_report --require-cross-process``
    stitches phase 18's journals into cross-process traces.  Budget 20 s.
+21. the mesh (``parallel/``), run after phase 17 in phase 8's tree (its
+   two subjects replicated to nine: 36 folds, EEGNet F1=8, D=2, batch 64,
+   the reference's hyperparameters); the rank processes are forked by the
+   train CLI and share the card, their collectives over gloo: (a) ``train
+   --meshFold 2`` and ``--maxFoldsPerProgram 18`` at once, 20 epochs with
+   a snapshot every 10: the nine best models bitwise equal, the reports
+   equal but their timestamps, both journals clean (``mesh_shape`` in the
+   mesh run's ``run_start``), K1-stacked launches summed over the ranks
+   (``run_end``) equal to the grouped run's, each rank's the same;
+   fold-epochs/s of both and the ranks' start; (b) ``--meshFold 2
+   --meshData 2`` (4 ranks) twice and once stopped, at once: the two
+   unbroken runs bitwise, SIGTERM after the first 5-epoch chunk exits 75
+   with the snapshot, ``--resume`` (beside (e)) is the unbroken run bit for
+   bit; (c) ``utils/mesh_drill.py`` alone, four ranks on ``cuda:0``: the
+   DP step over 2 data ranks at dropout 0 against the one-process step on
+   the whole batch over 20 steps (loss within rtol 1e-5 at the first step,
+   1e-3 at every step; every parameter within 1e-4 but the temporal
+   BatchNorm's scale and shift, whose true gradient is 0 and which Adam
+   moves by rounding noise, held to steps x lr), both BatchNorm modes;
+   ZeRO over a 2-wide model axis bitwise the replicated step over 20
+   steps; the DP step's and the one-process step's ms and the gloo
+   ``all_reduce`` of the flat gradient; (d) ``ems_time_sharded`` of a
+   (22, 345600) session over 2 and 4 ranks within atol 2e-4 / rtol 2e-3 of
+   the one-shot K2s ``scan`` and of K2, K2s launches per rank 1 at the ends
+   of the line and 2 in its middle; (e) one rank of a 2x2 run SIGKILLed
+   mid-epoch: the launcher exits non-zero within the gloo timeout (30 s)
+   + 10 s and no rank survives.
 
 Phases 10 and 11 print GFLOP/s and the MFU against the card's FP32 peak
 (``utils/flops.py``) beside fold-epochs/s at 8, 36 and 90 folds.
@@ -376,7 +403,10 @@ K1_STACKED_SIZES = ((8, 64), (36, 64), (90, 64))
 # Cross-subject training and resume (phase 11).
 CS_EPOCHS = 2             # the CLI and the counted runs
 CS_GROUP = 15             # the counted run in groups: 6 groups of 15
-CS_SWEEP = (15, 30, 45, 90)
+# The group-size sweep's ends (30 and 45 dropped since phase 21, for the
+# time limit: the sweep has always picked 90, and its rates rose with the
+# size).
+CS_SWEEP = (15, 90)
 CS_SWEEP_EPOCHS = 2       # timed, after one warm-up epoch
 CS_LEARN_EPOCHS = 10
 # The resume drill: a resumed card run against an unbroken one, and two
@@ -388,8 +418,9 @@ RESUME_WAIT_S = 600.0
 # than 4 folds halves the cross-subject CLI's groups of 8 to 4.
 CHAOS_GROUP, CHAOS_OVER = 8, 4
 # The cost legs: epochs timed per measurement, in turns on, off, off, on.
-DET_EPOCHS = {8: 5, 36: 5, 90: 2}
-NAN_EPOCHS = 2
+# (5, 5, 2 and 2 before phase 21, cut for the time limit.)
+DET_EPOCHS = {8: 3, 36: 3, 90: 1}
+NAN_EPOCHS = 1
 WS_REPORT_KEYS = {
     "": {"training_type", "timestamp", "model_parameters",
          "overall_results", "per_subject_results", "model_info",
@@ -2288,8 +2319,17 @@ def phase_cross_subject(torch, np, dev, work: Path, env: dict,
         f"at dropout 0.25: test accuracy {learn.avg_test_acc:.2f}% (chance "
         f"25%)")
 
-    drill = _resume_drill(np, work / "drill", env, data_root)
-    chaos = _chaos_leg(np, work / "chaos", env, cs_paths)
+    # The resume drill and the chaos leg share nothing: they run at once
+    # (since phase 21, for the time limit).
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as pool:
+        chaos_leg = pool.submit(_chaos_leg, np, work / "chaos", env,
+                                cs_paths)
+        try:
+            drill = _resume_drill(np, work / "drill", env, data_root)
+        finally:
+            chaos = chaos_leg.result()
 
     # Group sizes of the full protocol, then one epoch of the best under
     # the profiler, and the snapshot writer at 90 folds.
@@ -3628,19 +3668,24 @@ def _tuned_server(torch, np, dev, work: Path, env: dict) -> dict:
                                  for got in answers])
         result["predict_cli"] = _check_predict_cli(
             np, cli, work, "predict_tuned", served, y, "predict")
-        # /profile under a few requests: its trace names K1.
+        # /profile under requests until its trace is written: its trace
+        # names K1.  The window opens once the profiler's first start has
+        # imported its modules (seconds on the card), so requests keep
+        # coming until then.
         status, prof = _post(url + "/profile", json.dumps(
             {"seconds": 1.5}).encode(), "application/json")
         check(status == 202, f"/profile answered {status}: {prof}")
-        for _ in range(20):
-            _post(url + "/predict", bodies[0], "application/octet-stream")
-        trace_path = None
-        for _ in range(120):
-            time.sleep(0.25)
+        trace_path, n_profiled = None, 0
+        deadline = time.monotonic() + 60.0
+        while trace_path is None and time.monotonic() < deadline:
+            status, _ = _post(url + "/predict", bodies[0],
+                              "application/octet-stream")
+            check(status == 200, f"/predict under /profile: {status}")
+            n_profiled += 1
+            time.sleep(0.05)
             found = list(Path(prof["log_dir"]).glob("trace-*.json"))
             if found and found[0].stat().st_size:
                 trace_path = found[0]
-                break
         check(trace_path is not None, "/profile wrote no trace")
         time.sleep(0.5)
         check("block1_kernel" in trace_path.read_text(),
@@ -3655,8 +3700,8 @@ def _tuned_server(torch, np, dev, work: Path, env: dict) -> dict:
         ok_json = next(e["value"] for e in snap["counters"]["requests_total"]
                        if e["labels"] == {"status": "ok"})
         check(ok_json == _prom_value(text, 'requests_total{status="ok"}')
-              == n_answers + 20, f"requests_total ok {ok_json} vs "
-              f"{n_answers + 20} answered")
+              == n_answers + n_profiled, f"requests_total ok {ok_json} vs "
+              f"{n_answers + n_profiled} answered")
         check(_prom_value(text, "ladder_retunes")
               == health["ladder_retunes"] >= 1,
               "ladder_retunes differs between /metrics and /healthz")
@@ -4077,8 +4122,10 @@ SUP_EPOCHS = 60
 SUP_EVERY = 10            # a run snapshot every 10 epochs: 6 chunks
 LONG_EPOCHS = 500         # --long: the reference's cross-subject protocol
 LONG_EVERY = 50
-SUP_STEP_S = 20.0         # the watchdog's step budget (a healthy epoch <1 s)
-SUP_GRACE_S = 5.0         # SIGTERM -> SIGKILL
+# The watchdog's step budget (a healthy epoch < 1 s) and SIGTERM ->
+# SIGKILL grace: 20 s and 5 s before phase 21, cut for the time limit.
+SUP_STEP_S = 10.0
+SUP_GRACE_S = 2.0
 # Launch 1 reads the preempt plan and stops at its 2nd chunk boundary
 # (epoch 20); every later launch reads the hang plan: launch 2 (resumed
 # at 20) stalls at its 3rd boundary (epoch 50), and launch 3 (resumed at
@@ -5296,7 +5343,7 @@ def _mfu_fields(row: dict) -> dict:
 # --------------------------------------------------------------------------
 
 FLEET_REPLICAS = 3
-FLEET_LOAD_S = 4.0        # each scaling run through FleetRouter
+FLEET_LOAD_S = 2.0        # each scaling run (4 s before phase 21)
 FLEET_SUBMITTERS = 12     # a replica's submitters; 3 replicas get 24
 FLEET_CLIENTS = 8         # HTTP clients under the kill
 FLEET_SESSION_S = 20      # the sticky live session, seconds of 250 Hz
@@ -7213,6 +7260,293 @@ def phase_tooling(np, keep: Path, fleet_dir: Path, cells_dir: Path,
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 21: the mesh
+# --------------------------------------------------------------------------
+
+MESH_EPOCHS = 20          # 21a: --meshFold 2 against --maxFoldsPerProgram 18
+MESH_EVERY = 10
+MESH_DRILL_EVERY = 5      # 21b: four chunks, so a stop has one to wait for
+MESH_KILL_TIMEOUT_S = 30.0  # 21e: the gloo timeout of the killed world
+MESH_WAIT_S = 600.0
+MESH_DRILL_ARGS: list = []  # e.g. ["--inputs", x] for a small rehearsal
+
+
+def _mesh_train(name: str, work: Path, env: dict, data_root: Path, args,
+                extra_env=None):
+    """A train CLI over its own nine-subject tree (phase 8's two subjects
+    replicated) with its own journal directory; ``(proc, root, log)``."""
+    root = work / name
+    if not root.exists():
+        _replicated_tree(data_root, root)
+    log_path = work / f"{name}.log"
+    argv = [sys.executable, "-m", "eegnetreplication_tpu_torch.train",
+            "--trainingType", "Within-Subject", "--metricsDir",
+            str(root / "obs"), *args]
+    proc = _spawn(argv, dict(env, EEGTPU_DATA_ROOT=str(root),
+                             **(extra_env or {})), log_path)
+    return proc, root, log_path
+
+
+def _gauge(root: Path, name: str) -> float:
+    """A gauge of the one run journal's ``metrics.json`` under ``root``."""
+    (run,) = sorted((root / "obs").iterdir())
+    gauges = json.loads((run / "metrics.json").read_text())["gauges"]
+    return float(gauges[name][0]["value"])
+
+
+def _same_models(got: Path, want: Path, what: str) -> None:
+    names = [f"subject_{s:02d}_best_model.npz" for s in range(1, 10)]
+    _same_weights(got / "models", want / "models", names, what)
+    for s in range(1, 10):
+        pth = f"subject_{s:02d}_best_model.pth"
+        check((got / "models" / pth).read_bytes()
+              == (want / "models" / pth).read_bytes(),
+              f"{what}: {pth} differs")
+
+
+def _same_reports(got: Path, want: Path, what: str) -> None:
+    reports = [json.loads((r / "reports" / "latest_within_subject_report."
+                           "json").read_text()) for r in (got, want)]
+    for r in reports:
+        r.pop("timestamp")
+    check(reports[0] == reports[1], f"{what}: the reports differ")
+
+
+def _mesh_runs(work: Path, env: dict, data_root: Path) -> dict:
+    """Start 21a's pair, 21b's three runs and 21e's run at once; SIGTERM
+    21b's third run and SIGKILL a rank of 21e's as each writes its first
+    snapshot; wait for all.  ``{name: (exit code, stderr, root)}``, and
+    21e's rank pids and the seconds from the kill to the launcher's exit
+    under ``"kill"``."""
+    drill = ["--epochs", str(MESH_EPOCHS), "--checkpointEvery",
+             str(MESH_DRILL_EVERY), "--meshFold", "2", "--meshData", "2"]
+    pair = ["--epochs", str(MESH_EPOCHS), "--checkpointEvery",
+            str(MESH_EVERY)]
+    runs = {"mesh": pair + ["--meshFold", "2"],
+            "grouped": pair + ["--maxFoldsPerProgram", "18"],
+            "u1": drill, "u2": drill, "stopped": drill,
+            "killed": ["--epochs", "500", "--checkpointEvery",
+                       str(MESH_DRILL_EVERY), "--meshFold", "2",
+                       "--meshData", "2"]}
+    procs, roots, logs = {}, {}, {}
+    for name, args in runs.items():
+        extra = ({"EEGTPU_MESH_TIMEOUT_S": str(MESH_KILL_TIMEOUT_S)}
+                 if name == "killed" else None)
+        procs[name], roots[name], logs[name] = _mesh_train(
+            name, work, env, data_root, args, extra)
+    snap = {n: roots[n] / "models" / "within_subject_eegnet.run.npz"
+            for n in ("stopped", "killed")}
+    kill: dict = {}
+    deadline = time.monotonic() + MESH_WAIT_S
+    try:
+        while "term" not in kill or "t0" not in kill:
+            check(time.monotonic() < deadline, "21b/21e: no run snapshot")
+            if "term" not in kill:
+                check(procs["stopped"].poll() is None, "21b stopped ended "
+                      f"first: {logs['stopped'].read_text()[-2000:]}")
+                if snap["stopped"].exists():
+                    procs["stopped"].send_signal(signal.SIGTERM)
+                    kill["term"] = True
+            if "t0" not in kill:
+                check(procs["killed"].poll() is None, "21e ended first: "
+                      f"{logs['killed'].read_text()[-2000:]}")
+                if snap["killed"].exists():
+                    ranks = [int(p) for p in subprocess.run(
+                        ["pgrep", "-P", str(procs["killed"].pid)],
+                        capture_output=True, text=True).stdout.split()]
+                    check(len(ranks) == 4,
+                          f"21e: the launcher has children {ranks}")
+                    kill["t0"] = time.monotonic()
+                    os.kill(ranks[1], signal.SIGKILL)
+                    kill["ranks"] = ranks
+            time.sleep(0.02)
+        rc = procs["killed"].wait(timeout=MESH_KILL_TIMEOUT_S + 10.0)
+        kill["fail_s"] = time.monotonic() - kill["t0"]
+        kill["exit_code"] = rc
+        done = _wait_all(procs, logs, MESH_WAIT_S)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {"done": {n: (*done[n], roots[n]) for n in runs}, "kill": kill}
+
+
+def _mesh_vs_groups(np, done: dict) -> dict:
+    """21a's gates: ``--meshFold 2`` against ``--maxFoldsPerProgram 18``."""
+    for name in ("mesh", "grouped"):
+        rc, err, _ = done[name]
+        check(rc == 0, f"21a {name} exited {rc}: {err[-2000:]}")
+    roots = {n: done[n][2] for n in ("mesh", "grouped")}
+    _same_models(roots["mesh"], roots["grouped"], "21a")
+    _same_reports(roots["mesh"], roots["grouped"], "21a")
+    journals = {n: _journal(np, roots[n] / "obs", "ok") for n in roots}
+    start = journals["mesh"][0]
+    check(start.get("mesh_shape") == {"fold": 2, "data": 1, "model": 1},
+          f"21a mesh_shape {start.get('mesh_shape')}")
+    check(journals["grouped"][0].get("mesh_shape") is None,
+          "21a: the grouped run journals a mesh")
+    launches = {n: j[-1]["kernel_launches"]["block1_stacked"]
+                for n, j in journals.items()}
+    by_rank = journals["mesh"][-1]["kernel_launches_by_rank"][
+        "block1_stacked"]
+    check(launches["mesh"] == launches["grouped"] and len(by_rank) == 2
+          and all(n > 0 and n == by_rank[0] for n in by_rank),
+          f"21a K1-stacked launches: mesh {launches['mesh']} by rank "
+          f"{by_rank}, grouped {launches['grouped']}")
+    rates = {n: _gauge(roots[n], "epoch_throughput") for n in roots}
+    log(f"21a: --meshFold 2 {rates['mesh']:.2f} fold-epochs/s vs "
+        f"--maxFoldsPerProgram 18 {rates['grouped']:.2f} (36 folds x "
+        f"{MESH_EPOCHS} epochs, beside 21b and 21e's runs); ranks joined "
+        f"in {start['rank_join_s']:.2f} s, had the card in "
+        f"{start['rank_start_s']:.2f} s; best models bitwise, reports "
+        f"equal; K1-stacked {launches['mesh']} = {by_rank} by rank")
+    return {"fold_epochs_per_s": rates, "k1_stacked_launches": launches,
+            "k1_stacked_by_rank": by_rank,
+            "rank_join_s": start["rank_join_s"],
+            "rank_start_s": start["rank_start_s"],
+            "wall_s": {n: j[-1]["wall_s"] for n, j in journals.items()}}
+
+
+def _mesh_stopped(np, done: dict) -> None:
+    """21b's gates before the resume: two unbroken 2x2 runs bitwise; the
+    stopped one 75 with its snapshot and a ``preempted`` journal."""
+    for name in ("u1", "u2"):
+        rc, err, _ = done[name]
+        check(rc == 0, f"21b {name} exited {rc}: {err[-2000:]}")
+    rc, err, root = done["stopped"]
+    check(rc == 75, f"21b: SIGTERM gave {rc}: {err[-2000:]}")
+    check((root / "models" / "within_subject_eegnet.run.npz").exists(),
+          "21b: no snapshot after the stop")
+    _journal(np, root / "obs", "preempted")
+    _same_models(done["u1"][2], done["u2"][2], "21b two runs")
+    _same_reports(done["u1"][2], done["u2"][2], "21b two runs")
+
+
+def _mesh_resume(np, work: Path, env: dict, data_root: Path,
+                 done: dict) -> dict:
+    """21b's ``--resume``: bitwise the unbroken run."""
+    root = done["stopped"][2]
+    snap = root / "models" / "within_subject_eegnet.run.npz"
+    proc, _, log_path = _mesh_train(
+        "stopped", work, env, data_root,
+        ["--epochs", str(MESH_EPOCHS), "--checkpointEvery",
+         str(MESH_DRILL_EVERY), "--meshFold", "2", "--meshData", "2",
+         "--resume"])
+    rc, err = _wait_all({"r": proc}, {"r": log_path}, MESH_WAIT_S)["r"]
+    check(rc == 0, f"21b --resume exited {rc}: {err[-2000:]}")
+    check("Resuming from" in err, "21b: the --resume run did not resume")
+    check(not snap.exists(), "21b: the snapshot outlived the run")
+    _same_models(root, done["u1"][2], "21b resumed")
+    _same_reports(root, done["u1"][2], "21b resumed")
+    stopped, resumed = (
+        [json.loads(line) for line in (run / "events.jsonl").read_text()
+         .splitlines()][-1] for run in sorted((root / "obs").iterdir()))
+    check(resumed["status"] == "ok", f"21b resumed run_end "
+          f"{resumed['status']}")
+    ends = [_journal(np, done[n][2] / "obs", "ok")[-1] for n in ("u1", "u2")]
+    k1s = ends[0]["kernel_launches_by_rank"]["block1_stacked"]
+    check(len(k1s) == 4 and all(n > 0 for n in k1s),
+          f"21b: K1-stacked by rank {k1s}")
+    log(f"21b: two 2x2 runs bitwise; SIGTERM -> 75 -> --resume bitwise; "
+        f"K1-stacked {ends[0]['kernel_launches']['block1_stacked']} = "
+        f"{k1s} by rank")
+    return {"k1_stacked_launches": sum(
+        e["kernel_launches"]["block1_stacked"]
+        for e in ends + [stopped, resumed]), "k1_stacked_by_rank": k1s}
+
+
+def _mesh_killed(kill: dict) -> dict:
+    """21e's gates: the run failed within the gloo timeout + 10 s and no
+    rank survives."""
+    check(kill["exit_code"] != 0, "21e: the run survived a killed rank")
+    check(kill["fail_s"] <= MESH_KILL_TIMEOUT_S + 10.0,
+          f"21e: the launcher took {kill['fail_s']:.1f} s")
+    t0 = time.monotonic()
+    while _pids_alive(kill["ranks"]) and time.monotonic() - t0 < 10.0:
+        time.sleep(0.05)
+    survivors = _pids_alive(kill["ranks"])
+    check(not survivors, f"21e: ranks {survivors} outlived the launcher")
+    log(f"21e: a SIGKILLed rank failed the run with {kill['exit_code']} in "
+        f"{kill['fail_s']:.2f} s (gloo timeout {MESH_KILL_TIMEOUT_S:.0f} "
+        f"s); no rank survives")
+    return {"exit_code": kill["exit_code"], "fail_s": kill["fail_s"]}
+
+
+def _pids_alive(pids) -> list:
+    return [p for p in pids if _pid_alive(p)]
+
+
+def _mesh_drill(work: Path, env: dict, card: str) -> dict:
+    """21c-d: the DP step, ZeRO and the time-sharded EMS in one world of
+    four ranks on the card (``utils/mesh_drill.py``, run alone)."""
+    out_json = work / "drill.json"
+    argv = [sys.executable, "-m",
+            "eegnetreplication_tpu_torch.utils.mesh_drill", "--timing",
+            "--out", str(work / "drill.npz"), "--json", str(out_json),
+            *MESH_DRILL_ARGS]
+    log_path = work / "drill.log"
+    proc = _spawn(argv, env, log_path)
+    done = _wait_all({"drill": proc}, {"drill": log_path}, MESH_WAIT_S)
+    check(done["drill"][0] == 0,
+          f"21c-d drill exited {done['drill'][0]}: {done['drill'][1][-3000:]}")
+    res = json.loads(out_json.read_text())
+    info = res["info"]
+    for mode in ("flax", "torch"):
+        row = res[f"dp_{mode}"]
+        check(row["ok"], f"21c DP step ({mode} BatchNorm) against the "
+              f"one-process step: {row}")
+    check(res["zero"]["ok"], f"21c ZeRO: {res['zero']}")
+    for n, want in (("2", [1, 1, 1, 1]), ("4", [1, 2, 2, 1])):
+        row = res[f"ems_{n}"]
+        check(row["ok_vs_scan"] and row["ok_vs_pallas"],
+              f"21d ems_time_sharded over {n} ranks: {row}")
+        check(row["launches"] == want, f"21d K2s launches over {n} ranks "
+              f"{row['launches']}, designed {want}")
+    k1s = info["k1_stacked_launches"]
+    check(all(k > 0 for k in k1s), f"21c: K1-stacked by rank {k1s}")
+    log(f"21c: DP step {info['dp_step_ms']:.3f} ms (2 data ranks) against "
+        f"{info['single_step_ms']:.3f} ms one process; gloo all_reduce of "
+        f"the flat gradient ({info['all_reduce_bytes']} B) "
+        f"{info['all_reduce_ms']:.3f} ms; DP loss rel err "
+        f"{res['dp_flax']['loss_max_rel_err']:.2e} (flax) / "
+        f"{res['dp_torch']['loss_max_rel_err']:.2e} (torch); ZeRO bitwise "
+        f"over 20 steps; [{card}]")
+    log(f"21d: ems_time_sharded (22, 345600) over 2 / 4 ranks: max abs err "
+        f"{res['ems_2']['max_abs_err_vs_scan']:.2e} / "
+        f"{res['ems_4']['max_abs_err_vs_scan']:.2e} vs the one-shot K2s, "
+        f"{res['ems_2']['max_abs_err_vs_pallas']:.2e} / "
+        f"{res['ems_4']['max_abs_err_vs_pallas']:.2e} vs K2; K2s launches "
+        f"{res['ems_2']['launches']} / {res['ems_4']['launches']}")
+    return res
+
+
+def phase_mesh(np, work: Path, env: dict, data_root: Path,
+               card: str) -> dict:
+    """Phase 21: the mesh on the card.  21a's pair, 21b's three runs and
+    21e's run at once, then 21b's resume, then the drill (21c-d) alone,
+    so that its times are its own."""
+    t0 = time.perf_counter()
+    work.mkdir(parents=True, exist_ok=True)
+    runs = _mesh_runs(work, env, data_root)
+    out = {"mesh_vs_groups": _mesh_vs_groups(np, runs["done"]),
+           "kill": _mesh_killed(runs["kill"])}
+    _mesh_stopped(np, runs["done"])
+    out["stop_resume"] = _mesh_resume(np, work, env, data_root,
+                                      runs["done"])
+    out["drill"] = _mesh_drill(work, env, card)
+    out["k1_stacked_launches"] = (
+        sum(out["mesh_vs_groups"]["k1_stacked_launches"].values())
+        + out["stop_resume"]["k1_stacked_launches"]
+        + sum(out["drill"]["info"]["k1_stacked_launches"]))
+    out["ems_stream_launches"] = sum(
+        sum(out["drill"][f"ems_{n}"]["launches"]) for n in ("2", "4"))
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 21: {out['wall_s']:.1f}s")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None,
@@ -7245,6 +7579,16 @@ def main(argv=None) -> int:
     from eegnetreplication_tpu_torch.utils.device import select_device
 
     t_start = time.perf_counter()
+    walls: dict[str, float] = {}
+    clock = [t_start]
+
+    def mark(phase: str) -> None:
+        """The wall of ``phase``: since the previous mark (host clock)."""
+        now = time.perf_counter()
+        walls[phase] = now - clock[0]
+        clock[0] = now
+        log(f"wall of phase {phase}: {walls[phase]:.1f} s")
+
     stack = contextlib.ExitStack()
     try:
         # Phase 10's models and report, kept for phase 20.
@@ -7256,51 +7600,71 @@ def main(argv=None) -> int:
         k1_err = phase_k1(torch, dev)
         k1s_err = phase_k1_stacked(torch, dev)
         fwd_err = phase_forward(torch, dev)
+        mark("1-4")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             serve = phase_serve(torch, np, dev, Path(tmp), env)
+        mark("5")
         timer_floor = phase_timer_floor(torch, dev)
         times = phase_times(torch, np, dev)
         k1s_times = phase_k1_stacked_times(torch, dev)
+        mark("6")
         k2_err, k2_vs_methods = phase_k2(torch, np, dev)
+        mark("7")
         # Phase 8's tree lives until phase 17, which runs last so that it
         # leaves nothing behind for an earlier path.
         with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as data:
             dataset = phase_dataset(torch, np, dev, Path(data), env)
+            mark("8")
             k2_times = phase_k2_times(torch, np, dev,
                                       Path(dataset["raw_session"]),
                                       Path(data))
+            mark("9")
             train = phase_train(torch, np, dev, Path(data) / "train", env,
                                 Path(data) / "cli")
             _keep_training_artifacts(Path(data) / "cli", keep)
+            mark("10")
             cs = phase_cross_subject(torch, np, dev, Path(data) / "cs", env,
                                      Path(data) / "cli")
+            mark("11")
             supervised = phase_supervised(torch, np, dev, Path(data) / "sup",
                                           env, Path(data) / "cli",
                                           long=args.long)
+            mark("16")
             with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
                 zoo = phase_serving_zoo(torch, np, dev, Path(tmp), env)
+            mark("12")
             with tempfile.TemporaryDirectory(
                     prefix="chip_smoke_streams_") as tmp:
                 streams = phase_streams(torch, np, dev, Path(tmp), env)
+            mark("13")
             with tempfile.TemporaryDirectory(
                     prefix="chip_smoke_control_") as tmp:
                 control = phase_control(torch, np, dev, Path(tmp), env)
+            mark("14")
             with tempfile.TemporaryDirectory(
                     prefix="chip_smoke_adapt_") as tmp:
                 adapt = phase_adapt(torch, np, dev, Path(tmp), env)
+            mark("15")
             model_layer = phase_model_layer(torch, np, dev,
                                             Path(data) / "models", env,
                                             Path(data) / "cli")
+            mark("17")
+            mesh = phase_mesh(np, Path(data) / "mesh", env,
+                              Path(data) / "cli", card)
+            mark("21")
         # The fleet runs alone, after every other server has ended; its
         # journals stay for phase 20.
         fleet_dir = Path(stack.enter_context(tempfile.TemporaryDirectory(
             prefix="chip_smoke_fleet_")))
         fleet = phase_fleet(torch, np, dev, fleet_dir, env)
+        mark("18")
         # The cell tier runs alone, after the fleet has ended.
         cells_dir = Path(stack.enter_context(tempfile.TemporaryDirectory(
             prefix="chip_smoke_cells_")))
         cells = phase_cells(torch, np, dev, cells_dir, env)
+        mark("19")
         tooling = phase_tooling(np, keep, fleet_dir, cells_dir, card, train)
+        mark("20")
     except Exception:  # noqa: BLE001 — every failure ends the run
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -7342,8 +7706,9 @@ def main(argv=None) -> int:
         # server's counted chunks (phase 12), the adapting server of
         # phase 15 (its chunks, fit accuracies and restacks), and phase
         # 16's train CLIs, each counting in its run_end (the unbroken run
-        # and the supervised launches that ended; --long's too), and phase
-        # 17's three counted EEGNet runs (banded, lax, banded)
+        # and the supervised launches that ended; --long's too), phase
+        # 17's three counted EEGNet runs (banded, lax, banded), and phase
+        # 21's mesh runs (their run_end sums over the ranks) and drill
         "launches": (train["launches"] + cs["launches_one_group"]
                      + cs["launches_groups"]
                      + zoo["zoo"]["k1_stacked_launches"]
@@ -7351,7 +7716,8 @@ def main(argv=None) -> int:
                      + supervised["training"]["launches_block1_stacked"]
                      + supervised.get("long", {}).get(
                          "launches_block1_stacked", 0)
-                     + 3 * model_layer["conv_ab"]["k1_stacked_launches_each"]),
+                     + 3 * model_layer["conv_ab"]["k1_stacked_launches_each"]
+                     + mesh["k1_stacked_launches"]),
         "max_abs_err": k1s_err,
         # at the 90-fold cross-subject validation batch, (5760, 22, 257)
         "ms": k1s_times[5760]["ms"],
@@ -7382,12 +7748,13 @@ def main(argv=None) -> int:
         "replaces": ("eegnetreplication_tpu/ops/ems.py:244 (_stream_chunk, "
                      "lax.scan, not Pallas)"),
         # the three session servers of phase 13, the drifting session
-        # of phase 15, phase 18a's session through the fleet and phase
-        # 19's sessions on every cell process
+        # of phase 15, phase 18a's session through the fleet, phase 19's
+        # sessions on every cell process and phase 21d's time shards
         "launches": (streams["launches"]
                      + adapt["launches"]["got"]["ems_stream"]
                      + fleet["boot"]["session"]["ems_stream_launches"]
-                     + cells["counts"]["ems_stream_launches"]),
+                     + cells["counts"]["ems_stream_launches"]
+                     + mesh["ems_stream_launches"]),
         "max_abs_err": streams["k2s"]["max_abs_err"],
         # at a push of 25 samples, (22, 25)
         **{k: streams["times"]["by_n"][STREAM_CHUNK][k] for k in (
@@ -7409,7 +7776,8 @@ def main(argv=None) -> int:
         "serving_zoo": zoo, "streams": streams, "control": control,
         "adapt": adapt, "supervised": supervised,
         "model_layer": model_layer, "fleet": fleet, "cells": cells,
-        "tooling": tooling, "wall_s": time.perf_counter() - t_start,
+        "tooling": tooling, "mesh": mesh, "phase_walls": walls,
+        "wall_s": time.perf_counter() - t_start,
     }
     log(f"chip_smoke total {record['wall_s']:.1f} s")
     print(json.dumps({"timings": record}), flush=True)

@@ -100,17 +100,17 @@ class _ConvNet(nn.Module):
         return {"n_channels": self.n_channels, "n_times": self.n_times}
 
     def _start(self, x: torch.Tensor, params, stats, *, train: bool,
-               generator):
+               generator, bn_group=None):
         """The shared prologue of :meth:`stacked`: the grouped input
-        ``(B, G, C, T)``, the per-set norm over the grouped layout, and the
-        dropout."""
+        ``(B, G, C, T)``, the per-set norm over the grouped layout (synced
+        over ``bn_group`` when given), and the dropout."""
         self.check_length(x.shape[-1])
         g = x.shape[0]
         new_stats: dict[str, torch.Tensor] = {}
         norm = grouped_norm(stacked_norm(
             params, stats, train=train, sample_weights=None, bn_mode="flax",
             momentum=self.momentum, eps=self.bn_epsilon,
-            new_stats=new_stats), g)
+            new_stats=new_stats, group=bn_group), g)
         rate = self.dropout_rate if train else 0.0
 
         def drop(h):
@@ -137,9 +137,11 @@ class ShallowConvNet(_ConvNet):
                  n_filters_spat: int = 40, filter_time_length: int = 13,
                  pool_time_length: int = 35, pool_time_stride: int = 7,
                  dropout_rate: float = 0.5, momentum: float = 0.9, *,
+                 bn_axis_name: str | None = None,
                  device: torch.device | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
+        self.bn_axis_name = bn_axis_name
         self.n_channels, self.n_times = int(n_channels), int(n_times)
         self.n_classes = int(n_classes)
         self.n_filters_time = int(n_filters_time)
@@ -186,14 +188,15 @@ class ShallowConvNet(_ConvNet):
                 f"{self.pool_time_length}); got {t}")
 
     def stacked(self, params, stats, x, *, train: bool,
-                sample_weights=None, generator=None):
+                sample_weights=None, generator=None, bn_group=None):
         """G models on G batches: ``x`` ``(G, B, C, T)`` -> logits ``(G, B,
         n_classes)`` and the new running statistics (``{}`` in eval mode);
         ``params``/``stats`` are the ``state_dict`` tensors with a leading
         G axis.  ``sample_weights`` is unused (flax BatchNorm)."""
         del sample_weights
         h, g, norm, drop, new_stats = self._start(
-            x, params, stats, train=train, generator=generator)
+            x, params, stats, train=train, generator=generator,
+            bn_group=bn_group)
         b = h.shape[0]
         h = _grouped_conv(h, params["temporal_conv.weight"], g)
         h = _grouped_conv(h, params["spatial_conv.weight"], g)
@@ -216,9 +219,11 @@ class DeepConvNet(_ConvNet):
                  filters: tuple[int, ...] = (25, 50, 100, 200),
                  kernel_length: int = 5, pool_length: int = 2,
                  dropout_rate: float = 0.5, momentum: float = 0.9, *,
+                 bn_axis_name: str | None = None,
                  device: torch.device | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
+        self.bn_axis_name = bn_axis_name
         self.n_channels, self.n_times = int(n_channels), int(n_times)
         self.n_classes = int(n_classes)
         self.filters = tuple(int(f) for f in filters)
@@ -270,11 +275,12 @@ class DeepConvNet(_ConvNet):
                 f"window (>= ~{self.kernel_length * 2 ** len(self.filters)})")
 
     def stacked(self, params, stats, x, *, train: bool,
-                sample_weights=None, generator=None):
+                sample_weights=None, generator=None, bn_group=None):
         """G models on G batches, as :meth:`ShallowConvNet.stacked`."""
         del sample_weights
         h, g, norm, drop, new_stats = self._start(
-            x, params, stats, train=train, generator=generator)
+            x, params, stats, train=train, generator=generator,
+            bn_group=bn_group)
         b = h.shape[0]
         pool = (1, self.pool_length)
         h = _grouped_conv(h, params["temporal_conv.weight"], g)

@@ -94,7 +94,10 @@ class EEGNet(nn.Module):
     conv/linear init (U(+-1/sqrt(fan_in)), the JAX model's init too) from
     ``generator`` when given.  The module starts in eval mode;
     ``.train()`` selects the training forward (``bn_mode`` BatchNorm,
-    momentum 0.9 in flax's convention).  ``conv_impl`` is the schedule of
+    momentum 0.9 in flax's convention).  ``bn_axis_name`` names the mesh
+    axis the training BatchNorms sync over (the JAX model's; ``"data"``
+    under a data-parallel step, which hands :meth:`stacked` that axis's
+    group).  ``conv_impl`` is the schedule of
     the training forward and of the fold-stacked eval block 2 (``"lax"``:
     grouped convolutions; ``"banded"``: ``ops/banded.py``'s matmuls;
     ``"auto"``: :func:`resolve_conv_impl`, once, here).
@@ -106,11 +109,12 @@ class EEGNet(nn.Module):
                  n_classes: int = 4, F1: int = 8, D: int = 2,
                  dropout_rate: float = 0.5, bn_epsilon: float = 1e-5, *,
                  bn_mode: str = "flax", momentum: float = 0.9,
-                 conv_impl: str = "auto",
+                 conv_impl: str = "auto", bn_axis_name: str | None = None,
                  device: torch.device | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.conv_impl = resolve_conv_impl(conv_impl)
+        self.bn_axis_name = bn_axis_name
         if bn_mode not in BN_MODES:
             raise ValueError(
                 f"bn_mode must be 'flax' or 'torch'; got {bn_mode!r}")
@@ -170,13 +174,14 @@ class EEGNet(nn.Module):
                       device="cpu", generator=generator)
 
     def stacked(self, params, stats, x, *, train: bool,
-                sample_weights=None, generator=None):
+                sample_weights=None, generator=None, bn_group=None):
         """:func:`stacked_forward` with this model's hyperparameters."""
         return stacked_forward(
             params, stats, x, train=train, sample_weights=sample_weights,
             bn_mode=self.bn_mode, dropout_rate=self.dropout_rate,
             generator=generator, momentum=self.momentum,
-            eps=self.bn_epsilon, conv_impl=self.conv_impl)
+            eps=self.bn_epsilon, conv_impl=self.conv_impl,
+            bn_group=bn_group)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None
@@ -270,10 +275,11 @@ Norm = Callable[[torch.Tensor, str], torch.Tensor]
 
 def stacked_norm(params, stats, *, train: bool, sample_weights,
                  bn_mode: str, momentum: float, eps: float,
-                 new_stats: dict) -> Norm:
+                 new_stats: dict, group=None) -> Norm:
     """BatchNorm of G weight sets over an activation laid out ``(B, G, F,
-    *spatial)`` (any strides): statistics per set and feature.  In
-    training mode the new running statistics land in ``new_stats``."""
+    *spatial)`` (any strides): statistics per set and feature, synced over
+    ``group`` (a data-axis ``AxisGroup``) when given.  In training mode the
+    new running statistics land in ``new_stats``."""
     def norm(hv: torch.Tensor, prefix: str) -> torch.Tensor:
         scale, bias = params[f"{prefix}.weight"], params[f"{prefix}.bias"]
         mean = stats[f"{prefix}.running_mean"]
@@ -282,7 +288,7 @@ def stacked_norm(params, stats, *, train: bool, sample_weights,
             y, new_stats[f"{prefix}.running_mean"], \
                 new_stats[f"{prefix}.running_var"] = batch_norm_train(
                     hv, scale, bias, mean, var, sample_weights,
-                    mode=bn_mode, momentum=momentum, eps=eps)
+                    mode=bn_mode, momentum=momentum, eps=eps, group=group)
             return y
         return batch_norm_eval(hv, scale, bias, mean, var, eps)
 
@@ -361,7 +367,7 @@ def stacked_forward(params: Mapping[str, torch.Tensor],
                     bn_mode: str = "flax", dropout_rate: float = 0.0,
                     generator: torch.Generator | None = None,
                     momentum: float = 0.9, eps: float = 1e-5,
-                    conv_impl: str = "lax"
+                    conv_impl: str = "lax", bn_group=None
                     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """G EEGNets on G batches at once: ``x`` ``(G, B, C, T)`` -> logits
     ``(G, B, n_classes)`` and the new running statistics (``{}`` in eval
@@ -375,6 +381,8 @@ def stacked_forward(params: Mapping[str, torch.Tensor],
     statistics are per set.  ``sample_weights`` ``(G, B)`` feeds
     ``bn_mode="torch"``; dropout masks come from ``generator`` (on ``x``'s
     device), so the two schedules draw different masks at p > 0.
+    ``bn_group`` syncs the training BatchNorms over a data-axis group
+    (``x`` is then this rank's part of each batch).
     """
     g, b, c, t = x.shape
     if sample_weights is not None and tuple(sample_weights.shape) != (g, b):
@@ -386,7 +394,8 @@ def stacked_forward(params: Mapping[str, torch.Tensor],
     new_stats: dict[str, torch.Tensor] = {}
     norm = stacked_norm(params, stats, train=train,
                         sample_weights=sample_weights, bn_mode=bn_mode,
-                        momentum=momentum, eps=eps, new_stats=new_stats)
+                        momentum=momentum, eps=eps, new_stats=new_stats,
+                        group=bn_group)
     rate = dropout_rate if train else 0.0
 
     def drop(h):

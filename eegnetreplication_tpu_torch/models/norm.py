@@ -23,6 +23,15 @@ Statistics are per ``(g, f)`` over the batch and spatial axes.
 
 Both use flax's momentum convention (``running <- momentum * running +
 (1 - momentum) * batch``, 0.9 here is torch's 0.1) and eps 1e-5.
+
+**Synced BatchNorm.**  Given a data-axis group (``group``, a
+:class:`~eegnetreplication_tpu_torch.parallel.mesh.AxisGroup`; the JAX
+package's ``bn_axis_name``), the batch is split over the group's ranks and
+the statistics are the whole batch's: ``"torch"`` mode sums the weighted
+sums ``s1``, ``s2`` and the count over the group (the JAX module psums
+them), ``"flax"`` mode averages the ranks' means and mean squares (flax's
+``lax.pmean``).  Each is one ``all_reduce`` a BatchNorm, differentiable:
+its backward sums the gradient over the group.
 """
 
 from __future__ import annotations
@@ -42,14 +51,16 @@ def batch_norm_train(x: torch.Tensor, scale: torch.Tensor,
                      var: torch.Tensor,
                      sample_weights: torch.Tensor | None = None, *,
                      mode: str = "flax", momentum: float = 0.9,
-                     eps: float = 1e-5
+                     eps: float = 1e-5, group=None
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Normalise ``x`` with its batch statistics.
+    """Normalise ``x`` with its batch statistics (the whole batch's over
+    ``group`` when one is given; see the module docstring).
 
     Returns ``(y, new_mean, new_var)``: the output (differentiable in
     ``x``, ``scale`` and ``bias``) and the running statistics after this
     batch (detached).  ``sample_weights`` is read only in ``"torch"`` mode.
     """
+    synced = group is not None and group.active
     if mode not in BN_MODES:
         raise ValueError(f"bn_mode must be 'flax' or 'torch'; got {mode!r}")
     dims = (0,) + tuple(range(3, x.ndim))
@@ -58,7 +69,11 @@ def batch_norm_train(x: torch.Tensor, scale: torch.Tensor,
         spatial *= d
     if mode == "flax":
         m = x.mean(dims)
-        v = torch.clamp((x * x).mean(dims) - m * m, min=0.0)
+        m2 = (x * x).mean(dims)
+        if synced:
+            m, m2 = group.sum_differentiable(
+                torch.stack([m, m2])) / group.size
+        v = torch.clamp(m2 - m * m, min=0.0)
         batch_var = v
         keep = None
     else:
@@ -69,9 +84,15 @@ def batch_norm_train(x: torch.Tensor, scale: torch.Tensor,
         w_b = w.t().reshape(x.shape[0], x.shape[1],
                             *([1] * (x.ndim - 2)))
         denom = w.sum(1, keepdim=True) * spatial                # (G, 1)
+        s1 = (x * w_b).sum(dims)
+        s2 = (x * x * w_b).sum(dims)
+        if synced:
+            s1, s2, denom = group.sum_differentiable(torch.stack(
+                [s1, s2, denom.expand_as(s1)]))
+            denom = denom[:, :1]
         d = torch.clamp(denom, min=1.0)
-        m = (x * w_b).sum(dims) / d
-        v = torch.clamp((x * x * w_b).sum(dims) / d - m * m, min=0.0)
+        m = s1 / d
+        v = torch.clamp(s2 / d - m * m, min=0.0)
         batch_var = v * d / torch.clamp(d - 1.0, min=1.0)       # unbiased
         keep = denom > 0
 

@@ -27,8 +27,13 @@ JAX package's names and default:
 
 :class:`StreamingEMS` carries the ``scan`` recurrences across the chunks of
 a live stream (the JAX package's ``StreamingEMS``): any chunking gives the
-bits of the one-shot ``scan`` on the same device.  ``ems_time_sharded`` is
-not ported.
+bits of the one-shot ``scan`` on the same device.
+
+:func:`ems_time_sharded` is the sequence-parallel EMS of one long
+recording over a mesh axis's ranks (the JAX ``ems_time_sharded``): each
+rank takes a contiguous time shard, the carries entering the shards come
+from the shards' affine summaries over one ``all_gather`` each, and each
+rank's pass over its shard is a K2s launch from its incoming carry.
 """
 
 from __future__ import annotations
@@ -284,3 +289,99 @@ def raw_exponential_moving_standardize(
         xt, factor_new=float(factor_new), init_block_size=int(init_block_size),
         method=method)
     return out.cpu().numpy().astype(x.dtype, copy=False)
+
+
+def ems_time_sharded(x: torch.Tensor, mesh, axis_name: str | None = None,
+                     factor_new: float = 1e-3, init_block_size: int = 1000,
+                     eps: float = 1e-10) -> torch.Tensor:
+    """EMS of a long recording ``x (..., T)`` with its time axis split over
+    ``axis_name`` (default ``"data"``) of ``mesh``: every rank of the
+    axis's line calls it with the whole recording (on its device) and
+    standardizes its contiguous shard of ``T / n`` samples.
+
+    The JAX function's shape checks raise as there: ``n`` must divide
+    ``T``, and the first shard must hold the seed block.  Then:
+
+    1. the first rank's leading ``init_block_size`` samples seed the
+       statistics, broadcast over the line;
+    2. the mean recurrence ``m_t = c m_{t-1} + a z_t`` is affine in its
+       carry, so shard ``j`` maps ``m`` to ``c^L m + b_j`` with ``b_j =
+       sum_t a c^(L-1-t) z_t`` (a float64 product of the shard and a
+       decay vector, no scan); one ``all_gather`` of the ``b_j`` and a
+       prefix over them give every shard's incoming mean carry;
+    3. the variance recurrence ``v_t = c v_{t-1} + a (z_t - m_t)^2`` is
+       affine in ``v`` once ``m`` is known, so each middle shard's summary
+       is the ``v`` carry of a K2s pass from ``(m_in, 0)``, and the first
+       shard's pass from ``(0, var0)`` is already its output and hands on
+       its exact carry; one ``all_gather`` and a prefix give the incoming
+       variance carries;
+    4. every shard but the first runs its output pass, a K2s launch
+       (``ops/ems_kernel.py::ems_stream``; its plain loop on the CPU) from
+       ``(m_in, v_in)``.
+
+    K2s launches per call: 1 on the first and last ranks, 2 on a middle
+    one.  Equal to the one-shot ``scan`` up to the f32 rounding of the
+    composed carries.  Returns the whole standardized recording on every
+    rank of the line (one more ``all_gather``), in ``x``'s dtype.
+    """
+    from eegnetreplication_tpu_torch.parallel.mesh import DATA_AXIS
+
+    axis_name = axis_name or DATA_AXIS
+    group = mesh.group(axis_name)
+    n_shards, k = group.size, group.index
+    t_total = x.shape[-1]
+    if t_total % n_shards:
+        raise ValueError(
+            f"The mesh's {axis_name!r} axis size ({n_shards}) must divide "
+            f"the time axis ({t_total}) for sequence parallelism")
+    local_t = t_total // n_shards
+    block = min(init_block_size, t_total)
+    if block > local_t:
+        raise ValueError(
+            f"init_block_size ({block}) exceeds the local shard length "
+            f"({local_t}); use fewer shards or a smaller seed block")
+    shape = x.shape
+    rows = x.reshape(-1, t_total).to(torch.float32)
+    local = rows[:, k * local_t:(k + 1) * local_t].contiguous()
+    n_rows = local.shape[0]
+    a, c = f32_coefficients(factor_new)
+
+    if k == 0:
+        stats = torch.stack(seed_stats(local, block))
+    else:
+        stats = local.new_zeros((2, n_rows))
+    mean0, var0 = group.broadcast(stats, 0)
+    mean0, var0 = mean0.contiguous(), var0.contiguous()
+    z = local - mean0[:, None]
+
+    decay = torch.arange(local_t - 1, -1, -1, dtype=torch.float64,
+                         device=local.device)
+    weights = a * torch.pow(torch.tensor(c, dtype=torch.float64), decay
+                            ).to(local.device)
+    c_l = float(np.float64(c) ** local_t)
+    mean_sums = group.all_gather(z.double() @ weights)
+    m_in = torch.zeros(n_rows, dtype=torch.float64, device=local.device)
+    for j in range(k):
+        m_in = c_l * m_in + mean_sums[j]
+    m_in = m_in.to(torch.float32)
+
+    out = None
+    if k == 0:
+        m, v = torch.zeros_like(mean0), var0.clone()
+        out = ems_stream(local, mean0, m, v, factor_new, eps)
+        carry_v = v
+    elif k < n_shards - 1:
+        carry_v = torch.zeros_like(mean0)
+        ems_stream(local, mean0, m_in.clone(), carry_v, factor_new, eps)
+    else:
+        carry_v = torch.zeros_like(mean0)
+    var_sums = group.all_gather(carry_v.double())
+    if k > 0:
+        v_in = var_sums[0]
+        for j in range(1, k):
+            v_in = c_l * v_in + var_sums[j]
+        out = ems_stream(local, mean0, m_in.clone(),
+                         v_in.to(torch.float32).contiguous(), factor_new,
+                         eps)
+    return torch.cat(group.all_gather(out), dim=-1).to(x.dtype).reshape(
+        shape)

@@ -10,12 +10,27 @@ Ported: ``--trainingType`` (``Within-Subject``, ``Cross-Subject``),
 ``deep_convnet``), ``--seed``, ``--maxnormMode``,
 ``--bnMode``, ``--subjects``, ``--maxFoldsPerProgram`` (fold groups),
 ``--checkpointEvery`` and ``--resume`` (chunked runs with run snapshots),
-``--metricsDir``, ``--chaos``, ``--profileDir`` and ``--debugNans``, with
-the JAX CLI's parse-time errors.  A flag whose machinery is not ported
-stops the CLI with a message naming ROADMAP.md instead of being ignored:
-a device mesh larger than ``--meshFold 1 --meshData 1`` (one card runs a
-1 x 1 mesh), ``--precision`` other than ``highest`` and ``--ckptFormat
-orbax``.
+``--metricsDir``, ``--chaos``, ``--profileDir``, ``--debugNans`` and the
+device mesh ``--meshFold``/``--meshData``, with the JAX CLI's parse-time
+errors.  A flag whose machinery is not ported stops the CLI with a message
+naming ROADMAP.md instead of being ignored: ``--precision`` other than
+``highest`` and ``--ckptFormat orbax``.
+
+**The mesh.**  ``--meshFold N --meshData M`` (each >= 1; ``--meshFold``
+unset means 1) trains over an ``N x M`` mesh of rank processes
+(``parallel/``): the folds split into N blocks, one per fold line, and
+every batch of a block splits over the M ranks of its line, with synced
+BatchNorm and the gradients summed over them (``batch_size % M == 0``, the
+JAX package's check).  On one card every rank runs on ``cuda:0`` and the
+ranks' collectives go over gloo.  The CLI's process is the launcher
+(``parallel/launch.py``): it forks the ranks before anything touches CUDA,
+forwards SIGTERM/SIGINT to them, and exits with the world's code (75 when
+the ranks stopped together at a chunk boundary, non-zero when any rank
+failed, the others then killed).  Rank 0 alone writes the journal (its
+``run_start`` carries ``mesh_shape``, its ``run_end`` the kernel launches
+summed over the ranks, and ``run_start`` the slowest rank's start), the
+report, the models, the run snapshots and the heartbeat; the best models equal those of a one-process run in groups of
+``folds / N`` (``--maxFoldsPerProgram``) bit for bit.
 
 Every run writes a journal, as the JAX CLI does: ``events.jsonl`` and
 ``metrics.json`` under ``<metricsDir>/<run_id>/`` (default
@@ -93,10 +108,13 @@ def build_parser() -> argparse.ArgumentParser:
                              "shallow_convnet, deep_convnet).")
     parser.add_argument("--seed", type=int, default=0, help="Seed.")
     parser.add_argument("--meshFold", type=int, default=None,
-                        help="Fold-axis size of the device mesh (only 1: "
-                             "one card).")
+                        help="Fold-axis size of the device mesh: the folds "
+                             "split over this many rank processes "
+                             "(default 1).")
     parser.add_argument("--meshData", type=int, default=1,
-                        help="Data-axis size of the device mesh (only 1).")
+                        help="Data-axis size of the device mesh: every "
+                             "batch splits over this many rank processes "
+                             "(synced BatchNorm, summed gradients).")
     parser.add_argument("--maxnormMode", type=str, default="reference",
                         choices=["reference", "paper"],
                         help="Max-norm behaviour: reference grad-clamp (Q1) "
@@ -162,10 +180,6 @@ def build_parser() -> argparse.ArgumentParser:
 def unported_flags(args: argparse.Namespace) -> list[str]:
     """The flags of ``args`` whose machinery the port does not have."""
     refused = []
-    if args.meshFold not in (None, 1) or args.meshData != 1:
-        refused.append("--meshFold/--meshData above 1 (a device mesh over "
-                       "several cards: ROADMAP.md queue A.7; one card runs "
-                       "the 1 x 1 mesh)")
     if args.precision != "highest":
         refused.append(f"--precision {args.precision} (TPU matmul modes; the "
                        "port computes in full f32)")
@@ -178,10 +192,13 @@ def unported_flags(args: argparse.Namespace) -> list[str]:
     return refused
 
 
-def _card_record() -> dict:
+def _card_record(mesh=None) -> dict:
     """What this process ran on the card, for ``run_end``: its launches of
     the hand kernels (0 on the CPU, where the plain versions run) and the
-    peak device memory it allocated (``None`` on the CPU)."""
+    peak device memory it allocated (``None`` on the CPU).  Under a mesh
+    of ranks (a collective every rank makes) the launches are summed over
+    the ranks, listed by rank beside, and the peak is the largest
+    rank's."""
     import torch
 
     from eegnetreplication_tpu_torch.ops.fused_eegnet import (
@@ -191,9 +208,26 @@ def _card_record() -> dict:
 
     peak = (int(torch.cuda.max_memory_allocated())
             if torch.cuda.is_initialized() else None)
-    return {"kernel_launches": {"block1": block1.launches,
-                                "block1_stacked": block1_stacked.launches},
-            "peak_memory_bytes": peak}
+    counts = {"block1": block1.launches,
+              "block1_stacked": block1_stacked.launches}
+    if mesh is None or mesh.size == 1:
+        return {"kernel_launches": counts, "peak_memory_bytes": peak}
+    import torch.distributed as dist
+
+    rows = [None] * mesh.size
+    dist.all_gather_object(rows, (counts, peak))
+    peaks = [p for _, p in rows if p is not None]
+    return {"kernel_launches": {k: sum(c[k] for c, _ in rows)
+                                for k in counts},
+            "kernel_launches_by_rank": {k: [c[k] for c, _ in rows]
+                                        for k in counts},
+            "peak_memory_bytes": max(peaks) if peaks else None}
+
+
+def mesh_dims(args: argparse.Namespace) -> tuple[int, int]:
+    """``(meshFold, meshData)`` of the parsed flags."""
+    return (args.meshFold if args.meshFold is not None else 1,
+            args.meshData)
 
 
 def main(argv=None) -> int:
@@ -229,6 +263,14 @@ def main(argv=None) -> int:
             "explicit positive --checkpointEvery")
     config = DEFAULT_TRAINING.replace(maxnorm_mode=args.maxnormMode,
                                       bn_mode=args.bnMode)
+    n_fold, n_data = mesh_dims(args)
+    if n_fold < 1 or n_data < 1:
+        parser.error(f"--meshFold and --meshData must be >= 1; got "
+                     f"{n_fold} x {n_data}")
+    if config.batch_size % n_data:
+        parser.error(
+            f"batch_size {config.batch_size} is not divisible by the mesh "
+            f"data axis ({n_data}); pick batch_size % meshData == 0")
     subjects = (tuple(int(s) for s in args.subjects.split(","))
                 if args.subjects else tuple(range(1, 10)))
     cross = args.trainingType != "Within-Subject"
@@ -241,11 +283,52 @@ def main(argv=None) -> int:
             f"({config.cs_train_subjects} train + 1 val + 1 test); got "
             f"{len(subjects)}.")
 
+    # Everything the ranks run is imported before they are forked.
+    from eegnetreplication_tpu_torch.training import (  # noqa: F401
+        protocols,
+        report,
+    )
+
+    if n_fold * n_data > 1:
+        from eegnetreplication_tpu_torch.parallel import launch
+
+        logger.info("Launching a %d x %d mesh of rank processes", n_fold,
+                    n_data)
+        return launch.launch(_mesh_rank, n_fold * n_data,
+                             (args, config, subjects, chaos_specs))
+    mesh_shape = ({"fold": 1, "data": 1, "model": 1}
+                  if args.meshFold is not None else None)
+    return _train(args, config, subjects, chaos_specs, None, mesh_shape)
+
+
+def _mesh_rank(args, config, subjects, chaos_specs) -> int:
+    """One rank of ``--meshFold x --meshData``: join the mesh, and train
+    its part.  Only rank 0 beats the heartbeat file."""
+    import os
+
+    from eegnetreplication_tpu_torch.parallel.mesh import make_mesh
+    from eegnetreplication_tpu_torch.resil import heartbeat
+
+    n_fold, n_data = mesh_dims(args)
+    mesh = make_mesh(n_fold=n_fold, n_data=n_data)
+    if not mesh.is_lead:
+        os.environ.pop(heartbeat.HEARTBEAT_FILE_ENV, None)
+        heartbeat.reset_default()
+    return _train(args, config, subjects, chaos_specs, mesh,
+                  dict(mesh.shape))
+
+
+def _train(args, config, subjects, chaos_specs, mesh, mesh_shape) -> int:
+    """The run of one process: the whole run, or one rank's part of it
+    under ``mesh`` (rank 0 journaling and reporting)."""
+    import contextlib
     from pathlib import Path
 
     from eegnetreplication_tpu_torch import obs
     from eegnetreplication_tpu_torch.config import Paths
-    from eegnetreplication_tpu_torch.resil import preempt
+    from eegnetreplication_tpu_torch.obs.journal import NullJournal
+    from eegnetreplication_tpu_torch.parallel import launch
+    from eegnetreplication_tpu_torch.resil import inject, preempt
     from eegnetreplication_tpu_torch.training.loop import debug_nans
     from eegnetreplication_tpu_torch.training.protocols import (
         cross_subject_training,
@@ -258,7 +341,21 @@ def main(argv=None) -> int:
     from eegnetreplication_tpu_torch.utils.device import select_device
     from eegnetreplication_tpu_torch.utils.profiling import trace
 
+    cross = args.trainingType != "Within-Subject"
+    lead = mesh is None or mesh.is_lead
     device = select_device()
+    mesh_fields = {}
+    info = launch.rank_info()
+    if info is not None and mesh is not None:
+        # The slowest rank's join and its device ready (the card's context
+        # and the numerics pins), from the launch, for run_start.
+        join_s, ready_s = _slowest(info.join_s, info.since_launch())
+        mesh_fields = {"world_size": info.world_size,
+                       "rank_join_s": round(join_s, 3),
+                       "rank_start_s": round(ready_s, 3)}
+        logger.info("Mesh %s: every rank joined within %.2f s of the "
+                    "launch and had its device within %.2f s", mesh_shape,
+                    join_s, ready_s)
     paths = Paths.from_here()
     metrics_dir = (Path(args.metricsDir) if args.metricsDir
                    else paths.reports / "obs")
@@ -268,11 +365,12 @@ def main(argv=None) -> int:
     if args.debugNans:
         logger.info("NaN debugging enabled (anomaly mode and a finiteness "
                     "check after every train step)")
-    with obs.run(metrics_dir, config=config, mesh_shape=None,
-                 tb_dir=args.profileDir, training_type=args.trainingType,
-                 model=args.model, epochs=args.epochs, seed=args.seed,
-                 subjects=list(subjects)) as journal, \
-            preempt.guard(), inject.scoped(*chaos_specs):
+    run = (obs.run(metrics_dir, config=config, mesh_shape=mesh_shape,
+                   tb_dir=args.profileDir, training_type=args.trainingType,
+                   model=args.model, epochs=args.epochs, seed=args.seed,
+                   subjects=list(subjects), **mesh_fields) if lead
+           else contextlib.nullcontext(NullJournal()))
+    with run as journal, preempt.guard(), inject.scoped(*chaos_specs):
         logger.info("Training %s model(s) on %s...", args.trainingType,
                     device)
         try:
@@ -282,15 +380,18 @@ def main(argv=None) -> int:
                     model_name=args.model, subjects=subjects, paths=paths,
                     device=device, fold_batch=args.maxFoldsPerProgram,
                     checkpoint_every=args.checkpointEvery,
-                    resume=args.resume)
+                    resume=args.resume, mesh=mesh)
         except preempt.Preempted as exc:
             # Raised at a safe point; the snapshot writer committed the
             # last submitted snapshot on the way out.  run_end is once
             # only, so the journal's own exit leaves it preempted.
             journal.run_end(status="preempted", error=str(exc),
-                            **_card_record())
+                            **_card_record(mesh))
             logger.warning("Preempted: %s", exc)
             return preempt.EX_PREEMPTED
+        record = _card_record(mesh)
+        if not lead:
+            return 0
         logger.info("Epoch throughput: %.1f fold-epochs/s",
                     result.epoch_throughput)
         journal.metrics.set("epoch_throughput", result.epoch_throughput)
@@ -310,8 +411,19 @@ def main(argv=None) -> int:
                                    epochs=args.epochs,
                                    subjects=result.subjects, config=config,
                                    paths=paths)
-        journal.run_end(status="ok", **_card_record())
+        journal.run_end(status="ok", **record)
     return 0
+
+
+def _slowest(*seconds: float) -> list[float]:
+    """The largest value of each over the ranks: a collective every rank
+    makes."""
+    import torch
+    import torch.distributed as dist
+
+    slowest = torch.tensor(seconds, dtype=torch.float64)
+    dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
+    return [float(v) for v in slowest]
 
 
 if __name__ == "__main__":

@@ -43,6 +43,14 @@ validation or test batch, is one pass for all G folds (``training/steps.py``).
   allocation, the chunk boundary's synchronize).  A watchdog therefore
   sees a stalled host, or a stalled card within about one chunk, never a
   single slow kernel.
+- *Data parallelism* (``data_group``, this rank's line along the mesh's
+  data axis): every batch, train, validation and test alike, is the same
+  global batch in each rank of the line, and each rank keeps its
+  contiguous part (the JAX loop's ``_shard_slice``); the steps sum over
+  the group (``training/steps.py``), so the line trains one set of folds
+  as one process would, and each rank draws its own dropout stream
+  (:func:`dropout_seed`).  The batch size must split evenly
+  (:func:`mesh_data_sharding`).
 - :meth:`FoldTrainer.carry` is everything a run needs to continue (the
   current and best states, best accuracy, minimum validation loss, the
   per-epoch history and the dropout generator's state), by name;
@@ -65,6 +73,7 @@ import torch
 from torch import nn
 
 from eegnetreplication_tpu_torch.ops.fused_eegnet import fold_index
+from eegnetreplication_tpu_torch.parallel.mesh import DATA_AXIS, local_batch
 from eegnetreplication_tpu_torch.resil import heartbeat, preempt
 from eegnetreplication_tpu_torch.training import steps as steps_lib
 from eegnetreplication_tpu_torch.training.steps import TrainState
@@ -218,6 +227,33 @@ def n_steps(pad: int, batch_size: int, at_least: int = 0) -> int:
     return max(at_least, math.ceil(pad / batch_size))
 
 
+def mesh_data_sharding(mesh, batch_size: int):
+    """This rank's data-axis group under ``mesh`` (``None`` for a
+    1-wide axis or no mesh), after the JAX package's check that the
+    batch splits evenly."""
+    n_data = mesh.axis_size(DATA_AXIS) if mesh is not None else 1
+    if n_data <= 1:
+        return None
+    if batch_size % n_data:
+        raise ValueError(
+            f"batch_size {batch_size} is not divisible by the mesh data "
+            f"axis ({n_data}); pick batch_size % meshData == 0")
+    return mesh.group(DATA_AXIS)
+
+
+def dropout_seed(seed: int, first_fold: int, data_rank: int = 0) -> int:
+    """The dropout generator's seed of a fold group: ``seed + 2 +
+    first_fold`` (data rank 0, and every single-process run), and for data
+    rank ``k > 0`` a 63-bit value mixed from the three by ``SeedSequence``:
+    a distinct stream per data rank, the counterpart of the JAX step's
+    ``fold_in(rng, axis_index("data"))``."""
+    base = seed + 2 + first_fold
+    if data_rank == 0:
+        return base
+    words = np.random.SeedSequence([base & (2 ** 64 - 1), data_rank])
+    return int(words.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
 class FoldTrainer:
     """G folds trained together over one pool on one device.
 
@@ -235,7 +271,8 @@ class FoldTrainer:
     ``shuffle_seed`` and ``fold_ids`` (the folds' global indices in the
     protocol, default ``0..G-1``) key the default shuffles
     (:func:`keyed_slot_source`); ``dropout_generator`` (default: one on the
-    pool's device seeded 0) draws the dropout masks.
+    pool's device seeded 0) draws the dropout masks.  ``data_group``
+    splits every batch over a mesh's data axis (module docstring).
     """
 
     def __init__(self, model: nn.Module, pool_x: torch.Tensor,
@@ -246,8 +283,11 @@ class FoldTrainer:
                  slot_source: SlotSource | None = None,
                  shuffle_seed: int = 0,
                  fold_ids: Iterable[int] | None = None,
-                 dropout_generator: torch.Generator | None = None):
+                 dropout_generator: torch.Generator | None = None,
+                 data_group=None):
         device = pool_x.device
+        self.data_group = (data_group if data_group is not None
+                           and data_group.active else None)
         self.model = model
         self.pool_x, self.pool_y = pool_x, pool_y.long()
         self.spec = spec.to(device)
@@ -257,7 +297,8 @@ class FoldTrainer:
         self.dropout_generator = dropout_generator
         self.step_kw = dict(learning_rate=learning_rate, adam_eps=adam_eps,
                             maxnorm_mode=maxnorm_mode,
-                            generator=dropout_generator)
+                            generator=dropout_generator,
+                            data_group=self.data_group)
         g = spec.n_folds
         self.train_steps = n_steps(spec.train_idx.shape[1], batch_size)
         self.val_steps = n_steps(spec.val_idx.shape[1], batch_size, 1)
@@ -268,7 +309,8 @@ class FoldTrainer:
                 spec, self.train_steps * batch_size, shuffle_seed,
                 self.fold_ids)
         self.slot_source = slot_source
-        self.fold_idx = fold_index(g, batch_size, device)
+        shards = self.data_group.size if self.data_group else 1
+        self.fold_idx = fold_index(g, batch_size // shards, device)
 
         def real_batches(n):
             return torch.clamp(torch.ceil(n / batch_size), min=1.0)
@@ -280,22 +322,32 @@ class FoldTrainer:
         self.val_gather, self.val_w = linear_slots(
             self.spec.val_idx, self.spec.val_n,
             self.val_steps * batch_size)
+        # Whether each validation batch holds a real slot: the global
+        # batch's, whatever part of it this rank holds.
+        self.val_real = self.val_w.reshape(
+            g, self.val_steps, batch_size).sum(-1) > 0
         self.state = init_state.to(device)
         self.best = self.state
         self.best_acc = torch.zeros(g, device=device)
         self.min_val_loss = torch.full((g,), math.inf, device=device)
         self.history: list[tuple[torch.Tensor, ...]] = []
         self._beaten = False   # the first epoch beats "compile"
+        # A stop request raises at the next epoch; a mesh's ranks turn this
+        # off and stop together at a chunk boundary instead.
+        self.stop_at_epochs = True
 
     def _batch(self, gather: torch.Tensor, weights: torch.Tensor, step: int):
         b = self.batch_size
-        idx = gather[:, step * b:(step + 1) * b]
+        idx = local_batch(gather[:, step * b:(step + 1) * b],
+                          self.data_group)
         return (self.pool_x[idx], fold_labels(self.pool_y, idx),
-                weights[:, step * b:(step + 1) * b])
+                local_batch(weights[:, step * b:(step + 1) * b],
+                            self.data_group))
 
     def run_epoch(self) -> None:
         """Train every fold one epoch, validate, keep the best state."""
-        preempt.raise_if_requested(what="epoch", epoch=len(self.history))
+        if self.stop_at_epochs:
+            preempt.raise_if_requested(what="epoch", epoch=len(self.history))
         n_folds = self.spec.n_folds
         if not self._beaten:
             heartbeat.beat("compile", epochs_done=len(self.history),
@@ -327,9 +379,10 @@ class FoldTrainer:
             for step in range(self.val_steps):
                 x, y, w = self._batch(self.val_gather, self.val_w, step)
                 loss, hits = steps_lib.eval_step(self.model, self.state, x, y,
-                                                 w, self.fold_idx)
+                                                 w, self.fold_idx,
+                                                 self.data_group)
                 val_loss_sum = val_loss_sum + torch.where(
-                    w.sum(1) > 0, loss, torch.zeros_like(loss))
+                    self.val_real[:, step], loss, torch.zeros_like(loss))
                 correct = correct + hits
         val_loss = val_loss_sum / self.real_val_batches
         val_acc = 100.0 * correct / torch.clamp(self.spec.val_n, min=1)
@@ -375,7 +428,7 @@ class FoldTrainer:
         """Test accuracy (percentage, ``(G,)``) of the best states."""
         return evaluate_pool(self.model, self.best, self.pool_x, self.pool_y,
                              self.spec.test_idx, self.spec.test_n,
-                             self.batch_size, self.fold_idx)
+                             self.batch_size, self.fold_idx, self.data_group)
 
     @property
     def epoch(self) -> int:
@@ -471,22 +524,27 @@ def fold_labels(pool_y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def evaluate_pool(model: nn.Module, state: TrainState, pool_x: torch.Tensor,
                   pool_y: torch.Tensor, idx: torch.Tensor, n: torch.Tensor,
-                  batch_size: int, fold_idx: torch.Tensor | None = None
-                  ) -> torch.Tensor:
+                  batch_size: int, fold_idx: torch.Tensor | None = None,
+                  data_group=None) -> torch.Tensor:
     """Accuracy (percentage, ``(G,)``) of every fold's ``state`` on its
-    ``pool[idx[:n]]`` (the reference's ``evaluate_model``)."""
+    ``pool[idx[:n]]`` (the reference's ``evaluate_model``); with
+    ``data_group`` each rank evaluates its part of every batch and the
+    counts are summed over the group."""
     steps = n_steps(idx.shape[1], batch_size, 1)
     gather, weights = linear_slots(idx, n, steps * batch_size)
     if fold_idx is None:
-        fold_idx = fold_index(idx.shape[0], batch_size, pool_x.device)
+        shards = data_group.size if data_group is not None else 1
+        fold_idx = fold_index(idx.shape[0], batch_size // shards,
+                              pool_x.device)
     correct = torch.zeros(idx.shape[0], device=pool_x.device)
     with torch.no_grad():
         for step in range(steps):
             sl = slice(step * batch_size, (step + 1) * batch_size)
-            bi = gather[:, sl]
-            _, hits = steps_lib.eval_step(model, state, pool_x[bi],
-                                          fold_labels(pool_y, bi).long(),
-                                          weights[:, sl], fold_idx)
+            bi = local_batch(gather[:, sl], data_group)
+            _, hits = steps_lib.eval_step(
+                model, state, pool_x[bi], fold_labels(pool_y, bi).long(),
+                local_batch(weights[:, sl], data_group), fold_idx,
+                data_group)
             correct = correct + hits
     return 100.0 * correct / torch.clamp(n, min=1)
 

@@ -16,6 +16,13 @@ measures what label-free structure the model can use).  The split is fold
 train/validation split.  Dropout masks are drawn per run from the
 trainer's generator, so at p > 0 the runs' masks differ (the JAX package
 reuses one key); at p = 0 the runs differ by their labels alone.
+
+Under a mesh (``mesh=``) the runs are sharded over its fold axis, as the
+JAX package shards them (``shard_over_fold_axis``): the label pools are
+padded to a multiple of the axis by repeating row 0, each rank trains its
+block of runs (its dropout generator seeded ``seed + 2 +`` its first run),
+and the test accuracies are gathered to the first rank, which returns the
+result; every other rank returns ``None``.
 """
 
 from __future__ import annotations
@@ -31,11 +38,15 @@ from eegnetreplication_tpu_torch.data.splits import (
     kfold_indices,
 )
 from eegnetreplication_tpu_torch.models import get_model
+from eegnetreplication_tpu_torch.parallel import shardspec
+from eegnetreplication_tpu_torch.parallel.mesh import DATA_AXIS
 from eegnetreplication_tpu_torch.training.loop import (
     FoldResult,
     FoldTrainer,
+    dropout_seed,
     init_fold_states,
     make_fold_spec,
+    mesh_data_sharding,
 )
 from eegnetreplication_tpu_torch.training.steps import TrainState
 from eegnetreplication_tpu_torch.utils.device import resolve_device
@@ -77,14 +88,14 @@ def permutation_test(X: np.ndarray, y: np.ndarray, *,
                      n_permutations: int = 50, epochs: int = 100,
                      config: TrainingConfig = DEFAULT_TRAINING,
                      model_name: str = "eegnet", seed: int = 0,
-                     device: torch.device | str | None = None
-                     ) -> PermutationResult:
+                     device: torch.device | str | None = None,
+                     mesh=None) -> PermutationResult | None:
     """Run the permutation test on one dataset ``X (n, C, T)``, ``y (n,)``
     on ``device`` (the card unless ``EEGTPU_PLATFORM=cpu``).
 
     Every run starts from one initial state drawn from ``seed`` and sees
     the batches of one keyed shuffle (``seed + 1``, every run keyed as
-    fold 0).
+    fold 0).  ``mesh`` shards the runs over its ranks (module docstring).
     """
     X = np.asarray(X, np.float32)
     n = len(y)
@@ -92,12 +103,20 @@ def permutation_test(X: np.ndarray, y: np.ndarray, *,
                                         config.kfold_seed)[0]
     train_ids, val_ids = inner_train_val_split(train_val)
     pools = label_pools(y, train_ids, val_ids, n_permutations, seed)
-    runs = n_permutations + 1
+    real_runs = n_permutations + 1
+    padded = shardspec.padded_folds(real_runs, mesh)
+    pools = np.concatenate([pools, np.repeat(pools[:1], padded - real_runs,
+                                             axis=0)])
+    lo, hi = shardspec.fold_block(padded, mesh)
+    pools = pools[lo:hi]
+    runs = hi - lo
     device = resolve_device(device)
+    data = mesh_data_sharding(mesh, config.batch_size)
 
     model = get_model(model_name, n_channels=X.shape[1], n_times=X.shape[2],
                       dropout_rate=config.dropout_within_subject,
-                      device="cpu")
+                      device="cpu",
+                      **({"bn_axis_name": DATA_AXIS} if data else {}))
     spec = make_fold_spec([(train_ids, val_ids, test_ids)] * runs,
                           train_pad=len(train_ids), val_pad=len(val_ids),
                           test_pad=len(test_ids))
@@ -111,15 +130,25 @@ def permutation_test(X: np.ndarray, y: np.ndarray, *,
         torch.from_numpy(pools).to(device), spec, init,
         batch_size=config.batch_size, learning_rate=config.learning_rate,
         adam_eps=config.adam_eps, maxnorm_mode=config.maxnorm_mode,
-        shuffle_seed=seed + 1, fold_ids=[0] * runs,
+        shuffle_seed=seed + 1, fold_ids=[0] * runs, data_group=data,
         dropout_generator=torch.Generator(device=device).manual_seed(
-            seed + 2))
+            dropout_seed(seed, lo, data.index if data else 0)))
     logger.info("Permutation test: %d runs x %d epochs as the fold axis of "
                 "one trainer on %s", runs, epochs, device)
     for _ in range(epochs):
         trainer.run_epoch()
     result = trainer.result()
     accs = result.test_accuracy.numpy()
+    if mesh is not None and mesh.size > 1:
+        import torch.distributed as dist
+
+        gathered = [None] * mesh.size if mesh.is_lead else None
+        dist.gather_object(accs, gathered, dst=mesh.ranks[0])
+        if not mesh.is_lead:
+            return None
+        per_line = mesh.size // mesh.axis_size("fold")
+        accs = np.concatenate(gathered[::per_line])[:real_runs]
+        result = None
     real = float(accs[0])
     permuted = accs[1:]
     pv = p_value(real, permuted)

@@ -65,8 +65,31 @@ history each chunk already copies to the host), and the metrics
 ``train.chunk``, ``train.hang`` and ``host.preempt``
 (``resil/inject.py``), and beats the liveness heartbeat ``step`` at each
 chunk boundary, right after the stop check, beside the trainer's beat per
-epoch (``training/loop.py``).  The device mesh is not ported (ROADMAP.md
-queue A).
+epoch (``training/loop.py``).
+
+**The mesh** (``mesh=``, a ``parallel/mesh.py::Mesh`` of rank processes;
+``train --meshFold/--meshData``).  Every rank loads the pool and builds
+the whole fold set, padded to a multiple of the fold axis by repeating
+fold 0 (its index sets, initial state and shuffles; the padding is dropped
+after training, and a run snapshot's signature carries ``padded_folds``).
+The initial states are drawn for every fold from the one generator, as in
+a single process, and each rank keeps its block of ``padded / meshFold``
+folds (``parallel/shardspec.py::fold_block``), whose dropout generator is
+seeded ``seed + 2 + first fold``: a rank's block trains bit for bit as the
+same block does as a ``fold_batch`` group in one process.  Groups and
+their OOM halving apply within a rank's block.  Under ``meshData`` every
+batch is also split over the data axis (``training/loop.py``).  At each
+chunk boundary every rank makes the same collectives, in order: one
+``all_reduce`` agrees on a stop request and a device fault (so every rank
+stops, or halves its group, at the same chunk), then the chunk's carries
+are gathered to the first rank, which alone writes the run snapshot (the
+whole padded fold set, every rank's dropout generator beside it).  The
+per-epoch stop check is off under a mesh: a stop waits for the chunk
+boundary.  A resumed carry is read by the first rank and broadcast, and
+each rank keeps its block.  The folds' results are gathered to the first
+rank (over gloo, as pickled host tensors), which alone journals, logs the
+summary, saves the models and returns the result; every other rank
+returns ``None``.
 """
 
 from __future__ import annotations
@@ -103,12 +126,22 @@ from eegnetreplication_tpu_torch.resil import heartbeat, inject, preempt
 from eegnetreplication_tpu_torch.resil import retry as resil_retry
 from eegnetreplication_tpu_torch.training import checkpoint as ckpt_lib
 from eegnetreplication_tpu_torch.training.async_ckpt import SnapshotWriter
+from eegnetreplication_tpu_torch.parallel import shardspec
+from eegnetreplication_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    FOLD_AXIS,
+    MODEL_AXIS,
+    Mesh,
+)
 from eegnetreplication_tpu_torch.training.loop import (
+    HISTORY,
     FoldResult,
     FoldSpec,
     FoldTrainer,
+    dropout_seed,
     init_fold_states,
     make_fold_spec,
+    mesh_data_sharding,
 )
 from eegnetreplication_tpu_torch.training.steps import TrainState
 from eegnetreplication_tpu_torch.utils.device import resolve_device
@@ -278,20 +311,36 @@ class FoldSetup:
     config: TrainingConfig
     seed: int
     pool_sha1: str
+    # Under a mesh: the real fold count (the rest repeat fold 0), each
+    # fold's shuffle key index, and this rank's data-axis group.
+    n_real: int | None = None
+    fold_ids: list | None = None
+    data_group: object = None
 
     @classmethod
     def build(cls, model: nn.Module, folds, pool_x: np.ndarray,
               pool_y: np.ndarray, *, config: TrainingConfig, seed: int,
-              device: torch.device) -> "FoldSetup":
+              device: torch.device, mesh: Mesh | None = None
+              ) -> "FoldSetup":
+        n_real = len(folds)
+        padded = shardspec.padded_folds(n_real, mesh)
         spec = make_fold_spec(
-            folds, train_pad=max(len(f[0]) for f in folds),
+            list(folds) + [folds[0]] * (padded - n_real),
+            train_pad=max(len(f[0]) for f in folds),
             val_pad=max(len(f[1]) for f in folds),
             test_pad=max(len(f[2]) for f in folds))
-        init = init_fold_states(model, len(folds),
+        init = init_fold_states(model, n_real,
                                 torch.Generator().manual_seed(seed))
+        if padded != n_real:
+            pick = torch.tensor(list(range(n_real))
+                                + [0] * (padded - n_real))
+            init = TrainState(init.layout, *(getattr(init, f)[pick]
+                                             for f in _STATE_FIELDS))
         return cls(model, torch.from_numpy(pool_x).to(device),
                    torch.from_numpy(pool_y).to(device), spec, init, config,
-                   seed, _pool_digest(pool_x, pool_y))
+                   seed, _pool_digest(pool_x, pool_y), n_real,
+                   list(range(n_real)) + [0] * (padded - n_real),
+                   mesh_data_sharding(mesh, config.batch_size))
 
     @property
     def n_folds(self) -> int:
@@ -304,13 +353,98 @@ class FoldSetup:
     def trainer(self, lo: int, hi: int) -> FoldTrainer:
         """The :class:`FoldTrainer` of folds ``lo`` to ``hi - 1``."""
         cfg = self.config
+        ids = (range(lo, hi) if self.fold_ids is None
+               else self.fold_ids[lo:hi])
+        data = self.data_group
         return FoldTrainer(
             self.model, self.pool_x, self.pool_y, self.spec.folds(lo, hi),
             self.init.folds(lo, hi), batch_size=cfg.batch_size,
             learning_rate=cfg.learning_rate, adam_eps=cfg.adam_eps,
-            maxnorm_mode=cfg.maxnorm_mode, shuffle_seed=self.seed + 1, fold_ids=range(lo, hi),
+            maxnorm_mode=cfg.maxnorm_mode, shuffle_seed=self.seed + 1,
+            fold_ids=ids, data_group=data,
             dropout_generator=torch.Generator(
-                device=self.device).manual_seed(self.seed + 2 + lo))
+                device=self.device).manual_seed(dropout_seed(
+                    self.seed, lo, data.index if data is not None else 0)))
+
+
+_STATE_FIELDS = ("params", "stats", "mu", "nu", "count")
+
+
+class MeshDeviceFault(RuntimeError):
+    """Raised in every rank of a mesh when any rank's chunk hit a device
+    fault (a CUDA error or out of memory), so that all of them halve their
+    fold group together."""
+
+
+class _MeshRun:
+    """The collectives of a fold-sharded run at its safe points (module
+    docstring), over the default gloo group: every rank of the mesh makes
+    each of them, in the same order."""
+
+    def __init__(self, mesh: Mesh):
+        import torch.distributed as dist
+
+        self.dist = dist
+        self.mesh = mesh
+        self.lead = mesh.is_lead
+        self.lead_rank = mesh.ranks[0]
+        self.n_fold = mesh.axis_size(FOLD_AXIS)
+        # The ranks that hold a fold block's carry: data and model index 0.
+        per_line = mesh.axis_size(DATA_AXIS) * mesh.axis_size(MODEL_AXIS)
+        self.carriers = [mesh.ranks[f * per_line]
+                         for f in range(self.n_fold)]
+
+    def agree(self, stop: bool, fault: bool) -> tuple[bool, bool]:
+        flags = torch.tensor([float(stop), float(fault)])
+        self.dist.all_reduce(flags, op=self.dist.ReduceOp.MAX)
+        return bool(flags[0]), bool(flags[1])
+
+    def gather(self, obj) -> list | None:
+        """Every rank's ``obj`` on the first rank (in rank order), else
+        ``None``."""
+        out = ([None] * self.dist.get_world_size() if self.lead else None)
+        self.dist.gather_object(obj, out, dst=self.lead_rank)
+        return out
+
+    def broadcast(self, obj):
+        """The first rank's ``obj`` on every rank."""
+        box = [obj]
+        self.dist.broadcast_object_list(box, src=self.lead_rank)
+        return box[0]
+
+    def join_carry(self, carries: list[dict]) -> dict[str, torch.Tensor]:
+        """The run snapshot's carry from every rank's: fold-major entries
+        from each fold block's carrier in fold order, the dropout
+        generators of every rank stacked in rank order."""
+        out = {name: torch.cat([carries[r][name] for r in self.carriers])
+               for name in carries[0] if name != "rng/dropout"}
+        out["rng/dropout"] = torch.stack([c["rng/dropout"]
+                                          for c in carries])
+        return out
+
+    def own_carry(self, carry, block: int) -> dict:
+        """This rank's part of a snapshot's carry (host arrays)."""
+        f = self.mesh.axis_index(FOLD_AXIS)
+        out = {name: value[f * block:(f + 1) * block]
+               for name, value in carry.items() if name != "rng/dropout"}
+        out["rng/dropout"] = carry["rng/dropout"][self.mesh.rank]
+        return out
+
+
+def _host_carry(carry: dict) -> dict[str, torch.Tensor]:
+    return {name: t.detach().cpu() for name, t in carry.items()}
+
+
+def _stop_point(mesh_run: _MeshRun | None, **ctx) -> None:
+    """A safe point's stop check; under a mesh, agreed by every rank."""
+    if mesh_run is None:
+        preempt.check(**ctx)
+        return
+    inject.fire("host.preempt", **ctx)
+    stop, _ = mesh_run.agree(preempt.requested(), False)
+    if stop and not preempt.requested():
+        preempt.request("another rank of the mesh stopped")
+    preempt.raise_if_requested(**ctx)
 
 
 def _pool_digest(pool_x: np.ndarray, pool_y: np.ndarray) -> str:
@@ -516,17 +650,23 @@ def _journal_epochs(jr, per_epoch, lo: int, hi: int, total_epochs: int,
 
 def _train_group(setup: FoldSetup, lo: int, hi: int, *, epochs: int,
                  every: int, path: Path | None, resume: bool,
-                 signature: dict) -> tuple[FoldResult, float, float]:
+                 signature: dict, mesh_run: _MeshRun | None = None
+                 ) -> tuple[FoldResult, float, float]:
     """Folds ``lo..hi-1`` through every epoch in chunks of ``every`` (0:
     one pass); returns ``(result, training wall, fold-epochs trained)``.
 
     Each chunk probes the ``train.step`` chaos site before its first epoch
     (once per dispatch of the group, as the JAX package probes each
     compiled program's dispatch); a chunked run probes ``train.chunk`` and
-    ``train.hang`` after each chunk."""
+    ``train.hang`` after each chunk.  Under a mesh (``mesh_run``) ``lo``
+    and ``hi`` are this rank's, only the first rank reads and writes
+    ``path``, and each chunk boundary is agreed (module docstring)."""
     n = hi - lo
     jr = obs_journal.current()
     trainer = setup.trainer(lo, hi)
+    if mesh_run is not None:
+        trainer.stop_at_epochs = False   # stops wait for the boundary
+    lead = mesh_run is None or mesh_run.lead
     cfg = setup.config
     signature = dict(signature, epochs=epochs, n_folds=n, padded_folds=n,
                      seed=setup.seed, maxnorm_mode=cfg.maxnorm_mode,
@@ -535,11 +675,18 @@ def _train_group(setup: FoldSetup, lo: int, hi: int, *, epochs: int,
                      train_pad=int(setup.spec.train_idx.shape[1]),
                      val_pad=int(setup.spec.val_idx.shape[1]),
                      pool_sha1=setup.pool_sha1, carry_layout=CARRY_LAYOUT)
+    if mesh_run is not None:
+        signature.update(padded_folds=n * mesh_run.n_fold,
+                         mesh_shape=dict(mesh_run.mesh.shape))
     start = 0
     if resume and path is not None:
-        resumed = _resume_carry(path, signature)
+        resumed = _resume_carry(path, signature) if lead else None
+        if mesh_run is not None:
+            resumed = mesh_run.broadcast(resumed)
         if resumed is not None:
-            trainer.restore(resumed[0])
+            carry = (resumed[0] if mesh_run is None
+                     else mesh_run.own_carry(resumed[0], n))
+            trainer.restore(carry)
             start = resumed[1]
             logger.info("Resuming from %s at epoch %d", path, start)
     if every and epochs % every:
@@ -547,19 +694,36 @@ def _train_group(setup: FoldSetup, lo: int, hi: int, *, epochs: int,
                     "the last chunk is %d epochs", epochs, every,
                     epochs % every)
     if not every:
-        preempt.check(n_folds=n, what="fused_dispatch")
+        _stop_point(mesh_run, n_folds=n, what="fused_dispatch")
     writer = (SnapshotWriter(path, signature)
-              if every and path is not None else None)
+              if every and path is not None and lead else None)
     step = every or epochs
     wall = 0.0
     try:
         for chunk_no, e0 in enumerate(range(start, epochs, step), 1):
             e1 = min(e0 + step, epochs)
             t0 = time.perf_counter()
-            inject.fire("train.step", n_folds=n, epoch=e0)
-            for _ in range(e0, e1):
-                trainer.run_epoch()
-            _sync(setup.device)
+            fault = None
+            try:
+                inject.fire("train.step", n_folds=n, epoch=e0)
+                for _ in range(e0, e1):
+                    trainer.run_epoch()
+                _sync(setup.device)
+            except Exception as exc:  # noqa: BLE001 — agreed below
+                if mesh_run is None or not resil_retry.is_device_fault(exc):
+                    raise
+                fault = exc
+            stop = False
+            if mesh_run is not None:
+                if every:
+                    inject.fire("host.preempt", chunk=chunk_no,
+                                epochs_done=e1, n_folds=n)
+                stop, any_fault = mesh_run.agree(
+                    bool(every) and preempt.requested(), fault is not None)
+                if any_fault:
+                    raise fault or MeshDeviceFault(
+                        "another rank of the mesh hit a device fault "
+                        "(CUDA error or out of memory) in this chunk")
             chunk_s = time.perf_counter() - t0
             wall += chunk_s
             jr.metrics.observe("chunk_wall_s", chunk_s)
@@ -568,15 +732,26 @@ def _train_group(setup: FoldSetup, lo: int, hi: int, *, epochs: int,
             per_epoch = [t.cpu().numpy() for t in trainer.history_tensors(e0)]
             _log_epoch_cadence(per_epoch, e0, e1, epochs, n)
             _journal_epochs(jr, per_epoch, e0, e1, epochs, n)
-            if writer is not None:
-                writer.submit(trainer.carry(), epochs_done=e1)
-                logger.info("Checkpoint %d/%d epochs -> %s (async)", e1,
-                            epochs, path)
+            if every and path is not None:
+                carry = trainer.carry()
+                if mesh_run is not None:
+                    carries = mesh_run.gather(_host_carry(carry))
+                    carry = mesh_run.join_carry(carries) if lead else None
+                if writer is not None:
+                    writer.submit(carry, epochs_done=e1)
+                    logger.info("Checkpoint %d/%d epochs -> %s (async)", e1,
+                                epochs, path)
             if every:
                 # The chunk boundary is the safe point: the snapshot is
                 # submitted, and the writer commits it before a Preempted
                 # leaves this function.
-                preempt.check(chunk=chunk_no, epochs_done=e1, n_folds=n)
+                if mesh_run is None:
+                    preempt.check(chunk=chunk_no, epochs_done=e1, n_folds=n)
+                elif stop:
+                    if not preempt.requested():
+                        preempt.request("another rank of the mesh stopped")
+                    preempt.raise_if_requested(chunk=chunk_no,
+                                               epochs_done=e1, n_folds=n)
                 # The chunk boundary's liveness beat: a run that stops
                 # reaching boundaries goes silent here.
                 heartbeat.beat("step", epochs_done=e1, n_folds=n)
@@ -609,33 +784,70 @@ def _concat(results: list[FoldResult]) -> FoldResult:
     return FoldResult(
         best_state=TrainState(best[0].layout,
                               *(cat(getattr(b, f) for b in best)
-                                for f in ("params", "stats", "mu", "nu",
-                                          "count"))),
+                                for f in _STATE_FIELDS)),
         **{f: cat(getattr(r, f) for r in results)
-           for f in ("best_val_acc", "min_val_loss", "train_losses",
-                     "val_losses", "val_accuracies", "grad_norms",
+           for f in ("best_val_acc", "min_val_loss", *HISTORY,
                      "test_accuracy")})
+
+
+def _first_folds(result: FoldResult, n: int) -> FoldResult:
+    """Folds ``0..n-1`` of ``result`` (the padding dropped)."""
+    best = result.best_state
+    return FoldResult(
+        best_state=TrainState(best.layout, *(getattr(best, f)[:n]
+                                             for f in _STATE_FIELDS)),
+        **{f: getattr(result, f)[:n]
+           for f in ("best_val_acc", "min_val_loss", *HISTORY,
+                     "test_accuracy")})
+
+
+def _group_resume(path: Path | None, resume: bool, gi: int, lo: int,
+                  hi: int) -> bool:
+    """Whether group ``gi`` (folds ``lo..hi-1``) resumes from its
+    snapshot at ``path``."""
+    if not (resume and path is not None
+            and ckpt_lib.any_snapshot_generation(path)):
+        return False
+    stored = ckpt_lib.read_snapshot_signature(path)
+    if stored is None:
+        logger.warning("Resume: snapshot %s is unreadable — training group "
+                       "%d fresh", path, gi)
+        return False
+    if stored.get("fold_range") != [lo, hi] or stored.get("fold_group") != gi:
+        logger.warning(
+            "Resume: snapshot %s is from a different fold grouping (folds "
+            "%s, this group trains %s) — training group %d fresh", path,
+            stored.get("fold_range"), [lo, hi], gi)
+        return False
+    return True
 
 
 def run_folds(setup: FoldSetup, *, epochs: int,
               fold_batch: int | None = None,
               checkpoint_every: int | None = None,
               checkpoint_path: Path | None = None, resume: bool = False,
-              signature: dict | None = None
-              ) -> tuple[FoldResult, float, float, float]:
+              signature: dict | None = None, mesh: Mesh | None = None
+              ) -> tuple[FoldResult, float, float, float] | None:
     """Train every fold of ``setup``; returns ``(results, wall,
     fold-epochs trained, wall of halved-away attempts)``.
 
-    See the module docstring for groups, chunks and resume.  Journals
-    ``train_setup`` once, ``fold_group`` per group, and ``device_fault``
-    with a ``retry`` per halving.
+    See the module docstring for groups, chunks, resume and the mesh.
+    Journals ``train_setup`` once, ``fold_group`` per group, and
+    ``device_fault`` with a ``retry`` per halving.  Under a mesh every
+    rank trains its fold block, and the first rank returns every real
+    fold's results (the wall the longest rank's, the fold-epochs the real
+    folds'); the other ranks return ``None``.
     """
     if fold_batch is not None and fold_batch < 0:
         raise ValueError(f"fold_batch must be >= 0, got {fold_batch}")
     if checkpoint_every is not None and checkpoint_every < 0:
         raise ValueError(
             f"checkpoint_every must be >= 0, got {checkpoint_every}")
-    n_folds = setup.n_folds
+    mesh_run = (_MeshRun(mesh) if mesh is not None and mesh.size > 1
+                else None)
+    lead = mesh_run is None or mesh_run.lead
+    blo, bhi = shardspec.fold_block(setup.n_folds, mesh)
+    n_block = bhi - blo
     every = checkpoint_every
     if every is None:
         every = (_auto_chunk_size(epochs) if epochs > AUTO_CHUNK_THRESHOLD
@@ -649,35 +861,38 @@ def run_folds(setup: FoldSetup, *, epochs: int,
             "resume requires a chunked run (checkpoint_every > 0, or the "
             f"auto default with epochs > {AUTO_CHUNK_THRESHOLD}); this run "
             "is one pass")
-    fold_batch = _effective_fold_batch(fold_batch, n_folds)
+    fold_batch = _effective_fold_batch(fold_batch, n_block)
     signature = dict(signature or {})
-    kw = dict(epochs=epochs, every=every)
-    logger.info("Training %d folds for %d epochs on %s, %s", n_folds, epochs,
+    kw = dict(epochs=epochs, every=every, mesh_run=mesh_run)
+    logger.info("Training %d folds for %d epochs on %s, %s", n_block, epochs,
                 setup.device, f"{fold_batch} folds a group" if fold_batch
                 else "all folds per step")
     jr = obs_journal.current()
     # An epoch's real and padded training slots, from host values.
     spec, batch = setup.spec, setup.config.batch_size
     train_pad = int(spec.train_idx.shape[1])
-    real_train = int(spec.train_n.sum())
+    real_train = int(spec.train_n[blo:bhi].sum())
     jr.event("train_setup", protocol=signature.get("protocol", "adhoc"),
-             n_folds=n_folds, epochs=epochs, train_pad=train_pad,
+             n_folds=n_block, epochs=epochs, train_pad=train_pad,
              val_pad=int(spec.val_idx.shape[1]),
              test_pad=int(spec.test_idx.shape[1]),
              real_train_samples=real_train,
-             padded_train_slots=(n_folds * math.ceil(train_pad / batch)
+             padded_train_slots=(n_block * math.ceil(train_pad / batch)
                                  * batch - real_train),
-             fold_batch=fold_batch)
+             fold_batch=fold_batch,
+             **({"mesh_shape": dict(mesh.shape), "fold_block": [blo, bhi]}
+                if mesh_run is not None else {}))
 
     if not fold_batch:
         result, wall, trained = _train_group(
-            setup, 0, n_folds, path=checkpoint_path, resume=resume,
+            setup, blo, bhi, path=checkpoint_path, resume=resume,
             signature=signature, **kw)
-        _clear_run_snapshots(checkpoint_path)
-        return result, wall, trained, 0.0
+        if lead:
+            _clear_run_snapshots(checkpoint_path)
+        return _mesh_results(setup, mesh_run, result, wall, trained, 0.0)
 
-    n_groups = -(-n_folds // fold_batch)
-    if (resume and checkpoint_path is not None
+    n_groups = -(-n_block // fold_batch)
+    if (lead and resume and checkpoint_path is not None
             and ckpt_lib.any_snapshot_generation(checkpoint_path)
             and not any(ckpt_lib.any_snapshot_generation(
                 f"{checkpoint_path}.g{g}") for g in range(n_groups))):
@@ -687,31 +902,24 @@ def run_folds(setup: FoldSetup, *, epochs: int,
             "training restarts from epoch 0 (fold_batch=0 would resume it "
             "as one group)", checkpoint_path, fold_batch)
     results, wall, trained, fault_wall = [], 0.0, 0.0, 0.0
-    gi, lo, cur, halved, attempt = 0, 0, fold_batch, False, 1
-    while lo < n_folds:
-        hi = min(lo + cur, n_folds)
+    gi, lo, cur, halved, attempt = 0, blo, fold_batch, False, 1
+    while lo < bhi:
+        hi = min(lo + cur, bhi)
         logger.info("Training fold group %d: folds %d-%d of %d", gi, lo,
-                    hi - 1, n_folds)
+                    hi - 1, setup.n_folds)
         jr.event("fold_group", group=gi, fold_lo=lo, fold_hi=hi,
-                 n_folds=n_folds, fold_batch=cur)
+                 n_folds=setup.n_folds, fold_batch=cur)
         gpath = (None if checkpoint_path is None
                  else Path(f"{checkpoint_path}.g{gi}"))
-        gsig = dict(signature, fold_group=gi, fold_range=[lo, hi])
-        gresume = bool(resume and gpath is not None
-                       and ckpt_lib.any_snapshot_generation(gpath))
-        if gresume:
-            stored = ckpt_lib.read_snapshot_signature(gpath)
-            if stored is None:
-                logger.warning("Resume: snapshot %s is unreadable — "
-                               "training group %d fresh", gpath, gi)
-                gresume = False
-            elif (stored.get("fold_range") != [lo, hi]
-                  or stored.get("fold_group") != gi):
-                logger.warning(
-                    "Resume: snapshot %s is from a different fold grouping "
-                    "(folds %s, this group trains %s) — training group %d "
-                    "fresh", gpath, stored.get("fold_range"), [lo, hi], gi)
-                gresume = False
+        # Under a mesh a group's range is the block's own, the same in
+        # every rank, and the first rank decides whether it resumes.
+        rlo, rhi = lo - blo, hi - blo
+        gsig = dict(signature, fold_group=gi,
+                    fold_range=[rlo, rhi] if mesh_run else [lo, hi])
+        gresume = (_group_resume(gpath, resume, gi, *gsig["fold_range"])
+                   if lead else False)
+        if mesh_run is not None:
+            gresume = mesh_run.broadcast(gresume)
         t_attempt = time.perf_counter()
         try:
             r, w, fe = _train_group(setup, lo, hi, path=gpath,
@@ -749,14 +957,37 @@ def run_folds(setup: FoldSetup, *, epochs: int,
         trained += fe
         lo, gi, attempt = hi, gi + 1, 1
         if halved:
-            _record_fold_batch_limit(cur, setup.device)
+            if lead:
+                _record_fold_batch_limit(cur, setup.device)
             halved = False
-    _clear_run_snapshots(checkpoint_path)
+    if lead:
+        _clear_run_snapshots(checkpoint_path)
     _log_throughput(setup.model, setup.config, trained, wall, train_pad,
                     int(spec.val_idx.shape[1]),
-                    f"{n_folds} folds x {epochs} epochs in "
+                    f"{n_block} folds x {epochs} epochs in "
                     f"{len(results)} groups", setup.device)
-    return _concat(results), wall, trained, fault_wall
+    return _mesh_results(setup, mesh_run, _concat(results), wall, trained,
+                         fault_wall)
+
+
+def _mesh_results(setup: FoldSetup, mesh_run: _MeshRun | None,
+                  result: FoldResult, wall: float, trained: float,
+                  fault_wall: float
+                  ) -> tuple[FoldResult, float, float, float] | None:
+    """A single process's results as they are; under a mesh every fold
+    block's results gathered to the first rank in fold order, the padding
+    dropped (``None`` on the other ranks)."""
+    n_real = setup.n_real if setup.n_real is not None else setup.n_folds
+    if mesh_run is None:
+        return _first_folds(result, n_real), wall, trained, fault_wall
+    rows = mesh_run.gather((result, wall, trained, fault_wall))
+    if not mesh_run.lead:
+        return None
+    blocks = [rows[r] for r in mesh_run.carriers]
+    joined = _concat([b[0] for b in blocks])
+    trained = sum(b[2] for b in blocks) * n_real / setup.n_folds
+    return (_first_folds(joined, n_real), max(r[1] for r in rows), trained,
+            max(r[3] for r in rows))
 
 
 # --------------------------------------------------------------------------
@@ -764,16 +995,21 @@ def run_folds(setup: FoldSetup, *, epochs: int,
 # --------------------------------------------------------------------------
 
 def _protocol_model(model_name: str, pool_x: np.ndarray, dropout: float,
-                    config: TrainingConfig) -> nn.Module:
+                    config: TrainingConfig, mesh: Mesh | None = None
+                    ) -> nn.Module:
     """The registry's model for a protocol.  ``bn_mode`` "torch" goes to
     the constructor, which only EEGNet's takes (a baseline's raises
     ``TypeError``, as the JAX package's does); "flax" is every model's
-    default."""
+    default.  A mesh with a data axis wider than 1 syncs the BatchNorms
+    over it (``bn_axis_name="data"``, the JAX ``_model_kwargs_for_mesh``).
+    """
     if config.precision != "highest":
         raise ValueError(
             f"precision={config.precision!r}: the torch port computes in "
             "full f32 only ('highest'); the TPU matmul modes are not ported")
     bn = {} if config.bn_mode == "flax" else {"bn_mode": config.bn_mode}
+    if mesh_data_sharding(mesh, config.batch_size) is not None:
+        bn["bn_axis_name"] = DATA_AXIS
     return get_model(model_name, n_channels=pool_x.shape[1],
                      n_times=pool_x.shape[2], dropout_rate=dropout,
                      device="cpu", **bn)
@@ -801,7 +1037,7 @@ def cross_subject_setup(loader: LoadFn, subjects: tuple[int, ...], *,
                         config: TrainingConfig = DEFAULT_TRAINING,
                         seed: int = 0,
                         device: torch.device | str | None = None,
-                        model_name: str = "eegnet"
+                        model_name: str = "eegnet", mesh: Mesh | None = None
                         ) -> tuple[FoldSetup, list]:
     """The cross-subject pool (every subject's Train session, then every
     subject's Eval session), its folds and their :class:`FoldSetup`."""
@@ -817,11 +1053,12 @@ def cross_subject_setup(loader: LoadFn, subjects: tuple[int, ...], *,
     eval_sets = [loader(s, "Eval") for s in subjects]
     pool_x, pool_y, offsets = build_pool(train_sets + eval_sets)
     model = _protocol_model(model_name, pool_x,
-                            config.dropout_cross_subject, config)
+                            config.dropout_cross_subject, config, mesh)
     folds = cross_subject_folds(offsets[:n_subjects], offsets[n_subjects:],
                                 tuple(subjects), config)
     return FoldSetup.build(model, folds, pool_x, pool_y, config=config,
-                           seed=seed, device=resolve_device(device)), folds
+                           seed=seed, device=resolve_device(device),
+                           mesh=mesh), folds
 
 
 def within_subject_training(epochs: int | None = None, *,
@@ -834,30 +1071,36 @@ def within_subject_training(epochs: int | None = None, *,
                             device: torch.device | str | None = None,
                             fold_batch: int | None = None,
                             checkpoint_every: int | None = None,
-                            resume: bool = False) -> ProtocolResult:
+                            resume: bool = False, mesh: Mesh | None = None
+                            ) -> ProtocolResult | None:
     """Within-subject protocol: per subject, 4-fold CV over both sessions,
     on ``device`` (the card unless ``EEGTPU_PLATFORM=cpu``), through
-    :func:`run_folds`."""
+    :func:`run_folds`; under ``mesh`` sharded over its ranks (``None`` on
+    every rank but the first; module docstring)."""
     epochs = epochs if epochs is not None else config.epochs
     paths = paths or Paths.from_here()
     device = resolve_device(device)
+    mesh_data_sharding(mesh, config.batch_size)
     datasets = []
     for s in subjects:
         logger.info("Loading Subject %d", s)
         datasets.append(loader(s, "Train").concat(loader(s, "Eval")))
     pool_x, pool_y, offsets = build_pool(datasets)
     model = _protocol_model(model_name, pool_x,
-                            config.dropout_within_subject, config)
+                            config.dropout_within_subject, config, mesh)
     folds = within_subject_folds(offsets, config)
     setup = FoldSetup.build(model, folds, pool_x, pool_y, config=config,
-                            seed=seed, device=device)
-    results, wall, trained, fault_wall = run_folds(
+                            seed=seed, device=device, mesh=mesh)
+    ran = run_folds(
         setup, epochs=epochs, fold_batch=fold_batch,
         checkpoint_every=checkpoint_every,
         checkpoint_path=paths.models / f"within_subject_{model_name}.run.npz",
         resume=resume,
         signature={"protocol": "within_subject", "model": model_name,
-                   "subjects": list(subjects)})
+                   "subjects": list(subjects)}, mesh=mesh)
+    if ran is None:
+        return None
+    results, wall, trained, fault_wall = ran
 
     fold_test = results.test_accuracy.numpy()
     fold_best_val = results.best_val_acc.numpy()
@@ -895,25 +1138,32 @@ def cross_subject_training(epochs: int | None = None, *,
                            device: torch.device | str | None = None,
                            fold_batch: int | None = None,
                            checkpoint_every: int | None = None,
-                           resume: bool = False) -> ProtocolResult:
+                           resume: bool = False, mesh: Mesh | None = None
+                           ) -> ProtocolResult | None:
     """Cross-subject protocol: per held-out subject,
     ``config.cs_repeats_per_subject`` folds of 5 train and the rest
     validation subjects, on ``device``, through :func:`run_folds` in groups
-    of ``fold_batch`` folds (default: :func:`_cs_auto_fold_batch`)."""
+    of ``fold_batch`` folds (default: :func:`_cs_auto_fold_batch`, of a
+    rank's block under ``mesh``; ``None`` on every rank but the first)."""
     epochs = epochs if epochs is not None else config.epochs
     paths = paths or Paths.from_here()
     device = resolve_device(device)
+    mesh_data_sharding(mesh, config.batch_size)
     setup, folds = cross_subject_setup(loader, tuple(subjects), config=config,
                                        seed=seed, device=device,
-                                       model_name=model_name)
-    fold_batch = _cs_auto_fold_batch(len(folds), fold_batch, device)
-    results, wall, trained, fault_wall = run_folds(
+                                       model_name=model_name, mesh=mesh)
+    lo, hi = shardspec.fold_block(setup.n_folds, mesh)
+    fold_batch = _cs_auto_fold_batch(hi - lo, fold_batch, device)
+    ran = run_folds(
         setup, epochs=epochs, fold_batch=fold_batch,
         checkpoint_every=checkpoint_every,
         checkpoint_path=paths.models / f"cross_subject_{model_name}.run.npz",
         resume=resume,
         signature={"protocol": "cross_subject", "model": model_name,
-                   "subjects": list(subjects)})
+                   "subjects": list(subjects)}, mesh=mesh)
+    if ran is None:
+        return None
+    results, wall, trained, fault_wall = ran
 
     fold_test = results.test_accuracy.numpy()
     min_val_loss = results.min_val_loss.numpy()

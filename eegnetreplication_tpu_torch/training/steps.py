@@ -29,6 +29,17 @@ folds share nothing), and Adam is a handful of operations on one tensor.
   of the stacked K1 kernel (``ops/fused_eegnet.py::block1_stacked``); a
   baseline runs its plain stacked eval forward, as the JAX package has no
   fused eval for it.
+- *Data parallelism.*  Given ``data_group`` (this rank's line along the
+  mesh's data axis, ``parallel/mesh.py::AxisGroup``) each rank holds its
+  contiguous part of every batch, and the steps compute the whole batch's
+  result, as the JAX steps do under ``shard_map`` with ``data_axis``: the
+  loss is the local weighted sum over the *group's* weight sum, the model
+  syncs its BatchNorm statistics over the group (when its
+  ``bn_axis_name`` is ``"data"``), one ``all_reduce`` sums the flat
+  gradient and the loss, a fold steps when the group's batch holds a real
+  sample, and eval sums its loss and correct count over the group.  The
+  dropout generator is the caller's: one stream for each data rank
+  (``training/loop.py::dropout_seed``).
 """
 
 from __future__ import annotations
@@ -202,15 +213,35 @@ def project_paper_maxnorm(params: Mapping[str, torch.Tensor],
 
 
 def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                           weights: torch.Tensor) -> torch.Tensor:
+                           weights: torch.Tensor,
+                           weight_sum: torch.Tensor | None = None
+                           ) -> torch.Tensor:
     """Softmax cross-entropy averaged over the slots with weight > 0:
     ``(..., B, K)`` logits -> ``(...)``, ``sum(ce * w) / max(sum(w), 1)``
     (torch's ``CrossEntropyLoss()`` on the real samples of a padded
-    batch)."""
+    batch).  ``weight_sum`` replaces the denominator's ``sum(w)``: the
+    data group's sum, for a rank's part of a batch."""
     ce = torch.logsumexp(logits, dim=-1) - torch.gather(
         logits, -1, labels.long().unsqueeze(-1)).squeeze(-1)
-    return torch.sum(ce * weights, dim=-1) / torch.clamp(
-        torch.sum(weights, dim=-1), min=1.0)
+    if weight_sum is None:
+        weight_sum = torch.sum(weights, dim=-1)
+    return torch.sum(ce * weights, dim=-1) / torch.clamp(weight_sum,
+                                                         min=1.0)
+
+
+def bn_group_of(model: nn.Module, data_group):
+    """The group ``model``'s training BatchNorms sync over: the data
+    group when the model names the data axis (``bn_axis_name``)."""
+    if data_group is None or not data_group.active:
+        return None
+    if getattr(model, "bn_axis_name", None) != data_group.axis:
+        raise ValueError(
+            f"the mesh data axis is {data_group.size}-wide but the model "
+            f"was built with bn_axis_name="
+            f"{getattr(model, 'bn_axis_name', None)!r}; pass "
+            f"bn_axis_name={data_group.axis!r} for synced BatchNorm under "
+            "DP")
+    return data_group
 
 
 def adam_update(state: TrainState, grads: torch.Tensor, learning_rate: float,
@@ -230,7 +261,8 @@ def adam_update(state: TrainState, grads: torch.Tensor, learning_rate: float,
 def train_step(model: nn.Module, state: TrainState, x: torch.Tensor,
                y: torch.Tensor, w: torch.Tensor, *, learning_rate: float,
                adam_eps: float, maxnorm_mode: str = "reference",
-               generator: torch.Generator | None = None
+               generator: torch.Generator | None = None, data_group=None,
+               optimizer_update=None
                ) -> tuple[TrainState, torch.Tensor, torch.Tensor]:
     """One optimization step of every fold on its own padded batch.
 
@@ -242,30 +274,47 @@ def train_step(model: nn.Module, state: TrainState, x: torch.Tensor,
     loss, grad_norm)``, the last two ``(G,)``: each fold's batch loss and
     the global norm of its raw (pre-clamp) gradient.  A fold whose batch
     holds no real sample keeps its parameters, statistics, moments and step
-    count, and reports 0 for both.  Nothing here waits for the device.
+    count, and reports 0 for both.  With ``data_group`` the batch is this
+    rank's part and the step is the whole batch's (module docstring).
+    ``optimizer_update(state, grads) -> state`` replaces the Adam update
+    (the ZeRO step's sliced one, ``parallel/dp.py``).  Nothing here waits
+    for the device.
     """
     if maxnorm_mode not in MAXNORM_MODES:
         raise ValueError(f"maxnorm_mode must be 'reference' or 'paper'; "
                          f"got {maxnorm_mode!r}")
     layout = state.layout
+    bn_group = bn_group_of(model, data_group)
+    w_sum = torch.sum(w, dim=1)
+    if bn_group is not None:
+        w_sum = data_group.sum(w_sum)
     params = state.params.detach().requires_grad_(True)
     with torch.enable_grad():
         logits, new_stats = model.stacked(
             layout.params.views(params), state.stat_views(), x, train=True,
-            sample_weights=w, generator=generator)
-        loss = weighted_cross_entropy(logits, y, w)
+            sample_weights=w, generator=generator, bn_group=bn_group)
+        loss = weighted_cross_entropy(logits, y, w, w_sum)
         (grads,) = torch.autograd.grad(loss.sum(), params)
     with torch.no_grad():
+        if bn_group is not None:
+            # The loss is normalized by the group's weight sum, so the sums
+            # of the ranks' gradients and losses are the whole batch's:
+            # one all_reduce of the flat gradient with the loss beside it.
+            summed = data_group.sum(torch.cat([grads, loss[:, None]], 1))
+            grads, loss = summed[:, :-1], summed[:, -1]
         grad_norm = torch.sqrt(torch.sum(grads * grads, dim=1))
         if maxnorm_mode == "reference":
             grads = layout.params.flatten(clamp_reference_maxnorm(
                 layout.params.views(grads), model.MAXNORM_LIMITS))
-        new = adam_update(state, grads, learning_rate, adam_eps)
+        if optimizer_update is None:
+            new = adam_update(state, grads, learning_rate, adam_eps)
+        else:
+            new = optimizer_update(state, grads)
         if maxnorm_mode == "paper":
             new.params = layout.params.flatten(project_paper_maxnorm(
                 new.param_views(), model.MAXNORM_LIMITS))
         new.stats = layout.stats.flatten(new_stats)
-        has_real = torch.sum(w, dim=1) > 0
+        has_real = w_sum > 0
         zero = torch.zeros_like(loss)
         return (new.select(has_real, state),
                 torch.where(has_real, loss.detach(), zero),
@@ -293,11 +342,19 @@ def eval_forward(model: nn.Module, state: TrainState, x: torch.Tensor,
 
 
 def eval_step(model: nn.Module, state: TrainState, x: torch.Tensor,
-              y: torch.Tensor, w: torch.Tensor, idx: torch.Tensor
-              ) -> tuple[torch.Tensor, torch.Tensor]:
+              y: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
+              data_group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Eval-mode ``(loss, weighted correct count)`` per fold, ``(G,)``
-    each; the prediction is the first maximum of the logits."""
+    each; the prediction is the first maximum of the logits.  With
+    ``data_group`` the batch is this rank's part and both are the whole
+    batch's, summed over the group (one ``all_reduce``)."""
     logits = eval_forward(model, state, x, idx)
-    loss = weighted_cross_entropy(logits, y, w)
+    active = data_group is not None and data_group.active
+    w_sum = torch.sum(w, dim=-1)
+    if active:
+        w_sum = data_group.sum(w_sum)
+    loss = weighted_cross_entropy(logits, y, w, w_sum)
     correct = torch.sum((torch.argmax(logits, dim=-1) == y) * w, dim=-1)
+    if active:
+        loss, correct = data_group.sum(torch.stack([loss, correct]))
     return loss, correct

@@ -7,7 +7,10 @@ CPU.  ``EEGTPU_PLATFORM`` (the same variable the JAX package reads) picks:
 
 - ``cpu``: the CPU (the tests use it);
 - unset, ``gpu`` or ``cuda``: ``cuda:0``, or :class:`RuntimeError` when
-  CUDA is absent.
+  CUDA is absent.  A rank process of a mesh (``parallel/launch.py`` sets
+  ``LOCAL_RANK``) takes ``cuda:{LOCAL_RANK % device_count}`` and makes it
+  its current device: on a machine with one card every rank shares
+  ``cuda:0``.  It never falls back to the CPU either.
 
 Selecting a device also pins float32 numerics once per process: cuDNN
 convolutions default to TF32 (about 1e-3 relative error), while the JAX
@@ -17,8 +20,13 @@ off for both cuDNN and cuBLAS.
 Selecting the card also makes its runs repeat bit for bit, which the JAX
 package promises of a resumed run ("resume WITHIN a fixed grouping
 remains bit-identical"): ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` before the
-first cuBLAS call, ``torch.use_deterministic_algorithms(True)``, and cuDNN
-deterministic with its autotuner off.  Deterministic mode's fill of fresh
+first cuBLAS call, PyTorch's deterministic-algorithms flag, and cuDNN
+deterministic with its autotuner off.  The flag is set directly
+(``torch._C._set_deterministic_algorithms``): the public
+``torch.use_deterministic_algorithms`` also writes inductor's config, and
+importing that config (sympy, triton) took 7.4-7.7 s of every process's
+start on the card's machine (``PERF.md`` §6), for a compiler the
+port never calls.  Deterministic mode's fill of fresh
 allocations with NaN is turned off: the port's kernels write every output
 element, so the fill would only cost a pass over each new tensor.  The
 CPU path is left as it is: it already repeats, and the global flag would
@@ -44,7 +52,7 @@ def _pin_f32_numerics() -> None:
 def _pin_determinism() -> None:
     """Bitwise-repeatable runs on the card (see the module docstring)."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    torch.use_deterministic_algorithms(True)
+    torch._C._set_deterministic_algorithms(True)
     torch.utils.deterministic.fill_uninitialized_memory = False
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
@@ -66,7 +74,16 @@ def platform_device() -> torch.device:
         raise RuntimeError(
             "CUDA is not available on this host; the torch port does not "
             f"fall back to the CPU (set {PLATFORM_ENV}=cpu to run there)")
-    return torch.device("cuda", 0)
+    return torch.device("cuda", rank_device_index())
+
+
+def rank_device_index() -> int:
+    """The card a process uses: ``LOCAL_RANK % device_count`` in a rank
+    of a mesh, else 0."""
+    local = os.environ.get("LOCAL_RANK")
+    if local is None:
+        return 0
+    return int(local) % max(torch.cuda.device_count(), 1)
 
 
 def select_device() -> torch.device:
@@ -75,6 +92,8 @@ def select_device() -> torch.device:
     device = platform_device()
     if device.type == "cuda":
         _pin_determinism()
+        if device.index:
+            torch.cuda.set_device(device)
     return device
 
 

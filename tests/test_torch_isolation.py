@@ -4,7 +4,10 @@ Every module of ``eegnetreplication_tpu_torch`` (and ``chip_smoke.py``)
 must import in a process where ``jax``, ``flax``, ``optax`` and
 ``eegnetreplication_tpu`` cannot be imported, and the port's entry points
 must refuse a host without CUDA unless ``EEGTPU_PLATFORM=cpu`` asks for the
-CPU.  ``ui`` and ``viz`` also import with ``tkinter`` and ``matplotlib``
+CPU.  The mesh's rank processes run there too: the blocked process forks a
+world of four ranks (``utils/mesh_drill.py``: the DP step, ZeRO, the
+time-sharded EMS), which inherit the block, and each rank checks that
+nothing blocked was imported.  ``ui`` and ``viz`` also import with ``tkinter`` and ``matplotlib``
 blocked and no display, as on the card's machine.
 """
 
@@ -71,7 +74,9 @@ _CHILD = textwrap.dedent("""
                  "serve.cells.membership", "serve.cells.front",
                  "serve.cells.ha", "serve.cells.service",
                  "serve.cells.__main__", "obs.report", "obs.trace_report",
-                 "viz", "ui", "data.gdf_native"):
+                 "viz", "ui", "data.gdf_native", "parallel",
+                 "parallel.mesh", "parallel.shardspec", "parallel.dp",
+                 "parallel.launch", "utils.mesh_drill"):
         assert "eegnetreplication_tpu_torch." + name in names, name
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   {chip_smoke!r})
@@ -90,6 +95,24 @@ _CHILD = textwrap.dedent("""
     else:
         raise SystemExit("engine built without CUDA and without "
                          "EEGTPU_PLATFORM=cpu")
+
+    import os, tempfile
+    from eegnetreplication_tpu_torch.utils import mesh_drill
+    os.environ["EEGTPU_PLATFORM"] = "cpu"
+    body = mesh_drill.world_body
+
+    def checked_body(*args):
+        code = body(*args)
+        leaked = sorted(m for m in sys.modules if blocked(m))
+        assert not leaked, leaked
+        return code
+
+    mesh_drill.world_body = checked_body
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = mesh_drill.run(mesh_drill.make_inputs(
+            c=4, t=64, batch=8, steps=2, ems_shape=(2, 400),
+            ems_block=100), os.path.join(tmp, "out.npz"))
+    print("ranks ran:", sorted(rec["info"]["ems_launches"]))
 """)
 
 
@@ -109,6 +132,7 @@ def test_port_imports_without_jax_and_refuses_a_host_without_cuda():
     n_modules = int(out.stdout.split("imported ", 1)[1].split()[0])
     assert n_modules >= 22
     assert "engine refused: CUDA is not available" in out.stdout
+    assert "ranks ran: ['2', '4']" in out.stdout
 
 
 _NO_TK_CHILD = textwrap.dedent("""

@@ -9,8 +9,9 @@
   on a synthetic processed tree writes a report with exactly the JAX
   report's keys; the trained ``.npz`` loads in the port's engine and in the
   JAX ``load_checkpoint`` with the same ``variables_digest``.
-- Every flag whose machinery is not ported stops the CLI; without CUDA and
-  without ``EEGTPU_PLATFORM=cpu`` it raises; a stop request exits 75.
+- Every flag whose machinery is not ported stops the CLI (the mesh flags,
+  ported since, now train over their ranks); without CUDA and without
+  ``EEGTPU_PLATFORM=cpu`` it raises; a stop request exits 75.
 """
 
 import json
@@ -22,7 +23,11 @@ from pathlib import Path
 import numpy as np
 import pytest
 from synthetic import make_loader
-from torch_port_cases import child_env, write_processed_tree
+from torch_port_cases import (
+    child_env,
+    train_over_a_mesh,
+    write_processed_tree,
+)
 
 from eegnetreplication_tpu.config import DEFAULT_TRAINING as JAX_DEFAULT
 from eegnetreplication_tpu.config import Paths as JaxPaths
@@ -175,7 +180,11 @@ UNPORTED = {
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_flags_stop_the_cli(name, capsys):
+def test_unported_flags_stop_the_cli(name, capsys, tmp_path):
+    if name.startswith("mesh_"):
+        # ported: the CLI trains under that mesh and writes its models
+        train_over_a_mesh(UNPORTED[name], tmp_path)
+        return
     with pytest.raises(SystemExit) as exc:
         train_cli.main(UNPORTED[name] + ["--epochs", "1"])
     assert exc.value.code == 2

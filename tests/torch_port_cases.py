@@ -280,6 +280,31 @@ def write_processed_tree(root, subjects=(1, 2), n_trials=24, nan_in=None,
                         / trials_filename(s, mode))
 
 
+def train_over_a_mesh(argv, root) -> None:
+    """The train CLI in a child process (its launcher forks the ranks) on
+    a one-subject tree under ``root``: it must exit 0 and write the
+    subject's models."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(root)
+    write_processed_tree(root, subjects=(1,))
+    env = child_env({k: v for k, v in os.environ.items()
+                     if k != "PYTHONPATH"})
+    env.update(EEGTPU_PLATFORM="cpu", EEGTPU_DATA_ROOT=str(root),
+               EEGTPU_NO_LOG_FILE="1",
+               PYTHONPATH=str(Path(__file__).resolve().parents[1]))
+    out = subprocess.run(
+        [sys.executable, "-m", "eegnetreplication_tpu_torch.train", *argv,
+         "--epochs", "1", "--subjects", "1"], cwd=root, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    for suffix in (".npz", ".pth"):
+        assert (root / "models" / f"subject_01_best_model{suffix}"
+                ).is_file()
+
+
 # ---------------------------------------------------------------------------
 # The replica fleet: a scripted replica, a fake clock, and both packages'
 # fleet modules side by side, for the twin runs of tests/test_torch_fleet.py,
