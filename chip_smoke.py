@@ -47,6 +47,18 @@ hand-written kernel against its plain PyTorch version:
    through the numpy reader gives that run's trials bit for bit (the
    CLI's are held to them above); the build and both readers' times a
    session are printed;
+8c. the moabb path (``dataset --src moabb``): the card's machine has no
+   MNE, so ``tests/fake_mne.py`` (numpy only; ``.npz`` payloads under
+   ``.fif`` names) is loaded by path and installed as ``mne`` in this
+   process only.  One subject's BNCI2014-001 tree, sessions T and E of 6
+   runs of 48 named cues (22 EEG + 3 EOG channels at 250 Hz, 387 s a
+   run), goes through ``preprocess_moabb_data`` on the card with
+   ``EEGTPU_EMS_METHOD=pallas``: K2 launches once a run (12), the trials
+   are (288, 22, 257) a session with labels equal to the cues, and both
+   files of each session are within 1e-3 of the port's CPU run.  ``python
+   -m eegnetreplication_tpu_torch.dataset --src moabb`` in a process
+   without the double exits non-zero naming MNE.  The leg's wall and K2's
+   time a run are printed;
 9. times at (22, 345600): K2, ``ems_reference`` and ``associative`` as the
    median of CUDA-event timings with the L2 cache flushed, beside the
    bound, and the two things ``ems`` runs besides K2 (the seed statistics,
@@ -290,6 +302,12 @@ hand-written kernel against its plain PyTorch version:
    ``obs.report --json`` summarizes phase 19's front trees and every
    nested cell journal; ``obs.trace_report --require-cross-process``
    stitches phase 18's journals into cross-process traces.  Budget 20 s.
+   Then the lint leg: ``python -m eegnetreplication_tpu_torch.analysis.cli
+   --root <checkout> --json`` exits 0 with no new finding, no stale
+   baseline entry and all six passes; over a copy with one unknown flag
+   on a spawned cell's command line and one ``logger.info`` inside the
+   engine's capture window it exits 1 with exactly those two findings;
+   the linter's ``wall_s`` is printed.
 21. the mesh (``parallel/``), run after phase 17 in phase 8's tree (its
    two subjects replicated to nine: 36 folds, EEGNet F1=8, D=2, batch 64,
    the reference's hyperparameters); the rank processes are forked by the
@@ -1465,6 +1483,197 @@ def phase_dataset(torch, np, dev, work: Path, env: dict):
             "predict_k1_launches": k1, "raw_session": str(raw),
             "native_gdf": {"build_s": native_build_s, "cached": cached,
                            "reads": native_reads, "sessions": readers}}
+
+
+# --------------------------------------------------------------------------
+# Phase 8c: the moabb path
+# --------------------------------------------------------------------------
+
+MOABB_RUNS = 6            # BNCI2014-001: 6 runs a session, 48 cues a run
+MOABB_CUES = 48
+MOABB_RUN_S = 387.0       # cues 8 s apart from 3 s on, 8 s after the last
+MOABB_CLASSES = ("left_hand", "right_hand", "feet", "tongue")
+
+
+def _fake_mne():
+    """``tests/fake_mne.py`` loaded by path: the numpy-only slice of MNE
+    that ``data/moabb.py`` reads runs through (``.npz`` payloads under
+    ``.fif`` names).  The card's machine has no MNE."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "fake_mne", ROOT / "tests" / "fake_mne.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def write_moabb_tree(np, write_fake_fif, moabb_dir: Path,
+                     subject: int = 1) -> dict:
+    """The run layout ``fetch --src moabb`` writes for BNCI2014-001 under
+    ``moabb_dir``: ``{Train,Eval}/A0sT_run_k.fif``, each of ``MOABB_RUNS``
+    runs 22 EEG and 3 EOG channels at 250 Hz in volts, ``MOABB_CUES`` cues
+    named by class as moabb names them (a quarter each, shuffled).
+    Returns each session's labels in run order."""
+    from eegnetreplication_tpu_torch.config import (
+        EEG_CHANNEL_NAMES,
+        EOG_CHANNEL_NAMES,
+    )
+
+    sfreq = 250.0
+    n = int(MOABB_RUN_S * sfreq)
+    names = list(EEG_CHANNEL_NAMES + EOG_CHANNEL_NAMES)
+    types = ["eeg"] * 22 + ["eog"] * 3
+    onsets = 3.0 + 8.0 * np.arange(MOABB_CUES)
+    expected = {}
+    for mode in ("Train", "Eval"):
+        stem = f"A{subject:02d}{mode[0]}"
+        classes = []
+        for k in range(MOABB_RUNS):
+            seed = 5000 + 10 * k + (mode == "Eval")
+            cls = np.random.RandomState(seed).permutation(
+                np.repeat(np.arange(4), MOABB_CUES // 4))
+            out = moabb_dir / mode / f"{stem}_run_{k}.fif"
+            out.parent.mkdir(parents=True, exist_ok=True)
+            write_fake_fif(out, session_signal(np, 25, n, seed) * 1e-6,
+                           sfreq, names, onsets,
+                           [MOABB_CLASSES[c] for c in cls], ch_types=types)
+            classes.append(cls)
+        expected[stem] = np.concatenate(classes).astype(np.int64)
+    return expected
+
+
+def phase_moabb(torch, np, dev, work: Path, env: dict, card: str) -> dict:
+    """Phase 8c: ``dataset --src moabb``'s path on the card over the MNE
+    double: one subject's two sessions of ``MOABB_RUNS`` runs through
+    ``preprocess_moabb_data`` with ``EEGTPU_EMS_METHOD=pallas`` (K2 once a
+    run), held to the port's CPU run; and the CLI without the double,
+    which must refuse naming MNE."""
+    from eegnetreplication_tpu_torch.config import Paths
+    from eegnetreplication_tpu_torch.data.io import load_trials
+    from eegnetreplication_tpu_torch.data.moabb import preprocess_moabb_data
+    from eegnetreplication_tpu_torch.data.preprocess import EMS_METHOD_ENV
+    from eegnetreplication_tpu_torch.ops.ems_kernel import ems
+
+    t_leg = time.perf_counter()
+    fake = _fake_mne()
+    paths = Paths.from_root(work / "card")
+    expected = write_moabb_tree(np, fake.write_fake_fif, paths.data_moabb)
+    n_runs = 2 * MOABB_RUNS
+    write_s = time.perf_counter() - t_leg
+
+    # The CLI a user runs, in a process without the double, beside the
+    # in-process legs: this machine has no MNE, so it must refuse.
+    bare = Paths.from_root(work / "no_mne")
+    bare.data_moabb.parent.mkdir(parents=True)
+    bare.data_moabb.symlink_to(paths.data_moabb, target_is_directory=True)
+    refusal = subprocess.Popen(
+        [sys.executable, "-m", "eegnetreplication_tpu_torch.dataset",
+         "--src", "moabb"], cwd=ROOT,
+        env=dict(env, EEGTPU_EMS_METHOD="pallas",
+                 EEGTPU_DATA_ROOT=str(bare.project_root)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    cpu_paths = Paths.from_root(work / "cpu")
+    cpu_paths.data_moabb.parent.mkdir(parents=True)
+    cpu_paths.data_moabb.symlink_to(paths.data_moabb,
+                                    target_is_directory=True)
+    saved = os.environ.get(EMS_METHOD_ENV)
+    os.environ[EMS_METHOD_ENV] = "pallas"
+    fake.install()    # as ``mne`` in this process only
+    log("phase 8c: tests/fake_mne.py stands in for MNE in this process "
+        "only (the card's machine has none): the runs are .npz payloads "
+        "under .fif names")
+    try:
+        ems.launches = 0
+        t0 = time.perf_counter()
+        written = preprocess_moabb_data(paths, device=dev)
+        card_s = time.perf_counter() - t0
+        launches = ems.launches
+        t0 = time.perf_counter()
+        preprocess_moabb_data(cpu_paths, device=torch.device("cpu"))
+        cpu_s = time.perf_counter() - t0
+    finally:
+        fake.uninstall()
+        if saved is None:
+            os.environ.pop(EMS_METHOD_ENV, None)
+        else:
+            os.environ[EMS_METHOD_ENV] = saved
+    check(launches == n_runs,
+          f"K2 launched {launches} times for {n_runs} moabb runs")
+    check([p.name for p in written] == [f"{s}-preprocessed.npz"
+                                        for s in expected],
+          f"preprocess_moabb_data wrote {[p.name for p in written]}")
+
+    errs = {"trials": 0.0, "preprocessed": 0.0}
+    for stem, classes in expected.items():
+        mode = "Train" if stem.endswith("T") else "Eval"
+        got = load_trials(paths.data_moabb_processed / mode
+                          / f"{stem}-trials.npz")
+        ref = load_trials(cpu_paths.data_moabb_processed / mode
+                          / f"{stem}-trials.npz")
+        check(got.X.shape == (len(classes), 22, 257)
+              and got.X.dtype == np.float32
+              and bool(np.isfinite(got.X).all()),
+              f"moabb {stem}: trials {got.X.shape} {got.X.dtype}")
+        check(np.array_equal(got.y, classes) and np.array_equal(ref.y,
+                                                                classes),
+              f"moabb {stem}: labels differ from the cues")
+        check(np.allclose(got.X, ref.X, atol=DATASET_ATOL,
+                          rtol=DATASET_RTOL),
+              f"moabb {stem}: card trials differ from the CPU's")
+        errs["trials"] = max(errs["trials"],
+                             float(np.abs(got.X - ref.X).max()))
+        with np.load(paths.data_moabb_processed / mode
+                     / f"{stem}-preprocessed.npz") as a, \
+                np.load(cpu_paths.data_moabb_processed / mode
+                        / f"{stem}-preprocessed.npz") as b:
+            check(a["data"].shape == b["data"].shape
+                  == (22, n_runs // 2 * int(MOABB_RUN_S * 128))
+                  and np.array_equal(a["event_pos"], b["event_pos"])
+                  and np.array_equal(a["event_typ"], b["event_typ"]),
+                  f"moabb {stem}: the session recordings differ in shape "
+                  f"or events")
+            check(np.allclose(a["data"], b["data"], atol=DATASET_ATOL,
+                              rtol=DATASET_RTOL),
+                  f"moabb {stem}: the card's session differs from the "
+                  f"CPU's")
+            errs["preprocessed"] = max(
+                errs["preprocessed"],
+                float(np.abs(a["data"] - b["data"]).max()))
+
+    # K2 at one run's shape after the 128 Hz resample (not counted above).
+    x = torch.from_numpy(session_signal(
+        np, 22, int(MOABB_RUN_S * 128), 77)).to(dev)
+    k2_ms = device_ms(torch, lambda: ems(x))
+    bound_ms, bound_by, _, _ = ems_bound(22, int(MOABB_RUN_S * 128))
+
+    try:
+        _, err = refusal.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        refusal.kill()
+        raise
+    check(refusal.returncode != 0 and "requires MNE" in err,
+          f"dataset --src moabb without MNE exited {refusal.returncode}: "
+          + err[-2000:])
+    wall = time.perf_counter() - t_leg
+    log(f"phase 8c on {card}: {n_runs} moabb runs ({MOABB_CUES} cues, "
+        f"{MOABB_RUN_S:.0f} s each) -> ({len(expected['A01T'])}, 22, 257) "
+        f"trials a session, labels equal to the cues; K2 launches "
+        f"{launches}; card {card_s:.2f} s ({card_s / n_runs * 1e3:.0f} ms a "
+        f"run), CPU {cpu_s:.2f} s; card vs CPU max abs diff trials "
+        f"{errs['trials']:.3e}, sessions {errs['preprocessed']:.3e} (atol "
+        f"{DATASET_ATOL}, rtol {DATASET_RTOL}); K2 {k2_ms:.4f} ms a run at "
+        f"(22, {int(MOABB_RUN_S * 128)}) (bound {bound_ms:.4f} ms, "
+        f"{bound_by}); the CLI without MNE exited {refusal.returncode}: "
+        f"{err.strip().splitlines()[-1][:160]!r}; tree written in "
+        f"{write_s:.1f} s; leg {wall:.1f} s")
+    return {"launches": launches, "runs": n_runs, "wall_s": wall,
+            "write_s": write_s, "card_s": card_s, "cpu_s": cpu_s,
+            "card_ms_per_run": card_s / n_runs * 1e3,
+            "k2_ms_per_run": k2_ms, "k2_bound_ms": bound_ms,
+            "k2_bound_by": bound_by, "max_abs_err": errs,
+            "refusal_rc": refusal.returncode}
 
 
 def phase_k2_times(torch, np, dev, raw_session: Path, work: Path):
@@ -7138,6 +7347,71 @@ def _keep_training_artifacts(data_root: Path, keep: Path) -> None:
             shutil.copy2(f, keep / sub / f.name)
 
 
+# Phase 20's lint leg: the port's contract linter over the checkout, then
+# over a copy with one unknown flag on a spawned cell's command line and
+# one log call inside the engine's capture window.
+LINT_MUTATIONS = (
+    ("serve/cells/service.py", '"--sessionsMirror"', '"--sessionsMirrror"'),
+    ("serve/engine.py", "logits = self._graph_forward(*inputs)\n",
+     "logits = self._graph_forward(*inputs)\n"
+     "                logger.info('captured')\n"),
+)
+LINT_WANT = [("jit-impure", "_capture:_capture"),
+             ("spawn-arg-unknown", "--sessionsMirrror")]
+
+
+def _lint(root: Path) -> tuple[int, dict]:
+    proc = subprocess.run(
+        [sys.executable, "-m", "eegnetreplication_tpu_torch.analysis.cli",
+         "--root", str(root), "--json"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
+        text=True, timeout=300)
+    check(proc.stdout.strip().startswith("{"), f"the linter over {root} "
+          f"exited {proc.returncode} without a record:\n" + proc.stderr[-2000:])
+    return proc.returncode, json.loads(proc.stdout)
+
+
+def _lint_leg(work: Path) -> dict:
+    import shutil
+
+    from eegnetreplication_tpu_torch.analysis.runner import PASSES
+
+    t0 = time.perf_counter()
+    rc, record = _lint(ROOT)
+    counts = record["counts"]
+    check(rc == 0 and counts["new"] == 0 and counts["stale_baseline"] == 0
+          and record["passes"] == list(PASSES) and len(PASSES) == 6,
+          f"the linter over the checkout exited {rc}: {counts}, passes "
+          f"{record['passes']}, new " + json.dumps(
+              [f for f in record["findings"] if not f["baselined"]])[:2000])
+
+    copy = work / "lint_mutated"
+    pkg = "eegnetreplication_tpu_torch"
+    shutil.copytree(ROOT / pkg, copy / pkg, ignore=shutil.ignore_patterns(
+        "__pycache__", "_build", "csrc"))
+    for name in ("chip_smoke.py", "BENCH_NOTES.md", "pyproject.toml"):
+        shutil.copy2(ROOT / name, copy / name)
+    for rel, old, new in LINT_MUTATIONS:
+        path = copy / pkg / rel
+        text = path.read_text()
+        check(text.count(old) == 1, f"{rel}: the mutation's anchor moved")
+        path.write_text(text.replace(old, new))
+    mrc, mutated = _lint(copy)
+    new = sorted((f["rule"], f["symbol"]) for f in mutated["findings"]
+                 if not f["baselined"])
+    check(mrc == 1 and new == LINT_WANT
+          and mutated["counts"]["stale_baseline"] == 0,
+          f"the linter over the mutated copy exited {mrc} with {new}")
+    wall = time.perf_counter() - t0
+    log(f"phase 20 lint leg: the checkout exits 0 ({counts['total']} "
+        f"findings, {counts['baselined']} baselined, 0 new, 0 stale; "
+        f"passes {', '.join(record['passes'])}) in {record['wall_s']} s "
+        f"(the linter's wall_s); the mutated copy exits 1 with exactly "
+        f"{new} in {mutated['wall_s']} s; leg {wall:.1f} s")
+    return {"wall_s": record["wall_s"], "mutated_wall_s": mutated["wall_s"],
+            "counts": counts, "mutated_new": new, "leg_s": wall}
+
+
 def phase_tooling(np, keep: Path, fleet_dir: Path, cells_dir: Path,
                   card: str, train: dict) -> dict:
     """Phase 20: viz, the GUI's helpers, the BENCH envelope and the report
@@ -7257,6 +7531,7 @@ def phase_tooling(np, keep: Path, fleet_dir: Path, cells_dir: Path,
         f"cross-process traces of {len(traces)}")
     log(f"phase 20 in {wall:.1f} s (budget {TOOLING_BUDGET_S:.0f} s)")
     check(wall <= TOOLING_BUDGET_S, f"phase 20 took {wall:.1f}s")
+    out["lint"] = _lint_leg(keep)
     return out
 
 
@@ -7615,6 +7890,10 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as data:
             dataset = phase_dataset(torch, np, dev, Path(data), env)
             mark("8")
+            with tempfile.TemporaryDirectory(
+                    prefix="chip_smoke_moabb_") as tmp:
+                moabb = phase_moabb(torch, np, dev, Path(tmp), env, card)
+            mark("8c")
             k2_times = phase_k2_times(torch, np, dev,
                                       Path(dataset["raw_session"]),
                                       Path(data))
@@ -7733,7 +8012,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "eegnetreplication_tpu_torch/ops/csrc/ems.cu",
         "replaces": "eegnetreplication_tpu/ops/ems_pallas.py:95",
-        "launches": dataset["launches"],
+        # phase 8's sessions and phase 8c's moabb runs
+        "launches": dataset["launches"] + moabb["launches"],
         "max_abs_err": k2_err,
         "ms": k2_times["ms"],
         "plain_ms": k2_times["plain_ms"],
@@ -7771,6 +8051,7 @@ def main(argv=None) -> int:
         "timer_floor": timer_floor,
         "times_by_bucket": times, "k2_max_abs_err": k2_err,
         "k2_vs_methods_max_abs_err": k2_vs_methods, "dataset": dataset,
+        "moabb": moabb,
         "k2_times": k2_times, "k1_stacked_max_abs_err": k1s_err,
         "k1_stacked_times": k1s_times, "train": train, "cross_subject": cs,
         "serving_zoo": zoo, "streams": streams, "control": control,

@@ -1,11 +1,12 @@
 """Project configuration: paths and the BCI Competition IV 2a constants.
 
-The subset of ``eegnetreplication_tpu/config.py`` that serving,
-preprocessing and training read: where raw recordings, processed trials,
-trained models and reports live (under the repo root, or under
-``EEGTPU_DATA_ROOT``), the dataset's channel, rate, band and window
-constants, and the training hyperparameters (:class:`TrainingConfig`, the
-same fields and defaults as the JAX package's).
+The subset of ``eegnetreplication_tpu/config.py`` that fetching, serving,
+preprocessing and training read: where raw recordings, the moabb runs,
+processed trials, trained models and reports live (under the repo root, or
+under ``EEGTPU_DATA_ROOT``), the datasets the fetchers download, the
+dataset's channel, rate, band and window constants, and the training
+hyperparameters (:class:`TrainingConfig`, the same fields and defaults as
+the JAX package's).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ class Paths:
     project_root: Path
     data_raw: Path
     data_processed: Path
+    data_moabb: Path
+    data_moabb_processed: Path
     models: Path
     reports: Path
     checkpoints: Path
@@ -43,10 +46,15 @@ class Paths:
         return Paths(project_root=root,
                      data_raw=root / "data" / "raw",
                      data_processed=root / "data" / "processed",
+                     data_moabb=root / "data" / "moabb",
+                     data_moabb_processed=root / "data" / "moabb_processed",
                      models=root / "models",
                      reports=root / "reports",
                      checkpoints=root / "checkpoints")
 
+
+KAGGLE_DATASET = "prashastham/bci-competition-iv-dataset-2a"
+MOABB_DATASET = "BNCI2014_001"
 
 # BCI Competition IV 2a (the reference's dataset.py:89-96, 114, 223-224).
 N_EEG_CHANNELS = 22

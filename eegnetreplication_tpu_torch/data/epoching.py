@@ -1,8 +1,8 @@
 """Trial extraction: continuous recordings -> (n_trials, 22, 257) windows.
 
 The port's copy of ``eegnetreplication_tpu/data/epoching.py`` (numpy and
-scipy only; its output is byte-equal to the JAX package's).  Reading the
-reference's ``.fif`` files (``build_dataset_from_fif_dir``) is not ported.
+scipy only, and MNE to read the reference's ``.fif`` files; its output is
+byte-equal to the JAX package's).
 
 Native counterpart of ``break_data_into_epochs`` / ``map_labels`` /
 ``build_dataset_from_preprocessed`` (``src/eegnet_repl/dataset.py:132-281``),
@@ -169,9 +169,7 @@ def build_dataset_from_preprocessed(src: str = "kaggle",
     if src == "kaggle":
         dest_path = paths.data_processed / mode
     elif src == "moabb":
-        raise NotImplementedError(
-            "The moabb source is not ported to the torch port yet (see "
-            "ROADMAP.md); use --src kaggle")
+        dest_path = paths.data_moabb_processed / mode
     else:
         raise ValueError(f"Unknown source: {src}")
     logger.info("Building dataset from preprocessed data in %s", dest_path)
@@ -193,3 +191,56 @@ def build_dataset_from_preprocessed(src: str = "kaggle",
         parts.append(BCICI2ADataset(X=X, y=y))
     return concat_datasets(parts)
 
+
+def build_dataset_from_fif_dir(root: Path, subject: int | str = "all",
+                               mode: str = "Train",
+                               paths: Paths | None = None) -> BCICI2ADataset:
+    """Drop-in compatibility: epoch reference-produced ``.fif`` files.
+
+    Requires MNE (the reference's storage format is MNE-specific); reproduces
+    the annotation-id selection of ``break_data_into_epochs``
+    (``dataset.py:178-237``) including the subject-4 id shift, which for
+    raw annotation descriptions means simply selecting by description.
+    """
+    try:
+        import mne
+    except ImportError as e:
+        raise ImportError(
+            "Reading the reference's .fif files requires MNE, which is not "
+            "installed. Re-run preprocessing with `python -m "
+            "eegnetreplication_tpu_torch.dataset --src kaggle` to build "
+            "native -preprocessed.npz files instead."
+        ) from e
+
+    paths = paths or Paths.from_here()
+    if subject != "all":
+        files = sorted(root.glob(f"A{int(subject):02d}{mode[0]}-preprocessed.fif"))
+    else:
+        files = sorted(root.glob("*-preprocessed.fif"))
+    if not files:
+        raise ValueError(f"No .fif files found in {root} for subject {subject}")
+
+    cue_descs = {"769": 0, "770": 1, "771": 2, "772": 3}
+    parts = []
+    for file in files:
+        stem = file.name[:4]
+        raw = mne.io.read_raw_fif(file, preload=True, verbose="ERROR")
+        events, event_id = mne.events_from_annotations(raw, verbose="ERROR")
+        if mode == "Train":
+            wanted = {d: i for d, i in event_id.items() if d in cue_descs}
+        else:
+            wanted = {d: i for d, i in event_id.items() if d == "783"}
+        ep = mne.Epochs(raw, events, event_id=wanted, tmin=EPOCH_TMIN_S,
+                        tmax=EPOCH_TMAX_S, baseline=None, preload=True,
+                        verbose="ERROR")
+        X = ep.get_data().astype(np.float32)
+        if mode == "Eval":
+            # ep.selection indexes the surviving epochs within the original
+            # event list, keeping alignment with the 288 TrueLabels entries
+            # even when MNE drops a non-tail epoch.
+            y = load_true_labels(stem, paths)[ep.selection]
+        else:
+            inv = {i: cue_descs[d] for d, i in wanted.items()}
+            y = np.array([inv[e] for e in ep.events[:, -1]], dtype=np.int64)
+        parts.append(BCICI2ADataset(X=X, y=y))
+    return concat_datasets(parts)

@@ -3,8 +3,10 @@
 The port's copy of ``eegnetreplication_tpu/data/io.py``: one ``.npz`` per
 subject/session holding already-epoched trials (``X: (n, C, T)``,
 ``y: (n,)``), the same files the JAX package writes.  Where a session has
-only its continuous ``-preprocessed.npz`` bundle, it is epoched on the fly.
-The reference's ``.fif`` files are not ported.
+only its continuous ``-preprocessed.npz`` bundle, it is epoched on the fly;
+where it has only the reference's ``-preprocessed.fif`` files, they are
+epoched through MNE (``build_dataset_from_fif_dir``), as in the JAX
+package.
 
 Every read of a trials file probes the ``data.read`` chaos site and runs
 under :data:`READ_RETRY` (``resil/retry.py``), as in the JAX package: a
@@ -63,7 +65,8 @@ def load_subject_dataset(subject: int | str = "all", mode: str = "Train",
                          paths: Paths | None = None) -> BCICI2ADataset:
     """Processed trials of one subject (or all) and session, from the
     native ``*-trials.npz`` files under ``data/processed/{mode}``, else by
-    epoching its ``*-preprocessed.npz`` bundles."""
+    epoching its ``*-preprocessed.npz`` bundles, else by epoching the
+    reference-layout ``*-preprocessed.fif`` files (requires MNE)."""
     paths = paths or Paths.from_here()
     root = paths.data_processed / mode
     pattern = (trials_filename(int(subject), mode) if subject != "all"
@@ -83,7 +86,16 @@ def load_subject_dataset(subject: int | str = "all", mode: str = "Train",
         return build_dataset_from_preprocessed(subject=subject, mode=mode,
                                                paths=paths)
 
+    # Reference-layout fallback: epoch .fif files (requires MNE).
+    if list(root.glob("*-preprocessed.fif")):
+        from eegnetreplication_tpu_torch.data.epoching import (
+            build_dataset_from_fif_dir,
+        )
+
+        return build_dataset_from_fif_dir(root, subject=subject, mode=mode,
+                                          paths=paths)
+
     raise FileNotFoundError(
         f"No processed trials found in {root} for subject {subject!r} "
-        f"(expected {pattern} or *-preprocessed.npz).  Make them with "
-        "`python -m eegnetreplication_tpu_torch.dataset`.")
+        f"(expected {pattern} or *-preprocessed.{{npz,fif}}).  Make them "
+        "with `python -m eegnetreplication_tpu_torch.dataset`.")

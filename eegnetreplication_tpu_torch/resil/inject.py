@@ -1,9 +1,9 @@
-"""Deterministic fault injection at named sites of the training path, the
-serving forward, the session store, online adaptation, the replica fleet
-and the cell tier.
+"""Deterministic fault injection at named sites of the dataset download,
+the training path, the serving forward, the session store, online
+adaptation, the replica fleet and the cell tier.
 
-The port's copy of ``eegnetreplication_tpu/resil/inject.py`` but for its
-dataset-download site.  Instrumented code
+The port's copy of ``eegnetreplication_tpu/resil/inject.py``, with all of
+its sites.  Instrumented code
 calls :func:`fire` at a named site; the call is a no-op (one dict lookup)
 unless a test or a ``--chaos`` plan has
 :func:`arm`-ed that site.  Arming counts hits, so a chaos run repeats
@@ -14,6 +14,9 @@ Every firing is journaled as a ``fault_injected`` event.
 =========================  =========  =====================================
 site                       action     effect
 =========================  =========  =====================================
+``fetch.download``         raise      ``ConnectionError`` in a dataset
+                                      download (transient:
+                                      ``DOWNLOAD_RETRY`` retries it)
 ``data.read``              raise      ``OSError`` on a read of a trials
                                       file (transient: ``READ_RETRY``
                                       retries it)
@@ -96,9 +99,6 @@ A plan (the ``--chaos`` flag) is comma-separated site specs with
 colon-separated options, or ``@plan.json`` holding a list of spec objects::
 
     --chaos "train.step:if_folds_over=4,checkpoint.write:after=1"
-
-The JAX package's dataset-download site instruments code the port does
-not have; a plan that names it is refused.
 """
 
 from __future__ import annotations
@@ -116,15 +116,12 @@ import torch
 from eegnetreplication_tpu_torch.obs import journal as obs_journal
 from eegnetreplication_tpu_torch.utils.logging import logger
 
-SITES = ("data.read", "train.step", "train.chunk", "train.hang",
-         "checkpoint.write", "checkpoint.write_async", "host.preempt",
-         "session.snapshot", "session.restore", "spool.mirror",
+SITES = ("fetch.download", "data.read", "train.step", "train.chunk",
+         "train.hang", "checkpoint.write", "checkpoint.write_async",
+         "host.preempt", "session.snapshot", "session.restore", "spool.mirror",
          "serve.forward", "serve.hang", "serve.degrade", "session.drift",
          "adapt.train", "adapt.promote", "replica.network", "fleet.scale",
          "cell.partition", "front.lease")
-
-# The JAX package's sites that instrument modules not ported yet.
-UNPORTED_SITES = ("fetch.download",)
 
 ACTIONS = ("raise", "corrupt", "preempt", "sleep", "slow", "truncate",
            "drift", "refuse")
@@ -168,6 +165,8 @@ _EXC_TYPES: dict[str, type[Exception]] = {
 
 # site -> (default action, default exception name, default message).
 _DEFAULTS: dict[str, tuple[str, str | None, str]] = {
+    "fetch.download": ("raise", "ConnectionError",
+                       "injected fault: fetch.download (hit {hit})"),
     "data.read": ("raise", "OSError",
                   "injected fault: data.read (hit {hit})"),
     "train.step": ("raise", "OutOfMemoryError",
@@ -214,11 +213,6 @@ _DEFAULTS: dict[str, tuple[str, str | None, str]] = {
 
 
 def _check_site(site) -> None:
-    if site in UNPORTED_SITES:
-        raise ValueError(
-            f"Fault-injection site {site!r} is not ported to the torch "
-            "package yet (it instruments a module of queue A in "
-            f"ROADMAP.md); the port's sites: {', '.join(SITES)}")
     if site not in SITES:
         raise ValueError(
             f"Unknown fault-injection site {site!r}; known sites: "

@@ -71,9 +71,10 @@ def journal_retry(*, site: str, attempt: int, max_attempts: int,
 
 @dataclass(frozen=True)
 class RetryPolicy:
-    """Attempt budget and backoff curve: ``delay(k)`` for attempt k = 1, 2,
-    ... is ``base_delay_s * multiplier**(k-1)`` capped at ``max_delay_s``,
-    randomized by ``+-jitter`` of itself.  ``retry_on`` names the
+    """Attempt and deadline budgets and the backoff curve: ``delay(k)`` for
+    attempt k = 1, 2, ... is ``base_delay_s * multiplier**(k-1)`` capped at
+    ``max_delay_s``, randomized by ``+-jitter`` of itself; no attempt
+    starts after ``deadline_s`` of wall (when set).  ``retry_on`` names the
     classifications worth another attempt; ``rng`` (a seeded
     ``random.Random``) makes the jitter, and so a schedule, exact."""
 
@@ -83,6 +84,7 @@ class RetryPolicy:
     max_delay_s: float = 30.0
     jitter: float = 0.1
     retry_on: tuple[str, ...] = (TRANSIENT, DEVICE_FAULT)
+    deadline_s: float | None = None
     rng: random.Random | None = None
 
     def delay(self, attempt: int) -> float:
@@ -98,9 +100,11 @@ def call(fn: Callable[[], Any], *, policy: RetryPolicy | None = None,
          site: str = "call") -> Any:
     """Run ``fn()`` under ``policy`` and return its result.  Only the
     classifications in ``policy.retry_on`` are retried, never past
-    ``max_attempts``; once the budget is spent, or for any other error,
-    the original exception propagates unchanged."""
+    ``max_attempts`` or (when set) ``deadline_s`` of wall; once the budget
+    is spent, or for any other error, the original exception propagates
+    unchanged."""
     policy = policy or RetryPolicy()
+    start = time.monotonic()
     attempt = 0
     while True:
         attempt += 1
@@ -108,7 +112,10 @@ def call(fn: Callable[[], Any], *, policy: RetryPolicy | None = None,
             return fn()
         except Exception as exc:  # noqa: BLE001 — classified below
             kind = classify(exc)
-            if kind not in policy.retry_on or attempt >= policy.max_attempts:
+            if (kind not in policy.retry_on
+                    or attempt >= policy.max_attempts
+                    or (policy.deadline_s is not None
+                        and time.monotonic() - start >= policy.deadline_s)):
                 raise
             delay = policy.delay(attempt)
             journal_retry(site=site, attempt=attempt,

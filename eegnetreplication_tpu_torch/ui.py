@@ -10,11 +10,10 @@ unless ``EEGTPU_PLATFORM=cpu``) as a subprocess and streams its merged
 stdout/stderr into the Logs tab (``ui.py:213,229,256-259,271-293``).  The
 stages communicate only through files on disk.
 
-The port has no fetch CLI (a download needs the network), so the fetch
-step refuses with :data:`NO_FETCH` and never launches the JAX package's;
-the precision dropdown offers ``highest`` only, the port's one numerics
-mode.  The Performance tab shows only records measured on a GPU that name
-the card and its power limit (:func:`performance_overview_lines`).
+The fetch step launches the port's fetch CLI (``python -m
+eegnetreplication_tpu_torch.fetch``); the precision dropdown offers
+``highest`` only, the port's one numerics mode.  The Performance tab shows
+only records measured on a GPU that name the card and its power limit (:func:`performance_overview_lines`).
 
 Differences by design:
 - subprocess output lines are marshalled to the Tk main thread via
@@ -64,11 +63,6 @@ MODEL_NAMES = ["deep_convnet", "eegnet", "eegnet_wide", "shallow_convnet"]
 # JAX package's TPU matmul modes).
 PRECISIONS = ["highest"]
 
-NO_FETCH = ("the torch port has no fetch CLI (a download needs the "
-            "network): place the competition's GDF files under data/raw/ "
-            "and run the dataset step; see ROADMAP.md")
-
-
 # --------------------------------------------------------------- headless
 # Widget-free command/report logic, module-level so the test suite can
 # exercise the GUI's behavior without an X display (this image has no Xvfb;
@@ -76,8 +70,7 @@ NO_FETCH = ("the torch port has no fetch CLI (a download needs the "
 # these.
 
 def build_fetch_cmd(source: str) -> list[str]:
-    """Refuses: the port has no fetch CLI (:data:`NO_FETCH`)."""
-    raise NotImplementedError(NO_FETCH)
+    return [sys.executable, "-m", f"{PKG}.fetch", "--src", source]
 
 
 def build_dataset_cmd(source: str) -> list[str]:
@@ -439,13 +432,8 @@ class App(tk.Tk if tk is not None else object):
         threading.Thread(target=run, daemon=True).start()
 
     def fetch_data(self):
-        try:
-            cmd = build_fetch_cmd(self.source_var.get())
-        except NotImplementedError as exc:
-            messagebox.showerror("Not available", str(exc))
-            self.status_var.set("Fetch is not available in the torch port")
-            return
-        self._launch(cmd, "Fetching data...", "Data fetching completed")
+        self._launch(build_fetch_cmd(self.source_var.get()),
+                     "Fetching data...", "Data fetching completed")
 
     def preprocess_data(self):
         self._launch(build_dataset_cmd(self.source_var.get()),

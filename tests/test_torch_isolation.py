@@ -8,7 +8,9 @@ CPU.  The mesh's rank processes run there too: the blocked process forks a
 world of four ranks (``utils/mesh_drill.py``: the DP step, ZeRO, the
 time-sharded EMS), which inherit the block, and each rank checks that
 nothing blocked was imported.  ``ui`` and ``viz`` also import with ``tkinter`` and ``matplotlib``
-blocked and no display, as on the card's machine.
+blocked and no display, as on the card's machine.  The contract linter
+(``analysis/``) imports and lints the checkout with ``torch`` blocked too,
+and ``fetch`` imports nothing of JAX.
 """
 
 import ast
@@ -76,7 +78,12 @@ _CHILD = textwrap.dedent("""
                  "serve.cells.__main__", "obs.report", "obs.trace_report",
                  "viz", "ui", "data.gdf_native", "parallel",
                  "parallel.mesh", "parallel.shardspec", "parallel.dp",
-                 "parallel.launch", "utils.mesh_drill"):
+                 "parallel.launch", "utils.mesh_drill", "fetch",
+                 "data.moabb", "analysis", "analysis.core",
+                 "analysis.runner", "analysis.cli", "analysis.jit_purity",
+                 "analysis.journal_events", "analysis.inject_sites",
+                 "analysis.spawn_args", "analysis.lock_discipline",
+                 "analysis.single_source"):
         assert "eegnetreplication_tpu_torch." + name in names, name
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   {chip_smoke!r})
@@ -176,6 +183,39 @@ def test_ui_imports_without_tk_or_matplotlib_or_a_display():
                          "[('Subject 1', '70.0%', 1)]",
                          "No benchmark artifacts of th", "(64, 64)"]
     assert lines[4].startswith("app refused: the GUI needs tkinter")
+
+
+_NO_TORCH_CHILD = textwrap.dedent("""
+    import sys
+
+    BLOCKED = {blocked!r} + ("torch", "numpy")
+
+    class Blocker:
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"blocked import of {{name}}")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+    from eegnetreplication_tpu_torch.analysis import cli
+    code = cli.main(["--root", {repo!r}])
+    leaked = sorted(m for m in sys.modules
+                    if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+    assert not leaked, leaked
+    analysis = sorted(m for m in sys.modules if ".analysis" in m)
+    print("lint exit", code, "modules", len(analysis))
+""")
+
+
+def test_the_linter_runs_without_torch_numpy_or_jax():
+    """``analysis/`` is stdlib only: its CLI lints the checkout clean in a
+    process where torch, numpy, JAX and the JAX package cannot import."""
+    code = _NO_TORCH_CHILD.format(blocked=BLOCKED, repo=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "lint exit 0 modules 10" in out.stdout
+    assert "0 new" in out.stderr and "0 stale" in out.stderr
 
 
 def _port_sources():

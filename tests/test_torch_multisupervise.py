@@ -12,8 +12,19 @@ return the same decisions (exit codes, attempts, states) and journal the
 same ``supervisor_*`` events per child, in order, with the same
 ``attempt``, ``classification``, ``reason``, ``resume``, ``delay_s`` and
 ``signal`` (times and pids differ).
+
+A supervisor marks a child running when it launches it, before the
+child's Python has installed its SIGTERM handler.  So every scenario
+kills, retires or stops a beating child only once the child's heartbeat
+names its current pid: the script beats after it installs the handler,
+and a SIGTERM then always meets it, under either package.  The beating
+child closes each heartbeat file in a ``with`` block: a file left to the
+garbage collector is closed in its finalizer, where a SIGTERM's
+``SystemExit`` is printed and dropped, and the child would outlive the
+stop's grace.
 """
 
+import json
 import os
 import sys
 import threading
@@ -37,9 +48,10 @@ BEATING_CHILD = (
     "    i += 1\n"
     "    if hb:\n"
     "        tmp = hb + '.tmp'\n"
-    "        open(tmp, 'w').write(json.dumps(\n"
-    "            {'phase': 'step', 'beat': i, 't': time.time(),\n"
-    "             'pid': os.getpid()}))\n"
+    "        with open(tmp, 'w') as f:\n"
+    "            f.write(json.dumps(\n"
+    "                {'phase': 'step', 'beat': i, 't': time.time(),\n"
+    "                 'pid': os.getpid()}))\n"
     "        os.replace(tmp, hb)\n"
     "    time.sleep(0.05)\n")
 
@@ -84,6 +96,19 @@ def _wait(predicate, timeout_s=20.0, what="condition"):
     raise AssertionError(f"timed out waiting for {what}")
 
 
+def _beating(*children):
+    """The children run and each one's heartbeat names its current pid
+    (its SIGTERM handler is in place)."""
+    for child in children:
+        try:
+            beat = json.loads(child.spec.heartbeat_file.read_text())
+        except (OSError, ValueError):
+            return False
+        if child.state != "running" or beat.get("pid") != child.pid:
+            return False
+    return True
+
+
 def _running(sup, thread_box):
     th = threading.Thread(target=lambda: thread_box.append(sup.run()),
                           daemon=True)
@@ -98,11 +123,10 @@ def kill_one_of_three(pkg, jr, work):
         journal=jr)
     box = []
     th = _running(sup, box)
-    _wait(lambda: all(c.state == "running"
-                      for c in sup.children.values()), what="running")
+    _wait(lambda: _beating(*sup.children.values()), what="beating")
     victim = sup.children["c1"]
     os.kill(victim.pid, 9)
-    _wait(lambda: victim.attempt == 2 and victim.state == "running",
+    _wait(lambda: victim.attempt == 2 and _beating(victim),
           what="victim relaunch")
     attempts = {n: c.attempt for n, c in sup.children.items()}
     sup.stop()
@@ -131,6 +155,7 @@ def hang_is_per_child(pkg, jr, work):
     th = _running(sup, box)
     _wait(lambda: sup.children["wedge"].state == "done",
           what="wedged child killed, relaunched, completed")
+    _wait(lambda: _beating(sup.children["ok"]), what="ok beating")
     ok_attempt = sup.children["ok"].attempt
     sup.stop()
     th.join(timeout=20.0)
@@ -144,7 +169,7 @@ def add_then_retire(pkg, jr, work):
         journal=jr)
     box = []
     th = _running(sup, box)
-    _wait(lambda: sup.children["c0"].state == "running", what="c0")
+    _wait(lambda: _beating(sup.children["c0"]), what="c0")
     sup.add_child(_spec(pkg, work, "c1", BEATING_CHILD))
     try:
         sup.add_child(_spec(pkg, work, "c1", BEATING_CHILD))
@@ -152,10 +177,10 @@ def add_then_retire(pkg, jr, work):
     except ValueError:
         duplicate = "refused"
     _wait(lambda: "c1" in sup.children
-          and sup.children["c1"].state == "running", what="c1 running")
+          and _beating(sup.children["c1"]), what="c1 beating")
     os.kill(sup.children["c1"].pid, 9)
     _wait(lambda: sup.children["c1"].attempt == 2
-          and sup.children["c1"].state == "running", what="c1 relaunch")
+          and _beating(sup.children["c1"]), what="c1 relaunch")
     retired = sup.retire_child("c1", wait_s=20.0)
     again = sup.retire_child("c1")
     c0 = (sup.children["c0"].state, sup.children["c0"].attempt)
@@ -178,8 +203,8 @@ def re_add_forgets_the_breaker(pkg, jr, work):
           and sup.children["flaky"].attempt >= 2, what="flaky crashing")
     retired = sup.retire_child("flaky", wait_s=20.0)
     sup.add_child(_spec(pkg, work, "flaky", BEATING_CHILD))
-    _wait(lambda: sup.children["flaky"].state == "running",
-          what="re-added child running")
+    _wait(lambda: _beating(sup.children["flaky"], sup.children["anchor"]),
+          what="re-added child and anchor beating")
     attempt = sup.children["flaky"].attempt
     sup.stop()
     th.join(timeout=20.0)

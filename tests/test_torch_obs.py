@@ -172,34 +172,25 @@ def test_parse_plan_matches_the_jax_grammar(plan, tmp_path):
 
 
 def test_the_port_sites_are_the_jax_sites_split_in_two():
-    assert set(inject.SITES) | set(inject.UNPORTED_SITES) \
-        == set(jax_inject.SITES)
-    assert not set(inject.SITES) & set(inject.UNPORTED_SITES)
-
-
-@pytest.mark.parametrize("site", inject.UNPORTED_SITES)
-def test_parse_plan_refuses_unported_sites(site, tmp_path):
-    assert jax_inject.parse_plan(f"{site}:times=1")
-    with pytest.raises(ValueError, match="not ported.*ROADMAP"):
-        inject.parse_plan(f"{site}:times=1")
-    path = tmp_path / "plan.json"
-    path.write_text(json.dumps([{"site": site}]))
-    with pytest.raises(ValueError, match="not ported"):
-        inject.parse_plan(f"@{path}")
+    """No site is left unported: the port's sites are all the JAX
+    package's, and no part of them is refused."""
+    assert set(inject.SITES) == set(jax_inject.SITES)
+    assert len(inject.SITES) == len(set(inject.SITES)) == 21
+    assert not hasattr(inject, "UNPORTED_SITES")
 
 
 @pytest.mark.parametrize("site", ["session.drift", "adapt.train",
                                   "adapt.promote", "replica.network",
                                   "fleet.scale", "cell.partition",
-                                  "front.lease"])
+                                  "front.lease", "fetch.download"])
 def test_the_adaptation_sites_parse_as_in_jax(site):
-    """The sites the adaptation, fleet and cell slices ported (they left
-    ``UNPORTED_SITES``): the JAX fields and defaults."""
+    """The sites the adaptation, fleet, cell and fetch slices ported: the
+    JAX fields and defaults."""
     plan = f"{site}:after=1:times=2"
     (port,), (ref,) = inject.parse_plan(plan), jax_inject.parse_plan(plan)
     got = dataclasses.asdict(port)
     assert got == {k: getattr(ref, k) for k in got}
-    assert site in inject.SITES and site not in inject.UNPORTED_SITES
+    assert site in inject.SITES
     assert inject._DEFAULTS[site] == jax_inject._DEFAULTS[site]
 
 

@@ -239,9 +239,16 @@ def test_dataset_cli_raises_without_cuda(monkeypatch):
 
 
 def test_dataset_cli_refuses_moabb_and_unknown_sources(monkeypatch):
+    """Only an unknown source is refused; ``moabb`` reaches
+    ``preprocess_moabb_data`` on the selected device."""
+    from eegnetreplication_tpu_torch.data import moabb
+
     monkeypatch.setenv(device_lib.PLATFORM_ENV, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        dataset.main(["--src", "moabb"])
+    calls = []
+    monkeypatch.setattr(moabb, "preprocess_moabb_data",
+                        lambda **kw: calls.append(kw) or [])
+    assert dataset.main(["--src", "moabb"]) == 0
+    assert calls == [{"device": torch.device("cpu")}]
     with pytest.raises(ValueError, match="Unknown source"):
         dataset.main(["--src", "physionet"])
 

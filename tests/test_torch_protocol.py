@@ -9,8 +9,9 @@
   on a synthetic processed tree writes a report with exactly the JAX
   report's keys; the trained ``.npz`` loads in the port's engine and in the
   JAX ``load_checkpoint`` with the same ``variables_digest``.
-- Every flag whose machinery is not ported stops the CLI (the mesh flags,
-  ported since, now train over their ranks); without CUDA and without
+- Every flag whose machinery is not ported stops the CLI (the mesh flags
+  and a ``--chaos`` plan naming ``fetch.download``, ported since, now
+  train); without CUDA and without
   ``EEGTPU_PLATFORM=cpu`` it raises; a stop request exits 75.
 """
 
@@ -174,16 +175,27 @@ UNPORTED = {
     "mesh_data": ["--meshData", "2"],
     "precision": ["--precision", "bf16"],
     "orbax": ["--ckptFormat", "orbax"],
-    # a plan naming a JAX site whose module the port lacks
+    # a plan naming the dataset-download site, which training never fires
     "chaos": ["--chaos", "fetch.download:times=1"],
 }
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_flags_stop_the_cli(name, capsys, tmp_path):
+def test_unported_flags_stop_the_cli(name, capsys, tmp_path, monkeypatch):
     if name.startswith("mesh_"):
         # ported: the CLI trains under that mesh and writes its models
         train_over_a_mesh(UNPORTED[name], tmp_path)
+        return
+    if name == "chaos":
+        # ported: the plan parses, as in the JAX CLI, and the run trains
+        write_processed_tree(tmp_path, subjects=(1,))
+        monkeypatch.setenv("EEGTPU_PLATFORM", "cpu")
+        monkeypatch.setenv("EEGTPU_DATA_ROOT", str(tmp_path))
+        monkeypatch.chdir(tmp_path)
+        monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+        assert train_cli.main(UNPORTED[name] + ["--epochs", "1",
+                                                "--subjects", "1"]) == 0
+        assert (tmp_path / "models" / "subject_01_best_model.npz").is_file()
         return
     with pytest.raises(SystemExit) as exc:
         train_cli.main(UNPORTED[name] + ["--epochs", "1"])

@@ -7,9 +7,9 @@ JAX package's, on the CPU.
 - Each figure's plotted data under Agg (every axes' title and labels,
   line x and y data, image arrays, ticks, patches) equals the JAX
   figure's; ``topomap_grid`` is the image a topomap draws.
-- The ``build_*_cmd`` argv name the port's CLIs (and the port's predict
-  parser takes its flags); ``build_fetch_cmd`` refuses; ``MODEL_NAMES`` is
-  the port registry's keys; the precision dropdown offers ``highest``.
+- The ``build_*_cmd`` argv name the port's CLIs, the fetch CLI's too (and
+  the port's predict parser takes its flags); ``MODEL_NAMES`` is the port
+  registry's keys; the precision dropdown offers ``highest``.
 - ``report_overview_lines``, ``report_table_rows``,
   ``accuracy_chart_figure``, ``get_report`` and ``get_model_path`` equal the
   JAX ones on seeded reports and model trees.
@@ -189,8 +189,15 @@ def test_commands_name_the_ports_clis():
 
 
 def test_fetch_refuses_with_the_ports_message():
-    with pytest.raises(NotImplementedError, match="no fetch CLI"):
-        ui.build_fetch_cmd("kaggle")
+    """The fetch step launches the port's fetch CLI: JAX's command with
+    the port's module (no refusal is left)."""
+    for source in ("kaggle", "moabb"):
+        cmd = ui.build_fetch_cmd(source)
+        want = jax_ui.build_fetch_cmd(source)
+        assert cmd == [want[0], "-m", "eegnetreplication_tpu_torch.fetch",
+                       *want[3:]]
+        assert want[2] == "eegnetreplication_tpu.fetch"
+    assert not hasattr(ui, "NO_FETCH")
 
 
 def test_model_names_are_the_registry_keys():

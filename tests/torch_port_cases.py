@@ -238,6 +238,50 @@ def write_raw_tree(write_gdf, raw, subjects=(1, 4), seconds=40,
                         {"classlabel": rng.randint(1, 5, n_trials)})
 
 
+MOABB_CLASSES = ("left_hand", "right_hand", "feet", "tongue")
+
+
+def write_moabb_tree(write_fake_fif, moabb_dir, *, subject=1, runs=2,
+                     cues=4, seconds=40.0, seed=0) -> dict:
+    """The run layout ``fetch --src moabb`` writes for BNCI2014-001 under
+    ``moabb_dir``: ``{Train,Eval}/A0sT_run_k.fif`` (``.npz`` payloads of
+    ``tests/fake_mne.py`` under ``.fif`` names), each run 22 EEG and 3 EOG
+    channels at 250 Hz in volts, its cues 8 s apart from 3 s on, named by
+    class as moabb names them, beside one unlabelled ``break`` mark.
+    Returns each session's labels (0..3) in run order."""
+    from pathlib import Path
+
+    from eegnetreplication_tpu_torch.config import (
+        EEG_CHANNEL_NAMES,
+        EOG_CHANNEL_NAMES,
+    )
+
+    sfreq = 250.0
+    n = int(seconds * sfreq)
+    t = np.arange(n) / sfreq
+    names = list(EEG_CHANNEL_NAMES + EOG_CHANNEL_NAMES)
+    types = ["eeg"] * 22 + ["eog"] * 3
+    labels = {}
+    for mode in ("Train", "Eval"):
+        stem = f"A{subject:02d}{mode[0]}"
+        classes = []
+        for k in range(runs):
+            rng = np.random.RandomState(seed + 100 * k + (mode == "Eval"))
+            cls = rng.permutation(np.arange(cues) % 4)
+            f = rng.uniform(6.0, 30.0, (25, 1))
+            x = (20.0 * np.sin(2 * np.pi * f * t + rng.uniform(0, 6, (25, 1)))
+                 + 5.0 * rng.randn(25, n) + 10.0) * 1e-6
+            onsets = [1.0] + [3.0 + 8.0 * j for j in range(cues)]
+            descs = ["break"] + [MOABB_CLASSES[c] for c in cls]
+            out = Path(moabb_dir) / mode / f"{stem}_run_{k}.fif"
+            out.parent.mkdir(parents=True, exist_ok=True)
+            write_fake_fif(out, x, sfreq, names, onsets, descs,
+                           ch_types=types)
+            classes.append(cls)
+        labels[stem] = np.concatenate(classes).astype(np.int64)
+    return labels
+
+
 def recording_with_nan(c=25, t=5000, seed=5) -> tuple[np.ndarray, np.ndarray,
                                                        np.ndarray]:
     """``(signals, event_pos, event_typ)`` of a 250 Hz recording with a NaN
