@@ -83,7 +83,8 @@ hand-written kernel against its plain PyTorch version:
    folds): the CLI (report keys, journal, ``predict`` on its model), the
    counted in-process runs (one group, groups of 15), groups against one
    group at dropout 0, the separable pool, the group-size sweep with one
-   epoch under the profiler, the determinism cost at 90 folds, the size of
+   epoch under the profiler (the determinism cost at 90 folds is cut for
+   the time limit; phase 10 prices it at 8 and 36), the size of
    one epoch's ``--profileDir`` trace and the journal's host time per
    epoch, the snapshot writer; the resume drill through the CLI (two
    unbroken runs, SIGTERM -> 75 -> ``--resume``, ``--chaos
@@ -327,6 +328,8 @@ hand-written kernel against its plain PyTorch version:
    1e-3 at every step; every parameter within 1e-4 but the temporal
    BatchNorm's scale and shift, whose true gradient is 0 and which Adam
    moves by rounding noise, held to steps x lr), both BatchNorm modes;
+   the same DP step under the ``bf16`` numerics mode against the
+   one-process bf16 step, every step's loss within 8 x 2**-8 relative;
    ZeRO over a 2-wide model axis bitwise the replicated step over 20
    steps; the DP step's and the one-process step's ms and the gloo
    ``all_reduce`` of the flat gradient; (d) ``ems_time_sharded`` of a
@@ -335,9 +338,37 @@ hand-written kernel against its plain PyTorch version:
    of the line and 2 in its middle; (e) one rank of a 2x2 run SIGKILLed
    mid-epoch: the launcher exits non-zero within the gloo timeout (30 s)
    + 10 s and no rank survives.
+22. the numerics modes (``--precision``; ``utils/device.py::numerics``),
+   run after phase 21 on the separable pool: (a) in process, EEGNet at
+   full width (C=22, T=257, F1=8, D=2, batch 64), 36 within-subject folds
+   (the pool's two subjects replicated to nine), the modes in turns
+   highest, high, default, bf16, bf16, default, high, highest, each run a
+   fresh trainer in its mode's scope for 1 + 4 + 1 epochs and the test
+   pass: fold-epochs/s (the 4 timed epochs), GFLOP/s and the MFU against
+   that mode's peak (FP32, TF32 or BF16), the peak memory, and, in each
+   mode's first run, one profiled epoch (idle share, top five kernels,
+   the tensor-core kernels by name); then 90 cross-subject folds in one
+   group, one run a mode (1 + 1 + 1 epochs; high's and bf16's last epoch
+   profiled); (b) each mode's two runs
+   bitwise equal, high bitwise default, the last highest run bitwise the
+   first; K1-stacked launched ``(epochs + 2) x val_steps + test_steps``
+   times under highest and never under the others; TF32 (high,
+   default) or BF16 (bf16) tensor-core GEMMs or convolutions in each
+   profile and none under highest; each mode's first-step losses at
+   dropout 0 within 8 unit roundoffs (2**-11 for TF32, 2**-8 for bf16)
+   of highest's, relative; the separable pool above 50% in every mode;
+   (c) a bf16 run stopped after its first chunk (``train.chunk``) in
+   process, its resume under highest refused ("different run"), then
+   ``train --precision bf16 --resume`` exits 0 with the JAX report's
+   keys, an f32 ``.npz`` whose digest the engine serves, ``predict``'s
+   accuracy line equal to the engine's, ``run_start`` naming bf16 and no
+   K1-stacked launch; (d) beside it ``train --meshData 2 --precision
+   bf16`` exits 0 the same way (its losses draw dropout per data rank, so
+   the loss comparison at dropout 0 is 21c's bf16 DP step).
 
 Phases 10 and 11 print GFLOP/s and the MFU against the card's FP32 peak
-(``utils/flops.py``) beside fold-epochs/s at 8, 36 and 90 folds.
+(``utils/flops.py``) beside fold-epochs/s at 8, 36 and 90 folds; phase
+22 against the peak of each mode's arithmetic.
 
 Phase 3b holds the stacked form of K1 (``block1_stacked``: G weight sets,
 an index per trial, what the training loop's validation and test passes
@@ -436,8 +467,9 @@ RESUME_WAIT_S = 600.0
 # than 4 folds halves the cross-subject CLI's groups of 8 to 4.
 CHAOS_GROUP, CHAOS_OVER = 8, 4
 # The cost legs: epochs timed per measurement, in turns on, off, off, on.
-# (5, 5, 2 and 2 before phase 21, cut for the time limit.)
-DET_EPOCHS = {8: 3, 36: 3, 90: 1}
+# (5, 5, 2 and 2 before phase 21, cut for the time limit; the 90-fold
+# determinism leg went for phase 22.)
+DET_EPOCHS = {8: 3, 36: 3}
 NAN_EPOCHS = 1
 WS_REPORT_KEYS = {
     "": {"training_type", "timestamp", "model_parameters",
@@ -2555,24 +2587,14 @@ def phase_cross_subject(torch, np, dev, work: Path, env: dict,
         f"{CS_CARD_FOLD_BATCH}); one epoch under the profiler: wall "
         f"{profile['wall_ms_per_call']:.1f} ms, device busy "
         f"{profile['device_busy_ms_per_call']:.1f} ms, idle share "
-        f"{profile['device_idle_share']}")
+        f"{profile['device_idle_share']}; top kernels: " + "; ".join(
+            f"{k['name'][:48]} {k['ms']:.1f} ms"
+            for k in profile["top_device_ms_per_call"]))
 
     def protocol_epoch():
         for t in trainers:
             t.run_epoch()
 
-    determinism = _determinism_cost(torch, protocol_epoch, 90)
-    with _deterministic(torch, False):
-        protocol_epoch()
-        determinism["profile_off"] = breakdown(protocol_epoch, n_calls=1,
-                                               top=10)
-    log("90 folds, one epoch under the profiler without the deterministic "
-        "mode, top kernels: " + "; ".join(
-            f"{k['name'][:48]} {k['ms']:.1f} ms"
-            for k in determinism["profile_off"]["top_device_ms_per_call"]))
-    log("... and with it: " + "; ".join(
-        f"{k['name'][:48]} {k['ms']:.1f} ms"
-        for k in profile["top_device_ms_per_call"]))
     trace_mb = _trace_size(torch, protocol_epoch, work / "trace90")
     del trainers
     journal_cost = _journal_cost(np, work / "journal_cost",
@@ -2587,7 +2609,7 @@ def phase_cross_subject(torch, np, dev, work: Path, env: dict,
             "learn_fold_epochs_per_s": learn.epoch_throughput,
             "resume_drill": drill, "group_sweep": sweep, "best_group": best,
             "card_fold_batch": CS_CARD_FOLD_BATCH, "epoch_profile": profile,
-            "writer": writer, "chaos": chaos, "determinism": determinism,
+            "writer": writer, "chaos": chaos,
             "trace_mb_per_epoch": trace_mb, "journal_cost": journal_cost}
 
 
@@ -5526,9 +5548,10 @@ def phase_model_layer(torch, np, dev, work: Path, env: dict,
     return out
 
 
-def _mfu_fields(row: dict) -> dict:
+def _mfu_fields(row: dict, precision: str = "highest") -> dict:
     """GFLOP/s and MFU of a fold-epochs/s row at the product width, from
-    the port's FLOP count (``utils/flops.py``) and the card's FP32 peak."""
+    the port's FLOP count (``utils/flops.py``) and the card's peak for the
+    arithmetic of ``precision`` (FP32 under highest)."""
     from types import SimpleNamespace
 
     import torch
@@ -5542,7 +5565,8 @@ def _mfu_fields(row: dict) -> dict:
     per_fe = (row["train_steps"] * flops.train_step_flops(model, batch)
               + row["val_steps"] * flops.eval_step_flops(model, batch))
     rate = row["fold_epochs_per_s"] * per_fe
-    peak, label = flops.assumed_peak_flops(torch.cuda.get_device_name(0))
+    peak, label = flops.assumed_peak_flops(torch.cuda.get_device_name(0),
+                                           precision)
     return {"fold_epoch_gflop": per_fe / 1e9, "gflops_per_s": rate / 1e9,
             "mfu": None if peak is None else rate / peak, "peak": label}
 
@@ -6535,7 +6559,13 @@ class _CellSession:
 
     def _resync(self, deadline: float) -> int:
         """The acked cursor (a state read, which also ends a failed-over
-        session's resync latch), re-opening a session the cells lost."""
+        session's resync latch), re-opening a session the cells lost.
+
+        A push whose reply was lost (its front killed after the cell had
+        ingested it) leaves the cursor past ``self.pos``: the windows it
+        decided are taken from the state's ``decisions_tail``, the record
+        the cell keeps of what it decided, and held to what was already
+        delivered like any re-delivery."""
         while time.monotonic() < deadline:
             try:
                 status, state = _reply(
@@ -6549,7 +6579,11 @@ class _CellSession:
             if status == 200:
                 self._count(f"resync_{status}")
                 self._t0 = None     # pacing restarts where new samples do
-                return int(state["acked"])
+                acked = int(state["acked"])
+                if acked > self.pos:
+                    self._count("resync_ahead")
+                self._add(state.get("decisions_tail", []))
+                return acked
             if "role" in state:
                 self._follow_leader(deadline)
             else:
@@ -6664,9 +6698,18 @@ class _CellSession:
         check(not self.conflicts, f"{self.sid}: {len(self.conflicts)} "
               f"re-delivered decisions conflict: {self.conflicts[:2]}")
         check(expired == 0, f"{self.sid}: {expired} windows expired")
-        check(got == preds.tolist() and closed["preds"] == preds.tolist(),
+        want = preds.tolist()
+        missing = [w for w in range(n) if got[w] is None]
+        wrong = [w for w in range(n)
+                 if got[w] is not None and got[w] != want[w]]
+        closed_wrong = [w for w, p in enumerate(closed["preds"][:n])
+                        if p != want[w]]
+        check(got == want and closed["preds"] == want,
               f"{self.sid}: the decision stream differs from the offline "
-              "pipeline")
+              f"pipeline: never delivered {missing[:8]}, delivered but "
+              f"different {wrong[:8]}; the close's {len(closed['preds'])} "
+              f"preds for {n} windows differ at {closed_wrong[:8]}; "
+              f"codes {self.codes}")
         return {"pushes": self.pushes, "attempts": len(self.attempts),
                 "samples": self.pos, "windows": n, "codes": self.codes,
                 "leader_switches": self.switches, "expired": expired}
@@ -7772,6 +7815,8 @@ def _mesh_drill(work: Path, env: dict, card: str) -> dict:
         row = res[f"dp_{mode}"]
         check(row["ok"], f"21c DP step ({mode} BatchNorm) against the "
               f"one-process step: {row}")
+    check(res["dp_bf16"]["ok"], f"21c DP step under bf16 against the "
+          f"one-process bf16 step: {res['dp_bf16']}")
     check(res["zero"]["ok"], f"21c ZeRO: {res['zero']}")
     for n, want in (("2", [1, 1, 1, 1]), ("4", [1, 2, 2, 1])):
         row = res[f"ems_{n}"]
@@ -7786,7 +7831,9 @@ def _mesh_drill(work: Path, env: dict, card: str) -> dict:
         f"the flat gradient ({info['all_reduce_bytes']} B) "
         f"{info['all_reduce_ms']:.3f} ms; DP loss rel err "
         f"{res['dp_flax']['loss_max_rel_err']:.2e} (flax) / "
-        f"{res['dp_torch']['loss_max_rel_err']:.2e} (torch); ZeRO bitwise "
+        f"{res['dp_torch']['loss_max_rel_err']:.2e} (torch), "
+        f"{res['dp_bf16']['loss_max_rel_err']:.2e} (bf16, tolerance "
+        f"{res['dp_bf16']['rtol']:.2e}); ZeRO bitwise "
         f"over 20 steps; [{card}]")
     log(f"21d: ems_time_sharded (22, 345600) over 2 / 4 ranks: max abs err "
         f"{res['ems_2']['max_abs_err_vs_scan']:.2e} / "
@@ -7819,6 +7866,388 @@ def phase_mesh(np, work: Path, env: dict, data_root: Path,
         sum(out["drill"][f"ems_{n}"]["launches"]) for n in ("2", "4"))
     out["wall_s"] = time.perf_counter() - t0
     log(f"phase 21: {out['wall_s']:.1f}s")
+    return out
+
+
+# --------------------------------------------------------------------------
+# Phase 22: the numerics modes
+# --------------------------------------------------------------------------
+
+PREC_MODES = ("highest", "high", "default", "bf16")
+PREC_TURNS = PREC_MODES + PREC_MODES[::-1]
+PREC_EPOCHS = 4           # 22a: timed 36-fold epochs a run, after a warm-up
+PREC_CS_EPOCHS = 1        # 22a: timed 90-fold epochs a run, after a warm-up
+# 22a: the modes profiled at 90 folds.  highest's profile there is phase
+# 11's (the same group, deterministic, in the same run), and default runs
+# high's numerics bit for bit (22b); each profile costs ~8 s (time limit).
+PREC_CS_PROFILED = ("high", "bf16")
+# 22b: the unit roundoff of each mode's arithmetic (TF32 keeps 10 of f32's
+# 23 mantissa bits, bf16 7), and the first-step loss at dropout 0 of each
+# mode within PREC_LOSS_UNITS of them of highest's, relative: the forward
+# rounds at five conv/matmul stages, with margin.
+PREC_UNIT = {"high": 2.0 ** -11, "default": 2.0 ** -11, "bf16": 2.0 ** -8}
+PREC_LOSS_UNITS = 8
+PREC_CLI_EPOCHS, PREC_CLI_EVERY = 4, 2
+# Tensor-core GEMM and convolution kernels of each arithmetic, by the
+# names cuBLAS and cuDNN give them (``..._tf32f32_...``, CUTLASS's
+# ``tensorop_s1688gemm_<tile>`` for TF32; ``bf16`` in either for BF16,
+# whose CUTLASS kernels are also named ``s1688`` and ``s16816``).
+PREC_ARITHMETIC = {"highest": None, "high": "TF32", "default": "TF32",
+                   "bf16": "BF16"}
+TENSOR_CORE = {"TF32": re.compile(r"tf32|tensorop_s1688gemm_(?!bf16|f16)",
+                                  re.I),
+               "BF16": re.compile(r"bf16", re.I)}
+GEMM_OR_CONV = re.compile(r"gemm|fprop|dgrad|wgrad|conv|xmma", re.I)
+
+
+def _tensor_core_kernels(names) -> dict:
+    """The GEMM and convolution kernels among ``names`` that run on the
+    tensor cores in TF32 and in BF16."""
+    return {arith: sorted(n for n in names
+                          if GEMM_OR_CONV.search(n) and rx.search(n))
+            for arith, rx in TENSOR_CORE.items()}
+
+
+def _same_result(a, b) -> bool:
+    """Two fold results equal bit for bit: histories, best states, test
+    accuracies."""
+    return (_same_state(a.best_state, b.best_state)
+            and all(bool((getattr(a, f) == getattr(b, f)).all()) for f in (
+                "train_losses", "val_losses", "val_accuracies",
+                "test_accuracy")))
+
+
+def _prec_run(torch, dev, build, mode: str, epochs: int, profile: bool
+              ) -> dict:
+    """One run of ``mode`` in its numerics scope: a fresh trainer from
+    ``build(mode)``, one warm-up epoch, ``epochs`` timed (host clock ended
+    by a synchronize), one more (under the profiler when ``profile``),
+    then the test pass; K1-stacked's launches and the peak memory over
+    the run."""
+    from eegnetreplication_tpu_torch.ops.fused_eegnet import block1_stacked
+    from eegnetreplication_tpu_torch.utils.device import numerics
+    from eegnetreplication_tpu_torch.utils.profiling import breakdown
+
+    t_run = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with numerics(mode):
+        trainer = build(mode)
+        t_built = time.perf_counter()
+        block1_stacked.launches = 0
+        trainer.run_epoch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(epochs):
+            trainer.run_epoch()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof = None
+        t_prof = time.perf_counter()
+        if profile:
+            prof = breakdown(trainer.run_epoch, n_calls=1, top=5, names=True)
+        else:
+            trainer.run_epoch()
+        t_prof = time.perf_counter() - t_prof
+        result = trainer.result()
+        torch.cuda.synchronize()
+    n = trainer.spec.n_folds
+    row = {"mode": mode, "folds": n, "epochs": epochs, "wall_s": wall,
+           "fold_epochs_per_s": n * epochs / wall,
+           "train_steps": trainer.train_steps, "val_steps": trainer.val_steps,
+           "test_steps": trainer.test_steps,
+           "k1_stacked_launches": block1_stacked.launches,
+           "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "test_acc": float(result.test_accuracy.mean()),
+           "build_s": t_built - t_run, "last_epoch_s": t_prof,
+           "run_s": time.perf_counter() - t_run}
+    row.update(_mfu_fields(row, mode))
+    if prof is not None:
+        names = prof.pop("device_names")
+        row["epoch_profile"] = prof
+        row["tensor_core_kernels"] = _tensor_core_kernels(names)
+    return row, result
+
+
+def _first_step_losses(torch, dev, build, mode: str):
+    """Each fold's loss at the first train step of a fresh trainer at
+    dropout 0, in ``mode``'s numerics scope: ``(G,)`` on the host."""
+    from eegnetreplication_tpu_torch.training import steps
+    from eegnetreplication_tpu_torch.utils.device import numerics
+
+    with numerics(mode):
+        trainer = build(mode, dropout=0.0)
+        gather, weights = trainer.slot_source(0)
+        x, y, w = trainer._batch(gather.to(dev, torch.int64),
+                                 weights.to(dev, torch.float32), 0)
+        _, loss, _ = steps.train_step(trainer.model, trainer.state, x, y, w,
+                                      **trainer.step_kw)
+        return loss.cpu()
+
+
+def _prec_rates(torch, np, dev) -> dict:
+    """22a-b in process, on the separable pool: the modes in turns at 36
+    folds, then one run a mode at 90 folds in one group."""
+    from eegnetreplication_tpu_torch.config import DEFAULT_TRAINING
+    from eegnetreplication_tpu_torch.training import protocols as pr
+
+    subjects = tuple(range(1, 10))
+    sessions = {m: [separable_subject(np, (s - 1) % 2 + 1, m)
+                    for s in subjects] for m in ("Train", "Eval")}
+    ws_pool = pr.build_pool([t.concat(e) for t, e in zip(
+        sessions["Train"], sessions["Eval"])])
+    cs_x, cs_y, cs_off = pr.build_pool(sessions["Train"] + sessions["Eval"])
+
+    def config(mode, dropout=None, cross=False):
+        cfg = DEFAULT_TRAINING.replace(precision=mode)
+        if dropout is not None:
+            cfg = cfg.replace(**{("dropout_cross_subject" if cross else
+                                  "dropout_within_subject"): dropout})
+        return cfg
+
+    def ws(mode, dropout=None):
+        return pr.within_subject_trainer(*ws_pool, config=config(
+            mode, dropout), seed=3, device=dev)[0]
+
+    def cs(mode):
+        cfg = config(mode, cross=True)
+        model = pr._protocol_model("eegnet", cs_x,
+                                   cfg.dropout_cross_subject, cfg)
+        folds = pr.cross_subject_folds(cs_off[:9], cs_off[9:], subjects, cfg)
+        setup = pr.FoldSetup.build(model, folds, cs_x, cs_y, config=cfg,
+                                   seed=3, device=dev)
+        return setup.trainer(0, setup.n_folds)
+
+    log(f"22a: the separable pool built ({len(ws_pool[0])} trials)")
+    runs: dict = {m: [] for m in PREC_MODES}
+    rows: dict = {m: [] for m in PREC_MODES}
+    for mode in PREC_TURNS:
+        row, result = _prec_run(torch, dev, ws, mode, PREC_EPOCHS,
+                                profile=not rows[mode])
+        rows[mode].append(row)
+        runs[mode].append(result)
+    first = {m: _first_step_losses(torch, dev, ws, m) for m in PREC_MODES}
+    cross = {}
+    for mode in PREC_MODES:
+        cross[mode], _ = _prec_run(torch, dev, cs, mode, PREC_CS_EPOCHS,
+                                   profile=mode in PREC_CS_PROFILED)
+
+    # 22b: the gates
+    for mode in PREC_MODES:
+        a, b = runs[mode]
+        check(_same_result(a, b), f"22b {mode}: two runs differ; each mode "
+              "must repeat bit for bit")
+        for row in rows[mode] + [cross[mode]]:
+            launches = row["k1_stacked_launches"]
+            if mode == "highest":
+                want = ((row["epochs"] + 2) * row["val_steps"]
+                        + row["test_steps"])
+                check(launches == want, f"22b highest: K1-stacked launched "
+                      f"{launches} times at {row['folds']} folds; want "
+                      f"{want}")
+            else:
+                check(launches == 0, f"22b {mode}: K1-stacked launched "
+                      f"{launches} times; the fused eval is highest's only")
+        for row in (rows[mode][0], cross[mode]):
+            if "tensor_core_kernels" not in row:
+                continue
+            found = row["tensor_core_kernels"]
+            arith = PREC_ARITHMETIC[mode]
+            if arith is None:
+                check(not found["TF32"] and not found["BF16"],
+                      f"22b highest at {row['folds']} folds ran tensor-core "
+                      f"kernels: {found}")
+            else:
+                check(bool(found[arith]), f"22b {mode} at {row['folds']} "
+                      f"folds ran no {arith} tensor-core GEMM or "
+                      f"convolution: {found}")
+        check(rows[mode][0]["test_acc"] > 50.0, f"22b {mode}: separable "
+              f"pool test accuracy {rows[mode][0]['test_acc']:.2f}% after "
+              f"{PREC_EPOCHS + 2} epochs (chance 25%)")
+        if mode != "highest":
+            tol = PREC_LOSS_UNITS * PREC_UNIT[mode]
+            err = float(((first[mode] - first["highest"]).abs()
+                         / first["highest"].abs()).max())
+            check(err <= tol, f"22b {mode}: first-step losses at dropout 0 "
+                  f"within {err:.3e} of highest's, relative; tolerance "
+                  f"{tol:.3e}")
+            rows[mode][0]["first_step_loss_rel_err"] = err
+            rows[mode][0]["first_step_loss_rtol"] = tol
+    check(_same_result(runs["high"][0], runs["default"][0]),
+          "22b high and default differ; on the card both are TF32")
+    check(_same_result(runs["highest"][0], runs["highest"][1]),
+          "22b the highest run after the other modes differs from the one "
+          "before them: the f32 pins were not restored")
+    out = {"ws36": {}, "cs90": {}}
+    for mode in PREC_MODES:
+        r36, r90 = rows[mode], cross[mode]
+        rate = statistics.mean(r["fold_epochs_per_s"] for r in r36)
+        row = dict(r36[0], fold_epochs_per_s=rate,
+                   turns=[r["fold_epochs_per_s"] for r in r36])
+        row.update(_mfu_fields(row, mode))
+        out["ws36"][mode] = row
+        out["cs90"][mode] = r90
+        for n, r in ((36, row), (90, r90)):
+            prof = r.get("epoch_profile")
+            seen = ("not profiled" if prof is None else
+                    f"idle share {prof['device_idle_share']}, top: "
+                    + ", ".join(f"{k['name'][:48]} {k['ms']:.1f} ms"
+                                for k in prof["top_device_ms_per_call"])
+                    + "; tensor cores " + str(
+                        {k: len(v) for k, v in
+                         r["tensor_core_kernels"].items()}))
+            log(f"22a {mode} at {n} folds: {r['fold_epochs_per_s']:.2f} "
+                f"fold-epochs/s, {r['gflops_per_s']:.1f} GFLOP/s = "
+                f"{100 * (r['mfu'] or 0):.3f}% MFU ({r['peak']}), peak "
+                f"{r['peak_memory_gib']:.2f} GiB, test acc "
+                f"{r['test_acc']:.1f}%; {seen}; run {r['run_s']:.1f} s "
+                f"(build {r['build_s']:.1f}, last epoch "
+                f"{r['last_epoch_s']:.1f})")
+    out["k1_stacked_launches"] = sum(
+        r["k1_stacked_launches"] for m in PREC_MODES
+        for r in rows[m] + [cross[m]])
+    log("22b: every mode's two runs bitwise equal, high == default, highest "
+        "after the other modes == highest before them; K1-stacked only "
+        "under highest; first-step loss rel err "
+        + ", ".join(f"{m} {rows[m][0]['first_step_loss_rel_err']:.2e}"
+                    for m in PREC_MODES[1:]))
+    return out
+
+
+def _prec_tree(np, root: Path, subject: int = 1):
+    """A processed tree of one separable subject under ``root``."""
+    from eegnetreplication_tpu_torch.config import Paths
+    from eegnetreplication_tpu_torch.data.io import save_trials, trials_filename
+
+    paths = Paths.from_root(root)
+    for mode in ("Train", "Eval"):
+        save_trials(separable_subject(np, subject, mode),
+                    paths.data_processed / mode
+                    / trials_filename(subject, mode))
+    return paths
+
+
+def _f32_npz(np, path: Path) -> None:
+    with np.load(path) as saved:
+        kinds = {saved[k].dtype for k in saved.files
+                 if saved[k].dtype.kind == "f"}
+    check(kinds == {np.dtype("float32")},
+          f"{path.name}: floating arrays {kinds}, want f32 only")
+
+
+def _prec_cli(torch, np, dev, work: Path, env: dict) -> dict:
+    """22c-d: a bf16 run stopped after its first chunk in process, its
+    resume under highest refused, then ``train --precision bf16 --resume``
+    completing beside ``train --meshData 2 --precision bf16``; the bf16
+    model served and predicted."""
+    import contextlib as ctx
+    import io as io_
+
+    from eegnetreplication_tpu_torch import predict
+    from eegnetreplication_tpu_torch.config import DEFAULT_TRAINING
+    from eegnetreplication_tpu_torch.resil import inject
+    from eegnetreplication_tpu_torch.serve.engine import (
+        InferenceEngine,
+        variables_digest,
+    )
+    from eegnetreplication_tpu_torch.training.checkpoint import (
+        load_checkpoint,
+        to_jax_variables,
+    )
+    from eegnetreplication_tpu_torch.training.protocols import (
+        within_subject_training,
+    )
+
+    paths = _prec_tree(np, work / "cli")
+    mesh_paths = _replicated_tree(paths.project_root, work / "mesh",
+                                  subjects=(1,))
+    kw = dict(epochs=PREC_CLI_EPOCHS, subjects=(1,), paths=paths, seed=0,
+              save_models=False, device=dev, checkpoint_every=PREC_CLI_EVERY)
+    with _environ(EEGTPU_DATA_ROOT=str(paths.project_root)):
+        try:
+            with inject.scoped(inject.FaultSpec("train.chunk", after=0)):
+                within_subject_training(
+                    config=DEFAULT_TRAINING.replace(precision="bf16"), **kw)
+            check(False, "22c: the bf16 run was not stopped after its "
+                  "first chunk")
+        except RuntimeError as exc:
+            check("injected" in str(exc), f"22c: {exc}")
+        try:
+            within_subject_training(config=DEFAULT_TRAINING, resume=True,
+                                    **kw)
+            check(False, "22c: a highest --resume of a bf16 snapshot "
+                  "trained")
+        except ValueError as exc:
+            check("different run" in str(exc), f"22c: {exc}")
+    train = [sys.executable, "-m", "eegnetreplication_tpu_torch.train",
+             "--precision", "bf16", "--subjects", "1", "--epochs"]
+    procs = {
+        "resume": _spawn(train + [str(PREC_CLI_EPOCHS), "--checkpointEvery",
+                                  str(PREC_CLI_EVERY), "--resume",
+                                  "--metricsDir", str(work / "obs_cli")],
+                         dict(env, EEGTPU_DATA_ROOT=str(paths.project_root)),
+                         work / "resume.log"),
+        "mesh": _spawn(train + [str(PREC_CLI_EVERY), "--meshData", "2",
+                                "--metricsDir", str(work / "obs_mesh")],
+                       dict(env, EEGTPU_DATA_ROOT=str(mesh_paths.project_root)),
+                       work / "mesh.log")}
+    done = _wait_all(procs, {k: work / f"{k}.log" for k in procs},
+                     MESH_WAIT_S)
+    out = {}
+    for name, metrics, root, want_mesh in (
+            ("resume", work / "obs_cli", paths, None),
+            ("mesh", work / "obs_mesh", mesh_paths, {"data": 2})):
+        rc, err = done[name]
+        check(rc == 0, f"22c-d {name} exited {rc}: {err[-3000:]}")
+        check("not ported" not in err, f"22c-d {name}: {err[-500:]}")
+        events = _journal(np, metrics, "ok")
+        start, end = events[0], events[-1]
+        check(start["config"]["precision"] == "bf16",
+              f"22c-d {name}: run_start config {start['config']}")
+        if want_mesh:
+            check(all(start["mesh_shape"].get(k) == v
+                      for k, v in want_mesh.items()),
+                  f"22d mesh_shape {start['mesh_shape']}")
+        launches = end.get("kernel_launches", {})
+        check(launches.get("block1_stacked") == 0,
+              f"22c-d {name}: K1-stacked launches {launches} under bf16")
+        _check_report(root.reports / "latest_within_subject_report.json",
+                      WS_REPORT_KEYS, f"22c-d {name}")
+        npz = root.models / "subject_01_best_model.npz"
+        _f32_npz(np, npz)
+        out[name] = {"npz": str(npz), "wall_s": end.get("wall_s")}
+    npz = Path(out["resume"]["npz"])
+    digest = variables_digest(*to_jax_variables(load_checkpoint(npz)[0]))
+    engine = InferenceEngine.from_checkpoint(npz, device=dev)
+    check(engine.digest == digest, f"22c: served digest {engine.digest} != "
+          f"the file's {digest}")
+    x = separable_subject(np, 1, "Eval")
+    served = engine.infer(x.X)
+    stdout = io_.StringIO()
+    with _environ(EEGTPU_DATA_ROOT=str(paths.project_root)), \
+            ctx.redirect_stdout(stdout):
+        predict.main(["--checkpoint", str(npz), "--subject", "1"])
+    want = f"accuracy: {100.0 * float(np.mean(served == x.y)):.2f}%"
+    check(stdout.getvalue().strip().splitlines()[-1] == want,
+          f"22c predict printed {stdout.getvalue()!r}, served {want!r}")
+    out.update(variables_digest=digest, predict=want)
+    log(f"22c: a bf16 snapshot refused under highest ('different run'); "
+        f"train --precision bf16 --resume exits 0 (report keys, f32 .npz, "
+        f"journal names bf16, 0 K1-stacked launches), served digest "
+        f"{digest[:12]}, predict {want}; 22d: train --meshData 2 "
+        f"--precision bf16 exits 0 (the DP step's bf16 losses: 21c)")
+    return out
+
+
+def phase_precision(torch, np, dev, work: Path, env: dict) -> dict:
+    """Phase 22: the numerics modes (see the module docstring)."""
+    t0 = time.perf_counter()
+    work.mkdir(parents=True, exist_ok=True)
+    out = _prec_rates(torch, np, dev)
+    out["cli"] = _prec_cli(torch, np, dev, work, env)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 22 (the numerics modes): {out['wall_s']:.1f}s")
     return out
 
 
@@ -7931,6 +8360,9 @@ def main(argv=None) -> int:
             mesh = phase_mesh(np, Path(data) / "mesh", env,
                               Path(data) / "cli", card)
             mark("21")
+            precision = phase_precision(torch, np, dev,
+                                        Path(data) / "precision", env)
+            mark("22")
         # The fleet runs alone, after every other server has ended; its
         # journals stay for phase 20.
         fleet_dir = Path(stack.enter_context(tempfile.TemporaryDirectory(
@@ -7986,8 +8418,10 @@ def main(argv=None) -> int:
         # phase 15 (its chunks, fit accuracies and restacks), and phase
         # 16's train CLIs, each counting in its run_end (the unbroken run
         # and the supervised launches that ended; --long's too), phase
-        # 17's three counted EEGNet runs (banded, lax, banded), and phase
-        # 21's mesh runs (their run_end sums over the ranks) and drill
+        # 17's three counted EEGNet runs (banded, lax, banded), phase
+        # 21's mesh runs (their run_end sums over the ranks) and drill,
+        # and phase 22's runs (highest's only: the other modes launch
+        # none)
         "launches": (train["launches"] + cs["launches_one_group"]
                      + cs["launches_groups"]
                      + zoo["zoo"]["k1_stacked_launches"]
@@ -7996,7 +8430,8 @@ def main(argv=None) -> int:
                      + supervised.get("long", {}).get(
                          "launches_block1_stacked", 0)
                      + 3 * model_layer["conv_ab"]["k1_stacked_launches_each"]
-                     + mesh["k1_stacked_launches"]),
+                     + mesh["k1_stacked_launches"]
+                     + precision["k1_stacked_launches"]),
         "max_abs_err": k1s_err,
         # at the 90-fold cross-subject validation batch, (5760, 22, 257)
         "ms": k1s_times[5760]["ms"],
@@ -8057,7 +8492,8 @@ def main(argv=None) -> int:
         "serving_zoo": zoo, "streams": streams, "control": control,
         "adapt": adapt, "supervised": supervised,
         "model_layer": model_layer, "fleet": fleet, "cells": cells,
-        "tooling": tooling, "mesh": mesh, "phase_walls": walls,
+        "tooling": tooling, "mesh": mesh, "precision": precision,
+        "phase_walls": walls,
         "wall_s": time.perf_counter() - t_start,
     }
     log(f"chip_smoke total {record['wall_s']:.1f} s")

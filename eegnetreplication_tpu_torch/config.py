@@ -93,9 +93,22 @@ class TrainingConfig:
     # the spatial filters (+-1.0) and the classifier (+-0.25); "paper"
     # projects the weights' L2 norms instead (Lawhern et al.).
     maxnorm_mode: str = "reference"
-    # Full f32 ("highest") is the only numerics mode the port runs:
-    # utils/device.py turns TF32 off.  The JAX package's "high", "default"
-    # and "bf16" are TPU matmul modes, not ported.
+    # Numerics mode of the model's matmuls and convolutions, the JAX
+    # package's four with their meaning on an NVIDIA H100 (the
+    # jax.lax.Precision docstring); a run enters utils/device.py::numerics:
+    #   "highest" — full f32, TF32 off for cuBLAS and cuDNN; the parity
+    #               default (EEGNet's eval block 1 runs on K1-stacked).
+    #   "high"    — TF32 matmuls and convolutions (JAX Precision.HIGH).
+    #   "default" — TF32 as well: the backend default on this card, the
+    #               same numerics as "high".
+    #   "bf16"    — bf16 activations end to end (every weight cast per op,
+    #               bf16 GEMMs and convolutions); parameters, Adam moments,
+    #               BatchNorm statistics and checkpoints stay f32, the
+    #               BatchNorms normalise in f32, and the logits are cast to
+    #               f32 for the loss.
+    # On the CPU "high" and "default" are the f32 computation.  Any other
+    # value raises ValueError naming the four (training/protocols.py::
+    # _model_kwargs_for_precision).
     precision: str = "highest"
     # BatchNorm training semantics: "flax" (padding slots counted, biased
     # running variance) or "torch" (padding masked, unbiased running

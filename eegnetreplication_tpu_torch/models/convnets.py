@@ -26,7 +26,11 @@ Weights are drawn like the JAX package's ``torch_kernel_init``
 ``Dense`` default) and BatchNorm starts at the identity.  Training runs
 through :meth:`stacked` (G weight sets on G batches, grouped convolutions,
 per-set BatchNorm statistics), the form the fold trainer advances; a
-single model's training forward is G = 1.
+single model's training forward is G = 1.  ``dtype`` and ``precision``
+are the JAX modules' numerics fields, as EEGNet's
+(``models/eegnet.py``): at bf16 the convolutions, pools and the
+classifier run in bf16, the BatchNorm in f32, and the logits come out
+f32.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from eegnetreplication_tpu_torch.models.eegnet import (
+    cast_params,
     classify,
     dropout,
     elu,
@@ -84,7 +89,7 @@ class _ConvNet(nn.Module):
         use batch statistics (``sample_weights`` is accepted and unused, as
         in the JAX package) and replace their running statistics."""
         self.check_length(x.shape[-1])
-        x = x.to(torch.float32)
+        x = x.to(self.dtype)
         if self.training:
             return train_forward(self, x, sample_weights)
         params, stats = stacked_state(self)
@@ -93,7 +98,9 @@ class _ConvNet(nn.Module):
     def fresh(self, generator: torch.Generator) -> "_ConvNet":
         """A new model of this configuration on the CPU, drawn from
         ``generator``."""
-        return type(self)(**self.config(), device="cpu", generator=generator)
+        return type(self)(**self.config(), dtype=self.dtype,
+                          precision=self.precision, device="cpu",
+                          generator=generator)
 
     def metadata(self) -> dict:
         """The geometry a checkpoint records (the JAX ``_save_model``'s)."""
@@ -102,8 +109,9 @@ class _ConvNet(nn.Module):
     def _start(self, x: torch.Tensor, params, stats, *, train: bool,
                generator, bn_group=None):
         """The shared prologue of :meth:`stacked`: the grouped input
-        ``(B, G, C, T)``, the per-set norm over the grouped layout (synced
-        over ``bn_group`` when given), and the dropout."""
+        ``(B, G, C, T)`` and the weights in the compute dtype, the per-set
+        norm over the grouped layout (synced over ``bn_group`` when
+        given), and the dropout."""
         self.check_length(x.shape[-1])
         g = x.shape[0]
         new_stats: dict[str, torch.Tensor] = {}
@@ -116,7 +124,8 @@ class _ConvNet(nn.Module):
         def drop(h):
             return dropout(h, rate, generator)
 
-        return x.transpose(0, 1), g, norm, drop, new_stats
+        return (x.to(self.dtype).transpose(0, 1),
+                cast_params(params, self.dtype), g, norm, drop, new_stats)
 
 
 def _grouped_conv(h: torch.Tensor, weight: torch.Tensor, g: int
@@ -138,10 +147,13 @@ class ShallowConvNet(_ConvNet):
                  pool_time_length: int = 35, pool_time_stride: int = 7,
                  dropout_rate: float = 0.5, momentum: float = 0.9, *,
                  bn_axis_name: str | None = None,
+                 dtype: torch.dtype = torch.float32,
+                 precision: str | None = "highest",
                  device: torch.device | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.bn_axis_name = bn_axis_name
+        self.dtype, self.precision = dtype, precision
         self.n_channels, self.n_times = int(n_channels), int(n_times)
         self.n_classes = int(n_classes)
         self.n_filters_time = int(n_filters_time)
@@ -194,18 +206,18 @@ class ShallowConvNet(_ConvNet):
         ``params``/``stats`` are the ``state_dict`` tensors with a leading
         G axis.  ``sample_weights`` is unused (flax BatchNorm)."""
         del sample_weights
-        h, g, norm, drop, new_stats = self._start(
+        h, weights, g, norm, drop, new_stats = self._start(
             x, params, stats, train=train, generator=generator,
             bn_group=bn_group)
         b = h.shape[0]
-        h = _grouped_conv(h, params["temporal_conv.weight"], g)
-        h = _grouped_conv(h, params["spatial_conv.weight"], g)
+        h = _grouped_conv(h, weights["temporal_conv.weight"], g)
+        h = _grouped_conv(h, weights["spatial_conv.weight"], g)
         h = torch.square(norm(h, "bn"))                  # (B, G*F, 1, T')
         h = F.avg_pool2d(h, (1, self.pool_time_length),
                          stride=(1, self.pool_time_stride))
         h = drop(_safe_log(h))
         return classify(h.reshape(b, g, -1).transpose(0, 1),
-                        params), new_stats
+                        weights).float(), new_stats
 
 
 class DeepConvNet(_ConvNet):
@@ -220,10 +232,13 @@ class DeepConvNet(_ConvNet):
                  kernel_length: int = 5, pool_length: int = 2,
                  dropout_rate: float = 0.5, momentum: float = 0.9, *,
                  bn_axis_name: str | None = None,
+                 dtype: torch.dtype = torch.float32,
+                 precision: str | None = "highest",
                  device: torch.device | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.bn_axis_name = bn_axis_name
+        self.dtype, self.precision = dtype, precision
         self.n_channels, self.n_times = int(n_channels), int(n_times)
         self.n_classes = int(n_classes)
         self.filters = tuple(int(f) for f in filters)
@@ -278,16 +293,16 @@ class DeepConvNet(_ConvNet):
                 sample_weights=None, generator=None, bn_group=None):
         """G models on G batches, as :meth:`ShallowConvNet.stacked`."""
         del sample_weights
-        h, g, norm, drop, new_stats = self._start(
+        h, weights, g, norm, drop, new_stats = self._start(
             x, params, stats, train=train, generator=generator,
             bn_group=bn_group)
         b = h.shape[0]
         pool = (1, self.pool_length)
-        h = _grouped_conv(h, params["temporal_conv.weight"], g)
-        h = _grouped_conv(h, params["spatial_conv.weight"], g)
+        h = _grouped_conv(h, weights["temporal_conv.weight"], g)
+        h = _grouped_conv(h, weights["spatial_conv.weight"], g)
         h = F.max_pool2d(elu(norm(h, "bn_0")), pool, stride=pool)
         for i in range(1, len(self.filters)):
-            h = _grouped_conv(drop(h), params[f"conv_{i}.weight"], g)
+            h = _grouped_conv(drop(h), weights[f"conv_{i}.weight"], g)
             h = F.max_pool2d(elu(norm(h, f"bn_{i}")), pool, stride=pool)
         return classify(h.reshape(b, g, -1).transpose(0, 1),
-                        params), new_stats
+                        weights).float(), new_stats

@@ -28,6 +28,15 @@ under the same names.  It runs either of the JAX model's conv schedules
 batched matmuls (``"banded"``, what ``"auto"`` resolves to), with the same
 parameters and the same results to f32 rounding.
 
+``dtype`` and ``precision`` are the JAX module's numerics fields.  At
+``dtype=torch.bfloat16`` (the ``"bf16"`` numerics mode) the forward
+computes in bf16: the input and every weight are cast per op, the
+BatchNorms normalise in f32 (``models/norm.py``), and the logits come out
+f32; the parameters stay f32, so their gradients land f32.  ``precision``
+(``"highest"``, ``"high"`` or ``None``) takes effect through the run's
+``utils/device.py::numerics`` scope; the model records it for the fused
+eval gate (``training/steps.py::supports_fused_eval``).
+
 The registry (``models/registry.py``) also holds ShallowConvNet and
 DeepConvNet (``models/convnets.py``), which share this module's
 functional pieces (BatchNorm over G sets, dropout, the classifier) and its
@@ -100,7 +109,10 @@ class EEGNet(nn.Module):
     group).  ``conv_impl`` is the schedule of
     the training forward and of the fold-stacked eval block 2 (``"lax"``:
     grouped convolutions; ``"banded"``: ``ops/banded.py``'s matmuls;
-    ``"auto"``: :func:`resolve_conv_impl`, once, here).
+    ``"auto"``: :func:`resolve_conv_impl`, once, here).  ``dtype`` is the
+    compute dtype of the forward (f32, or bf16 with f32 parameters) and
+    ``precision`` the matmul precision the model was built for (module
+    docstring).
     """
 
     MAXNORM_LIMITS = MAXNORM_LIMITS
@@ -110,10 +122,14 @@ class EEGNet(nn.Module):
                  dropout_rate: float = 0.5, bn_epsilon: float = 1e-5, *,
                  bn_mode: str = "flax", momentum: float = 0.9,
                  conv_impl: str = "auto", bn_axis_name: str | None = None,
+                 dtype: torch.dtype = torch.float32,
+                 precision: str | None = "highest",
                  device: torch.device | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.conv_impl = resolve_conv_impl(conv_impl)
+        self.dtype = dtype
+        self.precision = precision
         self.bn_axis_name = bn_axis_name
         if bn_mode not in BN_MODES:
             raise ValueError(
@@ -171,6 +187,7 @@ class EEGNet(nn.Module):
         ``generator``."""
         return EEGNet(self.n_channels, self.n_times, self.n_classes,
                       self.F1, self.D, conv_impl=self.conv_impl,
+                      dtype=self.dtype, precision=self.precision,
                       device="cpu", generator=generator)
 
     def stacked(self, params, stats, x, *, train: bool,
@@ -181,7 +198,7 @@ class EEGNet(nn.Module):
             bn_mode=self.bn_mode, dropout_rate=self.dropout_rate,
             generator=generator, momentum=self.momentum,
             eps=self.bn_epsilon, conv_impl=self.conv_impl,
-            bn_group=bn_group)
+            bn_group=bn_group, dtype=self.dtype)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None
@@ -213,14 +230,18 @@ class EEGNet(nn.Module):
         use batch statistics (``sample_weights`` ``(B,)`` marks padding
         slots for ``bn_mode="torch"``) and their running statistics are
         replaced by the new ones; dropout draws from torch's global
-        generator."""
+        generator.  A bf16 model's eval forward is its stacked forward
+        at G = 1; the logits are f32 in every mode."""
         if tuple(x.shape[-2:]) != (self.n_channels, self.n_times):
             raise ValueError(
                 f"Expected input (..., {self.n_channels}, {self.n_times}); "
                 f"got {tuple(x.shape)}")
-        x = x.to(torch.float32)
+        x = x.to(self.dtype)
         if self.training:
             return train_forward(self, x, sample_weights)
+        if self.dtype != torch.float32:
+            params, stats = stacked_state(self)
+            return self.stacked(params, stats, x[None], train=False)[0][0]
         x = x.unsqueeze(1)                          # (B, 1, C, T)
         x = self.temporal(x)
         x = self.spatial(x)
@@ -308,9 +329,19 @@ def grouped_norm(norm: Norm, g: int) -> Norm:
 def classify(h: torch.Tensor, params: Mapping[str, torch.Tensor]
              ) -> torch.Tensor:
     """The classifier of G sets on their flattened features ``(G, B,
-    fan_in)`` -> ``(G, B, n_classes)``."""
+    fan_in)`` -> ``(G, B, n_classes)``, in ``h``'s dtype."""
     return torch.baddbmm(params["classifier.bias"][:, None, :], h,
                          params["classifier.weight"].transpose(1, 2))
+
+
+def cast_params(params: Mapping[str, torch.Tensor], dtype: torch.dtype
+                ) -> Mapping[str, torch.Tensor]:
+    """``params`` in the compute ``dtype`` (the JAX modules cast every
+    kernel to their ``dtype`` where an op reads it); the BatchNorms read
+    the f32 originals.  At f32 it is ``params`` itself."""
+    if dtype == torch.float32:
+        return params
+    return {k: v.to(dtype) for k, v in params.items()}
 
 
 def _block2_classifier(h: torch.Tensor, params: Mapping[str, torch.Tensor],
@@ -367,7 +398,8 @@ def stacked_forward(params: Mapping[str, torch.Tensor],
                     bn_mode: str = "flax", dropout_rate: float = 0.0,
                     generator: torch.Generator | None = None,
                     momentum: float = 0.9, eps: float = 1e-5,
-                    conv_impl: str = "lax", bn_group=None
+                    conv_impl: str = "lax", bn_group=None,
+                    dtype: torch.dtype = torch.float32
                     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """G EEGNets on G batches at once: ``x`` ``(G, B, C, T)`` -> logits
     ``(G, B, n_classes)`` and the new running statistics (``{}`` in eval
@@ -382,7 +414,10 @@ def stacked_forward(params: Mapping[str, torch.Tensor],
     ``bn_mode="torch"``; dropout masks come from ``generator`` (on ``x``'s
     device), so the two schedules draw different masks at p > 0.
     ``bn_group`` syncs the training BatchNorms over a data-axis group
-    (``x`` is then this rank's part of each batch).
+    (``x`` is then this rank's part of each batch).  ``dtype`` is the
+    compute dtype (module docstring): activations, convolutions, ELU,
+    pooling, dropout and the classifier run in it, the BatchNorms in f32,
+    and the logits are returned f32.
     """
     g, b, c, t = x.shape
     if sample_weights is not None and tuple(sample_weights.shape) != (g, b):
@@ -401,10 +436,12 @@ def stacked_forward(params: Mapping[str, torch.Tensor],
     def drop(h):
         return dropout(h, rate, generator)
 
+    x, weights = x.to(dtype), cast_params(params, dtype)
     if conv_impl == "banded":
-        return _stacked_forward_banded(params, x, norm, drop), new_stats
-    w_t = params["temporal.0.weight"]                 # (G, F1, 1, 1, K)
-    w_s = params["spatial.weight"]                    # (G, F2, 1, C, 1)
+        return (_stacked_forward_banded(weights, x, norm, drop).float(),
+                new_stats)
+    w_t = weights["temporal.0.weight"]                # (G, F1, 1, 1, K)
+    w_s = weights["spatial.weight"]                   # (G, F2, 1, C, 1)
     f1, f2 = w_t.shape[1], w_s.shape[1]
     gnorm = grouped_norm(norm, g)
     h = x.transpose(0, 1)                             # (B, G, C, T)
@@ -413,7 +450,7 @@ def stacked_forward(params: Mapping[str, torch.Tensor],
     h = gnorm(h, "temporal.1")                        # (B, G*F1, C, T)
     h = F.conv2d(h, w_s.reshape(g * f2, 1, c, 1), groups=g * f1)
     h = drop(F.avg_pool2d(elu(gnorm(h, "aggregation.0")), (1, 4)))
-    return _block2_classifier(h, params, g, norm, drop), new_stats
+    return _block2_classifier(h, weights, g, norm, drop).float(), new_stats
 
 
 def stacked_block2_classifier(h: torch.Tensor,

@@ -21,6 +21,12 @@ Statistics are per ``(g, f)`` over the batch and spatial axes.
   unbiased ``var * d / (d - 1)``; a batch with no real slot leaves the
   running statistics as they were.
 
+A bf16 activation (the ``"bf16"`` numerics mode) is normalised in f32:
+the statistics, the running-statistics update and the normalisation run
+on ``x`` promoted to f32, and the output comes back in ``x``'s dtype, as
+flax's ``BatchNorm`` and the JAX ``TorchBatchNorm`` do at ``dtype=bf16``.
+So the synced statistics' ``all_reduce`` stays f32 too.
+
 Both use flax's momentum convention (``running <- momentum * running +
 (1 - momentum) * batch``, 0.9 here is torch's 0.1) and eps 1e-5.
 
@@ -46,6 +52,11 @@ def _per_feature(t: torch.Tensor, ndim: int) -> torch.Tensor:
     return t.reshape(1, *t.shape, *([1] * (ndim - 3)))
 
 
+def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` promoted to at least f32 (flax's rule for the statistics)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def batch_norm_train(x: torch.Tensor, scale: torch.Tensor,
                      bias: torch.Tensor, mean: torch.Tensor,
                      var: torch.Tensor,
@@ -58,9 +69,11 @@ def batch_norm_train(x: torch.Tensor, scale: torch.Tensor,
 
     Returns ``(y, new_mean, new_var)``: the output (differentiable in
     ``x``, ``scale`` and ``bias``) and the running statistics after this
-    batch (detached).  ``sample_weights`` is read only in ``"torch"`` mode.
+    batch (detached), the first in ``x``'s dtype and the others f32.
+    ``sample_weights`` is read only in ``"torch"`` mode.
     """
     synced = group is not None and group.active
+    out_dtype, x = x.dtype, _at_least_f32(x)
     if mode not in BN_MODES:
         raise ValueError(f"bn_mode must be 'flax' or 'torch'; got {mode!r}")
     dims = (0,) + tuple(range(3, x.ndim))
@@ -106,13 +119,15 @@ def batch_norm_train(x: torch.Tensor, scale: torch.Tensor,
     inv = torch.rsqrt(v + eps) * scale
     y = (x - _per_feature(m, x.ndim)) * _per_feature(inv, x.ndim) \
         + _per_feature(bias, x.ndim)
-    return y, new_mean, new_var
+    return y.to(out_dtype), new_mean, new_var
 
 
 def batch_norm_eval(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     mean: torch.Tensor, var: torch.Tensor,
                     eps: float = 1e-5) -> torch.Tensor:
-    """Normalise ``x`` with the running statistics (both modes alike)."""
+    """Normalise ``x`` with the running statistics (both modes alike), in
+    f32, the output in ``x``'s dtype."""
     inv = torch.rsqrt(var + eps) * scale
-    return (x - _per_feature(mean, x.ndim)) * _per_feature(inv, x.ndim) \
-        + _per_feature(bias, x.ndim)
+    y = (_at_least_f32(x) - _per_feature(mean, x.ndim)) \
+        * _per_feature(inv, x.ndim) + _per_feature(bias, x.ndim)
+    return y.to(x.dtype)

@@ -21,11 +21,15 @@ single model is G = 1.  Kernels come in the port's ``state_dict`` layouts
 (NCHW, ``(out, in/groups, kh, kw)``) with the G axis in front, and
 activations in the JAX ops' time-then-feature order.
 
+Every op runs in its activation's dtype (bf16 under the ``"bf16"``
+numerics mode): the expansion tensor is built in it, so a band holds the
+taps exactly, as the JAX ops build theirs in the taps' dtype.
+
 The band multiplies ~T/K times the MACs of the minimal convolution.  Past
 :data:`BANDED_TILE_T` outputs the time axis is cut into tiles of
 :data:`_TILE` outputs that share one ``(tile + K - 1, tile)`` band, so the
 band's memory and the MAC inflation stay bounded for long recordings.
-The expansion tensor is built once per ``(k, t, device)``.
+The expansion tensor is built once per ``(k, t, device, dtype)``.
 """
 
 from __future__ import annotations
@@ -42,20 +46,22 @@ _TILE = 256
 
 
 @functools.lru_cache(maxsize=64)
-def _expansion(k: int, t: int, device: torch.device) -> torch.Tensor:
-    """The one-hot ``E[k, p, t] = (p == t + k)``, ``(k, t + k - 1, t)`` f32
-    on ``device``."""
+def _expansion(k: int, t: int, device: torch.device,
+               dtype: torch.dtype) -> torch.Tensor:
+    """The one-hot ``E[k, p, t] = (p == t + k)``, ``(k, t + k - 1, t)`` in
+    ``dtype`` on ``device``."""
     p = t + k - 1
     kk = torch.arange(k)[:, None, None]
     pp = torch.arange(p)[None, :, None]
     tt = torch.arange(t)[None, None, :]
-    return (pp == tt + kk).to(torch.float32).to(device)
+    return (pp == tt + kk).to(dtype).to(device)
 
 
-def expansion(k: int, t: int, device) -> torch.Tensor:
+def expansion(k: int, t: int, device,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The cached expansion tensor of a width-``k`` SAME convolution with
-    ``t`` outputs, on ``device``."""
-    return _expansion(int(k), int(t), torch.device(device))
+    ``t`` outputs, in ``dtype`` on ``device``."""
+    return _expansion(int(k), int(t), torch.device(device), dtype)
 
 
 def same_pad_1d(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -88,7 +94,7 @@ def conv1d_same_banded(x_pad: torch.Tensor, taps: torch.Tensor,
         return conv1d_same_banded_tiled(x_pad, taps, t_out)
     g, k, f = taps.shape
     lead = x_pad.shape[1:-1]
-    e = expansion(k, t_out, x_pad.device)
+    e = expansion(k, t_out, x_pad.device, taps.dtype)
     band = torch.einsum("kpt,gkf->gptf", e, taps)
     out = torch.bmm(x_pad.reshape(g, -1, x_pad.shape[-1]),
                     band.reshape(g, band.shape[1], t_out * f))
@@ -104,7 +110,7 @@ def conv1d_same_banded_tiled(x_pad: torch.Tensor, taps: torch.Tensor,
     lead = x_pad.shape[1:-1]
     windows = _tile_windows(x_pad, k, t_out, tile)    # (G, ..., n, tile+k-1)
     n = windows.shape[-2]
-    e = expansion(k, tile, x_pad.device)
+    e = expansion(k, tile, x_pad.device, taps.dtype)
     band = torch.einsum("kpt,gkf->gptf", e, taps)     # (G, tile+k-1, tile, F)
     out = torch.bmm(windows.reshape(g, -1, windows.shape[-1]),
                     band.reshape(g, band.shape[1], tile * f))
@@ -146,13 +152,14 @@ def depthwise_conv_banded(x: torch.Tensor, weight: torch.Tensor
     if t > BANDED_TILE_T:
         windows = _tile_windows(xp, k, t, _TILE)       # (G, F, B, n, W)
         n = windows.shape[-2]
-        band = torch.einsum("kpt,gfk->gfpt", expansion(k, _TILE, x.device),
-                            taps)
+        band = torch.einsum("kpt,gfk->gfpt",
+                            expansion(k, _TILE, x.device, taps.dtype), taps)
         h = torch.matmul(windows.reshape(g, f, b * n, windows.shape[-1]),
                          band)                         # (G, F, B*n, tile)
         h = h.reshape(g, f, b, n * _TILE)[..., :t]
     else:
-        band = torch.einsum("kpt,gfk->gfpt", expansion(k, t, x.device), taps)
+        band = torch.einsum("kpt,gfk->gfpt",
+                            expansion(k, t, x.device, taps.dtype), taps)
         h = torch.matmul(xp, band)                     # (G, F, B, T)
     return h.permute(0, 2, 3, 1)
 

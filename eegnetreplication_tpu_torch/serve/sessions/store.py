@@ -171,6 +171,42 @@ def peek_session_id(data: bytes) -> str | None:
     return None
 
 
+SNAPSHOT_NAME = "sessions.npz"
+# A spool read that found no session while the chain changed under it
+# lists the chain again, at most this many times in all.
+SPOOL_READ_ATTEMPTS = 3
+
+
+def _spool_chain(spool: Path) -> list[Path]:
+    """Every file of the snapshot chains ``spool`` names: a snapshot file
+    and its ``.gen*`` generations, or, for a directory, those of every
+    ``sessions.npz`` below it.  A chain whose newest file is missing still
+    counts: a snapshot in progress has rotated it to ``.gen1`` and not yet
+    renamed the new one into place."""
+    if spool.suffix == ".npz" or spool.is_file():
+        name, found = spool.name, spool.parent.glob(spool.name + "*")
+    elif spool.is_dir():
+        name, found = SNAPSHOT_NAME, spool.rglob(SNAPSHOT_NAME + "*")
+    else:
+        return []
+    chain = re.compile(re.escape(name) + r"(\.gen\d+)?")
+    return sorted(p for p in found if chain.fullmatch(p.name))
+
+
+def _chain_fingerprint(files: list[Path]) -> tuple:
+    """What a rotation changes in a chain: each file's inode, size and
+    modification time (``None`` once it is gone)."""
+    out = []
+    for path in files:
+        try:
+            st = path.stat()
+        except FileNotFoundError:
+            out.append((str(path), None))
+            continue
+        out.append((str(path), st.st_ino, st.st_size, st.st_mtime_ns))
+    return tuple(out)
+
+
 def read_spooled_session(spool: str | Path, session_id: str) -> bytes | None:
     """Extract ``session_id`` from a dead cell's snapshot spool as a
     stamped single-session export, or ``None`` when no valid generation
@@ -180,27 +216,32 @@ def read_spooled_session(spool: str | Path, session_id: str) -> bytes | None:
     directory searched recursively for ``sessions.npz`` spools (a
     fleet-shaped cell keeps one spool per replica).  Resolution walks the
     same generation chain restores use — a corrupt newest generation is
-    quarantined and the previous one answers — so cross-cell failover
-    inherits the store's durability contract unchanged.
+    skipped and the previous one answers.
+
+    The cell may still be alive and snapshotting (a partition, not a
+    crash), so the read expects the chain to rotate under it: a spool
+    whose newest file is absent while a ``.gen*`` exists is read through
+    its generations, nothing is quarantined (the cell owns its chain), and
+    a read that found no session while the chain changed is made again
+    (:data:`SPOOL_READ_ATTEMPTS`).
     """
     spool = Path(spool)
-    if not spool.exists():
-        return None
-    candidates = ([spool] if spool.is_file() or spool.suffix == ".npz"
-                  else sorted(spool.rglob("sessions.npz")))
-    for path in candidates:
-        try:
-            resolved = resolve_snapshot(path)
-        except (OSError, FileNotFoundError):
-            continue
-        if resolved is None:
-            continue
-        _, flat = resolved
-        prefix = f"s/{session_id}/"
-        state = {k[len(prefix):]: v for k, v in flat.items()
-                 if k.startswith(prefix)}
-        if state:
-            return pack_session(session_id, state)
+    prefix = f"s/{session_id}/"
+    for _ in range(SPOOL_READ_ATTEMPTS):
+        chain = _spool_chain(spool)
+        before = _chain_fingerprint(chain)
+        bases = sorted({p.with_name(re.sub(r"\.gen\d+$", "", p.name))
+                        for p in chain})
+        for path in bases:
+            resolved = resolve_snapshot(path, quarantine=False)
+            if resolved is None:
+                continue
+            state = {k[len(prefix):]: v for k, v in resolved[1].items()
+                     if k.startswith(prefix)}
+            if state:
+                return pack_session(session_id, state)
+        if _chain_fingerprint(_spool_chain(spool)) == before:
+            return None        # a settled chain without the session
     return None
 
 

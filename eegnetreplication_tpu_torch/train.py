@@ -11,10 +11,11 @@ Ported: ``--trainingType`` (``Within-Subject``, ``Cross-Subject``),
 ``--bnMode``, ``--subjects``, ``--maxFoldsPerProgram`` (fold groups),
 ``--checkpointEvery`` and ``--resume`` (chunked runs with run snapshots),
 ``--metricsDir``, ``--chaos``, ``--profileDir``, ``--debugNans`` and the
-device mesh ``--meshFold``/``--meshData``, with the JAX CLI's parse-time
-errors.  A flag whose machinery is not ported stops the CLI with a message
-naming ROADMAP.md instead of being ignored: ``--precision`` other than
-``highest`` and ``--ckptFormat orbax``.
+device mesh ``--meshFold``/``--meshData``, and ``--precision`` (the four
+numerics modes with their meaning on the card: ``config.py``), with the
+JAX CLI's parse-time errors.  A flag whose machinery is not ported stops
+the CLI with a message naming ROADMAP.md instead of being ignored:
+``--ckptFormat orbax``.
 
 **The mesh.**  ``--meshFold N --meshData M`` (each >= 1; ``--meshFold``
 unset means 1) trains over an ``N x M`` mesh of rank processes
@@ -121,8 +122,15 @@ def build_parser() -> argparse.ArgumentParser:
                              "or true paper weight projection.")
     parser.add_argument("--precision", type=str, default="highest",
                         choices=["highest", "high", "default", "bf16"],
-                        help="Model numerics; the port computes in full f32 "
-                             "('highest') only.")
+                        help="Model numerics on the card: 'highest' = full "
+                             "f32, TF32 off (parity with the torch-f32 "
+                             "reference); 'high' = TF32 matmuls and "
+                             "convolutions (JAX Precision.HIGH on an "
+                             "H100); 'default' = the backend default, TF32 "
+                             "on this card, the same numerics as 'high'; "
+                             "'bf16' = bf16 activations end to end, f32 "
+                             "parameters, BatchNorm and loss.  On the CPU "
+                             "'high' and 'default' compute in f32.")
     parser.add_argument("--bnMode", type=str, default="flax",
                         choices=["flax", "torch"],
                         help="BatchNorm training semantics: 'torch' masks "
@@ -180,9 +188,6 @@ def build_parser() -> argparse.ArgumentParser:
 def unported_flags(args: argparse.Namespace) -> list[str]:
     """The flags of ``args`` whose machinery the port does not have."""
     refused = []
-    if args.precision != "highest":
-        refused.append(f"--precision {args.precision} (TPU matmul modes; the "
-                       "port computes in full f32)")
     if args.ckptFormat != "npz":
         refused.append("--ckptFormat orbax (ROADMAP.md, \"Not queued\": "
                        "the JAX package writes it through Orbax's "
@@ -262,6 +267,7 @@ def main(argv=None) -> int:
             f"engages above {AUTO_CHUNK_THRESHOLD} epochs — pass an "
             "explicit positive --checkpointEvery")
     config = DEFAULT_TRAINING.replace(maxnorm_mode=args.maxnormMode,
+                                      precision=args.precision,
                                       bn_mode=args.bnMode)
     n_fold, n_data = mesh_dims(args)
     if n_fold < 1 or n_data < 1:

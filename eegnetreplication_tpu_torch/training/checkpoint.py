@@ -396,11 +396,18 @@ def any_snapshot_generation(path: str | Path) -> bool:
     return path.exists() or bool(_generations(path))
 
 
-def resolve_snapshot(path: str | Path
+def resolve_snapshot(path: str | Path, *, quarantine: bool = True
                      ) -> tuple[Path, dict[str, np.ndarray]] | None:
     """The newest generation of ``path`` whose content passes integrity, as
     ``(file, flat arrays)``, or ``None``.  Every candidate that cannot be
-    read or whose digest mismatches is quarantined on the way."""
+    read or whose digest mismatches is quarantined on the way.
+
+    ``quarantine=False`` is for a reader that does not own the chain (a
+    cell front reading a live cell's spool): it skips such a candidate and
+    moves nothing.  The owner may be rotating the chain as it reads, and
+    a file renamed away after the listing would otherwise be "moved
+    aside" by its old name, which by then can hold the owner's next,
+    valid snapshot."""
     path = Path(path)
     for cand in [path] + _generations(path):
         if not cand.exists():
@@ -410,7 +417,8 @@ def resolve_snapshot(path: str | Path
                 flat = {k: data[k] for k in data.files}
             integrity.verify(flat, what=str(cand))
         except Exception as exc:  # noqa: BLE001 — any unreadable shape
-            quarantine_artifact(cand, exc)
+            if quarantine:
+                quarantine_artifact(cand, exc)
             continue
         return cand, flat
     return None

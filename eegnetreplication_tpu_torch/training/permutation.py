@@ -15,7 +15,10 @@ measures what label-free structure the model can use).  The split is fold
 0 of the protocol's seeded KFold with the reference's inner 80/20
 train/validation split.  Dropout masks are drawn per run from the
 trainer's generator, so at p > 0 the runs' masks differ (the JAX package
-reuses one key); at p = 0 the runs differ by their labels alone.
+reuses one key); at p = 0 the runs differ by their labels alone.  The
+model is built in ``config.precision``'s numerics mode and trains inside
+its scope (``training/protocols.py::_model_kwargs_for_precision``, as the
+JAX package builds it).
 
 Under a mesh (``mesh=``) the runs are sharded over its fold axis, as the
 JAX package shards them (``shard_over_fold_axis``): the label pools are
@@ -49,7 +52,7 @@ from eegnetreplication_tpu_torch.training.loop import (
     mesh_data_sharding,
 )
 from eegnetreplication_tpu_torch.training.steps import TrainState
-from eegnetreplication_tpu_torch.utils.device import resolve_device
+from eegnetreplication_tpu_torch.utils.device import numerics, resolve_device
 from eegnetreplication_tpu_torch.utils.logging import logger
 
 
@@ -113,9 +116,13 @@ def permutation_test(X: np.ndarray, y: np.ndarray, *,
     device = resolve_device(device)
     data = mesh_data_sharding(mesh, config.batch_size)
 
+    from eegnetreplication_tpu_torch.training.protocols import (
+        _model_kwargs_for_precision,
+    )
+
     model = get_model(model_name, n_channels=X.shape[1], n_times=X.shape[2],
                       dropout_rate=config.dropout_within_subject,
-                      device="cpu",
+                      device="cpu", **_model_kwargs_for_precision(config),
                       **({"bn_axis_name": DATA_AXIS} if data else {}))
     spec = make_fold_spec([(train_ids, val_ids, test_ids)] * runs,
                           train_pad=len(train_ids), val_pad=len(val_ids),
@@ -135,9 +142,10 @@ def permutation_test(X: np.ndarray, y: np.ndarray, *,
             dropout_seed(seed, lo, data.index if data else 0)))
     logger.info("Permutation test: %d runs x %d epochs as the fold axis of "
                 "one trainer on %s", runs, epochs, device)
-    for _ in range(epochs):
-        trainer.run_epoch()
-    result = trainer.result()
+    with numerics(config.precision):
+        for _ in range(epochs):
+            trainer.run_epoch()
+        result = trainer.result()
     accs = result.test_accuracy.numpy()
     if mesh is not None and mesh.size > 1:
         import torch.distributed as dist

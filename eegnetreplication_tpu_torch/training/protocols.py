@@ -23,7 +23,13 @@ that lives on the device, and the folds of a group train together
 
 Any registered model trains (``models/registry.py``: EEGNet, EEGNet-wide,
 ShallowConvNet, DeepConvNet); only EEGNet's validation and test passes
-launch K1-stacked.
+launch K1-stacked, and only in the ``"highest"`` numerics mode.
+
+*Numerics.*  ``config.precision`` builds the model with the JAX package's
+kwargs for the mode (:func:`_model_kwargs_for_precision`) and runs the
+protocol inside ``utils/device.py::numerics`` (TF32 on the card under
+``"high"``, ``"default"`` and ``"bf16"``).  The run signature carries the
+mode, so a snapshot of another mode is a different run.
 
 :func:`run_folds` is the machinery both share, with the JAX package's
 semantics (``_run_folds``):
@@ -94,6 +100,7 @@ returns ``None``.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import math
@@ -144,7 +151,11 @@ from eegnetreplication_tpu_torch.training.loop import (
     mesh_data_sharding,
 )
 from eegnetreplication_tpu_torch.training.steps import TrainState
-from eegnetreplication_tpu_torch.utils.device import resolve_device
+from eegnetreplication_tpu_torch.utils.device import (
+    check_precision,
+    numerics,
+    resolve_device,
+)
 from eegnetreplication_tpu_torch.utils.logging import logger
 
 LoadFn = Callable[[int, str], BCICI2ADataset]
@@ -575,8 +586,9 @@ def _log_throughput(model, config, fold_epochs: float, wall: float,
 
     ``fold_epochs`` is the count this process trained (a resumed run's wall
     covers only the rest).  The FLOPs of a fold-epoch are counted from the
-    shapes (``utils/flops.py``); the MFU is against the card's FP32 peak,
-    and a card without a known peak gets GFLOP/s only."""
+    shapes (``utils/flops.py``); the MFU is against the card's dense peak
+    for the arithmetic of ``config.precision`` (FP32, TF32 or BF16), and a
+    card without a known peak gets GFLOP/s only."""
     from eegnetreplication_tpu_torch.utils.flops import (
         assumed_peak_flops,
         fold_epoch_flops,
@@ -588,7 +600,8 @@ def _log_throughput(model, config, fold_epochs: float, wall: float,
         val_pad=val_pad)
     extra = f", {flops_per_s / 1e9:.2f} GFLOP/s"
     if device.type == "cuda":
-        peak, label = assumed_peak_flops(_device_kind(device))
+        peak, label = assumed_peak_flops(_device_kind(device),
+                                         config.precision)
         if peak is not None:
             extra += f" = {100 * flops_per_s / peak:.4f}% MFU ({label})"
     logger.info("Throughput: %.2f fold-epochs/s (%s in %.1fs)%s", rate,
@@ -994,25 +1007,47 @@ def _mesh_results(setup: FoldSetup, mesh_run: _MeshRun | None,
 # The protocols
 # --------------------------------------------------------------------------
 
+def _model_kwargs_for_precision(config: TrainingConfig) -> dict:
+    """Model kwargs for the config's numerics mode, the JAX package's
+    (``protocols.py::_model_kwargs_for_precision``) with torch's bf16."""
+    precision = check_precision(config.precision)
+    if precision == "highest":
+        return {}  # the models' parity default
+    if precision == "high":
+        return {"precision": "high"}
+    if precision == "default":
+        return {"precision": None}
+    return {"precision": None, "dtype": torch.bfloat16}
+
+
+def _in_numerics(protocol):
+    """``protocol`` run inside the numerics scope of its ``config``'s
+    precision (``utils/device.py::numerics``)."""
+    @functools.wraps(protocol)
+    def run(*args, config: TrainingConfig = DEFAULT_TRAINING, **kw):
+        with numerics(config.precision):
+            return protocol(*args, config=config, **kw)
+
+    return run
+
+
 def _protocol_model(model_name: str, pool_x: np.ndarray, dropout: float,
                     config: TrainingConfig, mesh: Mesh | None = None
                     ) -> nn.Module:
-    """The registry's model for a protocol.  ``bn_mode`` "torch" goes to
+    """The registry's model for a protocol, in the config's numerics mode
+    (:func:`_model_kwargs_for_precision`).  ``bn_mode`` "torch" goes to
     the constructor, which only EEGNet's takes (a baseline's raises
     ``TypeError``, as the JAX package's does); "flax" is every model's
     default.  A mesh with a data axis wider than 1 syncs the BatchNorms
     over it (``bn_axis_name="data"``, the JAX ``_model_kwargs_for_mesh``).
     """
-    if config.precision != "highest":
-        raise ValueError(
-            f"precision={config.precision!r}: the torch port computes in "
-            "full f32 only ('highest'); the TPU matmul modes are not ported")
     bn = {} if config.bn_mode == "flax" else {"bn_mode": config.bn_mode}
     if mesh_data_sharding(mesh, config.batch_size) is not None:
         bn["bn_axis_name"] = DATA_AXIS
     return get_model(model_name, n_channels=pool_x.shape[1],
                      n_times=pool_x.shape[2], dropout_rate=dropout,
-                     device="cpu", **bn)
+                     device="cpu", **_model_kwargs_for_precision(config),
+                     **bn)
 
 
 def within_subject_trainer(pool_x: np.ndarray, pool_y: np.ndarray,
@@ -1061,6 +1096,7 @@ def cross_subject_setup(loader: LoadFn, subjects: tuple[int, ...], *,
                            mesh=mesh), folds
 
 
+@_in_numerics
 def within_subject_training(epochs: int | None = None, *,
                             config: TrainingConfig = DEFAULT_TRAINING,
                             loader: LoadFn = _default_loader,
@@ -1075,8 +1111,9 @@ def within_subject_training(epochs: int | None = None, *,
                             ) -> ProtocolResult | None:
     """Within-subject protocol: per subject, 4-fold CV over both sessions,
     on ``device`` (the card unless ``EEGTPU_PLATFORM=cpu``), through
-    :func:`run_folds`; under ``mesh`` sharded over its ranks (``None`` on
-    every rank but the first; module docstring)."""
+    :func:`run_folds`, in the numerics scope of ``config.precision``;
+    under ``mesh`` sharded over its ranks (``None`` on every rank but the
+    first; module docstring)."""
     epochs = epochs if epochs is not None else config.epochs
     paths = paths or Paths.from_here()
     device = resolve_device(device)
@@ -1128,6 +1165,7 @@ def within_subject_training(epochs: int | None = None, *,
         fault_retry_wall_s=fault_wall, folds=results)
 
 
+@_in_numerics
 def cross_subject_training(epochs: int | None = None, *,
                            config: TrainingConfig = DEFAULT_TRAINING,
                            loader: LoadFn = _default_loader,
@@ -1144,7 +1182,8 @@ def cross_subject_training(epochs: int | None = None, *,
     ``config.cs_repeats_per_subject`` folds of 5 train and the rest
     validation subjects, on ``device``, through :func:`run_folds` in groups
     of ``fold_batch`` folds (default: :func:`_cs_auto_fold_batch`, of a
-    rank's block under ``mesh``; ``None`` on every rank but the first)."""
+    rank's block under ``mesh``; ``None`` on every rank but the first), in
+    the numerics scope of ``config.precision``."""
     epochs = epochs if epochs is not None else config.epochs
     paths = paths or Paths.from_here()
     device = resolve_device(device)

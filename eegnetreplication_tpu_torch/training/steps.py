@@ -27,8 +27,11 @@ folds share nothing), and Adam is a handful of operations on one tensor.
   ``sum(ce * w) / max(sum(w), 1)``.
 - :func:`eval_step` runs an EEGNet's block 1 of every fold in one launch
   of the stacked K1 kernel (``ops/fused_eegnet.py::block1_stacked``); a
-  baseline runs its plain stacked eval forward, as the JAX package has no
-  fused eval for it.
+  baseline, or an EEGNet of another numerics mode than f32 ``"highest"``,
+  runs its plain stacked eval forward, as the JAX package's gate has it.
+- *Numerics.*  A bf16 model's forward returns f32 logits, so the loss,
+  the gradients (of the f32 parameters), Adam, the BatchNorm statistics
+  and the validation sums stay f32 in every mode.
 - *Data parallelism.*  Given ``data_group`` (this rank's line along the
   mesh's data axis, ``parallel/mesh.py::AxisGroup``) each rank holds its
   contiguous part of every batch, and the steps compute the whole batch's
@@ -322,17 +325,22 @@ def train_step(model: nn.Module, state: TrainState, x: torch.Tensor,
 
 
 def supports_fused_eval(model: nn.Module) -> bool:
-    """Whether ``model``'s eval forward has the fused block 1 (K1): EEGNet
-    only, as in the JAX package."""
-    return isinstance(model, EEGNet)
+    """Whether ``model``'s eval forward has the fused block 1 (K1): an
+    EEGNet computing in f32 at ``"highest"``, the JAX gate
+    (``ops/fused_eegnet.py::supports_fused_eval``).  K1 computes in IEEE
+    f32, so a model of another numerics mode evaluates through its own
+    plain forward, in its own numerics."""
+    return (isinstance(model, EEGNet) and model.dtype == torch.float32
+            and model.precision == "highest")
 
 
 def eval_forward(model: nn.Module, state: TrainState, x: torch.Tensor,
                  idx: torch.Tensor) -> torch.Tensor:
-    """Eval-mode logits ``(G, B, n_classes)`` of every fold on its batch of
-    ``x`` ``(G, B, C, T)``: an EEGNet's block 1 in one stacked K1 launch
-    (``idx`` is :func:`~eegnetreplication_tpu_torch.ops.fused_eegnet.
-    fold_index`), any other model's plain stacked eval forward."""
+    """Eval-mode logits ``(G, B, n_classes)``, f32, of every fold on its
+    batch of ``x`` ``(G, B, C, T)``: an f32 ``"highest"`` EEGNet's block 1
+    in one stacked K1 launch (``idx`` is :func:`~eegnetreplication_tpu_torch.
+    ops.fused_eegnet.fold_index`), any other model's plain stacked eval
+    forward."""
     if not supports_fused_eval(model):
         return model.stacked(state.param_views(), state.stat_views(), x,
                              train=False)[0]

@@ -11,9 +11,10 @@ stdout/stderr into the Logs tab (``ui.py:213,229,256-259,271-293``).  The
 stages communicate only through files on disk.
 
 The fetch step launches the port's fetch CLI (``python -m
-eegnetreplication_tpu_torch.fetch``); the precision dropdown offers
-``highest`` only, the port's one numerics mode.  The Performance tab shows
-only records measured on a GPU that name the card and its power limit (:func:`performance_overview_lines`).
+eegnetreplication_tpu_torch.fetch``); the precision dropdown offers the
+JAX GUI's four numerics modes.  The Performance tab shows only records
+measured on a GPU that name the card and its power limit
+(:func:`performance_overview_lines`).
 
 Differences by design:
 - subprocess output lines are marshalled to the Tk main thread via
@@ -59,9 +60,9 @@ PKG = "eegnetreplication_tpu_torch"
 # numpy/matplotlib/tk).  Kept in sync by tests/test_torch_viz_ui.py.
 MODEL_NAMES = ["deep_convnet", "eegnet", "eegnet_wide", "shallow_convnet"]
 
-# The one numerics mode the port's train CLI runs (train.py refuses the
-# JAX package's TPU matmul modes).
-PRECISIONS = ["highest"]
+# The train CLI's numerics modes, the JAX GUI's four (their meaning on
+# the card: config.py, TrainingConfig.precision).
+PRECISIONS = ["highest", "high", "default", "bf16"]
 
 # --------------------------------------------------------------- headless
 # Widget-free command/report logic, module-level so the test suite can

@@ -15,7 +15,19 @@ CPU.  ``EEGTPU_PLATFORM`` (the same variable the JAX package reads) picks:
 Selecting a device also pins float32 numerics once per process: cuDNN
 convolutions default to TF32 (about 1e-3 relative error), while the JAX
 model computes at ``precision="highest"`` (full f32), so TF32 is switched
-off for both cuDNN and cuBLAS.
+off for both cuDNN and cuBLAS.  cuBLAS's reduced-precision reductions in
+bf16 GEMMs are switched off too: XLA accumulates a bf16 dot in f32.
+
+**Numerics modes.**  A training run enters :func:`numerics` with its
+``TrainingConfig.precision``.  ``"high"`` and ``"default"`` are the JAX
+package's ``Precision.HIGH`` and ``DEFAULT``, which on an NVIDIA H100 run
+f32 matmuls and convolutions in TensorFloat-32: inside the scope TF32 is
+on for cuBLAS and cuDNN.  ``"bf16"`` computes the model in bf16 (the
+model's ``dtype``) at ``precision=None``, so TF32 is on too for any f32
+matmul that is left.  ``"highest"`` keeps the f32 pins.  On the scope's
+exit the pins are the process's again.  A device selected inside the
+scope keeps the scope's flags.  Serving never enters a scope.  On the CPU
+the flags change nothing, as the JAX precisions change nothing there.
 
 Selecting the card also makes its runs repeat bit for bit, which the JAX
 package promises of a resumed run ("resume WITHIN a fixed grouping
@@ -35,7 +47,9 @@ change the other torch code of a process that runs on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import os
+from typing import Iterator
 
 import torch
 
@@ -43,10 +57,46 @@ PLATFORM_ENV = "EEGTPU_PLATFORM"
 
 _GPU_NAMES = ("", "gpu", "cuda")
 
+# The training numerics modes (``TrainingConfig.precision``), and those
+# that run f32 matmuls and convolutions in TF32 on the card.
+PRECISIONS = ("highest", "high", "default", "bf16")
+TF32_PRECISIONS = ("high", "default", "bf16")
+
+# Whether the innermost numerics scope allows TF32 (False outside one).
+_tf32 = [False]
+
+
+def check_precision(precision: str) -> str:
+    """``precision`` when it names a mode, else the JAX package's error."""
+    if precision not in PRECISIONS:
+        raise ValueError(
+            f"Unknown precision mode {precision!r}; "
+            "expected 'highest', 'high', 'default', or 'bf16'")
+    return precision
+
 
 def _pin_f32_numerics() -> None:
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """The process's numerics flags: f32 everywhere, or TF32 inside a
+    :func:`numerics` scope that allows it."""
+    torch.backends.cudnn.allow_tf32 = _tf32[-1]
+    torch.backends.cuda.matmul.allow_tf32 = _tf32[-1]
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+@contextlib.contextmanager
+def numerics(precision: str) -> Iterator[None]:
+    """The scope of a training run in the numerics mode ``precision`` (the
+    module docstring): TF32 on for cuBLAS and cuDNN under ``"high"``,
+    ``"default"`` and ``"bf16"``, the f32 pins under ``"highest"``, and the
+    enclosing flags restored on exit, an exception's too.  The determinism
+    pins are not touched."""
+    _tf32.append(check_precision(precision) in TF32_PRECISIONS)
+    try:
+        _pin_f32_numerics()
+        yield
+    finally:
+        _tf32.pop()
+        _pin_f32_numerics()
 
 
 def _pin_determinism() -> None:

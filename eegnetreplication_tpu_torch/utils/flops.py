@@ -35,12 +35,16 @@ the banded schedule multiplies ~T/K times the MACs on purpose, and the
 JAX package counts the ``"lax"`` schedule for that reason
 (``_canonical_schedule``), so MFU is not flattered by the inflation.
 
-The MFU denominator, :func:`assumed_peak_flops`, keys on the card's name.
+The MFU denominator, :func:`assumed_peak_flops`, keys on the card's name
+and on the arithmetic the run's numerics mode computes in, as the JAX
+table keys the peak of the arithmetic its chip runs.  Under ``"highest"``
 ``utils/device.py`` turns TF32 off, so the port runs its f32 work on the
-CUDA cores: the peak is the card's dense FP32 (non-tensor) rate.  An
-unknown card gets no peak, and the training log then prints GFLOP/s
-without MFU.  ``EEGTPU_PEAK_FLOPS`` (a float) overrides, as in the JAX
-package.
+CUDA cores: the peak is the card's dense FP32 (non-tensor) rate.
+``"high"`` and ``"default"`` run TF32 on the tensor cores and ``"bf16"``
+BF16: their peaks are the dense tensor-core rates of that type (NVIDIA's
+H100 data sheet).  An unknown card gets no peak, and the training log
+then prints GFLOP/s without MFU.  ``EEGTPU_PEAK_FLOPS`` (a float)
+overrides, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -269,33 +273,47 @@ def fold_epoch_flops(model, *, batch_size: int, train_pad: int,
             + val_steps * eval_step_flops(model, batch_size))
 
 
-# Dense FP32 (non-tensor-core) peaks, NVIDIA's H100 data sheet, by a
+# The arithmetic each numerics mode computes in on the card.
+ARITHMETIC = {"highest": "FP32", "high": "TF32", "default": "TF32",
+              "bf16": "BF16"}
+
+# Dense peaks in TFLOP/s (FP32 on the CUDA cores, TF32 and BF16 on the
+# tensor cores, without sparsity), NVIDIA's H100 data sheet, by a
 # substring of ``torch.cuda.get_device_name``; the first match wins.
 _PEAK_BY_NAME = (
-    ("h100 pcie", 51.2e12, "H100 PCIe FP32 peak (51.2 TFLOP/s)"),
-    ("h100", 66.9e12, "H100 SXM FP32 peak (66.9 TFLOP/s)"),
+    ("h100 pcie", "H100 PCIe", {"FP32": "51.2", "TF32": "378",
+                                "BF16": "756"}),
+    ("h100", "H100 SXM", {"FP32": "66.9", "TF32": "494.7",
+                          "BF16": "989.4"}),
 )
 
 
-def assumed_peak_flops(device_name: str | None = None
+def assumed_peak_flops(device_name: str | None = None,
+                       precision: str = "highest"
                        ) -> tuple[float | None, str]:
-    """(peak FLOP/s, label) for the MFU denominator; ``(None, label)`` for
-    a card the table does not know.  ``EEGTPU_PEAK_FLOPS`` overrides."""
+    """(peak FLOP/s, label) for the MFU denominator of a run in the
+    numerics mode ``precision``: the card's dense peak for that mode's
+    arithmetic (:data:`ARITHMETIC`); ``(None, label)`` for a card the table
+    does not know.  ``EEGTPU_PEAK_FLOPS`` overrides."""
     env = os.environ.get("EEGTPU_PEAK_FLOPS")
     if env:
         try:
             return float(env), f"EEGTPU_PEAK_FLOPS={env}"
         except ValueError:
             pass
+    arithmetic = ARITHMETIC[precision]
     name = (device_name or "").lower()
-    for needle, peak, label in _PEAK_BY_NAME:
+    for needle, card, peaks in _PEAK_BY_NAME:
         if needle in name:
-            return peak, label
-    return None, f"no FP32 peak known for {device_name!r}"
+            tflops = peaks[arithmetic]
+            return float(tflops + "e12"), (f"{card} {arithmetic} peak "
+                                          f"({tflops} TFLOP/s)")
+    return None, f"no {arithmetic} peak known for {device_name!r}"
 
 
-def mfu(flops_per_s: float, device_name: str | None = None) -> float | None:
+def mfu(flops_per_s: float, device_name: str | None = None,
+        precision: str = "highest") -> float | None:
     """Model FLOP/s utilization against :func:`assumed_peak_flops`, or
     ``None`` without a known peak."""
-    peak, _ = assumed_peak_flops(device_name)
+    peak, _ = assumed_peak_flops(device_name, precision)
     return None if peak is None else flops_per_s / peak

@@ -15,6 +15,8 @@ order: ``(2 fold, 2 data, 1)``, ``(1, 2 data, 2 model)`` and ``(1, 4 data,
   the whole batch.  Recorded: each step's loss, the parameters and
   statistics after the first step, the parameters after the last, and the
   data-parallel eval's loss sum and correct count on the first batch.
+  The same under the ``bf16`` numerics mode (flax BatchNorm, a bf16
+  model inside ``utils/device.py::numerics``): each step's loss.
 - **ZeRO.**  The second mesh runs the step with the Adam moments
   partitioned over its model axis (``shard_state``); recorded: the
   parameters after every step beside the replicated step's (the first
@@ -51,6 +53,11 @@ import numpy as np
 import torch
 
 BN_MODES = ("flax", "torch")
+# The bf16 DP step against the one-process bf16 step: each loss within 8
+# of bf16's unit roundoffs (2**-8), relative.  Splitting the batch changes
+# which bf16 convolution algorithm runs and the order of the synced
+# BatchNorm's f32 sums, so the two round differently.
+BF16_LOSS_RTOL = 8 * 2.0 ** -8
 EMS_ATOL, EMS_RTOL = 2e-4, 2e-3
 
 
@@ -115,7 +122,10 @@ def world_body(inputs_path: str, out_path: str, timing: bool) -> int:
         shardspec,
     )
     from eegnetreplication_tpu_torch.training import steps
-    from eegnetreplication_tpu_torch.utils.device import select_device
+    from eegnetreplication_tpu_torch.utils.device import (
+        numerics,
+        select_device,
+    )
 
     device = select_device()
     rank = dist.get_rank()
@@ -163,9 +173,10 @@ def world_body(inputs_path: str, out_path: str, timing: bool) -> int:
               for k in layout.params.names + layout.stats.names}
         return steps.TrainState.create(layout, sd).to(device)
 
-    def model_of(mode, synced=True):
+    def model_of(mode, synced=True, **kw):
         return EEGNet(c, t, 4, f1, d, dropout_rate=0.0, bn_mode=mode,
-                      bn_axis_name="data" if synced else None, device="cpu")
+                      bn_axis_name="data" if synced else None, device="cpu",
+                      **kw)
 
     # -- DP against the one-process step, both BatchNorm modes ----------
     for mode in BN_MODES:
@@ -202,6 +213,29 @@ def world_body(inputs_path: str, out_path: str, timing: bool) -> int:
             rec[f"single/{mode}/loss"] = np.array(losses)
             rec[f"single/{mode}/params"] = _flat(state)[0]
         dist.barrier()
+
+    # -- the bf16 mode: DP against the one-process step -------------------
+    bf16 = {"dtype": torch.bfloat16, "precision": None}
+    with numerics("bf16"):
+        step = dp.make_dp_train_step(model_of("flax", **bf16), mesh_a,
+                                     learning_rate=lr, adam_eps=eps)
+        state = fresh_state(model_of("flax", **bf16))
+        losses = []
+        for s in range(n_steps):
+            state, loss = step(state, x[s], y[s], w[s])
+            losses.append(float(loss[0]))
+        rec["dp/bf16/loss"] = np.array(losses)
+        if rank == 0:
+            single = model_of("flax", synced=False, **bf16)
+            state = fresh_state(single)
+            losses = []
+            for s in range(n_steps):
+                state, loss, _ = steps.train_step(
+                    single, state, x[s], y[s], w[s], learning_rate=lr,
+                    adam_eps=eps)
+                losses.append(float(loss[0]))
+            rec["single/bf16/loss"] = np.array(losses)
+    dist.barrier()
 
     # -- ZeRO against the replicated step --------------------------------
     model = model_of("flax")
@@ -341,7 +375,8 @@ def summary(rec: dict) -> dict:
     parameter within atol 1e-4, the zero-gradient ones within steps x
     learning rate), ZeRO bitwise the replicated step with 1/n of the
     moment elements a rank, the time-sharded EMS within atol 2e-4 / rtol
-    2e-3 of the one-shot ``scan`` and of K2."""
+    2e-3 of the one-shot ``scan`` and of K2.  Under bf16 every step's loss
+    lies within :data:`BF16_LOSS_RTOL` of the one-process bf16 step's."""
     info = rec["info"]
     out: dict = {"info": info}
     lr = float(rec["adam"][0])
@@ -369,6 +404,12 @@ def summary(rec: dict) -> dict:
                    and _rel_close(rec[f"dp/{mode}/stats1"],
                                   rec[f"single/{mode}/stats1"], 1e-4,
                                   1e-6))}
+    dp_loss, sd_loss = rec["dp/bf16/loss"], rec["single/bf16/loss"]
+    out["dp_bf16"] = {
+        "loss_max_rel_err": float(np.max(np.abs(dp_loss - sd_loss)
+                                         / np.abs(sd_loss))),
+        "rtol": BF16_LOSS_RTOL,
+        "ok": _rel_close(dp_loss, sd_loss, BF16_LOSS_RTOL)}
     numel = rec["zero/local_numel"]
     out["zero"] = {
         "bitwise": bool(np.array_equal(rec["zero/replicated"],

@@ -96,9 +96,11 @@ def engine_breakdown(engine, trials: np.ndarray, n_calls: int = 50,
                 **breakdown(lambda: engine.infer(trials), n_calls, top))
 
 
-def breakdown(fn, n_calls: int = 1, top: int = 8) -> dict:
+def breakdown(fn, n_calls: int = 1, top: int = 8,
+              names: bool = False) -> dict:
     """Host wall and device time of ``fn()``, per call, under the profiler
-    (warm ``fn`` up first).
+    (warm ``fn`` up first); with ``names``, every device activity's full
+    name too (``device_names``).
 
     Device busy time is the union of the intervals of the CUDA activity
     the profiler records (kernels and copies; cuDNN may run some on streams
@@ -131,6 +133,7 @@ def breakdown(fn, n_calls: int = 1, top: int = 8) -> dict:
         "top_device_ms_per_call": [
             {"name": name[:80], "ms": ms, "per_call": counts[name] / n_calls}
             for name, ms in ranked],
+        **({"device_names": sorted(by_name)} if names else {}),
     }
 
 

@@ -15,7 +15,10 @@ plain forward on the CPU at atol 1e-5 / rtol 1e-4.  K1's stacked form
 ``block1_stacked_reference`` at the shapes of ``chip_smoke.py`` phase 3b,
 atol/rtol 1e-5, and equals K1 bit for bit per weight set on the 90-fold
 validation batch (fold-major and permuted); one fold-stacked train step on the card against the CPU at
-dropout 0 (2e-3, the tolerance the CPU tests hold the port to against JAX);
+dropout 0 (2e-3, the tolerance the CPU tests hold the port to against JAX),
+and under the ``high`` and ``bf16`` numerics modes (loss and gradient norm
+within 8 of the mode's unit roundoffs, relative; the weights within twice
+the learning rate, Adam's first step; state f32);
 one training epoch launches the stacked K1 once per validation batch; a
 grouped cross-subject run on the card equals one group per fold at dropout
 0 (2e-3); a carry snapshotted on the card through the asynchronous writer
@@ -41,7 +44,8 @@ replay's logits equal the eager forward's bit for bit at every bucket
 graph holds and a capture counts none, a retune captures while another
 thread replays and a session pushes K2s, a capture that would wait for
 the device raises, and the profiler sees ``block1_kernel`` inside the
-replays.  Online adaptation: the shadow's bucket-1 graph replays
+replays; a training run's numerics scope (TF32 on) leaves every replay's
+bits unchanged.  Online adaptation: the shadow's bucket-1 graph replays
 bitwise the eager forward and launches K1 once per shadow eval, its
 capture drops nothing while the zoo serves and a session pushes, two card
 fine-tunes from one seed are bitwise equal, and a card fine-tune lies
@@ -426,6 +430,46 @@ def test_one_stacked_train_step_on_card_matches_cpu(cuda):
                                    getattr(cpu, field), atol=2e-3, rtol=2e-3)
     assert card.count.cpu().tolist() == [1] * 5 + [0] + [1] * 2
     assert torch.equal(card.params[5].cpu(), state.params[5])
+
+
+# The numerics modes: unit roundoff of TF32 (10 stored mantissa bits) and
+# bf16 (7), and the card-vs-CPU tolerance of one step's loss and gradient
+# norm, relative: 8 roundings of the mode, the forward's five conv/matmul
+# stages with margin.  The CPU computes "high" in f32 and "bf16" in bf16.
+MODE_UNIT = {"high": 2.0 ** -11, "bf16": 2.0 ** -8}
+
+
+@pytest.mark.parametrize("mode", ["high", "bf16"])
+def test_a_numerics_mode_train_step_on_card_matches_cpu(cuda, mode):
+    from eegnetreplication_tpu_torch.utils.device import numerics
+
+    kw = protocols._model_kwargs_for_precision(
+        DEFAULT_TRAINING.replace(precision=mode))
+    model = EEGNet(22, 257, dropout_rate=0.0, device="cpu", **kw)
+    state = loop.init_fold_states(model, 8, torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(8, 64, 22, 257).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 4, (8, 64)))
+    w = torch.ones(8, 64)
+    step_kw = dict(learning_rate=1e-3, adam_eps=1e-7)
+    with numerics(mode):
+        cpu, cpu_loss, cpu_gn = steps.train_step(model, state, x, y, w,
+                                                 **step_kw)
+        card, loss, gn = steps.train_step(model, state.to(cuda), x.to(cuda),
+                                          y.to(cuda), w.to(cuda), **step_kw)
+        assert torch.backends.cuda.matmul.allow_tf32
+    tol = 8 * MODE_UNIT[mode]
+    torch.testing.assert_close(loss.cpu(), cpu_loss, atol=0, rtol=tol)
+    torch.testing.assert_close(gn.cpu(), cpu_gn, atol=0, rtol=tol)
+    for field in ("params", "stats", "mu", "nu"):
+        assert getattr(card, field).dtype == torch.float32, field
+    # Adam's first step moves every weight by at most the learning rate,
+    # whatever the gradient's rounding.
+    torch.testing.assert_close(card.params.cpu(), cpu.params, rtol=0,
+                               atol=2 * step_kw["learning_rate"])
+    torch.testing.assert_close(card.stats.cpu(), cpu.stats, atol=tol,
+                               rtol=tol)
+    assert not torch.backends.cuda.matmul.allow_tf32
 
 
 def test_one_epoch_launches_stacked_k1_once_per_validation_batch(cuda):
@@ -878,6 +922,28 @@ def test_graph_replay_is_bitwise_the_eager_forward(cuda, kind):
         host = [a.cpu().numpy() for a in args]
         np.testing.assert_array_equal(engine.infer(*host),
                                       eager.argmax(-1).numpy())
+
+
+def test_a_numerics_scope_leaves_a_captured_graph_bitwise(cuda):
+    """A training run's numerics scope (TF32 on) in the same process does
+    not reach a serving graph captured outside it: every bucket replays
+    the same bits inside the scope and after it."""
+    from eegnetreplication_tpu_torch.utils.device import numerics
+
+    engine = _graph_engine(cuda, "fp32")
+    engine.warmup()
+    args = {b: _bucket_args(cuda, "fp32", b, seed=70 + b)
+            for b in engine.buckets}
+    before = {b: engine.graph_logits(*a).cpu() for b, a in args.items()}
+    for mode in ("high", "default", "bf16"):
+        with numerics(mode):
+            assert torch.backends.cudnn.allow_tf32
+            for b, a in args.items():
+                assert torch.equal(engine.graph_logits(*a).cpu(),
+                                   before[b]), (mode, b)
+    assert not torch.backends.cudnn.allow_tf32
+    for b, a in args.items():
+        assert torch.equal(engine.graph_logits(*a).cpu(), before[b])
 
 
 @pytest.mark.parametrize("kind", ["fp32", "int8", "zoo"])

@@ -186,8 +186,9 @@ def test_unported_flags_stop_the_cli(name, capsys, tmp_path, monkeypatch):
         # ported: the CLI trains under that mesh and writes its models
         train_over_a_mesh(UNPORTED[name], tmp_path)
         return
-    if name == "chaos":
-        # ported: the plan parses, as in the JAX CLI, and the run trains
+    if name in ("chaos", "precision"):
+        # ported: the plan parses, as in the JAX CLI, and the run trains;
+        # bf16 trains in its numerics mode and writes f32 models
         write_processed_tree(tmp_path, subjects=(1,))
         monkeypatch.setenv("EEGTPU_PLATFORM", "cpu")
         monkeypatch.setenv("EEGTPU_DATA_ROOT", str(tmp_path))
@@ -195,15 +196,18 @@ def test_unported_flags_stop_the_cli(name, capsys, tmp_path, monkeypatch):
         monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
         assert train_cli.main(UNPORTED[name] + ["--epochs", "1",
                                                 "--subjects", "1"]) == 0
-        assert (tmp_path / "models" / "subject_01_best_model.npz").is_file()
+        npz = tmp_path / "models" / "subject_01_best_model.npz"
+        assert npz.is_file()
+        with np.load(npz) as saved:
+            assert {saved[k].dtype for k in saved.files
+                    if saved[k].dtype.kind == "f"} == {np.dtype("float32")}
+        assert "not ported" not in capsys.readouterr().err
         return
     with pytest.raises(SystemExit) as exc:
         train_cli.main(UNPORTED[name] + ["--epochs", "1"])
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert "not ported" in err
-    if name != "precision":
-        assert "ROADMAP" in err
+    assert "not ported" in err and "ROADMAP" in err
 
 
 OBS_FLAGS = {

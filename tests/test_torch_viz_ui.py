@@ -9,7 +9,8 @@ JAX package's, on the CPU.
   figure's; ``topomap_grid`` is the image a topomap draws.
 - The ``build_*_cmd`` argv name the port's CLIs, the fetch CLI's too (and
   the port's predict parser takes its flags); ``MODEL_NAMES`` is the port
-  registry's keys; the precision dropdown offers ``highest``.
+  registry's keys; the precision dropdown offers the JAX GUI's four
+  modes.
 - ``report_overview_lines``, ``report_table_rows``,
   ``accuracy_chart_figure``, ``get_report`` and ``get_model_path`` equal the
   JAX ones on seeded reports and model trees.
@@ -185,7 +186,7 @@ def test_commands_name_the_ports_clis():
     assert (args.checkpoint, args.subject, args.mode) == ("/tmp/m.npz", 3,
                                                            "Eval")
     assert ui.PKG == "eegnetreplication_tpu_torch"
-    assert ui.PRECISIONS == ["highest"]
+    assert ui.PRECISIONS == ["highest", "high", "default", "bf16"]
 
 
 def test_fetch_refuses_with_the_ports_message():
