@@ -87,10 +87,13 @@ hand-written kernel against its plain PyTorch version:
    the time limit; phase 10 prices it at 8 and 36), the size of
    one epoch's ``--profileDir`` trace and the journal's host time per
    epoch, the snapshot writer; the resume drill through the CLI (two
-   unbroken runs, SIGTERM -> 75 -> ``--resume``, ``--chaos
-   train.chunk:after=1`` -> ``--resume``: all bitwise equal, each journal
-   read back with its ``run_end`` status and an ``epoch`` event per epoch
-   trained); and the chaos leg (``--chaos train.step:if_folds_over=4`` in
+   unbroken runs, the second with ``--ckptFormat orbax``: its Orbax
+   directories, read by the port's loader, equal the first run's ``.npz``
+   and its own ``.pth`` bit for bit, with as many K1-stacked launches;
+   SIGTERM -> 75 -> ``--resume``, ``--chaos train.chunk:after=1`` ->
+   ``--resume``: all bitwise equal, each journal read back with its
+   ``run_end`` status and an ``epoch`` event per epoch trained); and the
+   chaos leg (``--chaos train.step:if_folds_over=4`` in
    groups of 8 halves them to 4, journals ``device_fault`` and ``retry``,
    and equals a run in groups of 4 bit for bit);
 12. serving beyond one fp32 model: nine seeded checkpoints behind
@@ -103,8 +106,15 @@ hand-written kernel against its plain PyTorch version:
    of the plain int8 forward on the CPU, K1 once per chunk), ``/reload``
    of a tenant and of the int8 model under 8 concurrent clients (200 with
    the new digest, no request failed, answers after the swap equal the new
-   checkpoint's; a corrupt file 400 with the old digest serving), and the
-   timings: K1-stacked at a 128-trial chunk over nine tenants beside its
+   checkpoint's; a corrupt file 400 with the old digest serving), the int8
+   server's ``/reload`` to phase 11's Orbax directory under the same
+   clients (no request failed, ``/healthz`` names its ``.npz`` twin's
+   digest, K1 launches = the gate's eager chunks + warm runs + replays),
+   the committed JAX-written Orbax fixture (OCDBT, zstd) loaded on the
+   card (its ``.npz`` twin's digest, logits at batch 1 and 128 bit for bit
+   the twin's and within atol 1e-5 / rtol 1e-4 of the plain CPU forward),
+   the Orbax load and write times beside the card's name and power limit,
+   and the timings: K1-stacked at a 128-trial chunk over nine tenants beside its
    plain version, a grouped cuDNN composite and its bound, the engines'
    ``infer`` at buckets 1 and 128, ``/predict`` at 1 and 128 trials;
 13. live streaming sessions (K2s, ``ems_stream``, the EMS carry): K2s
@@ -2129,12 +2139,18 @@ def _epochs_journaled(events) -> list:
     return [e["epoch"] for e in events if e["event"] == "epoch"]
 
 
-def _same_weights(got_dir: Path, want_dir: Path, names, what: str) -> None:
-    """Every tensor of each named ``.npz`` model equal bit for bit."""
+def _same_weights(got_dir: Path, want_dir: Path, names, what: str,
+                  got_names=None) -> None:
+    """Every tensor of each named ``.npz`` model equal bit for bit (the
+    ``got`` side read from ``got_names`` where given: an Orbax directory
+    reads through the port's Orbax loader)."""
     from eegnetreplication_tpu_torch.training import checkpoint as ckpt_lib
+    from eegnetreplication_tpu_torch.training import orbax_io
 
-    for name in names:
-        got, _ = ckpt_lib.load_checkpoint(got_dir / name)
+    for name, got_name in zip(names, got_names or names):
+        got_path = got_dir / got_name
+        got, _ = (orbax_io.load_orbax_checkpoint(got_path)
+                  if got_path.is_dir() else ckpt_lib.load_checkpoint(got_path))
         want, _ = ckpt_lib.load_checkpoint(want_dir / name)
         check(got.keys() == want.keys(), f"{what}: {name} has other keys")
         for key in want:
@@ -2170,9 +2186,43 @@ def _wait_all(procs: dict, logs: dict, timeout: float) -> dict:
     return out
 
 
+def _orbax_twin(models: Path, twin: Path, events: list,
+                twin_events: list) -> dict:
+    """(a): the ``--ckptFormat orbax`` run wrote an Orbax directory and a
+    ``.pth`` per subject and no ``.npz``; each directory (equal bit for bit
+    to the twin's ``.npz``, checked by the caller) equals the same run's
+    ``.pth``, and the run launched K1-stacked as often as its twin."""
+    import torch
+
+    from eegnetreplication_tpu_torch.training import orbax_io
+
+    for s in (1, 2):
+        stem = f"subject_{s:02d}_best_model"
+        check(not (models / f"{stem}.npz").exists(),
+              f"the --ckptFormat orbax run wrote {stem}.npz")
+        got, meta = orbax_io.load_orbax_checkpoint(models / f"{stem}.orbax")
+        pth = torch.load(models / f"{stem}.pth", map_location="cpu",
+                         weights_only=True)
+        check(meta["model"] == "eegnet" and pth.keys() <= got.keys(),
+              f"{stem}.orbax: metadata {meta}, keys beside the .pth's")
+        for key, value in pth.items():
+            check(torch.equal(got[key], value),
+                  f"{stem}.orbax {key} differs from the same run's .pth")
+    launches = [e[-1]["kernel_launches"]["block1_stacked"]
+                for e in (events, twin_events)]
+    check(launches[0] == launches[1] > 0,
+          f"K1-stacked launches: --ckptFormat orbax {launches[0]}, its "
+          f"twin {launches[1]}")
+    return {"dir": str(models / "subject_01_best_model.orbax"),
+            "npz_twin": str(twin / "subject_01_best_model.npz"),
+            "k1_stacked_launches": launches[0]}
+
+
 def _resume_drill(np, work: Path, env: dict, data_root: Path) -> dict:
     """Within-subject training at 8 folds through the CLI, each leg with
-    its own ``--metricsDir``: two unbroken runs; SIGTERM once the first
+    its own ``--metricsDir``: two unbroken runs, the second with
+    ``--ckptFormat orbax`` (its Orbax directories equal the first run's
+    ``.npz`` and its own ``.pth`` bit for bit); SIGTERM once the first
     run snapshot exists (exit 75, a snapshot left, ``run_end`` preempted),
     then ``--resume``; ``train.chunk:after=1`` in 1-epoch chunks (a crash
     after the second chunk), then ``--resume``.  Every leg's weights equal
@@ -2203,8 +2253,8 @@ def _resume_drill(np, work: Path, env: dict, data_root: Path) -> dict:
 
     # Round 1: the unbroken runs, the SIGTERM'd run, the crashed run.
     snap = roots["stopped"].models / "within_subject_eegnet.run.npz"
-    legs = {"unbroken": (), "unbroken2": (), "stopped": (),
-            "crashed": ("--chaos", "train.chunk:after=1")}
+    legs = {"unbroken": (), "unbroken2": ("--ckptFormat", "orbax"),
+            "stopped": (), "crashed": ("--chaos", "train.chunk:after=1")}
     procs = {name: start(name, "first", extra) for name, extra in legs.items()}
     logs = {name: work / f"{name}-first.log" for name in legs}
     try:
@@ -2218,16 +2268,25 @@ def _resume_drill(np, work: Path, env: dict, data_root: Path) -> dict:
             stopped.send_signal(signal.SIGTERM)
     finally:
         done = _wait_all(procs, logs, RESUME_WAIT_S)
+    unbroken = {}
     for name in ("unbroken", "unbroken2"):
         rc, err = done[name]
         check(rc == 0, f"{name} train CLI exited {rc}:\n{err[-4000:]}")
-        check(_epochs_journaled(journal(name, "first", "ok"))
+        unbroken[name] = journal(name, "first", "ok")
+        check(_epochs_journaled(unbroken[name])
               == list(range(1, RESUME_EPOCHS + 1)),
               f"{name}: not one epoch event per epoch")
     _same_weights(roots["unbroken2"].models, roots["unbroken"].models,
-                  models, "two unbroken card runs")
+                  models, "two unbroken card runs (--ckptFormat orbax vs "
+                  "npz)", got_names=[m.replace(".npz", ".orbax")
+                                     for m in models])
+    orbax = _orbax_twin(roots["unbroken2"].models,
+                        roots["unbroken"].models, unbroken["unbroken2"],
+                        unbroken["unbroken"])
     log("resume drill: two unbroken card runs give the same weights bit "
-        "for bit")
+        "for bit; the second wrote Orbax directories (read back by the "
+        "port's loader: its twin's .npz and its own .pth bit for bit, "
+        f"K1-stacked launches {orbax['k1_stacked_launches']} as its twin's)")
 
     rc, err = done["stopped"]
     check(signalled, f"the drill missed its window: the run exited {rc} "
@@ -2275,7 +2334,8 @@ def _resume_drill(np, work: Path, env: dict, data_root: Path) -> dict:
     log("resume drill: --resume after the SIGTERM and after "
         "train.chunk:after=1 (a crash after chunk 2) completed, cleaned up, "
         "and gave the unbroken run's weights bit for bit")
-    return {"epochs_done_at_stop": epochs_done, "bitwise": True}
+    return {"epochs_done_at_stop": epochs_done, "bitwise": True,
+            "orbax": orbax}
 
 
 def _chaos_leg(np, work: Path, env: dict, cs_paths) -> dict:
@@ -2727,11 +2787,124 @@ def _stacked_library(torch, x, S, W, A, B, idx):
     return out.reshape(n, f2, -1)
 
 
-def phase_serving_zoo(torch, np, dev, work: Path, env: dict):
+def _orbax_reload(np, url: str, orbax: dict, body: bytes) -> dict:
+    """(b): ``/reload`` of a running server to phase 11's Orbax directory
+    under the reload clients: no request fails, ``/healthz`` names the
+    digest of the directory's ``.npz`` twin, and the server's K1 launches
+    over the reload are the quant gate's eager chunks (both engines over
+    the gate set), the new engine's warm runs (one per bucket) and the
+    graph replays."""
+    import math
+
+    from eegnetreplication_tpu_torch.serve.engine import (
+        default_gate_set,
+        load_model_from_checkpoint,
+        model_digest,
+    )
+
+    want = model_digest(load_model_from_checkpoint(orbax["npz_twin"],
+                                                   device="cpu"))
+    _, before = _get(url + "/healthz")
+    reply, answers = _reload_under_load(
+        np, url, body, {}, {"checkpoint": orbax["dir"]},
+        "reload to an Orbax directory")
+    _, after = _get(url + "/healthz")
+    check(reply["model_digest"] == after["model_digest"]
+          == after["variables_digest"] == want,
+          f"after the reload to {orbax['dir']} /healthz names "
+          f"{after['model_digest'][:12]}, its .npz twin is {want[:12]}")
+    top = after["buckets"][-1]
+    gate = 2 * sum(math.ceil(len(gx) / top)
+                   for _, gx in default_gate_set(22, 257)[1])
+    replays = after["graph_replays"] - before["graph_replays"]
+    k1 = (after["kernel_launches"]["block1"]
+          - before["kernel_launches"]["block1"])
+    check(k1 == gate + len(after["buckets"]) + replays,
+          f"K1 launched {k1} times over the Orbax reload; want the gate's "
+          f"{gate} eager chunks + {len(after['buckets'])} warm runs + "
+          f"{replays} replays")
+    log(f"reload to an Orbax directory under {RELOAD_CLIENTS} clients: "
+        f"200, {len(answers)} requests, none failed; digest = its .npz "
+        f"twin's; serving {after['precision']}; K1 {k1} = gate {gate} + "
+        f"warm {len(after['buckets'])} + replays {replays}")
+    return {"requests": len(answers), "k1_launches": k1, "gate": gate,
+            "warm": len(after["buckets"]), "replays": replays,
+            "precision": after["precision"]}
+
+
+ORBAX_FIXTURE = ROOT / "tests" / "fixtures" / "orbax_eegnet"
+ORBAX_TIMED = 5
+
+
+def _orbax_fixture(torch, dev, work: Path, card: str,
+                   orbax: dict) -> dict:
+    """(c): the committed JAX-written Orbax fixture (OCDBT, zstd) loaded in
+    this process on the card: its digest is its ``.npz`` twin's, its
+    logits at batch 1 and 128 (the engine's fused forward, K1) are the
+    twin's bit for bit and within LOGITS_ATOL/RTOL of the plain CPU
+    forward.  Then the load of the fixture and of phase 11's directory
+    and the write of a save (host clock, median of ORBAX_TIMED)."""
+    from eegnetreplication_tpu_torch.serve.engine import (
+        InferenceEngine,
+        load_model_from_checkpoint,
+        model_digest,
+    )
+    from eegnetreplication_tpu_torch.training import orbax_io
+
+    orb = load_model_from_checkpoint(ORBAX_FIXTURE / "eegnet.orbax",
+                                     device=dev)
+    npz = load_model_from_checkpoint(ORBAX_FIXTURE / "eegnet.npz",
+                                     device=dev)
+    plain = load_model_from_checkpoint(ORBAX_FIXTURE / "eegnet.orbax",
+                                       device="cpu")
+    check(model_digest(orb) == model_digest(npz) == model_digest(plain),
+          "the Orbax fixture's digest differs from its .npz twin's")
+    engines = [InferenceEngine(m, device=dev) for m in (orb, npz)]
+    errs = {}
+    for n in (1, 128):
+        x = trials(torch, n, 22, 257, 1500 + n)
+        with torch.inference_mode():
+            got, twin = (e.forward(x.to(dev)).cpu() for e in engines)
+            want = plain(x)
+        check(torch.equal(got, twin), f"the Orbax fixture's logits at "
+              f"batch {n} differ from its .npz twin's on the card")
+        errs[n] = float((got - want).abs().max())
+        check(torch.allclose(got, want, atol=LOGITS_ATOL, rtol=LOGITS_RTOL),
+              f"the Orbax fixture's logits at batch {n} vs the plain CPU "
+              f"forward: {errs[n]:.3e}")
+    state_dict, meta = orbax_io.load_orbax_checkpoint(orbax["dir"])
+    ms = {
+        "load_fixture_ms": host_ms(lambda: orbax_io.load_orbax_checkpoint(
+            ORBAX_FIXTURE / "eegnet.orbax"), n=ORBAX_TIMED),
+        "load_trained_ms": host_ms(lambda: orbax_io.load_orbax_checkpoint(
+            orbax["dir"]), n=ORBAX_TIMED),
+        "write_ms": host_ms(lambda: orbax_io.save_orbax_checkpoint(
+            work / "orbax_write", state_dict, meta), n=ORBAX_TIMED),
+    }
+    check(orbax_io.load_orbax_checkpoint(work / "orbax_write")[1] == meta,
+          "a written Orbax directory does not read back")
+    log(f"Orbax fixture on the card: digest = its .npz twin's, logits at "
+        f"batch 1 and 128 bit for bit the twin's, vs the plain CPU forward "
+        f"{errs[1]:.3e} and {errs[128]:.3e}")
+    for what, key in (("load of the JAX-written fixture (OCDBT, zstd)",
+                       "load_fixture_ms"),
+                      ("load of phase 11's --ckptFormat orbax directory",
+                       "load_trained_ms"),
+                      ("write of a save (EEGNet, product width)",
+                       "write_ms")):
+        log(f"orbax {what}: {ms[key]:.3f} ms (host clock, median of "
+            f"{ORBAX_TIMED}; {card})")
+    return {"logits_max_abs_err": errs, **ms, "card": card}
+
+
+def phase_serving_zoo(torch, np, dev, work: Path, env: dict, card: str,
+                      orbax: dict):
     """Phase 12: the zoo of nine tenants behind ``serve --zoo`` (one
     K1-stacked launch per coalesced chunk, no K1), int8 behind its gate
     (``serve --precision int8``, K1 once per chunk), hot ``/reload`` under
-    8 concurrent clients for both, and their timings."""
+    8 concurrent clients for both, then the int8 server's ``/reload`` to
+    phase 11's Orbax directory (``orbax``: :func:`_orbax_twin`'s record),
+    the committed Orbax fixture on the card, and their timings."""
     from concurrent.futures import ThreadPoolExecutor
 
     from eegnetreplication_tpu_torch.data.containers import BCICI2ADataset
@@ -2984,6 +3157,8 @@ def phase_serving_zoo(torch, np, dev, work: Path, env: dict):
         log(f"int8 reload under {RELOAD_CLIENTS} clients: 200, "
             f"{len(answers)} requests, none failed; corrupt file 400")
         result["int8"]["reload_requests"] = len(answers)
+        result["int8"]["orbax_reload"] = _orbax_reload(
+            np, int8_url, orbax, _npz_body(np, x[:8]))
 
         for name, (proc, _, stderr) in servers.items():
             proc.send_signal(signal.SIGTERM)
@@ -3010,17 +3185,24 @@ def phase_serving_zoo(torch, np, dev, work: Path, env: dict):
     check(restacks == ["pass", "pass"], f"zoo_restack outcomes {restacks}")
     int8_events = _journal(np, int8_obs, "ok")
     qgates = [e for e in int8_events if e["event"] == "quant_gate"]
-    check(len(qgates) == 2 and all(
-        g["outcome"] == "pass" and g["agreement"] >= 0.99 for g in qgates),
+    # The third gate is the Orbax reload's, of a model phase 11 trained:
+    # it may pass (int8 serves) or refuse (fp32 serves), as /healthz says.
+    check(len(qgates) == 3 and all(
+        g["outcome"] == "pass" and g["agreement"] >= 0.99
+        for g in qgates[:2]) and (qgates[2]["outcome"] == "pass") == (
+            result["int8"]["orbax_reload"]["precision"] == "int8"),
         f"quant_gate events {qgates}")
-    for events, what in ((zoo_events, "zoo"), (int8_events, "int8")):
+    for events, what, n in ((zoo_events, "zoo", 1), (int8_events, "int8",
+                                                      2)):
         swaps = [e for e in events if e["event"] == "model_swap"]
-        check(len(swaps) == 1, f"{what}: {len(swaps)} model_swap events")
+        check(len(swaps) == n, f"{what}: {len(swaps)} model_swap events")
     result["stack_gate_agreement"] = gates[-1]["agreement"]
     result["quant_gate_agreement"] = [g["agreement"] for g in qgates]
     log(f"journals: stack_gate pass (agreement 1.0 over "
         f"{gates[0]['n_trials']} trials), zoo_restack pass x2, quant_gate "
-        f"pass {result['quant_gate_agreement']}, one model_swap each")
+        f"pass {result['quant_gate_agreement']}, model_swap: zoo 1, int8 "
+        "2 (a checkpoint, then an Orbax directory)")
+    result["orbax"] = _orbax_fixture(torch, dev, work, card, orbax)
 
     # Timings: K1-stacked at a 128-trial chunk mixed over nine tenants,
     # beside its plain version, a grouped cuDNN composite and its bound;
@@ -8339,7 +8521,8 @@ def main(argv=None) -> int:
                                           long=args.long)
             mark("16")
             with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
-                zoo = phase_serving_zoo(torch, np, dev, Path(tmp), env)
+                zoo = phase_serving_zoo(torch, np, dev, Path(tmp), env,
+                                        card, cs["resume_drill"]["orbax"])
             mark("12")
             with tempfile.TemporaryDirectory(
                     prefix="chip_smoke_streams_") as tmp:
@@ -8389,7 +8572,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "eegnetreplication_tpu_torch/ops/csrc/block1.cu",
         "replaces": "eegnetreplication_tpu/ops/fused_eegnet.py:134",
-        # the serve phase's server, the int8 server of phase 12, the
+        # the serve phase's server, the int8 server of phase 12 (a
+        # request, and its reload to an Orbax directory), the
         # tuned server of phase 14 (graph replays counted per replay), the
         # adapting server of phase 15 (the shadow's replays, the stack
         # gates' references), phase 16c's supervised server before its
@@ -8397,6 +8581,7 @@ def main(argv=None) -> int:
         # (each read from its /healthz) and every cell process of phase
         # 19 (its /healthz, or its serve_end once retired)
         "launches": (serve["launches"] + zoo["int8"]["k1_launches"]
+                     + zoo["int8"]["orbax_reload"]["k1_launches"]
                      + control["tuned"]["launches"]
                      + adapt["launches"]["got"]["block1"]
                      + supervised["server"]["k1_launches"]
@@ -8489,7 +8674,10 @@ def main(argv=None) -> int:
         "moabb": moabb,
         "k2_times": k2_times, "k1_stacked_max_abs_err": k1s_err,
         "k1_stacked_times": k1s_times, "train": train, "cross_subject": cs,
-        "serving_zoo": zoo, "streams": streams, "control": control,
+        "serving_zoo": zoo, "orbax": {
+            "trained": cs["resume_drill"]["orbax"],
+            "reload": zoo["int8"]["orbax_reload"], **zoo["orbax"]},
+        "streams": streams, "control": control,
         "adapt": adapt, "supervised": supervised,
         "model_layer": model_layer, "fleet": fleet, "cells": cells,
         "tooling": tooling, "mesh": mesh, "precision": precision,

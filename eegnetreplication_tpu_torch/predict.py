@@ -1,9 +1,10 @@
 """Inference CLI: ``python -m eegnetreplication_tpu_torch.predict``.
 
 The counterpart of ``eegnetreplication_tpu/predict.py``: load a checkpoint
-(native ``.npz`` or reference ``.pth``), classify trials (a ``-trials.npz``
-file, or a subject's processed session) on the card, and report per-class
-counts plus accuracy, with the same stdout lines as the JAX CLI.  It runs
+(native ``.npz``, Orbax directory or reference ``.pth``), classify trials
+(a ``-trials.npz`` file, or a subject's processed session) on the card,
+and report per-class counts plus accuracy, with the same stdout lines as
+the JAX CLI.  It runs
 the serving engine (``serve/engine.py``), so a CLI prediction and a served
 one are the same computation, block-1 kernel included.  ``--zoo`` with
 ``--model`` resolves a tenant as ``serve --zoo`` does, and ``--precision
@@ -54,7 +55,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="Classify EEG trials with a trained checkpoint.")
     parser.add_argument("--checkpoint", default=None,
-                        help=".npz (native) or .pth (reference format).  "
+                        help=".npz (native), an Orbax checkpoint directory "
+                             "or .pth (reference format).  "
                              "Required unless --zoo is given.")
     parser.add_argument("--zoo", default=None,
                         help="Model-zoo spec ('id=path,...' pairs or a "

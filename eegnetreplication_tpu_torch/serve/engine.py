@@ -1,7 +1,8 @@
 """Inference engine: one checkpoint load, bucketed forwards on the card.
 
 The counterpart of ``eegnetreplication_tpu/serve/engine.py``.  The engine
-loads a checkpoint once (native ``.npz`` or reference ``.pth``), folds
+loads a checkpoint once (native ``.npz``, Orbax directory or reference
+``.pth``), folds
 block 1's weights once, and serves ``infer`` over a fixed ladder of padded
 batch **buckets** (default 1/8/32/128), so an online batcher only ever
 produces a handful of shapes.  Each bucket chunk is one forward: the
@@ -69,6 +70,7 @@ from eegnetreplication_tpu_torch.ops.fused_eegnet import (
 )
 from eegnetreplication_tpu_torch.resil import integrity
 from eegnetreplication_tpu_torch.training import checkpoint as ckpt_lib
+from eegnetreplication_tpu_torch.training import orbax_io
 from eegnetreplication_tpu_torch.training.steps import supports_fused_eval
 from eegnetreplication_tpu_torch.utils.device import resolve_device
 from eegnetreplication_tpu_torch.utils.flops import eval_forward_flops
@@ -103,20 +105,15 @@ def bucket_ladder(max_batch: int,
 def load_model_from_checkpoint(path: str | Path, *,
                                device: torch.device | str | None = None
                                ) -> nn.Module:
-    """An eval-mode model on ``device`` from a native ``.npz`` or a
-    reference ``.pth``: the registry's model for the checkpoint's
-    ``meta["model"]`` (EEGNet when absent, as in the JAX package).  Native
-    content integrity is verified by the loader."""
+    """An eval-mode model on ``device`` from a native ``.npz``, an Orbax
+    checkpoint directory or a reference ``.pth``: the registry's model for
+    the checkpoint's ``meta["model"]`` (EEGNet when absent, as in the JAX
+    package).  Native content integrity is verified by the loader."""
     path = Path(path)
     if path.suffix == ".pth":
         state_dict, meta = ckpt_lib.load_pth_auto(path)
     elif path.is_dir():
-        raise ValueError(
-            f"{path}: Orbax checkpoint directories are not ported to the "
-            "torch package (ROADMAP.md, \"Not queued\": Orbax's "
-            "StandardCheckpointer writes tensorstore's format, which needs "
-            "JAX, and the card's machine has none); export a native .npz "
-            "or a .pth")
+        state_dict, meta = orbax_io.load_orbax_checkpoint(path)
     else:
         state_dict, meta = ckpt_lib.load_checkpoint(path)
     kwargs = {k: meta[k] for k in ("n_channels", "n_times", "F1", "D")

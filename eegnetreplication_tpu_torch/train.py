@@ -12,10 +12,10 @@ Ported: ``--trainingType`` (``Within-Subject``, ``Cross-Subject``),
 ``--checkpointEvery`` and ``--resume`` (chunked runs with run snapshots),
 ``--metricsDir``, ``--chaos``, ``--profileDir``, ``--debugNans`` and the
 device mesh ``--meshFold``/``--meshData``, and ``--precision`` (the four
-numerics modes with their meaning on the card: ``config.py``), with the
-JAX CLI's parse-time errors.  A flag whose machinery is not ported stops
-the CLI with a message naming ROADMAP.md instead of being ignored:
-``--ckptFormat orbax``.
+numerics modes with their meaning on the card: ``config.py``), and
+``--ckptFormat`` (``npz``, or ``orbax``: each best model as an Orbax
+checkpoint directory ``<name>.orbax/``, ``training/orbax_io.py``, with
+EEGNet's ``.pth`` beside it), with the JAX CLI's parse-time errors.
 
 **The mesh.**  ``--meshFold N --meshData M`` (each >= 1; ``--meshFold``
 unset means 1) trains over an ``N x M`` mesh of rank processes
@@ -150,9 +150,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "reports/obs).")
     parser.add_argument("--ckptFormat", type=str, default="npz",
                         choices=["npz", "orbax"],
-                        help="Native artifact format for saved models (npz; "
-                             "orbax is not ported). The reference-interop "
-                             ".pth export is always written.")
+                        help="Native artifact format for saved models (npz, "
+                             "or orbax: an Orbax checkpoint directory). The "
+                             "reference-interop .pth export is always "
+                             "written.")
     parser.add_argument("--maxFoldsPerProgram", type=int, default=None,
                         help="Train at most N folds at once, group after "
                              "group. Default: Cross-Subject on a card uses "
@@ -183,18 +184,6 @@ def build_parser() -> argparse.ArgumentParser:
                              "firing is journaled as a fault_injected "
                              "event.")
     return parser
-
-
-def unported_flags(args: argparse.Namespace) -> list[str]:
-    """The flags of ``args`` whose machinery the port does not have."""
-    refused = []
-    if args.ckptFormat != "npz":
-        refused.append("--ckptFormat orbax (ROADMAP.md, \"Not queued\": "
-                       "the JAX package writes it through Orbax's "
-                       "StandardCheckpointer in tensorstore's on-disk "
-                       "format, which needs JAX, and the card's machine "
-                       "has none; the .npz holds the same variables)")
-    return refused
 
 
 def _card_record(mesh=None) -> dict:
@@ -244,10 +233,6 @@ def main(argv=None) -> int:
 
     parser = build_parser()
     args = parser.parse_args(argv)
-    refused = unported_flags(args)
-    if refused:
-        parser.error("not ported to the torch package yet: "
-                     + "; ".join(refused))
     try:
         # At the CLI boundary: a plan's typo fails here, not minutes in.
         chaos_specs = inject.parse_plan(args.chaos) if args.chaos else []
@@ -386,7 +371,8 @@ def _train(args, config, subjects, chaos_specs, mesh, mesh_shape) -> int:
                     model_name=args.model, subjects=subjects, paths=paths,
                     device=device, fold_batch=args.maxFoldsPerProgram,
                     checkpoint_every=args.checkpointEvery,
-                    resume=args.resume, mesh=mesh)
+                    resume=args.resume, mesh=mesh,
+                    ckpt_format=args.ckptFormat)
         except preempt.Preempted as exc:
             # Raised at a safe point; the snapshot writer committed the
             # last submitted snapshot on the way out.  run_end is once

@@ -34,8 +34,8 @@ fails integrity is quarantined to ``*.corrupt`` and the next one answers.
 The carry is the port's own (``training/loop.py::FoldTrainer.carry``),
 stored under its names (``carry/<name>``); a stored signature that differs
 from the run's raises, so a snapshot of another run, the JAX package's
-included, is never poured into this one.  Orbax directories are not
-ported.
+included, is never poured into this one.  Orbax checkpoint directories
+are ``training/orbax_io.py``'s.
 
 Every staged write probes the ``checkpoint.write`` chaos site (and the
 snapshot writer's thread ``checkpoint.write_async``) between the temp file

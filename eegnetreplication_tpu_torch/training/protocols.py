@@ -132,6 +132,7 @@ from eegnetreplication_tpu_torch.obs import journal as obs_journal
 from eegnetreplication_tpu_torch.resil import heartbeat, inject, preempt
 from eegnetreplication_tpu_torch.resil import retry as resil_retry
 from eegnetreplication_tpu_torch.training import checkpoint as ckpt_lib
+from eegnetreplication_tpu_torch.training import orbax_io
 from eegnetreplication_tpu_torch.training.async_ckpt import SnapshotWriter
 from eegnetreplication_tpu_torch.parallel import shardspec
 from eegnetreplication_tpu_torch.parallel.mesh import (
@@ -292,16 +293,31 @@ def cross_subject_summary(fold_test: np.ndarray, min_val_loss: np.ndarray,
     return per_subject, avg_all, std_err, int(np.argmin(min_val_loss))
 
 
+def _check_ckpt_format(ckpt_format: str) -> None:
+    """Reject an unknown format when the protocol starts, not at save time
+    after the whole run trained (the JAX package's check)."""
+    if ckpt_format not in ("npz", "orbax"):
+        raise ValueError(
+            f"Unknown ckpt_format {ckpt_format!r}; expected 'npz' or 'orbax'")
+
+
 def save_model(state_dict: dict, model: nn.Module, model_name: str,
-               path: Path) -> None:
-    """The native ``.npz`` beside ``path`` with the geometry the loaders
-    read, and for an EEGNet the reference's ``.pth`` at ``path`` (the JAX
-    ``_save_model``: the reference has no baseline to load a ``.pth``)."""
+               path: Path, ckpt_format: str = "npz") -> None:
+    """The native artifact beside ``path`` with the geometry the loaders
+    read (``ckpt_format`` ``"npz"``: one ``.npz`` file; ``"orbax"``: an
+    Orbax checkpoint directory ``.orbax``), and for an EEGNet the
+    reference's ``.pth`` at ``path`` (the JAX ``_save_model``: the
+    reference has no baseline to load a ``.pth``)."""
+    _check_ckpt_format(ckpt_format)
     if isinstance(model, EEGNet):
         ckpt_lib.save_pth(path, state_dict)
-    ckpt_lib.save_checkpoint(
-        path.with_suffix(".npz"), state_dict,
-        metadata={"model": model_name, **model.metadata()})
+    metadata = {"model": model_name, **model.metadata()}
+    if ckpt_format == "orbax":
+        orbax_io.save_orbax_checkpoint(path.with_suffix(".orbax"),
+                                       state_dict, metadata=metadata)
+    else:
+        ckpt_lib.save_checkpoint(path.with_suffix(".npz"), state_dict,
+                                 metadata=metadata)
 
 
 # --------------------------------------------------------------------------
@@ -1107,13 +1123,15 @@ def within_subject_training(epochs: int | None = None, *,
                             device: torch.device | str | None = None,
                             fold_batch: int | None = None,
                             checkpoint_every: int | None = None,
-                            resume: bool = False, mesh: Mesh | None = None
+                            resume: bool = False, mesh: Mesh | None = None,
+                            ckpt_format: str = "npz"
                             ) -> ProtocolResult | None:
     """Within-subject protocol: per subject, 4-fold CV over both sessions,
     on ``device`` (the card unless ``EEGTPU_PLATFORM=cpu``), through
     :func:`run_folds`, in the numerics scope of ``config.precision``;
     under ``mesh`` sharded over its ranks (``None`` on every rank but the
     first; module docstring)."""
+    _check_ckpt_format(ckpt_format)
     epochs = epochs if epochs is not None else config.epochs
     paths = paths or Paths.from_here()
     device = resolve_device(device)
@@ -1152,7 +1170,8 @@ def within_subject_training(epochs: int | None = None, *,
         if save_models:
             paths.models.mkdir(parents=True, exist_ok=True)
             save_model(best_states[-1], model, model_name,
-                       paths.models / f"subject_{s:02d}_best_model.pth")
+                       paths.models / f"subject_{s:02d}_best_model.pth",
+                       ckpt_format)
 
     avg = float(np.mean(per_subject_test_acc))
     logger.info("Overall Average Test Accuracy across all subjects: %.2f%%",
@@ -1176,7 +1195,8 @@ def cross_subject_training(epochs: int | None = None, *,
                            device: torch.device | str | None = None,
                            fold_batch: int | None = None,
                            checkpoint_every: int | None = None,
-                           resume: bool = False, mesh: Mesh | None = None
+                           resume: bool = False, mesh: Mesh | None = None,
+                           ckpt_format: str = "npz"
                            ) -> ProtocolResult | None:
     """Cross-subject protocol: per held-out subject,
     ``config.cs_repeats_per_subject`` folds of 5 train and the rest
@@ -1184,6 +1204,7 @@ def cross_subject_training(epochs: int | None = None, *,
     of ``fold_batch`` folds (default: :func:`_cs_auto_fold_batch`, of a
     rank's block under ``mesh``; ``None`` on every rank but the first), in
     the numerics scope of ``config.precision``."""
+    _check_ckpt_format(ckpt_format)
     epochs = epochs if epochs is not None else config.epochs
     paths = paths or Paths.from_here()
     device = resolve_device(device)
@@ -1217,7 +1238,8 @@ def cross_subject_training(epochs: int | None = None, *,
     if save_models:
         paths.models.mkdir(parents=True, exist_ok=True)
         save_model(best_state, setup.model, model_name,
-                   paths.models / "cross_subject_best_model.pth")
+                   paths.models / "cross_subject_best_model.pth",
+                   ckpt_format)
     return ProtocolResult(
         per_subject, avg_all, [best_state], fold_test, wall, epochs,
         tuple(subjects), fold_epochs_trained=trained,

@@ -164,7 +164,8 @@ def test_truncated_npz_raises_and_stays(tmp_path):
 def test_non_eegnet_and_orbax_checkpoints_are_refused(tmp_path):
     """A checkpoint's ``model`` picks the registry's architecture: EEGNet
     weights labelled ``shallow_convnet`` do not load into one, while a
-    ShallowConvNet the JAX package wrote does; Orbax stays refused."""
+    ShallowConvNet the JAX package wrote does; a directory that is no
+    Orbax checkpoint (no ``metadata.json``) is refused loudly."""
     c, t, f1, d = PRODUCT
     params, bs = jax_variables(c, t, f1, d)
     path = jax_ckpt.save_checkpoint(
@@ -188,7 +189,7 @@ def test_non_eegnet_and_orbax_checkpoints_are_refused(tmp_path):
     assert type(model).__name__ == "ShallowConvNet"
     assert (model.n_channels, model.n_times) == (6, 64)
     (tmp_path / "orbax_dir").mkdir()
-    with pytest.raises(ValueError, match="Orbax"):
+    with pytest.raises(FileNotFoundError, match="no metadata.json"):
         engine.load_model_from_checkpoint(tmp_path / "orbax_dir",
                                           device="cpu")
 

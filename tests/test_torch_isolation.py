@@ -1,8 +1,10 @@
 """The torch port stands alone: no JAX, no JAX package, no CPU fallback.
 
 Every module of ``eegnetreplication_tpu_torch`` (and ``chip_smoke.py``)
-must import in a process where ``jax``, ``flax``, ``optax`` and
-``eegnetreplication_tpu`` cannot be imported, and the port's entry points
+must import in a process where ``jax``, ``flax``, ``optax``,
+``eegnetreplication_tpu``, ``orbax``, ``tensorstore`` and ``zstandard``
+cannot be imported (the committed JAX-written Orbax fixture loads there,
+and a background save round-trips), and the port's entry points
 must refuse a host without CUDA unless ``EEGTPU_PLATFORM=cpu`` asks for the
 CPU.  The mesh's rank processes run there too: the blocked process forks a
 world of four ranks (``utils/mesh_drill.py``: the DP step, ZeRO, the
@@ -29,7 +31,8 @@ from eegnetreplication_tpu_torch.utils import device as device_lib
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "eegnetreplication_tpu_torch"
-BLOCKED = ("jax", "flax", "optax", "eegnetreplication_tpu")
+BLOCKED = ("jax", "flax", "optax", "eegnetreplication_tpu", "orbax",
+           "tensorstore", "zstandard")
 
 _CHILD = textwrap.dedent("""
     import importlib, importlib.util, pkgutil, sys
@@ -83,7 +86,8 @@ _CHILD = textwrap.dedent("""
                  "analysis.runner", "analysis.cli", "analysis.jit_purity",
                  "analysis.journal_events", "analysis.inject_sites",
                  "analysis.spawn_args", "analysis.lock_discipline",
-                 "analysis.single_source"):
+                 "analysis.single_source", "utils.zstd", "training.ocdbt",
+                 "training.orbax_io"):
         assert "eegnetreplication_tpu_torch." + name in names, name
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   {chip_smoke!r})
@@ -91,6 +95,18 @@ _CHILD = textwrap.dedent("""
     leaked = sorted(m for m in sys.modules if blocked(m))
     assert not leaked, leaked
     print("imported", len(names))
+
+    import tempfile
+    from eegnetreplication_tpu_torch.training import orbax_io
+    sd, meta = orbax_io.load_orbax_checkpoint({fixture!r})
+    with tempfile.TemporaryDirectory() as tmp:
+        orbax_io.save_orbax_checkpoint(tmp + "/ck", sd, meta,
+                                       background=True)
+        orbax_io.wait_for_async_saves()
+        assert orbax_io.load_orbax_checkpoint(tmp + "/ck")[1] == meta
+    leaked = sorted(m for m in sys.modules if blocked(m))
+    assert not leaked, leaked
+    print("orbax fixture", meta["model"], len(sd))
 
     from eegnetreplication_tpu_torch.models import EEGNet
     from eegnetreplication_tpu_torch.serve.engine import InferenceEngine
@@ -131,14 +147,17 @@ def _env(**extra):
 
 
 def test_port_imports_without_jax_and_refuses_a_host_without_cuda():
-    code = _CHILD.format(blocked=BLOCKED,
-                         chip_smoke=str(REPO / "chip_smoke.py"))
+    code = _CHILD.format(
+        blocked=BLOCKED, chip_smoke=str(REPO / "chip_smoke.py"),
+        fixture=str(REPO / "tests" / "fixtures" / "orbax_eegnet"
+                    / "eegnet.orbax"))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     n_modules = int(out.stdout.split("imported ", 1)[1].split()[0])
     assert n_modules >= 22
     assert "engine refused: CUDA is not available" in out.stdout
+    assert "orbax fixture eegnet 21" in out.stdout
     assert "ranks ran: ['2', '4']" in out.stdout
 
 
