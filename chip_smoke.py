@@ -390,6 +390,12 @@ at a zoo chunk (128 trials over nine sets); the timing phase times it at
 (512, 22, 257) and (2304, 22, 257), the 8- and 36-fold validation batches,
 beside its plain version, a grouped cuDNN composite and its bound.
 
+A request of the HTTP helpers that times out (``_timed_out``) prints,
+on stderr before the run fails, its kind (request not read: the connect
+or the send timed out; no reply), the port's sockets, the owning
+server's all-thread dump (``SIGUSR1``), a ``/healthz`` probe on a new
+connection and the server's journal and stderr tails.
+
 The last lines are the ``{"kernels": [...]}`` record and, last of all,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 result line.  Nothing here imports JAX or the JAX package.
@@ -511,6 +517,15 @@ CS_REPORT_KEYS = {
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+class RequestTimedOut(SmokeFailure):
+    """A request that timed out; ``diagnosis`` is what
+    ``resil/stackdump.py::diagnose`` found."""
+
+    def __init__(self, diagnosis):
+        super().__init__(diagnosis.summary)
+        self.diagnosis = diagnosis
 
 
 def check(cond: bool, msg: str) -> None:
@@ -830,8 +845,41 @@ def phase_forward(torch, dev):
     return worst
 
 
-def _post(url, body: bytes, ctype: str, timeout=60.0, headers=None):
-    """POST; ``(status, JSON reply)``, an HTTP error's too."""
+# The process behind each URL that _await_url saw come up: host:port ->
+# (process, its stderr file).  A request to it that times out dumps its
+# threads (_timed_out).
+_URL_OWNERS: dict = {}
+_DIAGNOSIS_LOCK = threading.Lock()
+
+
+def _timed_out(url: str, exc: OSError) -> None:
+    """Where ``exc`` is a request's timeout, print to stderr the diagnosis
+    of the server behind ``url`` (``resil/stackdump.py``: the timeout's
+    kind, the port's TCP queues, the owning process's all-thread dump, a
+    ``/healthz`` probe on a new connection, its journal and stderr tails)
+    and raise :class:`RequestTimedOut`; else return, and the caller
+    re-raises."""
+    from eegnetreplication_tpu_torch.resil import stackdump
+
+    kind = stackdump.timeout_kind(exc)
+    if kind is None:
+        return
+    proc, stderr_path = _URL_OWNERS.get(urllib.parse.urlsplit(url).netloc,
+                                        (None, None))
+    # A process already reaped may have passed its pid on: signal none.
+    pid = proc.pid if proc is not None and proc.returncode is None else None
+    with _DIAGNOSIS_LOCK:
+        found = stackdump.diagnose(url, kind, exc, pid=pid,
+                                   stderr_path=stderr_path)
+        print(found.text, file=sys.stderr, flush=True)
+    raise RequestTimedOut(found) from exc
+
+
+def _post(url, body: bytes, ctype: str, timeout=60.0, headers=None,
+          diagnose=True):
+    """POST; ``(status, JSON reply)``, an HTTP error's too.  A timeout
+    fails through :func:`_timed_out` unless ``diagnose`` is false (a
+    caller that expects it)."""
     req = urllib.request.Request(url, data=body, method="POST",
                                  headers={"Content-Type": ctype,
                                           **(headers or {})})
@@ -840,11 +888,20 @@ def _post(url, body: bytes, ctype: str, timeout=60.0, headers=None):
             return resp.status, json.loads(resp.read().decode())
     except urllib.error.HTTPError as exc:
         return exc.code, json.loads(exc.read().decode())
+    except OSError as exc:
+        if diagnose:
+            _timed_out(url, exc)
+        raise
 
 
-def _get(url, timeout=30.0):
-    with urllib.request.urlopen(url, timeout=timeout) as resp:
-        return resp.status, json.loads(resp.read().decode())
+def _get(url, timeout=30.0, diagnose=True):
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read().decode())
+    except OSError as exc:
+        if diagnose:
+            _timed_out(url, exc)
+        raise
 
 
 def _npz_body(np, x) -> bytes:
@@ -895,7 +952,9 @@ def _await_url(started, prefix: str, timeout: float) -> str:
                 f"{proc.args[3]} exited {proc.wait()} before serving:\n"
                 + log_path.read_text()[-4000:])
         if line.startswith(prefix):
-            return line[len(prefix):].split()[0]
+            url = line[len(prefix):].split()[0]
+            _URL_OWNERS[urllib.parse.urlsplit(url).netloc] = (proc, log_path)
+            return url
 
 
 def _start_server(args: list, work: Path, env: dict, name: str = "serve"):
@@ -3335,8 +3394,12 @@ def max_sm_clock_ghz() -> float:
 
 
 def _get_bytes(url, timeout=60.0) -> bytes:
-    with urllib.request.urlopen(url, timeout=timeout) as resp:
-        return resp.read()
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return resp.read()
+    except OSError as exc:
+        _timed_out(url, exc)
+        raise
 
 
 def _k2s_against_plain(torch, np, dev) -> dict:
@@ -3967,8 +4030,12 @@ def _graph_phase(torch, np, dev) -> dict:
 
 def _get_text(url, headers=None, timeout=30.0) -> str:
     req = urllib.request.Request(url, headers=headers or {})
-    with urllib.request.urlopen(req, timeout=timeout) as resp:
-        return resp.read().decode()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.read().decode()
+    except OSError as exc:
+        _timed_out(url, exc)
+        raise
 
 
 def _prom_value(text: str, series: str) -> float:
@@ -4893,7 +4960,7 @@ def _free_port() -> int:
 
 def _healthy(url: str) -> bool:
     try:
-        return _get(url + "/healthz", timeout=2.0)[0] == 200
+        return _get(url + "/healthz", timeout=2.0, diagnose=False)[0] == 200
     except (OSError, ValueError):
         return False
 
@@ -4947,7 +5014,8 @@ def _supervised_server(torch, np, work: Path, env: dict) -> dict:
         def stall():
             try:
                 stalled.append(_post(url + "/predict", body,
-                                     "application/json", timeout=120))
+                                     "application/json", timeout=120,
+                                     diagnose=False))
             except (OSError, ValueError) as exc:
                 stalled.append(exc)
 
@@ -5790,8 +5858,8 @@ def _environ(**updates):
                 os.environ[k] = v
 
 
-def _post_raw(url, body: bytes, ctype: str, timeout=60.0) -> tuple[int,
-                                                                   bytes]:
+def _post_raw(url, body: bytes, ctype: str, timeout=60.0,
+              diagnose=True) -> tuple[int, bytes]:
     req = urllib.request.Request(url, data=body, method="POST",
                                  headers={"Content-Type": ctype})
     try:
@@ -5799,6 +5867,10 @@ def _post_raw(url, body: bytes, ctype: str, timeout=60.0) -> tuple[int,
             return resp.status, resp.read()
     except urllib.error.HTTPError as exc:
         return exc.code, exc.read()
+    except OSError as exc:
+        if diagnose:
+            _timed_out(url, exc)
+        raise
 
 
 def _start_fleet(args: list, work: Path, env: dict, name: str):
@@ -6931,7 +7003,7 @@ class _LeaderLoad(_HttpLoad):
                 t_try = time.perf_counter()
                 try:
                     status, _ = _post_raw(url + "/predict", body, self.ctype,
-                                          timeout=15.0)
+                                          timeout=15.0, diagnose=False)
                 except (OSError, http.client.HTTPException) as exc:
                     status = None
                     last = (f"{type(exc).__name__} after "

@@ -58,7 +58,7 @@ from pathlib import Path
 
 from eegnetreplication_tpu_torch.obs import journal as obs_journal
 from eegnetreplication_tpu_torch.resil import heartbeat as hb
-from eegnetreplication_tpu_torch.resil import preempt
+from eegnetreplication_tpu_torch.resil import preempt, stackdump
 from eegnetreplication_tpu_torch.resil import retry as resil_retry
 from eegnetreplication_tpu_torch.utils.logging import logger
 
@@ -766,6 +766,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    stackdump.install()
     parser = build_parser()
     args = parser.parse_args(argv)
     cmd = list(args.cmd)

@@ -38,7 +38,7 @@ from pathlib import Path
 
 from eegnetreplication_tpu_torch.obs import journal as obs_journal
 from eegnetreplication_tpu_torch.obs import trace
-from eegnetreplication_tpu_torch.resil import preempt, supervise
+from eegnetreplication_tpu_torch.resil import preempt, stackdump, supervise
 from eegnetreplication_tpu_torch.serve.cells.front import CellFront
 from eegnetreplication_tpu_torch.serve.cells.membership import CellMember
 from eegnetreplication_tpu_torch.serve.fleet.service import free_port
@@ -141,6 +141,7 @@ def spawn_cells(checkpoint: str, n: int, *, run_dir: Path, cells_dir: Path,
 def main(argv=None) -> int:
     from eegnetreplication_tpu_torch.utils.device import platform_device
 
+    stackdump.install()
     parser = argparse.ArgumentParser(
         prog="python -m eegnetreplication_tpu_torch.serve.cells",
         description="Multi-cell EEG serving: N independent cells behind a "

@@ -43,7 +43,7 @@ from pathlib import Path
 from eegnetreplication_tpu_torch.obs import journal as obs_journal
 from eegnetreplication_tpu_torch.obs import trace
 from eegnetreplication_tpu_torch.obs.stats import percentile
-from eegnetreplication_tpu_torch.resil import preempt, supervise
+from eegnetreplication_tpu_torch.resil import preempt, stackdump, supervise
 from eegnetreplication_tpu_torch.serve.admission import ArrivalWindow
 from eegnetreplication_tpu_torch.serve.service import (
     PASSTHROUGH_HEADERS,
@@ -808,6 +808,7 @@ class ReplicaScaler:
 def main(argv=None) -> int:
     from eegnetreplication_tpu_torch.utils.device import platform_device
 
+    stackdump.install()
     # The router runs no model: this only refuses a host without CUDA
     # (unless EEGTPU_PLATFORM=cpu) before any replica is spawned.  The
     # replicas inherit the caller's environment, platform included.

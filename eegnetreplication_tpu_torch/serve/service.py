@@ -131,7 +131,7 @@ from eegnetreplication_tpu_torch.ops.fused_eegnet import (
     block1_stacked,
 )
 from eegnetreplication_tpu_torch.resil import heartbeat as hb
-from eegnetreplication_tpu_torch.resil import inject, preempt
+from eegnetreplication_tpu_torch.resil import inject, preempt, stackdump
 from eegnetreplication_tpu_torch.resil import retry as resil_retry
 from eegnetreplication_tpu_torch.resil.breaker import CircuitBreaker
 from eegnetreplication_tpu_torch.resil.integrity import IntegrityError
@@ -176,6 +176,9 @@ from eegnetreplication_tpu_torch.utils.logging import logger
 REQUEST_TIMEOUT_S = 30.0
 # How long stop() waits for in-flight handler threads after the drain.
 HANDLER_DRAIN_S = 15.0
+# How long a connection waits, after its last reply, for its client to
+# close it first (JsonRequestHandler.handle).
+CLIENT_CLOSE_WAIT_S = 2.0
 
 # A device hiccup is worth two spaced re-runs of the same small batch;
 # anything deterministic fails the batch at once.
@@ -794,6 +797,31 @@ class JsonRequestHandler(BaseHTTPRequestHandler):
     # would hold the body until the client's delayed ACK of the headers.
     # The reply bytes are the same.
     disable_nagle_algorithm = True
+    # Set by a handler that cut its reply short on purpose: the connection
+    # closes at once instead of waiting for the client.
+    close_at_once = False
+
+    def handle(self) -> None:
+        """Serve the connection's requests, then let the client close it
+        first (up to :data:`CLIENT_CLOSE_WAIT_S`).  The side that closes a
+        TCP connection first holds its 4-tuple in TIME_WAIT for a minute.
+        Held by the client, it keeps that client port from being handed
+        out for this server again.  Held here, a later connection that
+        draws the same client port meets it, and a network stack that
+        neither takes that SYN as a new connection nor lets the client's
+        RST end the TIME_WAIT (gVisor's netstack does neither) drops the
+        SYN until the minute is out: the client's connect times out on an
+        idle server.  A client that asked ``Connection: close`` closes
+        as soon as it has read the reply's Content-Length."""
+        super().handle()
+        if self.close_at_once:
+            return
+        try:
+            self.connection.settimeout(CLIENT_CLOSE_WAIT_S)
+            while self.connection.recv(65536):
+                pass
+        except OSError:
+            pass
 
     def log_message(self, fmt, *args):  # noqa: A003 — stdlib signature
         logger.debug("serve http: " + fmt, *args)
@@ -844,7 +872,7 @@ class _ServeHandler(JsonRequestHandler):
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body[: len(body) // 2])
-            self.close_connection = True
+            self.close_connection = self.close_at_once = True
             return
         super()._reply_bytes(code, body, content_type)
 
@@ -1447,6 +1475,7 @@ def serve_until_preempted(app: ServeApp, poll_s: float = 0.2,
 
 
 def main(argv=None) -> int:
+    stackdump.install()
     device = select_device()
     parser = argparse.ArgumentParser(
         description="Online EEG inference service (torch port: bucketed "
