@@ -26,20 +26,32 @@ under journal files or run directories, :func:`build_traces` links them
 parent to child across processes (the router's ``router.dispatch`` parents
 the replica's ``replica.request``) into :class:`TraceTree` objects, and
 :func:`chrome_trace_events` renders them for Perfetto.
+
+The in-process half times the training path's layers, where a journal
+line a span would cost more than the work: :func:`layer` spans (the same
+fields: name, id, parent id, start, duration) and :func:`count` counters
+go to a bounded ring in memory (:class:`LayerRecord`), on the clock
+``torch.profiler`` stamps its events with, and are read in the same
+process (:func:`layer_spans`, :func:`layer_counts`).  Only while a
+profiler runs does a span also open a ``record_function`` range and, on a
+CUDA device, record timing events.
 """
 
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import contextvars
+import itertools
 import os
 import random
+import sys
 import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Iterator
+from typing import Any, Iterator, NamedTuple
 
 from eegnetreplication_tpu_torch.obs import journal as obs_journal
 
@@ -438,3 +450,173 @@ def chrome_trace_events(trees: dict[str, TraceTree]) -> list[dict]:
                        "tid": tid,
                        "args": {"name": f"trace {tid_names[tid]}"}})
     return events
+
+
+# ---------------------------------------------------------------------------
+# Layer spans: the training path's own record, in memory.
+# ---------------------------------------------------------------------------
+
+# Spans a process keeps: an epoch of the 90-fold cross-subject protocol
+# makes 96 (23 train steps of four), so a 20 s window about 2,400; beyond
+# the bound the oldest go first, and are counted.
+LAYER_RING = 65_536
+
+
+class LayerSpan(NamedTuple):
+    """One finished :func:`layer` span, the fields of a request span:
+    ``start_ns`` and ``end_ns`` on ``time.time_ns()``, the clock
+    ``torch.profiler`` stamps its events with; ``device_ms`` the device's
+    time between the span's CUDA events (``None`` where it recorded none:
+    ``device`` not a CUDA device, or no profiler running)."""
+
+    name: str
+    span_id: int
+    parent_span_id: int | None
+    start_ns: int
+    end_ns: int
+    device_ms: float | None
+
+    @property
+    def dur_ns(self) -> int:
+        return self.end_ns - self.start_ns
+
+
+class LayerRecord:
+    """A bounded ring of finished layer spans and a table of counters.
+
+    Appending is one ``deque.append``; a full ring drops its oldest span,
+    counts it (:attr:`dropped`), and remembers the newest start it dropped,
+    so a reader can tell whether an interval it reads is whole
+    (:meth:`lost_since`).  The training path records on one thread."""
+
+    def __init__(self, capacity: int = LAYER_RING):
+        self._ring: collections.deque = collections.deque(maxlen=capacity)
+        self._counts: dict[str, int] = {}
+        self.dropped = 0
+        self._dropped_start = -1
+
+    def add(self, rec: tuple) -> None:
+        ring = self._ring
+        if len(ring) == ring.maxlen:
+            self.dropped += 1
+            self._dropped_start = max(self._dropped_start, ring[0][3])
+        ring.append(rec)
+
+    def count(self, name: str, n: int = 1) -> None:
+        self._counts[name] = self._counts.get(name, 0) + n
+
+    def spans(self) -> list[LayerSpan]:
+        """The ring, oldest first (in the order the spans ended).  Read
+        ``device_ms`` after the device has finished the spans' work: an
+        event the device has not reached gives ``None``."""
+        out = []
+        for name, sid, parent, t0, t1, events in self._ring:
+            device_ms = None
+            if events is not None and events[1].query():
+                device_ms = events[0].elapsed_time(events[1])
+            out.append(LayerSpan(name, sid, parent, t0, t1, device_ms))
+        return out
+
+    def counts(self) -> dict[str, int]:
+        return dict(self._counts)
+
+    def lost_since(self, start_ns: int) -> bool:
+        """Whether the ring dropped a span that started at ``start_ns`` or
+        later."""
+        return self._dropped_start >= start_ns
+
+    def reset(self) -> None:
+        self._ring.clear()
+        self._counts.clear()
+        self.dropped = 0
+        self._dropped_start = -1
+
+
+_LAYERS = LayerRecord()
+_LAYER_IDS = itertools.count(1)
+_LAYER_PARENT: contextvars.ContextVar[int | None] = contextvars.ContextVar(
+    "eegtpu_torch_layer_span", default=None)
+
+
+class layer:
+    """``with layer("train.step"):`` times one layer's work as a child of
+    the enclosing layer span and appends it to the process's
+    :class:`LayerRecord` when the block ends (an exception too).
+
+    Without a running ``torch.profiler`` that is all: two clock reads and
+    an append.  While one runs, the span also opens a ``record_function``
+    range of its name, so a ``--profileDir`` trace shows it over the
+    kernels it launched, and with ``device`` a CUDA device it records a
+    timing event on that device's current stream at each end, whose
+    interval becomes :attr:`LayerSpan.device_ms`."""
+
+    __slots__ = ("_name", "_device", "_id", "_parent", "_token", "_t0",
+                 "_range", "_start")
+
+    def __init__(self, name: str, *, device=None):
+        self._name = name
+        self._device = device
+
+    def __enter__(self) -> "layer":
+        self._id = sid = next(_LAYER_IDS)
+        self._parent = _LAYER_PARENT.get()
+        self._token = _LAYER_PARENT.set(sid)
+        self._range = self._start = None
+        self._t0 = time.time_ns()
+        # torch is imported by whatever runs the layers; a process without
+        # it has no profiler to feed.
+        torch = sys.modules.get("torch")
+        if torch is not None and torch.autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(self._name)
+            self._range.__enter__()
+            device = self._device
+            if device is not None and device.type == "cuda":
+                self._start = torch.cuda.Event(enable_timing=True)
+                self._start.record(torch.cuda.current_stream(device))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        events = None
+        if self._range is not None:
+            if self._start is not None:
+                torch = sys.modules["torch"]
+                end = torch.cuda.Event(enable_timing=True)
+                end.record(torch.cuda.current_stream(self._device))
+                events = (self._start, end)
+            self._range.__exit__(*exc)
+        t1 = time.time_ns()
+        _LAYER_PARENT.reset(self._token)
+        _LAYERS.add((self._name, self._id, self._parent, self._t0, t1,
+                     events))
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the process's counter ``name``."""
+    _LAYERS.count(name, n)
+
+
+def layer_spans() -> list[LayerSpan]:
+    """The process's finished layer spans (:meth:`LayerRecord.spans`)."""
+    return _LAYERS.spans()
+
+
+def layer_counts() -> dict[str, int]:
+    """The process's counters since it started (or :func:`reset_layers`)."""
+    return _LAYERS.counts()
+
+
+def layer_dropped() -> int:
+    """How many spans the process's ring has dropped."""
+    return _LAYERS.dropped
+
+
+def layer_lost_since(start_ns: int) -> bool:
+    """Whether the process's ring dropped a span that started at
+    ``start_ns`` or later: a reader of that interval reads it whole only
+    when this is false."""
+    return _LAYERS.lost_since(start_ns)
+
+
+def reset_layers() -> None:
+    """Empty the process's ring and counters."""
+    _LAYERS.reset()

@@ -40,6 +40,7 @@ from typing import Mapping
 import torch
 import torch.nn.functional as F
 
+from eegnetreplication_tpu_torch.obs import trace as obs_trace
 from eegnetreplication_tpu_torch.ops import build
 
 TEMPORAL_K = 32
@@ -265,15 +266,17 @@ def _check_index_range(idx: torch.Tensor, g: int) -> None:
         idx._eeg_checked_range = stamp
 
 
-def _count_launch(fn) -> None:
-    """Count one launch of ``fn``'s kernel in ``fn.launches``.  Inside a
-    CUDA graph capture nothing runs yet: the launch goes to
-    ``fn.captured``, and whoever replays the graph counts it per replay
-    (``serve/engine.py``)."""
+def _count_launch(fn, counter: str | None = None) -> None:
+    """Count one launch of ``fn``'s kernel in ``fn.launches``, and in the
+    process's layer counter ``counter`` when given.  Inside a CUDA graph
+    capture nothing runs yet: the launch goes to ``fn.captured``, and
+    whoever replays the graph counts it per replay (``serve/engine.py``)."""
     if torch.cuda.is_current_stream_capturing():
         fn.captured += 1
     else:
         fn.launches += 1
+        if counter is not None:
+            obs_trace.count(counter)
 
 
 def _launch_error(lib, err: int) -> RuntimeError:
@@ -326,7 +329,8 @@ def block1_stacked(x, S, W, A, B, idx, *, idx_checked: bool = False):
     :func:`block1_stacked_reference`.  A CUDA ``x`` launches K1-stacked
     (``csrc/block1_stacked.cu``, sized by :func:`stacked_plan`) on the
     current stream (one launch per call, counted in
-    ``block1_stacked.launches`` apart from ``block1.launches``, or in
+    ``block1_stacked.launches`` apart from ``block1.launches`` and in the
+    layer counter ``k1_stacked.launches`` (``obs/trace.py::count``), or in
     ``block1_stacked.captured`` inside a graph capture) after checking
     device, dtype, shape, contiguity and ``0 <= idx < G``; anything the
     kernel does not take raises.  ``idx_checked=True`` skips the range
@@ -360,7 +364,7 @@ def block1_stacked(x, S, W, A, B, idx, *, idx_checked: bool = False):
         raise RuntimeError(
             f"block1_stacked: K1-stacked launch failed with CUDA error {err} "
             f"({lib.eeg_block1_stacked_error_string(err).decode()})")
-    _count_launch(block1_stacked)
+    _count_launch(block1_stacked, "k1_stacked.launches")
     return out
 
 

@@ -51,6 +51,11 @@ validation or test batch, is one pass for all G folds (``training/steps.py``).
   as one process would, and each rank draws its own dropout stream
   (:func:`dropout_seed`).  The batch size must split evenly
   (:func:`mesh_data_sharding`).
+- Each epoch records its layers (``obs/trace.py::layer``): ``train.epoch``
+  around ``train.slot_source`` (the slot source's call),
+  ``train.slot_copy`` (the slots' copy to the device), the train steps'
+  own ``train.step`` spans (``training/steps.py``) and ``train.validate``
+  (the validation batches and the best-state update).
 - :meth:`FoldTrainer.carry` is everything a run needs to continue (the
   current and best states, best accuracy, minimum validation loss, the
   per-epoch history and the dropout generator's state), by name;
@@ -72,6 +77,7 @@ import torch
 
 from torch import nn
 
+from eegnetreplication_tpu_torch.obs import trace as obs_trace
 from eegnetreplication_tpu_torch.ops.fused_eegnet import fold_index
 from eegnetreplication_tpu_torch.parallel.mesh import DATA_AXIS, local_batch
 from eegnetreplication_tpu_torch.resil import heartbeat, preempt
@@ -353,45 +359,55 @@ class FoldTrainer:
             heartbeat.beat("compile", epochs_done=len(self.history),
                            n_folds=n_folds)
             self._beaten = True
-        gather, weights = self.slot_source(len(self.history))
-        device = self.pool_x.device
-        gather = gather.to(device, torch.int64)
-        weights = weights.to(device, torch.float32)
-        loss_sum = torch.zeros(self.spec.n_folds, device=device)
-        gnorm_sum = torch.zeros_like(loss_sum)
-        checked = _DEBUG_NANS.get()
-        for step in range(self.train_steps):
-            x, y, w = self._batch(gather, weights, step)
-            if checked:
-                self.state, loss, gnorm = self._checked_step(step, x, y, w)
-            else:
-                self.state, loss, gnorm = steps_lib.train_step(
-                    self.model, self.state, x, y, w, **self.step_kw)
-            loss_sum = loss_sum + loss
-            gnorm_sum = gnorm_sum + gnorm
-        # epoch_train_loss = running_loss / len(train_loader) (model.py:171)
-        train_loss = loss_sum / self.real_train_batches
-        grad_norm = gnorm_sum / self.real_train_batches
+        with obs_trace.layer("train.epoch"):
+            with obs_trace.layer("train.slot_source"):
+                gather, weights = self.slot_source(len(self.history))
+            device = self.pool_x.device
+            with obs_trace.layer("train.slot_copy"):
+                gather = gather.to(device, torch.int64)
+                weights = weights.to(device, torch.float32)
+            loss_sum = torch.zeros(self.spec.n_folds, device=device)
+            gnorm_sum = torch.zeros_like(loss_sum)
+            checked = _DEBUG_NANS.get()
+            for step in range(self.train_steps):
+                x, y, w = self._batch(gather, weights, step)
+                if checked:
+                    self.state, loss, gnorm = self._checked_step(step, x, y,
+                                                                 w)
+                else:
+                    self.state, loss, gnorm = steps_lib.train_step(
+                        self.model, self.state, x, y, w, **self.step_kw)
+                loss_sum = loss_sum + loss
+                gnorm_sum = gnorm_sum + gnorm
+            # epoch_train_loss = running_loss / len(train_loader)
+            # (model.py:171)
+            train_loss = loss_sum / self.real_train_batches
+            grad_norm = gnorm_sum / self.real_train_batches
 
-        val_loss_sum = torch.zeros_like(loss_sum)
-        correct = torch.zeros_like(loss_sum)
-        with torch.no_grad():
-            for step in range(self.val_steps):
-                x, y, w = self._batch(self.val_gather, self.val_w, step)
-                loss, hits = steps_lib.eval_step(self.model, self.state, x, y,
-                                                 w, self.fold_idx,
-                                                 self.data_group)
-                val_loss_sum = val_loss_sum + torch.where(
-                    self.val_real[:, step], loss, torch.zeros_like(loss))
-                correct = correct + hits
-        val_loss = val_loss_sum / self.real_val_batches
-        val_acc = 100.0 * correct / torch.clamp(self.spec.val_n, min=1)
+            with obs_trace.layer("train.validate"):
+                val_loss_sum = torch.zeros_like(loss_sum)
+                correct = torch.zeros_like(loss_sum)
+                with torch.no_grad():
+                    for step in range(self.val_steps):
+                        x, y, w = self._batch(self.val_gather, self.val_w,
+                                              step)
+                        loss, hits = steps_lib.eval_step(
+                            self.model, self.state, x, y, w, self.fold_idx,
+                            self.data_group)
+                        val_loss_sum = val_loss_sum + torch.where(
+                            self.val_real[:, step], loss,
+                            torch.zeros_like(loss))
+                        correct = correct + hits
+                val_loss = val_loss_sum / self.real_val_batches
+                val_acc = 100.0 * correct / torch.clamp(self.spec.val_n,
+                                                        min=1)
 
-        improved = val_acc > self.best_acc          # strict >, model.py:180
-        self.best = self.state.select(improved, self.best)
-        self.best_acc = torch.maximum(self.best_acc, val_acc)
-        self.min_val_loss = torch.minimum(self.min_val_loss, val_loss)
-        self.history.append((train_loss, val_loss, val_acc, grad_norm))
+                improved = val_acc > self.best_acc   # strict >, model.py:180
+                self.best = self.state.select(improved, self.best)
+                self.best_acc = torch.maximum(self.best_acc, val_acc)
+                self.min_val_loss = torch.minimum(self.min_val_loss,
+                                                  val_loss)
+            self.history.append((train_loss, val_loss, val_acc, grad_norm))
         heartbeat.beat("step", epochs_done=len(self.history),
                        n_folds=n_folds)
 

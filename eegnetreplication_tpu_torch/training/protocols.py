@@ -25,6 +25,11 @@ Any registered model trains (``models/registry.py``: EEGNet, EEGNet-wide,
 ShallowConvNet, DeepConvNet); only EEGNet's validation and test passes
 launch K1-stacked, and only in the ``"highest"`` numerics mode.
 
+*Spans.*  The set-up records its layers (``obs/trace.py::layer``):
+``setup.pool`` (:func:`build_pool`), ``setup.folds`` (the fold lists),
+``setup.build`` (:meth:`FoldSetup.build`, around ``setup.init_states`` and
+``setup.digest``) and ``setup.trainer`` (:meth:`FoldSetup.trainer`).
+
 *Numerics.*  ``config.precision`` builds the model with the JAX package's
 kwargs for the mode (:func:`_model_kwargs_for_precision`) and runs the
 protocol inside ``utils/device.py::numerics`` (TF32 on the card under
@@ -129,6 +134,7 @@ from torch import nn
 
 from eegnetreplication_tpu_torch.models import EEGNet, get_model
 from eegnetreplication_tpu_torch.obs import journal as obs_journal
+from eegnetreplication_tpu_torch.obs import trace as obs_trace
 from eegnetreplication_tpu_torch.resil import heartbeat, inject, preempt
 from eegnetreplication_tpu_torch.resil import retry as resil_retry
 from eegnetreplication_tpu_torch.training import checkpoint as ckpt_lib
@@ -231,13 +237,14 @@ def build_pool(datasets: list[BCICI2ADataset]
                 ) -> tuple[np.ndarray, np.ndarray, list[np.ndarray]]:
     """Concatenate datasets into one pool; return per-dataset global
     indices."""
-    offsets, cursor = [], 0
-    for d in datasets:
-        offsets.append(np.arange(cursor, cursor + len(d)))
-        cursor += len(d)
-    pool_x = np.concatenate([d.X for d in datasets]).astype(np.float32)
-    pool_y = np.concatenate([d.y for d in datasets]).astype(np.int64)
-    return pool_x, pool_y, offsets
+    with obs_trace.layer("setup.pool"):
+        offsets, cursor = [], 0
+        for d in datasets:
+            offsets.append(np.arange(cursor, cursor + len(d)))
+            cursor += len(d)
+        pool_x = np.concatenate([d.X for d in datasets]).astype(np.float32)
+        pool_y = np.concatenate([d.y for d in datasets]).astype(np.int64)
+        return pool_x, pool_y, offsets
 
 
 def within_subject_folds(offsets: list[np.ndarray],
@@ -245,13 +252,14 @@ def within_subject_folds(offsets: list[np.ndarray],
                          ) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """The ``(train, val, test)`` pool indices of every fold, subjects in
     order and ``config.kfold_splits`` folds each (the reference's order)."""
-    folds = []
-    for g in offsets:
-        for train_val_ids, test_ids in kfold_indices(
-                len(g), config.kfold_splits, config.kfold_seed):
-            train_ids, val_ids = inner_train_val_split(train_val_ids)
-            folds.append((g[train_ids], g[val_ids], g[test_ids]))
-    return folds
+    with obs_trace.layer("setup.folds"):
+        folds = []
+        for g in offsets:
+            for train_val_ids, test_ids in kfold_indices(
+                    len(g), config.kfold_splits, config.kfold_seed):
+                train_ids, val_ids = inner_train_val_split(train_val_ids)
+                folds.append((g[train_ids], g[val_ids], g[test_ids]))
+        return folds
 
 
 def cross_subject_folds(train_off: list[np.ndarray],
@@ -264,19 +272,20 @@ def cross_subject_folds(train_off: list[np.ndarray],
     k-th of all drawing its train and validation subjects from
     ``RandomState(42 + k)``; ``train_off[i]``/``eval_off[i]`` are subject
     ``subjects[i]``'s Train and Eval session indices in the pool."""
-    index = {s: i for i, s in enumerate(subjects)}
-    folds, fold_count = [], 0
-    for s in subjects:
-        for _ in range(config.cs_repeats_per_subject):
-            fold_count += 1
-            tr_subj, va_subj = cross_subject_fold_subjects(
-                s, fold_count, subjects=tuple(subjects),
-                n_train=config.cs_train_subjects)
-            folds.append((
-                np.concatenate([train_off[index[t]] for t in tr_subj]),
-                np.concatenate([train_off[index[v]] for v in va_subj]),
-                eval_off[index[s]]))
-    return folds
+    with obs_trace.layer("setup.folds"):
+        index = {s: i for i, s in enumerate(subjects)}
+        folds, fold_count = [], 0
+        for s in subjects:
+            for _ in range(config.cs_repeats_per_subject):
+                fold_count += 1
+                tr_subj, va_subj = cross_subject_fold_subjects(
+                    s, fold_count, subjects=tuple(subjects),
+                    n_train=config.cs_train_subjects)
+                folds.append((
+                    np.concatenate([train_off[index[t]] for t in tr_subj]),
+                    np.concatenate([train_off[index[v]] for v in va_subj]),
+                    eval_off[index[s]]))
+        return folds
 
 
 def cross_subject_summary(fold_test: np.ndarray, min_val_loss: np.ndarray,
@@ -349,25 +358,29 @@ class FoldSetup:
               pool_y: np.ndarray, *, config: TrainingConfig, seed: int,
               device: torch.device, mesh: Mesh | None = None
               ) -> "FoldSetup":
-        n_real = len(folds)
-        padded = shardspec.padded_folds(n_real, mesh)
-        spec = make_fold_spec(
-            list(folds) + [folds[0]] * (padded - n_real),
-            train_pad=max(len(f[0]) for f in folds),
-            val_pad=max(len(f[1]) for f in folds),
-            test_pad=max(len(f[2]) for f in folds))
-        init = init_fold_states(model, n_real,
-                                torch.Generator().manual_seed(seed))
-        if padded != n_real:
-            pick = torch.tensor(list(range(n_real))
-                                + [0] * (padded - n_real))
-            init = TrainState(init.layout, *(getattr(init, f)[pick]
-                                             for f in _STATE_FIELDS))
-        return cls(model, torch.from_numpy(pool_x).to(device),
-                   torch.from_numpy(pool_y).to(device), spec, init, config,
-                   seed, _pool_digest(pool_x, pool_y), n_real,
-                   list(range(n_real)) + [0] * (padded - n_real),
-                   mesh_data_sharding(mesh, config.batch_size))
+        with obs_trace.layer("setup.build"):
+            n_real = len(folds)
+            padded = shardspec.padded_folds(n_real, mesh)
+            spec = make_fold_spec(
+                list(folds) + [folds[0]] * (padded - n_real),
+                train_pad=max(len(f[0]) for f in folds),
+                val_pad=max(len(f[1]) for f in folds),
+                test_pad=max(len(f[2]) for f in folds))
+            with obs_trace.layer("setup.init_states"):
+                init = init_fold_states(model, n_real,
+                                        torch.Generator().manual_seed(seed))
+            if padded != n_real:
+                pick = torch.tensor(list(range(n_real))
+                                    + [0] * (padded - n_real))
+                init = TrainState(init.layout, *(getattr(init, f)[pick]
+                                                 for f in _STATE_FIELDS))
+            with obs_trace.layer("setup.digest"):
+                digest = _pool_digest(pool_x, pool_y)
+            return cls(model, torch.from_numpy(pool_x).to(device),
+                       torch.from_numpy(pool_y).to(device), spec, init,
+                       config, seed, digest, n_real,
+                       list(range(n_real)) + [0] * (padded - n_real),
+                       mesh_data_sharding(mesh, config.batch_size))
 
     @property
     def n_folds(self) -> int:
@@ -383,15 +396,17 @@ class FoldSetup:
         ids = (range(lo, hi) if self.fold_ids is None
                else self.fold_ids[lo:hi])
         data = self.data_group
-        return FoldTrainer(
-            self.model, self.pool_x, self.pool_y, self.spec.folds(lo, hi),
-            self.init.folds(lo, hi), batch_size=cfg.batch_size,
-            learning_rate=cfg.learning_rate, adam_eps=cfg.adam_eps,
-            maxnorm_mode=cfg.maxnorm_mode, shuffle_seed=self.seed + 1,
-            fold_ids=ids, data_group=data,
-            dropout_generator=torch.Generator(
-                device=self.device).manual_seed(dropout_seed(
-                    self.seed, lo, data.index if data is not None else 0)))
+        with obs_trace.layer("setup.trainer"):
+            return FoldTrainer(
+                self.model, self.pool_x, self.pool_y,
+                self.spec.folds(lo, hi), self.init.folds(lo, hi),
+                batch_size=cfg.batch_size, learning_rate=cfg.learning_rate,
+                adam_eps=cfg.adam_eps, maxnorm_mode=cfg.maxnorm_mode,
+                shuffle_seed=self.seed + 1, fold_ids=ids, data_group=data,
+                dropout_generator=torch.Generator(
+                    device=self.device).manual_seed(dropout_seed(
+                        self.seed, lo,
+                        data.index if data is not None else 0)))
 
 
 _STATE_FIELDS = ("params", "stats", "mu", "nu", "count")

@@ -29,6 +29,12 @@ folds share nothing), and Adam is a handful of operations on one tensor.
   of the stacked K1 kernel (``ops/fused_eegnet.py::block1_stacked``); a
   baseline, or an EEGNet of another numerics mode than f32 ``"highest"``,
   runs its plain stacked eval forward, as the JAX package's gate has it.
+- *Spans.*  :func:`train_step` records ``train.step`` with its three
+  phases inside (``obs/trace.py::layer``): ``train.step.forward`` (the
+  stacked forward and the loss), ``train.step.backward`` (the gradient)
+  and ``train.step.optimizer`` (everything after it), each with device
+  timing events on the data's device while a profiler runs;
+  :func:`eval_step` counts ``eval.steps``.
 - *Numerics.*  A bf16 model's forward returns f32 logits, so the loss,
   the gradients (of the f32 parameters), Adam, the BatchNorm statistics
   and the validation sums stay f32 in every mode.
@@ -54,6 +60,7 @@ import torch
 from torch import nn
 
 from eegnetreplication_tpu_torch.models.eegnet import MAXNORM_LIMITS, EEGNet
+from eegnetreplication_tpu_torch.obs import trace as obs_trace
 from eegnetreplication_tpu_torch.ops.fused_eegnet import (
     fused_eval_forward_stacked,
 )
@@ -286,42 +293,50 @@ def train_step(model: nn.Module, state: TrainState, x: torch.Tensor,
     if maxnorm_mode not in MAXNORM_MODES:
         raise ValueError(f"maxnorm_mode must be 'reference' or 'paper'; "
                          f"got {maxnorm_mode!r}")
-    layout = state.layout
-    bn_group = bn_group_of(model, data_group)
-    w_sum = torch.sum(w, dim=1)
-    if bn_group is not None:
-        w_sum = data_group.sum(w_sum)
-    params = state.params.detach().requires_grad_(True)
-    with torch.enable_grad():
-        logits, new_stats = model.stacked(
-            layout.params.views(params), state.stat_views(), x, train=True,
-            sample_weights=w, generator=generator, bn_group=bn_group)
-        loss = weighted_cross_entropy(logits, y, w, w_sum)
-        (grads,) = torch.autograd.grad(loss.sum(), params)
-    with torch.no_grad():
-        if bn_group is not None:
-            # The loss is normalized by the group's weight sum, so the sums
-            # of the ranks' gradients and losses are the whole batch's:
-            # one all_reduce of the flat gradient with the loss beside it.
-            summed = data_group.sum(torch.cat([grads, loss[:, None]], 1))
-            grads, loss = summed[:, :-1], summed[:, -1]
-        grad_norm = torch.sqrt(torch.sum(grads * grads, dim=1))
-        if maxnorm_mode == "reference":
-            grads = layout.params.flatten(clamp_reference_maxnorm(
-                layout.params.views(grads), model.MAXNORM_LIMITS))
-        if optimizer_update is None:
-            new = adam_update(state, grads, learning_rate, adam_eps)
-        else:
-            new = optimizer_update(state, grads)
-        if maxnorm_mode == "paper":
-            new.params = layout.params.flatten(project_paper_maxnorm(
-                new.param_views(), model.MAXNORM_LIMITS))
-        new.stats = layout.stats.flatten(new_stats)
-        has_real = w_sum > 0
-        zero = torch.zeros_like(loss)
-        return (new.select(has_real, state),
-                torch.where(has_real, loss.detach(), zero),
-                torch.where(has_real, grad_norm, zero))
+    with obs_trace.layer("train.step"):
+        layout = state.layout
+        bn_group = bn_group_of(model, data_group)
+        device = x.device
+        with torch.enable_grad():
+            with obs_trace.layer("train.step.forward", device=device):
+                w_sum = torch.sum(w, dim=1)
+                if bn_group is not None:
+                    w_sum = data_group.sum(w_sum)
+                params = state.params.detach().requires_grad_(True)
+                logits, new_stats = model.stacked(
+                    layout.params.views(params), state.stat_views(), x,
+                    train=True, sample_weights=w, generator=generator,
+                    bn_group=bn_group)
+                loss = weighted_cross_entropy(logits, y, w, w_sum)
+                total = loss.sum()
+            with obs_trace.layer("train.step.backward", device=device):
+                (grads,) = torch.autograd.grad(total, params)
+        with obs_trace.layer("train.step.optimizer", device=device), \
+                torch.no_grad():
+            if bn_group is not None:
+                # The loss is normalized by the group's weight sum, so the
+                # sums of the ranks' gradients and losses are the whole
+                # batch's: one all_reduce of the flat gradient with the
+                # loss beside it.
+                summed = data_group.sum(torch.cat([grads, loss[:, None]], 1))
+                grads, loss = summed[:, :-1], summed[:, -1]
+            grad_norm = torch.sqrt(torch.sum(grads * grads, dim=1))
+            if maxnorm_mode == "reference":
+                grads = layout.params.flatten(clamp_reference_maxnorm(
+                    layout.params.views(grads), model.MAXNORM_LIMITS))
+            if optimizer_update is None:
+                new = adam_update(state, grads, learning_rate, adam_eps)
+            else:
+                new = optimizer_update(state, grads)
+            if maxnorm_mode == "paper":
+                new.params = layout.params.flatten(project_paper_maxnorm(
+                    new.param_views(), model.MAXNORM_LIMITS))
+            new.stats = layout.stats.flatten(new_stats)
+            has_real = w_sum > 0
+            zero = torch.zeros_like(loss)
+            return (new.select(has_real, state),
+                    torch.where(has_real, loss.detach(), zero),
+                    torch.where(has_real, grad_norm, zero))
 
 
 def supports_fused_eval(model: nn.Module) -> bool:
@@ -356,6 +371,7 @@ def eval_step(model: nn.Module, state: TrainState, x: torch.Tensor,
     each; the prediction is the first maximum of the logits.  With
     ``data_group`` the batch is this rank's part and both are the whole
     batch's, summed over the group (one ``all_reduce``)."""
+    obs_trace.count("eval.steps")
     logits = eval_forward(model, state, x, idx)
     active = data_group is not None and data_group.active
     w_sum = torch.sum(w, dim=-1)

@@ -70,8 +70,12 @@ def trace(log_dir: str | Path | None):
 
 
 def _device_events(prof):
+    """The device's activity: kernels and copies, not the ranges a
+    ``record_function`` (a layer span of ``obs/trace.py``) draws over them
+    on the device's timeline."""
     return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
 
 
 def _union_us(spans) -> float:
