@@ -27,6 +27,18 @@ hand-written kernel against its plain PyTorch version:
    composite (cuDNN ``conv1d`` + ELU + ``avg_pool1d``) as the median of
    CUDA-event timings, the engine's end-to-end ``infer`` and ``/predict``
    latency on the host clock, each beside its bound on the card;
+6b. BNS (``bn_spatial_train``: ``temporal.1``'s training BatchNorm and the
+   spatial convolution of the banded train step, ``ops/bn_spatial.py``)
+   at the 90-fold cross-subject shape (90, 64, 22, 257, 8, D=2): its
+   output, new running statistics and the gradients of h, scale, bias and
+   the spatial kernel against the plain twin (``stats_reference``,
+   ``forward_reference``, ``backward_reference``) at the card tests'
+   tolerances, two calls bitwise equal, six launches a forward and
+   backward; the forward and backward timed (CUDA events, median) beside
+   the port's composition it replaces (``batch_norm_train`` on the
+   permuted view, then ``spatial_conv_banded``), one library composite
+   (cuDNN's training BatchNorm on a contiguous copy, the spatial
+   convolution as a grouped cuDNN ``conv2d``) and its byte bound;
 7. K2 (``ems``) against ``ems_reference`` on the card at a competition
    session's (22, 345600) and at the edge shapes (ragged, short init block,
    init block past T, a constant signal, ``factor_new`` 0.1, K2's tile
@@ -222,8 +234,10 @@ hand-written kernel against its plain PyTorch version:
    against the CPU's (atol 1e-5 / rtol 1e-4), every bucket's graph replay
    bitwise its eager forward, int8 and a two-tenant zoo behind their
    gates; (c) EEGNet's banded schedule: the stacked forward's logits,
-   statistics and gradients against ``"lax"`` at T = 257 and 1125 (1e-5
-   / 1e-4), the tiled depthwise op; the A/B of fold-epochs/s at 36
+   statistics and gradients at ``precision="highest"`` (block 1's first
+   BatchNorm and spatial convolution through BNS, which must launch)
+   against ``"lax"`` at T = 257 and 1125 (1e-5 / 1e-4), the tiled
+   depthwise op; the A/B of fold-epochs/s at 36
    folds in two turns (banded, then lax), one epoch of each under the
    profiler and its peak memory; K1-stacked launches under both; two
    banded runs bitwise equal; (d) the permutation test (8 permutations
@@ -362,7 +376,8 @@ hand-written kernel against its plain PyTorch version:
    profiled); (b) each mode's two runs
    bitwise equal, high bitwise default, the last highest run bitwise the
    first; K1-stacked launched ``(epochs + 2) x val_steps + test_steps``
-   times under highest and never under the others; TF32 (high,
+   times under highest and never under the others, BNS ``6 x (epochs +
+   2) x train_steps`` times under highest and never under the others; TF32 (high,
    default) or BF16 (bf16) tensor-core GEMMs or convolutions in each
    profile and none under highest; each mode's first-step losses at
    dropout 0 within 8 unit roundoffs (2**-11 for TF32, 2**-8 for bf16)
@@ -395,6 +410,10 @@ on stderr before the run fails, its kind (request not read: the connect
 or the send timed out; no reply), the port's sockets, the owning
 server's all-thread dump (``SIGUSR1``), a ``/healthz`` probe on a new
 connection and the server's journal and stderr tails.
+
+The ``kernels`` record's BNS entry counts the launches of every
+training run in this process from phase 10 to phase 22 (the CLI
+children's are their own), beside phase 6b's times.
 
 The last lines are the ``{"kernels": [...]}`` record and, last of all,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -1220,6 +1239,135 @@ def phase_k1_stacked_times(torch, dev):
             f"{row['call_ms']:.4f}), plain {row['plain_ms']:.4f}, grouped "
             f"library {row['library_ms']:.4f}, bound {bound:.5f} ({by})")
     return rows
+
+
+# BNS at the 90-fold cross-subject train step: (G, B, C, T, F1, D).
+BNS_SHAPE = (90, 64, 22, 257, 8, 2)
+# The card test's tolerances (tests/test_torch_bn_spatial.py::CARD_TOL),
+# relative to the largest value: the output, the new running mean and
+# variance and the input gradient per element; the scale, bias and
+# spatial-kernel gradients sum ~B*C*T products in another order.
+BNS_TOL = {"out": 1e-5, "new_mean": 1e-5, "new_var": 1e-5, "dh": 1e-5,
+           "dscale": 1e-4, "dbias": 1e-4, "dweight": 1e-4}
+
+
+def bn_spatial_bound(g, b, c, t, f1, d):
+    """(bound_ms, bound_by, bytes, flops) of one BNS forward and backward:
+    h read four times (statistics, forward, gradient sums, input
+    gradient) and its gradient written once; the output written once and
+    its gradient read twice; the statistics, normalisation, reduction over
+    C and their gradients as the math needs them."""
+    n_h, n_out = g * b * c * t * f1, g * b * t * f1 * d
+    nbytes = 4 * (5 * n_h + 3 * n_out)
+    flops = n_h * (3 + 2 + 2 * d      # sums; normalise; reduce over C
+                   + 2 * d + 5        # dy; the two BatchNorm sums
+                   + 2 * d            # the spatial kernel's gradient
+                   + 4)               # the input gradient
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / F32_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops
+            else "operations", nbytes, flops)
+
+
+def phase_bn_spatial(torch, dev) -> dict:
+    """Phase 6b: BNS against its plain twin at the 90-fold shape, then
+    timed beside the composition it replaces, a library composite and its
+    bound (see the module docstring)."""
+    import torch.nn.functional as F
+
+    from eegnetreplication_tpu_torch.models.norm import batch_norm_train
+    from eegnetreplication_tpu_torch.ops import banded, bn_spatial
+
+    g, b, c, t, f1, d = BNS_SHAPE
+    f2 = f1 * d
+    gen = torch.Generator().manual_seed(6)
+    h = (1.7 * torch.randn(g, b, c, t, f1, generator=gen) + 0.3).to(dev)
+    scale = (torch.rand(g, f1, generator=gen) + 0.5).to(dev)
+    bias = torch.randn(g, f1, generator=gen).to(dev)
+    mean = torch.randn(g, f1, generator=gen).to(dev)
+    var = (torch.rand(g, f1, generator=gen) + 0.5).to(dev)
+    weight = (torch.randn(g, f2, 1, c, 1, generator=gen) / c ** 0.5).to(dev)
+    dout = torch.randn(g, b, t, f2, generator=gen).to(dev)
+    leaves = [v.detach().clone().requires_grad_(True)
+              for v in (h, scale, bias, weight)]
+
+    def op(hh, sc, bi, w):
+        return bn_spatial.bn_spatial_train(hh, sc, bi, mean, var, w)
+
+    def composition(hh, sc, bi, w):
+        # What the banded train step ran before BNS, and still runs off
+        # its gate (models/eegnet.py::fuses_bn_spatial).
+        y, new_mean, new_var = batch_norm_train(
+            hh.permute(1, 0, 4, 2, 3), sc, bi, mean, var, None,
+            mode="flax", momentum=0.9, eps=1e-5)
+        return (banded.spatial_conv_banded(y.permute(1, 0, 3, 4, 2), w),
+                new_mean, new_var)
+
+    def library(hh, sc, bi, w):
+        # Never used by the port: cuDNN's training BatchNorm over a
+        # contiguous (B, G*F1, C, T) copy and the depthwise spatial
+        # convolution as one grouped cuDNN conv2d.  Only the output is
+        # the composition's (cuDNN's running variance is unbiased).
+        xs = hh.permute(1, 0, 4, 2, 3).reshape(b, g * f1, c, t)
+        y = F.batch_norm(xs, mean.reshape(-1).clone(),
+                         var.reshape(-1).clone(), sc.reshape(-1),
+                         bi.reshape(-1), training=True, momentum=0.1,
+                         eps=1e-5)
+        out = F.conv2d(y, w.reshape(g * f2, 1, c, 1), groups=g * f1)
+        return out.reshape(b, g, f2, t).permute(1, 0, 3, 2), None, None
+
+    def run(fn):
+        out, new_mean, new_var = fn(*leaves)
+        grads = torch.autograd.grad(out, leaves, dout)
+        return [out.detach(), new_mean, new_var, *grads]
+
+    launches = bn_spatial.bn_spatial_train.launches
+    got = run(op)
+    again = run(op)
+    torch.cuda.synchronize()
+    check(bn_spatial.bn_spatial_train.launches - launches == 12,
+          f"BNS launched {bn_spatial.bn_spatial_train.launches - launches} "
+          "times in two forwards and backwards; want 12")
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          "BNS: two calls differ; the kernels must repeat bit for bit")
+    del again
+    s = weight[:, :, 0, :, 0].reshape(g, f1, d, c).contiguous()
+    stat, new_mean, new_var = bn_spatial.stats_reference(
+        h, scale, mean, var, 0.9, 1e-5)
+    want = [bn_spatial.forward_reference(h, s, stat, bias), new_mean,
+            new_var]
+    dh, dscale, dbias, ds = bn_spatial.backward_reference(
+        h, dout, s, stat, scale, bias)
+    want += [dh, dscale, dbias, ds.reshape(weight.shape)]
+    del dh, ds
+    errs = {}
+    for name, a, w in zip(BNS_TOL, got, want):
+        largest = float(w.abs().max())
+        errs[name] = float((a - w).abs().max()) / largest
+        check(errs[name] <= BNS_TOL[name], f"BNS {name} against the twin: "
+              f"{errs[name]:.3e} of its largest value; tolerance "
+              f"{BNS_TOL[name]:.0e}")
+    max_abs_err = float((got[0] - want[0]).abs().max())
+    del want
+    with torch.no_grad():
+        lib_err = float((library(h, scale, bias, weight)[0] - got[0]
+                         ).abs().max()) / float(got[0].abs().max())
+    check(lib_err <= 1e-4, f"the library composite's output is "
+          f"{lib_err:.3e} of the largest value off BNS's")
+    del got
+    row = {"ms": device_ms(torch, lambda: run(op)),
+           "plain_ms": device_ms(torch, lambda: run(composition), n=20),
+           "library_ms": device_ms(torch, lambda: run(library), n=20)}
+    bound, by, nbytes, flops = bn_spatial_bound(*BNS_SHAPE)
+    row.update(shape=list(BNS_SHAPE), bound_ms=bound, bound_by=by,
+               bytes=nbytes, flops=flops, rel_err=errs,
+               max_abs_err=max_abs_err, library_rel_err=lib_err)
+    log(f"BNS at {BNS_SHAPE}: against the twin " + ", ".join(
+        f"{k} {v:.2e}" for k, v in errs.items()) + f"; forward and "
+        f"backward {row['ms']:.4f} ms, composition {row['plain_ms']:.4f}, "
+        f"library {row['library_ms']:.4f} (output {lib_err:.2e} off), "
+        f"bound {bound:.4f} ({by})")
+    return row
 
 
 def ems_bound(c, t, init_block_size=1000):
@@ -5549,13 +5697,16 @@ def _ml_baseline_serving(torch, np, dev, work: Path, env: dict,
 def _banded_ops_on_card(torch, np, dev) -> dict:
     """Each banded op, forward and gradients, against the grouped-conv
     path on the card at T = 257 and T = 1125 (the stacked forward holds
-    every op, the temporal conv tiled at 1125), and the depthwise op tiled
-    past 512 outputs against the grouped convolution."""
+    every op, the temporal conv tiled at 1125, and at ``"highest"`` runs
+    block 1's first BatchNorm and spatial convolution through BNS), and
+    the depthwise op tiled past 512 outputs against the grouped
+    convolution."""
     import torch.nn.functional as F
 
     from eegnetreplication_tpu_torch.models import EEGNet
     from eegnetreplication_tpu_torch.models.eegnet import stacked_forward
     from eegnetreplication_tpu_torch.ops import banded
+    from eegnetreplication_tpu_torch.ops.bn_spatial import bn_spatial_train
     from eegnetreplication_tpu_torch.training.loop import init_fold_states
 
     errs = {}
@@ -5567,11 +5718,16 @@ def _banded_ops_on_card(torch, np, dev) -> dict:
         for impl in ("lax", "banded"):
             params = {k: v.clone().requires_grad_(True)
                       for k, v in init.param_views().items()}
+            bns = bn_spatial_train.launches
             logits, new = stacked_forward(params, init.stat_views(), x,
-                                          train=True, conv_impl=impl)
+                                          train=True, conv_impl=impl,
+                                          precision="highest")
             grads = torch.autograd.grad(logits.square().sum(),
                                         list(params.values()))
             res[impl] = (logits.detach(), new, grads)
+            bns = bn_spatial_train.launches - bns
+            check(bns == (6 if impl == "banded" else 0), f"{impl} at "
+                  f"T={t}: BNS launched {bns} times; want 6 banded, 0 lax")
         fwd = float((res["banded"][0] - res["lax"][0]).abs().max())
         check(torch.allclose(res["banded"][0], res["lax"][0],
                              atol=BANDED_FWD_TOL, rtol=BANDED_FWD_TOL),
@@ -8176,8 +8332,9 @@ def _prec_run(torch, dev, build, mode: str, epochs: int, profile: bool
     """One run of ``mode`` in its numerics scope: a fresh trainer from
     ``build(mode)``, one warm-up epoch, ``epochs`` timed (host clock ended
     by a synchronize), one more (under the profiler when ``profile``),
-    then the test pass; K1-stacked's launches and the peak memory over
-    the run."""
+    then the test pass; K1-stacked's and BNS's launches and the peak
+    memory over the run."""
+    from eegnetreplication_tpu_torch.ops.bn_spatial import bn_spatial_train
     from eegnetreplication_tpu_torch.ops.fused_eegnet import block1_stacked
     from eegnetreplication_tpu_torch.utils.device import numerics
     from eegnetreplication_tpu_torch.utils.profiling import breakdown
@@ -8190,6 +8347,7 @@ def _prec_run(torch, dev, build, mode: str, epochs: int, profile: bool
         trainer = build(mode)
         t_built = time.perf_counter()
         block1_stacked.launches = 0
+        bns_before = bn_spatial_train.launches
         trainer.run_epoch()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -8212,6 +8370,7 @@ def _prec_run(torch, dev, build, mode: str, epochs: int, profile: bool
            "train_steps": trainer.train_steps, "val_steps": trainer.val_steps,
            "test_steps": trainer.test_steps,
            "k1_stacked_launches": block1_stacked.launches,
+           "bn_spatial_launches": bn_spatial_train.launches - bns_before,
            "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
            "test_acc": float(result.test_accuracy.mean()),
            "build_s": t_built - t_run, "last_epoch_s": t_prof,
@@ -8303,6 +8462,12 @@ def _prec_rates(torch, np, dev) -> dict:
             else:
                 check(launches == 0, f"22b {mode}: K1-stacked launched "
                       f"{launches} times; the fused eval is highest's only")
+            launches = row["bn_spatial_launches"]
+            want = (6 * (row["epochs"] + 2) * row["train_steps"]
+                    if mode == "highest" else 0)
+            check(launches == want, f"22b {mode}: BNS launched {launches} "
+                  f"times at {row['folds']} folds; want {want} (six a "
+                  "train step under highest only)")
         for row in (rows[mode][0], cross[mode]):
             if "tensor_core_kernels" not in row:
                 continue
@@ -8358,12 +8523,12 @@ def _prec_rates(torch, np, dev) -> dict:
                 f"{r['test_acc']:.1f}%; {seen}; run {r['run_s']:.1f} s "
                 f"(build {r['build_s']:.1f}, last epoch "
                 f"{r['last_epoch_s']:.1f})")
-    out["k1_stacked_launches"] = sum(
-        r["k1_stacked_launches"] for m in PREC_MODES
-        for r in rows[m] + [cross[m]])
+    for key in ("k1_stacked_launches", "bn_spatial_launches"):
+        out[key] = sum(r[key] for m in PREC_MODES
+                       for r in rows[m] + [cross[m]])
     log("22b: every mode's two runs bitwise equal, high == default, highest "
-        "after the other modes == highest before them; K1-stacked only "
-        "under highest; first-step loss rel err "
+        "after the other modes == highest before them; K1-stacked and BNS "
+        "only under highest; first-step loss rel err "
         + ", ".join(f"{m} {rows[m][0]['first_step_loss_rel_err']:.2e}"
                     for m in PREC_MODES[1:]))
     return out
@@ -8534,6 +8699,7 @@ def main(argv=None) -> int:
 
     env = dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=os.pathsep.join(
         [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    from eegnetreplication_tpu_torch.ops.bn_spatial import bn_spatial_train
     from eegnetreplication_tpu_torch.utils.device import select_device
 
     t_start = time.perf_counter()
@@ -8566,6 +8732,8 @@ def main(argv=None) -> int:
         times = phase_times(torch, np, dev)
         k1s_times = phase_k1_stacked_times(torch, dev)
         mark("6")
+        bns = phase_bn_spatial(torch, dev)
+        mark("6b")
         k2_err, k2_vs_methods = phase_k2(torch, np, dev)
         mark("7")
         # Phase 8's tree lives until phase 17, which runs last so that it
@@ -8581,6 +8749,9 @@ def main(argv=None) -> int:
                                       Path(dataset["raw_session"]),
                                       Path(data))
             mark("9")
+            # BNS's launches on the main path: the in-process training
+            # runs of phases 10 to 22.
+            bn_spatial_train.launches = 0
             train = phase_train(torch, np, dev, Path(data) / "train", env,
                                 Path(data) / "cli")
             _keep_training_artifacts(Path(data) / "cli", keep)
@@ -8618,6 +8789,10 @@ def main(argv=None) -> int:
             precision = phase_precision(torch, np, dev,
                                         Path(data) / "precision", env)
             mark("22")
+            bns_launches = bn_spatial_train.launches
+            check(bns_launches >= precision["bn_spatial_launches"] > 0,
+                  f"BNS launched {bns_launches} times in phases 10-22, "
+                  f"{precision['bn_spatial_launches']} in phase 22")
         # The fleet runs alone, after every other server has ended; its
         # journals stay for phase 20.
         fleet_dir = Path(stack.enter_context(tempfile.TemporaryDirectory(
@@ -8700,6 +8875,20 @@ def main(argv=None) -> int:
         "zoo_chunk": {k: zoo["k1_stacked_zoo_chunk"][k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
     }, {
+        "name": "bn_spatial",
+        "route": "cuda",
+        "source": "eegnetreplication_tpu_torch/ops/csrc/bn_spatial.cu",
+        "replaces": ("none (the JAX package leaves this chain of its banded "
+                     "training forward to XLA's fusion)"),
+        # the in-process training runs of phases 10 to 22 (the banded
+        # train steps at highest)
+        "launches": bns_launches,
+        "max_abs_err": bns["max_abs_err"],
+        # a forward and backward at the 90-fold cross-subject train step,
+        # (90, 64, 22, 257, 8, D=2); plain: the composition it replaces
+        **{k: bns[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")},
+    }, {
         "name": "ems",
         "route": "cuda",
         "source": "eegnetreplication_tpu_torch/ops/csrc/ems.cu",
@@ -8745,7 +8934,8 @@ def main(argv=None) -> int:
         "k2_vs_methods_max_abs_err": k2_vs_methods, "dataset": dataset,
         "moabb": moabb,
         "k2_times": k2_times, "k1_stacked_max_abs_err": k1s_err,
-        "k1_stacked_times": k1s_times, "train": train, "cross_subject": cs,
+        "k1_stacked_times": k1s_times, "bn_spatial": bns,
+        "train": train, "cross_subject": cs,
         "serving_zoo": zoo, "orbax": {
             "trained": cs["resume_drill"]["orbax"],
             "reload": zoo["int8"]["orbax_reload"], **zoo["orbax"]},

@@ -58,7 +58,7 @@ from eegnetreplication_tpu_torch.models.norm import (
     batch_norm_eval,
     batch_norm_train,
 )
-from eegnetreplication_tpu_torch.ops import banded
+from eegnetreplication_tpu_torch.ops import banded, bn_spatial
 from eegnetreplication_tpu_torch.utils.device import resolve_device
 
 TEMPORAL_K = 32
@@ -198,7 +198,7 @@ class EEGNet(nn.Module):
             bn_mode=self.bn_mode, dropout_rate=self.dropout_rate,
             generator=generator, momentum=self.momentum,
             eps=self.bn_epsilon, conv_impl=self.conv_impl,
-            bn_group=bn_group, dtype=self.dtype)
+            bn_group=bn_group, dtype=self.dtype, precision=self.precision)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None
@@ -316,6 +316,25 @@ def stacked_norm(params, stats, *, train: bool, sample_weights,
     return norm
 
 
+def stacked_norm_spatial(params, stats, *, momentum: float, eps: float,
+                         new_stats: dict
+                         ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``temporal.1``'s training BatchNorm (flax mode) and the spatial
+    convolution of G weight sets as one op (``ops/bn_spatial.py``): the
+    banded temporal output ``(G, B, C, T, F1)`` -> ``(G, B, T, F2)``, the
+    new running statistics into ``new_stats``."""
+    def f(h: torch.Tensor) -> torch.Tensor:
+        out, new_stats["temporal.1.running_mean"], \
+            new_stats["temporal.1.running_var"] = bn_spatial.bn_spatial_train(
+                h, params["temporal.1.weight"], params["temporal.1.bias"],
+                stats["temporal.1.running_mean"],
+                stats["temporal.1.running_var"], params["spatial.weight"],
+                momentum=momentum, eps=eps)
+        return out
+
+    return f
+
+
 def grouped_norm(norm: Norm, g: int) -> Norm:
     """``norm`` over the grouped layout ``(B, G*F, H, W)`` of the grouped
     convolutions: features ``g*F .. g*F+F-1`` belong to weight set ``g``."""
@@ -378,14 +397,37 @@ def _block2_classifier_banded(h: torch.Tensor,
     return classify(h.transpose(2, 3).reshape(g, b, -1), params)
 
 
-def _stacked_forward_banded(params, x, norm: Norm, drop) -> torch.Tensor:
+def fuses_bn_spatial(x: torch.Tensor, *, train: bool, bn_mode: str,
+                     precision: str | None, bn_group, c: int, f1: int,
+                     d: int) -> bool:
+    """Whether the banded training forward runs ``temporal.1``'s BatchNorm
+    and the spatial convolution as one op (``ops/bn_spatial.py``'s CUDA
+    kernels): CUDA f32 activations of a ``"highest"`` model (the fused eval
+    gate's numerics, ``training/steps.py::supports_fused_eval``), flax-mode
+    BatchNorm, no active BatchNorm sync group, and a geometry the kernels
+    take.  Anything else keeps the composition of ``models/norm.py`` and
+    ``ops/banded.py``."""
+    return (train and x.device.type == "cuda" and x.dtype == torch.float32
+            and precision == "highest" and bn_mode == "flax"
+            and not (bn_group is not None and bn_group.active)
+            and bn_spatial.supported(c, f1, d))
+
+
+def _stacked_forward_banded(params, x, norm: Norm, drop,
+                            norm_spatial=None) -> torch.Tensor:
     """The ``"banded"`` schedule of :func:`stacked_forward`: every
     convolution a matmul of ``ops/banded.py``, activations laid out set
-    first and features last, the BatchNorms on permuted views."""
+    first and features last, the BatchNorms on permuted views.
+    ``norm_spatial`` replaces ``temporal.1``'s BatchNorm and the spatial
+    convolution when given (the fused op, :func:`fuses_bn_spatial`)."""
     h = banded.temporal_conv_banded(x, params["temporal.0.weight"])
-    # (G, B, C, T, F1) -> the norm's (B, G, F1, C, T) and back
-    h = norm(h.permute(1, 0, 4, 2, 3), "temporal.1").permute(1, 0, 3, 4, 2)
-    h = banded.spatial_conv_banded(h, params["spatial.weight"])
+    if norm_spatial is not None:
+        h = norm_spatial(h)
+    else:
+        # (G, B, C, T, F1) -> the norm's (B, G, F1, C, T) and back
+        h = norm(h.permute(1, 0, 4, 2, 3), "temporal.1")
+        h = banded.spatial_conv_banded(h.permute(1, 0, 3, 4, 2),
+                                       params["spatial.weight"])
     h = norm(h.permute(1, 0, 3, 2), "aggregation.0").permute(1, 0, 3, 2)
     h = drop(banded.avg_pool_width(elu(h), 4))       # (G, B, T', F2)
     return _block2_classifier_banded(h, params, norm, drop)
@@ -393,7 +435,7 @@ def _stacked_forward_banded(params, x, norm: Norm, drop) -> torch.Tensor:
 
 def stacked_forward(params: Mapping[str, torch.Tensor],
                     stats: Mapping[str, torch.Tensor], x: torch.Tensor, *,
-                    train: bool,
+                    train: bool, precision: str | None,
                     sample_weights: torch.Tensor | None = None,
                     bn_mode: str = "flax", dropout_rate: float = 0.0,
                     generator: torch.Generator | None = None,
@@ -417,7 +459,10 @@ def stacked_forward(params: Mapping[str, torch.Tensor],
     (``x`` is then this rank's part of each batch).  ``dtype`` is the
     compute dtype (module docstring): activations, convolutions, ELU,
     pooling, dropout and the classifier run in it, the BatchNorms in f32,
-    and the logits are returned f32.
+    and the logits are returned f32.  ``precision`` is the model's
+    (module docstring), named by every caller: with ``"highest"`` the
+    banded schedule's training forward runs block 1's first BatchNorm and
+    spatial convolution as one op where :func:`fuses_bn_spatial` holds.
     """
     g, b, c, t = x.shape
     if sample_weights is not None and tuple(sample_weights.shape) != (g, b):
@@ -437,12 +482,19 @@ def stacked_forward(params: Mapping[str, torch.Tensor],
         return dropout(h, rate, generator)
 
     x, weights = x.to(dtype), cast_params(params, dtype)
-    if conv_impl == "banded":
-        return (_stacked_forward_banded(weights, x, norm, drop).float(),
-                new_stats)
     w_t = weights["temporal.0.weight"]                # (G, F1, 1, 1, K)
     w_s = weights["spatial.weight"]                   # (G, F2, 1, C, 1)
     f1, f2 = w_t.shape[1], w_s.shape[1]
+    if conv_impl == "banded":
+        norm_spatial = None
+        if fuses_bn_spatial(x, train=train, bn_mode=bn_mode,
+                            precision=precision, bn_group=bn_group, c=c,
+                            f1=f1, d=f2 // f1):
+            norm_spatial = stacked_norm_spatial(
+                params, stats, momentum=momentum, eps=eps,
+                new_stats=new_stats)
+        return (_stacked_forward_banded(weights, x, norm, drop,
+                                        norm_spatial).float(), new_stats)
     gnorm = grouped_norm(norm, g)
     h = x.transpose(0, 1)                             # (B, G, C, T)
     h = F.conv2d(F.pad(h, (TEMPORAL_K // 2 - 1, TEMPORAL_K // 2)),

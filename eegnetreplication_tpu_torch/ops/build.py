@@ -33,8 +33,9 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
 # Every kernel source of the port.  The C interface each one exports is
 # declared next to its wrapper (``ops/fused_eegnet.py`` for block1 and
-# block1_stacked, ``ops/ems_kernel.py`` for ems and ems_stream).
-SOURCES = ("block1", "block1_stacked", "ems", "ems_stream")
+# block1_stacked, ``ops/ems_kernel.py`` for ems and ems_stream,
+# ``ops/bn_spatial.py`` for bn_spatial).
+SOURCES = ("block1", "block1_stacked", "ems", "ems_stream", "bn_spatial")
 
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",

@@ -266,15 +266,16 @@ def _check_index_range(idx: torch.Tensor, g: int) -> None:
         idx._eeg_checked_range = stamp
 
 
-def _count_launch(fn, counter: str | None = None) -> None:
-    """Count one launch of ``fn``'s kernel in ``fn.launches``, and in the
-    process's layer counter ``counter`` when given.  Inside a CUDA graph
-    capture nothing runs yet: the launch goes to ``fn.captured``, and
-    whoever replays the graph counts it per replay (``serve/engine.py``)."""
+def count_launch(fn, counter: str | None = None, n: int = 1) -> None:
+    """Count ``n`` launches of ``fn``'s kernels in ``fn.launches``, and one
+    call in the process's layer counter ``counter`` when given.  Inside a
+    CUDA graph capture nothing runs yet: the launches go to
+    ``fn.captured``, and whoever replays the graph counts them per replay
+    (``serve/engine.py``)."""
     if torch.cuda.is_current_stream_capturing():
-        fn.captured += 1
+        fn.captured += n
     else:
-        fn.launches += 1
+        fn.launches += n
         if counter is not None:
             obs_trace.count(counter)
 
@@ -312,7 +313,7 @@ def block1(x, S, W, A, B):
             B.data_ptr(), out.data_ptr(), n, c, t, f2, stream)
     if err != 0:
         raise _launch_error(lib, err)
-    _count_launch(block1)
+    count_launch(block1)
     return out
 
 
@@ -364,7 +365,7 @@ def block1_stacked(x, S, W, A, B, idx, *, idx_checked: bool = False):
         raise RuntimeError(
             f"block1_stacked: K1-stacked launch failed with CUDA error {err} "
             f"({lib.eeg_block1_stacked_error_string(err).decode()})")
-    _count_launch(block1_stacked, "k1_stacked.launches")
+    count_launch(block1_stacked, "k1_stacked.launches")
     return out
 
 

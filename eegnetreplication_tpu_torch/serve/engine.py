@@ -144,7 +144,7 @@ def model_digest(model: nn.Module) -> str:
 
 
 # The hand-written kernels a captured forward may hold; a replay counts
-# each one's captured launches (ops/fused_eegnet.py::_count_launch).
+# each one's captured launches (ops/fused_eegnet.py::count_launch).
 _GRAPH_KERNELS = (block1, block1_stacked)
 
 

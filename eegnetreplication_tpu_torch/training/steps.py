@@ -34,7 +34,8 @@ folds share nothing), and Adam is a handful of operations on one tensor.
   stacked forward and the loss), ``train.step.backward`` (the gradient)
   and ``train.step.optimizer`` (everything after it), each with device
   timing events on the data's device while a profiler runs;
-  :func:`eval_step` counts ``eval.steps``.
+  :func:`train_step` counts ``train.steps`` and :func:`eval_step`
+  ``eval.steps``.
 - *Numerics.*  A bf16 model's forward returns f32 logits, so the loss,
   the gradients (of the f32 parameters), Adam, the BatchNorm statistics
   and the validation sums stay f32 in every mode.
@@ -294,6 +295,7 @@ def train_step(model: nn.Module, state: TrainState, x: torch.Tensor,
         raise ValueError(f"maxnorm_mode must be 'reference' or 'paper'; "
                          f"got {maxnorm_mode!r}")
     with obs_trace.layer("train.step"):
+        obs_trace.count("train.steps")
         layout = state.layout
         bn_group = bn_group_of(model, data_group)
         device = x.device

@@ -7,7 +7,9 @@ JAX package's and against the port's grouped-conv (``"lax"``) path.
   1e-5 forward and 1e-4 for gradients (f32 sums in another order).
 - The fold-stacked EEGNet forward under ``"banded"`` against ``"lax"``:
   logits, new BatchNorm statistics and parameter gradients, at T = 257 and
-  T = 1125 (tiled), train and eval, and the K1-stacked eval path's block 2.
+  T = 1125 (tiled), train and eval, with block 1's first BatchNorm and
+  spatial convolution composed or as ``ops/bn_spatial.py``'s op, and the
+  K1-stacked eval path's block 2.
 - ``conv_impl`` and ``EEGTPU_CONV_IMPL`` resolve, case by case, as in the
   JAX ``EEGNet`` (values and error texts), with "auto"'s default the port's
   ``AUTO_CONV_IMPL``.
@@ -176,8 +178,14 @@ def _stacked_sets(c, t, g=3, seed=6):
 
 
 @pytest.mark.parametrize("t", (257, 1125))
-@pytest.mark.parametrize("bn_mode", ["flax", "torch"])
-def test_stacked_forward_banded_equals_lax(t, bn_mode):
+@pytest.mark.parametrize("bn_mode", ["flax", "torch", "flax+bn_spatial"])
+def test_stacked_forward_banded_equals_lax(t, bn_mode, monkeypatch):
+    """``flax+bn_spatial``: the banded forward through ``ops/bn_spatial.py``
+    (its plain twin here), the gate held open as on the card."""
+    if bn_mode.endswith("+bn_spatial"):
+        bn_mode = "flax"
+        monkeypatch.setattr(eegnet_lib, "fuses_bn_spatial",
+                            lambda x, **gate: gate["train"])
     c = 4
     state = _stacked_sets(c, t)
     x = torch.from_numpy(np.random.RandomState(7).randn(
@@ -191,11 +199,12 @@ def test_stacked_forward_banded_equals_lax(t, bn_mode):
         stats = {k: v for k, v in state.items() if "running" in k}
         logits, new = eegnet_lib.stacked_forward(
             params, stats, x, train=True, sample_weights=w, bn_mode=bn_mode,
-            conv_impl=impl)
+            conv_impl=impl, precision="highest")
         grads = torch.autograd.grad(logits.square().sum(),
                                     list(params.values()))
         evals, _ = eegnet_lib.stacked_forward(params, stats, x, train=False,
-                                              conv_impl=impl)
+                                              conv_impl=impl,
+                                              precision="highest")
         out[impl] = (logits.detach(), new, dict(zip(params, grads)),
                      evals.detach())
     lax, band = out["lax"], out["banded"]
@@ -220,7 +229,8 @@ def test_the_k1_stacked_eval_path_takes_the_schedule():
     band = fused_eval_forward_stacked(params, stats, x, idx,
                                       conv_impl="banded")
     torch.testing.assert_close(band, lax, atol=FWD, rtol=FWD)
-    plain, _ = eegnet_lib.stacked_forward(params, stats, x, train=False)
+    plain, _ = eegnet_lib.stacked_forward(params, stats, x, train=False,
+                                          precision="highest")
     torch.testing.assert_close(band, plain, atol=FWD, rtol=FWD)
 
 
@@ -266,7 +276,8 @@ def test_the_schedule_is_resolved_once_at_construction(monkeypatch):
     assert model.fresh(torch.Generator()).conv_impl == "lax"
     with pytest.raises(ValueError, match="'banded' or 'lax'"):
         eegnet_lib.stacked_forward({}, {}, torch.zeros(1, 1, 4, 64),
-                                   train=False, conv_impl="auto")
+                                   train=False, precision="highest",
+                                   conv_impl="auto")
 
 
 # --- the train step ----------------------------------------------------------

@@ -1314,7 +1314,8 @@ def test_banded_stacked_forward_on_the_card_matches_lax(cuda, t):
         params = {k: v.clone().requires_grad_(True)
                   for k, v in state.param_views().items()}
         logits, new = stacked_forward(params, state.stat_views(), x,
-                                      train=True, conv_impl=impl)
+                                      train=True, conv_impl=impl,
+                                      precision="highest")
         grads = torch.autograd.grad(logits.square().sum(),
                                     list(params.values()))
         out[impl] = (logits.detach(), new, grads)

@@ -210,11 +210,13 @@ def test_one_epoch_records_its_layers_and_steps():
                              + ["train.validate"])
     assert all(by_id[s.parent_span_id].name == "train.step"
                for s in spans if s.name in STEP_PHASES)
-    assert trace.layer_counts() == {"eval.steps": trainer.val_steps}
-    # no K1-stacked launch on the CPU: its plain version runs
+    assert trace.layer_counts() == {"eval.steps": trainer.val_steps,
+                                    "train.steps": trainer.train_steps}
+    # no K1-stacked launch (nor BNS) on the CPU: the plain versions run
     trainer.result()
     assert trace.layer_counts() == {
-        "eval.steps": trainer.val_steps + trainer.test_steps}
+        "eval.steps": trainer.val_steps + trainer.test_steps,
+        "train.steps": trainer.train_steps}
 
 
 def test_a_train_step_called_alone_records_its_phases():
